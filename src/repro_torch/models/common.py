@@ -1,0 +1,73 @@
+"""Shared model components: init, RMSNorm, RoPE (port of
+``repro.models.common``, dense family)."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with JAX's type promotion (bf16 x f32 -> f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Initializers: truncated normal in +-2 sigma, as in the reference
+# ---------------------------------------------------------------------------
+
+def _trunc_normal(shape, std: float, dtype, device,
+                  generator: Optional[torch.Generator]):
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(dtype)
+
+
+def dense_init(shape, dtype, device, generator=None, in_axis: int = -2):
+    """sigma = fan_in^-1/2 with fan_in = shape[in_axis]."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    return _trunc_normal(shape, 1.0 / math.sqrt(fan_in), dtype, device,
+                         generator)
+
+
+def embed_init(shape, dtype, device, generator=None):
+    """sigma = 0.02."""
+    return _trunc_normal(shape, 0.02, dtype, device, generator)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm in f32 with a ``(1 + scale)`` gain, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    inv = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (x32 * inv * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, positions):
+    """positions: (..., S) int -> cos/sin (..., S, d_head/2) f32."""
+    half = d_head // 2
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=positions.device) / half))
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, h, d); cos/sin: (B, S, d/2) or (S, d/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

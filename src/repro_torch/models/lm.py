@@ -1,0 +1,187 @@
+"""Dense decoder-only language model: config, init and the per-block
+pieces the serving path uses (port of ``repro.models.lm``, dense family).
+
+Params are a plain dict with the reference's leaf names:
+``{"embed", "final_norm", "lm_head", "blocks": ({"ln", "wq", "wk", "wv",
+"wo", "ln2", "wi", "wo_mlp"},)}`` where every ``blocks`` leaf is stacked
+over layers (leading axis P = n_layers).  The reference scans over that
+axis; this port loops over layers in Python (``layer_params``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.transprecision import TCPolicy
+from .common import _einsum, dense_init, embed_init, rms_norm, rope_freqs
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCfg:
+    name: str = "model"
+    family: str = "dense"
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    d_head: int = 0            # 0 -> d_model // n_heads
+    d_ff: int = 256
+    vocab: int = 256
+    mlp: str = "swiglu"        # swiglu | gelu
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    dtype_name: str = "bfloat16"
+    q_block: int = 512
+    kv_block: int = 1024
+    tie_embed: bool = False
+
+    def __post_init__(self):
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"family {self.family!r}: only the dense family is ported "
+                "(other families are a later slice of the port)")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return {"bfloat16": torch.bfloat16,
+                "float32": torch.float32}[self.dtype_name]
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def vocab_pad(self) -> int:
+        return _round_up(self.vocab, 256)
+
+    def param_count(self) -> int:
+        d, hd, nh, nkv = self.d_model, self.head_dim, self.n_heads, \
+            self.n_kv_heads
+        wi = 2 * self.d_ff if self.mlp == "swiglu" else self.d_ff
+        block = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d + d * wi
+                 + self.d_ff * d + (2 * hd if self.qk_norm else 0))
+        head = 0 if self.tie_embed else d * self.vocab_pad
+        return self.vocab_pad * d + d + head + self.n_layers * block
+
+
+def init_params(cfg: ModelCfg, generator: torch.Generator = None,
+                device="cuda"):
+    """Random params with the reference's init scales (truncated normal in
+    +-2 sigma; sigma = fan_in^-1/2 for dense weights, 0.02 for the
+    embedding; norms zero).  Draws come from ``generator``, so the values
+    differ from the reference's for the same seed."""
+    from .. import resolve_device
+    device = resolve_device(device)
+    d, hd, nh, nkv, P = (cfg.d_model, cfg.head_dim, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.n_layers)
+    dt = cfg.dtype
+
+    def dense(*shape):
+        return dense_init(shape, dt, device, generator)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    wi_cols = 2 * cfg.d_ff if cfg.mlp == "swiglu" else cfg.d_ff
+    blk = {"ln": zeros(P, d), "wq": dense(P, d, nh * hd),
+           "wk": dense(P, d, nkv * hd), "wv": dense(P, d, nkv * hd),
+           "wo": dense(P, nh * hd, d)}
+    if cfg.qk_norm:
+        blk["q_norm"], blk["k_norm"] = zeros(P, hd), zeros(P, hd)
+    blk.update(ln2=zeros(P, d), wi=dense(P, d, wi_cols),
+               wo_mlp=dense(P, cfg.d_ff, d))
+    params = {"embed": embed_init((cfg.vocab_pad, d), dt, device, generator),
+              "final_norm": zeros(d)}
+    if not cfg.tie_embed:
+        params["lm_head"] = dense(d, cfg.vocab_pad)
+    params["blocks"] = (blk,)
+    return params
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer i's slice of the stacked block params (QuantizedTensor leaves
+    slice data and scale together)."""
+    return {k: v[i] for k, v in blocks.items()}
+
+
+def lm_head(params, cfg: ModelCfg):
+    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
+    return head.to(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _qw(policy: TCPolicy, role):
+    def q(w):
+        return policy.quantize_weight(w, role)
+    return q
+
+
+def _mlp(p, x, cfg: ModelCfg, policy):
+    q = _qw(policy, "mlp_weights")
+    h = _einsum("bsd,df->bsf", x, q(p["wi"]))
+    if cfg.mlp == "swiglu":
+        gate, up = torch.chunk(h, 2, dim=-1)
+        h = torch.nn.functional.silu(gate) * up
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    return _einsum("bsf,fd->bsd", h, q(p["wo_mlp"]))
+
+
+def _qkv(p, x, cfg: ModelCfg, policy):
+    """Fused QKV projection: one matmul over concat(wq, wk, wv)."""
+    q_ = _qw(policy, "attn_weights")
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    wqkv = torch.cat([q_(p["wq"]), q_(p["wk"]), q_(p["wv"])], dim=-1)
+    qkv = _einsum("bsd,dk->bsk", x, wqkv)
+    qp, kp, vp = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    qp = qp.reshape(b, s, nh, hd)
+    kp = kp.reshape(b, s, nkv, hd)
+    vp = vp.reshape(b, s, nkv, hd)
+    if cfg.qk_norm:
+        qp = rms_norm(qp, p["q_norm"])
+        kp = rms_norm(kp, p["k_norm"])
+    return qp, kp, vp
+
+
+def _rope_cs(cfg: ModelCfg, positions):
+    return rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+
+
+def hoist_weight_quant(params, policy: TCPolicy):
+    """Quantize every weight the policy's hook would quantize, once.
+
+    ``quantize_weight`` is a pure function of the weight, so running it
+    here and serving with ``weights_free(policy)`` gives the same logits as
+    running it at every call.  Each layer's slice is quantized on its own
+    (per output channel over that layer's input axis), as the reference's
+    layer scan does."""
+    q_attn, q_mlp = _qw(policy, "attn_weights"), _qw(policy, "mlp_weights")
+    out = dict(params)
+    out["embed"] = policy.quantize_weight(params["embed"], "embed_weights")
+    blocks = []
+    for blk in params["blocks"]:
+        nb = dict(blk)
+        for name in ("wq", "wk", "wv", "wo", "wi", "wo_mlp"):
+            q = q_attn if name in ("wq", "wk", "wv", "wo") else q_mlp
+            w = blk[name]
+            nb[name] = torch.stack([q(w[i]) for i in range(w.shape[0])])
+        blocks.append(nb)
+    out["blocks"] = tuple(blocks)
+    return out
+
+
+def weights_free(policy: TCPolicy) -> TCPolicy:
+    """The policy with its weight roles cleared: serving hoisted weights
+    through it skips the per-call weight hook and keeps the KV format."""
+    return dataclasses.replace(policy, attn_weights=None, mlp_weights=None,
+                               embed_weights=None, layer_overrides=(),
+                               node_overrides=())

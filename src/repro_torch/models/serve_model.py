@@ -1,0 +1,222 @@
+"""Serving path of the dense attention stack: cache init, bucketed prefill
+and single-token decode (port of ``repro.models.serve_model``, ring
+layout).
+
+Caches keep the reference's layout: ``{"pos", "blocks": ({...},)}`` where a
+posit cache block holds ``k``/``v`` codes (P, B, W, nkv, Dc) and
+``k_scale``/``v_scale`` f32 (P, B, W, nkv), and a float cache block holds
+``k``/``v`` (P, B, W, nkv, hd).  ``pos`` is a scalar or a (B,) per-slot
+vector.  Ring writes land at row pos mod W.
+
+In place: ``prefill`` and ``decode_step`` write K/V rows into the cache
+tensors they are given (per-layer views of the stacked buffers) and return
+the same dict with a new ``pos``; the reference returns new arrays.  On
+CUDA tensors the posit writes are the K3 kernel and the posit reads the K4
+kernel; on CPU tensors their plain versions.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..core.transprecision import BF16, KVStorage, TCPolicy, kv_storage
+from ..kernels import kv_cache as kv_kernels
+from . import attention
+from .common import _einsum, apply_rope, rms_norm
+from .lm import ModelCfg, _mlp, _qkv, _qw, _rope_cs, layer_params, lm_head
+
+def check_layout(policy: TCPolicy) -> None:
+    """Only the ring layout is ported; the paged one raises."""
+    if policy.kv_layout == "paged":
+        raise NotImplementedError("the paged KV layout is a later slice of "
+                                  "the port; use kv_layout='ring'")
+    if policy.kv_layout != "ring":
+        raise ValueError(f"unknown kv_layout {policy.kv_layout!r}")
+
+
+def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
+               policy: TCPolicy = BF16, *, device="cuda") -> Dict[str, Any]:
+    """Empty decode state for ``batch`` sequences up to ``max_len`` tokens.
+
+    A posit ``kv_format`` stores codes (zeros) plus per-row f32 pow2 scales
+    (ones); otherwise K/V are floats in the format's (or model's) dtype."""
+    check_layout(policy)
+    device = resolve_device(device)
+    spec = kv_storage(policy)
+    hd, nkv, P = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    if spec is not None and spec.is_posit:
+        dc = kv_kernels.code_channels(hd, spec.fmt, spec.packed)
+        shape = (P, batch, max_len, nkv)
+        blk = {"k": torch.zeros(shape + (dc,), dtype=spec.fmt.storage_dtype,
+                                device=device),
+               "v": torch.zeros(shape + (dc,), dtype=spec.fmt.storage_dtype,
+                                device=device),
+               "k_scale": torch.ones(shape, device=device),
+               "v_scale": torch.ones(shape, device=device)}
+    else:
+        dt = dtype or (spec.dtype if spec is not None else cfg.dtype)
+        shape = (P, batch, max_len, nkv, hd)
+        blk = {"k": torch.zeros(shape, dtype=dt, device=device),
+               "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "blocks": (blk,)}
+
+
+def _layer_cache(cache, i: int) -> Dict[str, torch.Tensor]:
+    """Views of layer i's cache rows (writes land in the stacked buffers)."""
+    return {k: v[i] for k, v in cache["blocks"][0].items()}
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def _ring_write(buf, val, pos):
+    """buf: (B, W, ...); val: (B, 1, ...); write at pos mod W, in place.
+    ``pos`` scalar (shared) or (B,) per-slot."""
+    w = buf.shape[1]
+    if pos.ndim:
+        buf[torch.arange(buf.shape[0], device=buf.device), pos.long() % w] = \
+            val[:, 0].to(buf.dtype)
+    else:
+        buf[:, int(pos) % w] = val[:, 0].to(buf.dtype)
+
+
+def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
+                 spec: Optional[KVStorage]):
+    b = x.shape[0]
+    h = rms_norm(x, p["ln"])
+    qp, kp, vp = _qkv(p, h, cfg, policy)
+    posv = pos[:, None] if pos.ndim else pos[None]
+    cos, sin = _rope_cs(cfg, posv)
+    qp = apply_rope(qp, cos, sin)
+    kp = apply_rope(kp, cos, sin)
+    w = c["k"].shape[1]
+    cl = torch.clamp(pos + 1, max=w)
+    if spec is not None and spec.is_posit:
+        kv_kernels.kv_append_rows(c["k"], c["k_scale"], c["v"], c["v_scale"],
+                                  kp.to(torch.float32), vp.to(torch.float32),
+                                  pos, spec.fmt, packed=spec.packed)
+        ao = attention.decode_attention_packed(
+            qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
+            v_scale=c["v_scale"], spec=spec)
+    else:
+        _ring_write(c["k"], kp, pos)
+        _ring_write(c["v"], vp, pos)
+        ao = attention.decode_attention(qp, c["k"], c["v"], cl)
+    # attention may run at higher precision than the stream (f32-decoded
+    # K/V); the residual stream keeps the model dtype
+    x = x + _einsum("bsk,kd->bsd", ao.reshape(b, 1, -1),
+                    _qw(policy, "attn_weights")(p["wo"])).to(x.dtype)
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+
+
+def decode_step(params, cache, tokens, cfg: ModelCfg,
+                policy: TCPolicy = BF16):
+    """One serving step. tokens: (B, 1) int.  Returns (logits (B,
+    vocab_pad), cache) with K/V rows written in place and ``pos`` + 1."""
+    check_layout(policy)
+    spec = kv_storage(policy)
+    pos = cache["pos"]
+    emb = policy.quantize_weight(params["embed"], "embed_weights")
+    x = emb[tokens].to(cfg.dtype)
+    for i in range(cfg.n_layers):
+        x = _attn_decode(layer_params(params["blocks"][0], i),
+                         _layer_cache(cache, i), x, cfg, policy, pos, spec)
+    x = rms_norm(x, params["final_norm"])
+    logits = _einsum("bsd,dv->bsv", x, lm_head(params, cfg))[:, 0]
+    cache["pos"] = pos + 1
+    return logits, cache
+
+
+def verify_step(*args, **kwargs):
+    raise NotImplementedError("verify_step (speculative decoding) is a later "
+                              "slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+def prefill(params, batch, cfg: ModelCfg, max_len: int,
+            policy: TCPolicy = BF16, true_len=None):
+    """Run the prompt through the model, returning (last_logits, cache).
+
+    ``true_len`` (scalar or (B,)) enables right-padded bucketed prefill:
+    ``batch["tokens"]`` is padded to a shared width S and only the first
+    ``true_len[b]`` tokens of each row are real.  Padding rows are causally
+    masked out of every real row, their K/V rows hold cache-init values
+    (codes 0, scale 1), logits come from position ``true_len - 1`` and
+    ``cache["pos"]`` is the per-slot ``true_len`` vector.
+
+    Posit caches are written by the K3 path (``kv_append_rows`` from
+    position ``max(S - W, 0)``) into the fresh ring, then the padding rows
+    are reset: the same bits as the reference's bulk encode."""
+    check_layout(policy)
+    tokens = batch["tokens"]
+    dev = tokens.device
+    b, s = tokens.shape
+    emb = policy.quantize_weight(params["embed"], "embed_weights")
+    x = emb[tokens].to(cfg.dtype)
+    valid = None
+    if true_len is not None:
+        true_len = torch.as_tensor(true_len, device=dev).to(
+            torch.int32).reshape(-1).expand(b)
+        valid = torch.arange(s, device=dev)[None, :] < true_len[:, None]
+    cache = init_cache(cfg, b, max_len, policy=policy, device=dev)
+    spec = kv_storage(policy)
+    posit_kv = spec is not None and spec.is_posit
+    w = max_len
+    start, length = max(s - w, 0), min(s, w)
+    ring_idx = (start + torch.arange(length, device=dev)) % w
+    vm = None if valid is None else valid[:, start:start + length]
+    positions = torch.arange(s, device=dev)
+    cos, sin = _rope_cs(cfg, positions)
+
+    def fill(c, name, kv):
+        rows = kv[:, start:start + length]
+        if vm is not None:      # padding rows hold cache-init zeros
+            rows = torch.where(vm[:, :, None, None], rows, 0)
+        c[name][:, ring_idx] = rows.to(c[name].dtype)
+
+    def reset_padding(c):
+        for name, init in (("k", 0), ("v", 0), ("k_scale", 1.0),
+                           ("v_scale", 1.0)):
+            buf = c[name]
+            m = vm.reshape(vm.shape + (1,) * (buf.ndim - 2))
+            buf[:, ring_idx] = torch.where(m, buf[:, ring_idx], init)
+
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"][0], i)
+        c = _layer_cache(cache, i)
+        h = rms_norm(x, p["ln"])
+        qp, kp, vp = _qkv(p, h, cfg, policy)
+        qp = apply_rope(qp, cos, sin)
+        kp = apply_rope(kp, cos, sin)
+        ao = attention.blockwise_attention(qp, kp, vp, causal=True,
+                                           q_block=cfg.q_block,
+                                           kv_block=cfg.kv_block)
+        x = x + _einsum("bsk,kd->bsd", ao.reshape(b, s, -1),
+                        _qw(policy, "attn_weights")(p["wo"]))
+        if posit_kv:
+            kv_kernels.kv_append_rows(
+                c["k"], c["k_scale"], c["v"], c["v_scale"],
+                kp[:, start:start + length].to(torch.float32),
+                vp[:, start:start + length].to(torch.float32),
+                torch.full((b,), start, dtype=torch.int32, device=dev),
+                spec.fmt, packed=spec.packed)
+            if vm is not None:
+                reset_padding(c)
+        else:
+            fill(c, "k", kp)
+            fill(c, "v", vp)
+        x = x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+    x = rms_norm(x, params["final_norm"])
+    x_last = (x[:, -1] if true_len is None
+              else x[torch.arange(b, device=dev), true_len.long() - 1])
+    logits = _einsum("bd,dv->bv", x_last, lm_head(params, cfg))
+    cache["pos"] = (true_len if true_len is not None
+                    else torch.tensor(s, dtype=torch.int32, device=dev))
+    return logits, cache

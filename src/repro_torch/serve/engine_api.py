@@ -1,0 +1,170 @@
+"""Serving-engine API: three stages over one shared decode state (port of
+``repro.serve.engine_api``, ring layout).
+
+    prefill(params, tokens, lengths) -> Prefix
+    insert(prefix, decode_state, slot) -> decode_state
+    generate(params, decode_state)    -> (decode_state, logits)
+
+* **Bucketed prefill.**  Prompts are right-padded to a power-of-two bucket
+  and prefilled at bucket width with per-row true lengths; padded keys are
+  causally masked to exact-zero contributions.
+* **Prefix = bucket-width cache.**  ``prefill`` returns a ``Prefix`` whose
+  cache leaves are (B, bucket, ...) ring rows; ``insert`` copies one row's
+  prefix into rows [0, bucket) of a slot's ring IN PLACE.
+* **generate** is one decode tick for the whole batch with per-slot
+  positions; it writes K/V rows in place and advances ``state["tok"]`` to
+  the greedy argmax per slot on the device.
+
+Observability: with an enabled tracer every stage call is wrapped in a
+``<stage>.dispatch`` span (the Python call, kernels queued) and a
+``<stage>.device`` span around ``torch.cuda.synchronize``, inside a
+``torch.profiler.record_function`` so host spans line up with device
+traces.  With tracing disabled nothing is synchronized.
+"""
+from __future__ import annotations
+
+from time import perf_counter
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..core.transprecision import TCPolicy, get_policy
+from ..models.serve_model import (check_layout, decode_step, init_cache,
+                                  prefill)
+from ..obs import MetricsRegistry, Tracer
+
+_MIN_BUCKET = 16
+
+# A Prefix: {"logits": (B, vocab_pad), "cache": prefill cache (leaf rows at
+# bucket width), "length": (B,) int32 true prompt lengths}.
+Prefix = Dict[str, Any]
+
+
+class TransprecisionEngine:
+    """The three-stage engine for one (model cfg, transprecision policy).
+
+    The engine owns no request/queue state — drivers do."""
+
+    def __init__(self, cfg, policy: TCPolicy, max_batch: int, max_len: int,
+                 *, device="cuda", tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 stage_prefix: str = ""):
+        self.cfg = cfg
+        self.policy = get_policy(policy)
+        check_layout(self.policy)
+        self.device = resolve_device(device)
+        self.tracer = tracer
+        self.metrics = metrics
+        self.stage_prefix = stage_prefix
+        self.max_batch, self.max_len = max_batch, max_len
+        self._call_counters: Dict[str, Any] = {}
+
+    # ---- observability ----
+    def _staged(self, stage: str, fn, *args):
+        """Run one engine stage with paired dispatch / device-complete
+        stamps; a plain call with no enabled tracer."""
+        name = self.stage_prefix + stage
+        if self.metrics is not None:
+            ctr = self._call_counters.get(name)
+            if ctr is None:
+                ctr = self._call_counters[name] = self.metrics.counter(
+                    f"stage.{name}.calls")
+            ctr.inc()
+        tr = self.tracer
+        if tr is None or not tr.enabled:
+            return fn(*args)
+        t0 = perf_counter()
+        with torch.profiler.record_function(name):
+            with tr.span(name + ".dispatch", cat="engine"):
+                out = fn(*args)
+        t1 = perf_counter()
+        with tr.span(name + ".device", cat="engine"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        t2 = perf_counter()
+        if self.metrics is not None:
+            self.metrics.histogram(f"stage.{name}.dispatch_s").observe(
+                t1 - t0)
+            self.metrics.histogram(f"stage.{name}.device_s").observe(
+                t2 - t1)
+        return out
+
+    # ---- stage: decode-state construction ----
+    def init_decode_state(self) -> Dict[str, Any]:
+        """Empty decode state for ``max_batch`` slots: the KV cache with
+        per-slot ``pos`` plus the ``"tok"`` next-input leaf."""
+        state = init_cache(self.cfg, self.max_batch, self.max_len,
+                           policy=self.policy, device=self.device)
+        state["pos"] = torch.zeros((self.max_batch,), dtype=torch.int32,
+                                   device=self.device)
+        state["tok"] = torch.zeros((self.max_batch, 1), dtype=torch.int32,
+                                   device=self.device)
+        return state
+
+    # ---- stage: prefill ----
+    def bucket_for(self, s: int) -> int:
+        """Prefill width for an ``s``-token prompt: the smallest power-of-
+        two bucket (>= 16, <= max_len) that holds it."""
+        b = _MIN_BUCKET
+        while b < s:
+            b <<= 1
+        return min(b, self.max_len)
+
+    def prefill(self, params, tokens, lengths=None) -> Prefix:
+        """Run a prompt batch: ``tokens`` (B, S) int, right-padded;
+        ``lengths`` (B,) true prompt lengths (None = every row is exactly S
+        tokens).  Returns a :data:`Prefix` with a bucket-width cache."""
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
+        b, s = tokens.shape
+
+        def impl(p, t, l):
+            logits, cache = prefill(p, {"tokens": t}, self.cfg, s,
+                                    self.policy, true_len=l)
+            length = (l if l is not None else
+                      torch.full((b,), s, dtype=torch.int32,
+                                 device=self.device))
+            return {"logits": logits, "cache": cache, "length": length}
+
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=self.device).to(
+                torch.int32)
+        return self._staged("prefill", impl, params, tokens, lengths)
+
+    # ---- stage: insert ----
+    def insert(self, prefix: Prefix, state, slot: int, row: int = 0):
+        """Copy prefix row ``row`` into decode-state slot ``slot``, in
+        place: its bucket-width K/V rows land at ring rows [0, bucket) and
+        ``pos[slot]`` becomes the prompt length."""
+        return self._staged("insert", self._insert_impl, state,
+                            prefix["cache"], prefix["length"], slot, row)
+
+    def _insert_impl(self, state, pcache, length, slot, row):
+        for dst, src in zip(state["blocks"], pcache["blocks"]):
+            for name, d in dst.items():
+                w = src[name].shape[2]
+                d[:, slot, :w] = src[name][:, row]
+        state["pos"][slot] = length[row]
+        return state
+
+    # ---- stage: generate ----
+    def _generate_impl(self, params, state):
+        logits, state = decode_step(params, state, state["tok"], self.cfg,
+                                    self.policy)
+        state["tok"] = logits[..., : self.cfg.vocab].argmax(dim=-1).to(
+            torch.int32)[:, None]
+        return state, logits
+
+    def generate(self, params, state):
+        """One decode tick for every slot: feeds ``state["tok"]``, writes
+        each slot's K/V row at its own position, advances ``pos`` and
+        ``tok``.  Returns ``(state, logits (B, vocab_pad))``."""
+        return self._staged("generate", self._generate_impl, params, state)
+
+    def verify(self, *args, **kwargs):
+        raise NotImplementedError("verify (speculative decoding) is a later "
+                                  "slice of the port")
+
+    def rollback_ring(self, *args, **kwargs):
+        raise NotImplementedError("rollback (speculative decoding) is a "
+                                  "later slice of the port")

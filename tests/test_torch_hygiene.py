@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
+its entry points default to the GPU and raise without one, and the parts
+left to later slices raise ``NotImplementedError``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.transprecision import TCPolicy, get_policy  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.models import lm, serve_model  # noqa: E402
+from repro_torch.models.lm import ModelCfg  # noqa: E402
+from repro_torch.serve.engine import ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.serve.engine_api import TransprecisionEngine  # noqa: E402
+
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_repro_imports_in_source():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    for f in files:
+        for mod in _imported(ast.parse(f.read_text())):
+            assert mod.split(".")[0] not in FORBIDDEN, (f, mod)
+
+
+def test_whole_port_imports_without_jax_or_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    cfg = get_config("paper-edge", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        TransprecisionEngine(cfg, get_policy("bf16"), 2, 32)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        serve_model.init_cache(cfg, 2, 32)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        lm.init_params(cfg)
+    from repro_torch.convert import params_from_numpy
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        params_from_numpy({"w": np.zeros(2, np.float32)})
+
+
+def test_kernel_build_raises_without_nvcc():
+    """No silent plain-version fallback: without the CUDA toolkit the
+    kernel libraries cannot load, and that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the kernels build there")
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        pass
+    else:
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.lib("kv_cache")
+
+
+def test_later_slices_raise_not_implemented():
+    cfg = get_config("paper-edge", smoke=True)
+    paged = TCPolicy(name="p", kv_format="posit8", kv_layout="paged")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        serve_model.init_cache(cfg, 2, 32, policy=paged, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TransprecisionEngine(cfg, paged, 2, 32, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        serve_model.verify_step()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ModelCfg(family="moe")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("llama3-8b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32),
+                      device="cpu", guard=True)

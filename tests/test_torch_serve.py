@@ -1,0 +1,209 @@
+"""Serving model of the PyTorch port vs the JAX package on paper-edge smoke.
+
+Same weights on both sides (the reference's ``init_params`` through the
+weight bridge).  At float32: logits within rtol 1e-4, atol 1e-5 (matmul
+summation order differs between XLA and torch); posit8 and posit4 cache
+codes and every scale bit-exact.  posit16 codes can flip by one code where
+the two frameworks' f32 K/V differ in the last bit (see ROADMAP "Faults
+found in the port"): they are held within one code step, on under 1 % of
+values.  At bf16 the port's bf16 is compared with the reference's bf16 by
+a logit tolerance (never bf16 against f32).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.core.quant import QuantizedTensor as JQT  # noqa: E402
+from repro.core.transprecision import get_policy as j_get_policy  # noqa: E402
+from repro.core.transprecision import pack_params as j_pack_params  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models import serve_model as jsm  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core.quant import QuantizedTensor  # noqa: E402
+from repro_torch.core.transprecision import get_policy as t_get_policy  # noqa: E402
+from repro_torch.core.transprecision import pack_params as t_pack_params  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models import serve_model as tsm  # noqa: E402
+
+
+def jax_params_to_numpy(params):
+    """The reference's params as the bridge takes them: numpy leaves, bf16
+    widened to float32 (exact), QuantizedTensors flattened to dicts."""
+    def leaf(x):
+        if isinstance(x, JQT):
+            return {"data": np.asarray(x.data),
+                    "scale": None if x.scale is None else np.asarray(x.scale),
+                    "fmt": x.fmt.name}
+        a = np.asarray(x)
+        return a.astype(np.float32) if a.dtype == jnp.bfloat16 else a
+    return jax.tree_util.tree_map(leaf, params,
+                                  is_leaf=lambda x: isinstance(x, JQT))
+
+
+def smoke_pair(dtype_name):
+    """(jax cfg, torch cfg, jax params, torch params) at ``dtype_name``."""
+    jc = dataclasses.replace(j_get_config("paper-edge", smoke=True),
+                             dtype_name=dtype_name)
+    tc = dataclasses.replace(t_get_config("paper-edge", smoke=True),
+                             dtype_name=dtype_name)
+    jp = jlm.init_params(jax.random.PRNGKey(0), jc)
+    tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", tc.dtype)
+    return jc, tc, jp, tp
+
+
+def _f32(a):
+    return np.asarray(a.to(torch.float32) if torch.is_tensor(a) else
+                      np.asarray(a).astype(np.float32))
+
+
+def _codes(a):
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    return a.view(np.int16).astype(np.int64) if a.dtype in (
+        np.uint16, np.int16) else a.astype(np.int64)
+
+
+_J_PREFILL = jax.jit(jsm.prefill, static_argnums=(2, 3, 4))
+_J_DECODE = jax.jit(jsm.decode_step, static_argnums=(3, 4))
+
+
+def _snapshot(cache):
+    """The port writes caches in place: copy before the next step."""
+    return {"pos": cache["pos"].clone(),
+            "blocks": tuple({k: v.clone() for k, v in b.items()}
+                            for b in cache["blocks"])}
+
+
+def _run_both(dtype_name, kv_format, steps=2, policy="paper_edge_p8",
+              pack=False):
+    jc, tc, jp, tp = smoke_pair(dtype_name)
+    jpol = dataclasses.replace(j_get_policy(policy), kv_format=kv_format)
+    tpol = dataclasses.replace(t_get_policy(policy), kv_format=kv_format)
+    if pack:
+        jp = j_pack_params(jp, jpol)
+        tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", tc.dtype)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, tc.vocab, (2, 16))
+    true_len = np.array([11, 16], np.int32)
+    jl, jcache = _J_PREFILL(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                            jc, 32, jpol, true_len=jnp.asarray(true_len))
+    tl, tcache = tsm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc, 32,
+                             tpol, true_len=torch.from_numpy(true_len))
+    out = [(jl, tl, jcache, _snapshot(tcache))]
+    for _ in range(steps):
+        tok = rng.integers(0, tc.vocab, (2, 1))
+        jl, jcache = _J_DECODE(jp, jcache, jnp.asarray(tok, jnp.int32), jc,
+                               jpol)
+        tl, tcache = tsm.decode_step(tp, tcache, torch.from_numpy(tok), tc,
+                                     tpol)
+        out.append((jl, tl, jcache, _snapshot(tcache)))
+        assert int(tcache["pos"][0]) == int(jcache["pos"][0])
+    return out
+
+
+def _check_cache_f32(jcache, tcache, kv_format):
+    jb, tb = jcache["blocks"][0], tcache["blocks"][0]
+    assert set(jb) == set(tb)
+    for name in jb:
+        j, t = jb[name], tb[name]
+        assert tuple(t.shape) == tuple(j.shape), name
+        if name.endswith("_scale"):
+            np.testing.assert_array_equal(_f32(t), _f32(j))
+        elif kv_format in ("posit8", "posit4"):
+            np.testing.assert_array_equal(_codes(t), _codes(j))
+        elif kv_format == "posit16":
+            diff = np.abs(_codes(t) - _codes(j))
+            assert diff.max() <= 1 and diff.mean() < 0.01, name
+        else:
+            np.testing.assert_allclose(_f32(t), _f32(j), rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_format", ["posit8", "posit4", "posit16", "f32"])
+def test_prefill_decode_f32_matches_reference(kv_format):
+    """Decode logits read the cache: with posit16, a flipped code (one step
+    of 2^-12 relative on one K/V value) moves them by up to a few 1e-5, so
+    they are held at atol 1e-4; prefill logits never read the codes."""
+    for step, (jl, tl, jcache, tcache) in enumerate(
+            _run_both("float32", kv_format)):
+        atol = 1e-4 if step and kv_format == "posit16" else 1e-5
+        np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=1e-4, atol=atol)
+        _check_cache_f32(jcache, tcache, kv_format)
+
+
+def test_prefill_decode_packed_weights_f32():
+    """serve_posit8: pack_params QuantizedTensor leaves through the bridge,
+    decoded on load in both packages."""
+    for jl, tl, jcache, tcache in _run_both("float32", None, steps=1,
+                                            policy="serve_posit8",
+                                            pack=True):
+        np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=1e-4, atol=1e-5)
+        _check_cache_f32(jcache, tcache, "posit8")
+
+
+def test_prefill_decode_bf16_matches_reference_bf16():
+    """bf16 rounds at other places in the two frameworks: logits agree to
+    within 0.1 absolute on a logit scale of ~1 (a few bf16 ulps)."""
+    for jl, tl, _, _ in _run_both("bfloat16", "posit8"):
+        assert tl.dtype == torch.bfloat16
+        d = np.abs(_f32(tl) - _f32(jl))
+        assert d.max() < 0.1, d.max()
+        assert np.abs(_f32(jl)).max() > 0.5      # the scale the bound assumes
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_hoisted_weight_quant_equals_per_call(dtype_name):
+    _, tc, _, tp = smoke_pair(dtype_name)
+    pol = dataclasses.replace(t_get_policy("paper_edge_p8"),
+                              kv_format="posit8")
+    hp = tlm.hoist_weight_quant(tp, pol)
+    free = tlm.weights_free(pol)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 16)))
+    lens = torch.tensor([9, 16])
+    a, ca = tsm.prefill(tp, {"tokens": toks}, tc, 32, pol, true_len=lens)
+    b, cb = tsm.prefill(hp, {"tokens": toks}, tc, 32, free, true_len=lens)
+    assert torch.equal(a, b)
+    nxt = toks[:, :1]
+    a, _ = tsm.decode_step(tp, ca, nxt, tc, pol)
+    b, _ = tsm.decode_step(hp, cb, nxt, tc, free)
+    assert torch.equal(a, b)
+    # each layer's slice is quantized on its own (per output channel)
+    w = tp["blocks"][0]["wq"]
+    one = pol.quantize_weight(w[1], "attn_weights")
+    assert torch.equal(hp["blocks"][0]["wq"][1], one)
+
+
+def test_weight_bridge():
+    jc, tc, jp, tp = smoke_pair("bfloat16")
+    assert tp["embed"].dtype == torch.bfloat16
+    assert tp["final_norm"].dtype == torch.float32
+    assert tp["blocks"][0]["ln"].dtype == torch.float32
+    assert tuple(tp["blocks"][0]["wq"].shape) == (2, 64, 64)
+    np.testing.assert_array_equal(
+        _f32(tp["blocks"][0]["wi"]),
+        np.asarray(jp["blocks"][0]["wi"]).astype(np.float32))
+    pol = j_get_policy("serve_posit16")
+    packed = params_from_numpy(jax_params_to_numpy(j_pack_params(jp, pol)),
+                               "cpu", tc.dtype)
+    wq = packed["blocks"][0]["wq"]
+    assert isinstance(wq, QuantizedTensor) and wq.data.dtype == torch.int16
+    assert wq.fmt.name == "posit16_2"
+
+
+def test_pack_params_matches_reference():
+    jc, tc, jp, tp = smoke_pair("float32")
+    jq = j_pack_params(jp, j_get_policy("serve_posit8"))
+    tq = t_pack_params(tp, t_get_policy("serve_posit8"))
+    for name in ("wq", "wk", "wv", "wo", "wi", "wo_mlp"):
+        j, t = jq["blocks"][0][name], tq["blocks"][0][name]
+        assert isinstance(t, QuantizedTensor) and t.fmt.name == j.fmt.name
+        np.testing.assert_array_equal(_codes(t.data), _codes(j.data))
+        np.testing.assert_array_equal(_f32(t.scale), _f32(j.scale))
+    assert not isinstance(tq["embed"], QuantizedTensor)
