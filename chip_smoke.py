@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``).
 
-Builds the hand-written CUDA kernels (K1..K4) from ``src/repro_torch/csrc``,
+Builds the hand-written CUDA kernels (K1..K6) from ``src/repro_torch/csrc``,
 holds each against its plain PyTorch version on the card, serves the
-full-width paper-edge model through ``ServingEngine`` with a posit8 KV ring,
-checks card against CPU at float32, times every kernel and prints one JSON
-line per contract.  Needs one CUDA GPU; run from the repository root:
+full-width paper-edge model through ``ServingEngine`` with a posit8 KV ring
+and then a posit8 paged pool, checks card against CPU at float32 in both
+layouts, times every kernel and prints one JSON line per contract.  Needs
+one CUDA GPU; run from the repository root:
 
     python3 chip_smoke.py [--seed N]
 
+Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5; 5 K4; 5b K6; 6 ring main path;
+6b ring decode-step profile; 6c paged main path; 6d paged decode-step
+profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8 kernel times;
+8b K4 by blocks walked.
+
 Every phase asserts; nothing is caught.  Tolerances:
-  K1, K2, K3     bit-exact against decode_tile / encode_tile /
-                 kv_append_rows_ref (NaN exactly at NaR for K1).
-  K4             rtol 1e-5, atol 1e-5 against decode_attention_ref on K/V
-                 of O(1) magnitude (online vs dense softmax: f32
-                 summation order).
+  K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
+                 kv_append_rows_ref / paged_kv_append_rows_ref (NaN exactly
+                 at NaR for K1; K5 on every pool row outside trash page 0,
+                 where idle slots collide in no set order).
+  K4, K6         rtol 1e-5, atol 1e-5 against decode_attention_ref /
+                 paged_decode_attention_ref on K/V of O(1) magnitude
+                 (online vs dense softmax: f32 summation order).
   card vs CPU    rtol 1e-3, atol 1e-3 on the first two decode steps' logits
                  (float32 model, TF32 off on the card; matmul summation
-                 order differs between cuBLAS and the CPU).
+                 order differs between cuBLAS and the CPU), ring and paged.
+The paged run's greedy tokens are compared with the ring run's and the
+count printed, not asserted: K4 and K6 sum in different orders in bf16.
 
 Kernel times (the kernels JSON line): ``ms`` is the device time per
 wrapper call, from a CUDA graph of 20 calls replayed between CUDA events,
-so no host launch cost enters it (K4's wrapper adds its q scaling and
-output cast, small elementwise ops, to the kernel); ``plain_ms`` is the
-plain PyTorch version per call, between CUDA events around eager calls.
-The decode-step profile of phase 6b (device busy, idle share) comes from a
-torch.profiler trace and reads "not measured" where the trace holds no
-device events.
+so no host launch cost enters it (the attention wrappers add their q
+scaling and output cast, small elementwise ops, to the kernel);
+``plain_ms`` is the plain PyTorch version per call, between CUDA events
+around eager calls.  The decode-step profiles of phases 6b and 6d (device
+busy, idle share) come from a torch.profiler trace and read "not
+measured" where the trace holds no device events.
 """
 from __future__ import annotations
 
@@ -55,10 +65,20 @@ KERNELS = {
                        "src/repro/kernels/kv_cache.py:150"),
     "decode_attention": ("src/repro_torch/csrc/kv_cache.cu",
                          "src/repro/kernels/kv_cache.py:259"),
+    "paged_kv_append_rows": ("src/repro_torch/csrc/paged_kv.cu",
+                             "src/repro/kernels/paged_kv.py:123"),
+    "paged_decode_attention": ("src/repro_torch/csrc/paged_kv.cu",
+                               "src/repro/kernels/paged_kv.py:234"),
 }
 CODEC_FORMATS = ("posit4_1", "posit8_0", "posit8_2", "posit16_1", "posit16_2")
 # the main path's shape: max_batch 8, max_len 1024, 4 KV heads of 64
 B, W, NKV, HD, NH = 8, 1024, 4, 64, 12
+# the paged main path: 16-row pages, Pmax = W / PS logical pages per slot,
+# a full pool of 1 trash page + B * Pmax; the engine run uses half of it
+PS = 16
+PMAX = W // PS
+POOL_PAGES = 1 + B * PMAX
+ENGINE_PAGES = 257
 KV_FORMATS = (("posit16_2", False), ("posit8_2", False), ("posit4_1", True))
 
 
@@ -165,6 +185,7 @@ def main() -> int:
     from repro_torch.core.formats import get as get_fmt
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     from repro_torch.kernels import kv_cache as kvk
+    from repro_torch.kernels import paged_kv as pkv
     from repro_torch.kernels.posit_decode import decode_tile, posit_decode
     from repro_torch.kernels.posit_encode import encode_tile, posit_encode
     from repro_torch.models import lm
@@ -226,20 +247,23 @@ def main() -> int:
           f"random bit patterns)")
 
     # 4. K3 vs kv_append_rows_ref at the main path's shape -------------
-    def fresh_ring(fmt, packed):
+    def fresh_ring(fmt, packed, lead=(B, W), src=rng):
+        """Random codes and pow2 scales from ``src``: a ring (B, W, NKV, ...)
+        or, with ``lead`` (R,), a flat pool (R, NKV, ...)."""
         dc = kvk.code_channels(HD, fmt, packed)
         hi = 1 << (8 if fmt.bits <= 8 else 16)
-        codes = torch.from_numpy(rng.integers(0, hi, (B, W, NKV, dc))).to(dev)
+        codes = torch.from_numpy(src.integers(0, hi, lead + (NKV, dc))).to(
+            dev)
         codes = torch.where(codes >= 1 << 15, codes - (1 << 16), codes) \
             if fmt.bits > 8 else codes
         codes = codes.to(_build.code_dtype(fmt))
-        scales = torch.from_numpy(np.exp2(rng.integers(
-            -8, 8, (B, W, NKV))).astype(np.float32)).to(dev)
+        scales = torch.from_numpy(np.exp2(src.integers(
+            -8, 8, lead + (NKV,))).astype(np.float32)).to(dev)
         return codes, scales
 
-    def rows(t, spread=6):
-        mag = np.exp2(rng.uniform(-spread, spread, (B, t, NKV, 1)))
-        return torch.from_numpy((rng.normal(0, 1, (B, t, NKV, HD)) * mag)
+    def rows(t, spread=6, src=rng):
+        mag = np.exp2(src.uniform(-spread, spread, (B, t, NKV, 1)))
+        return torch.from_numpy((src.normal(0, 1, (B, t, NKV, HD)) * mag)
                                 .astype(np.float32)).to(dev)
 
     pos_wrap = torch.tensor([0, 5, 1023, 1024, 1500, 2047, 3000, 77],
@@ -268,6 +292,46 @@ def main() -> int:
     phase("phase 4 K3 kv_append_rows bit-exact (codes, scales, untouched "
           f"rows) at B={B} W={W} nkv={NKV} hd={HD}, posit16/8/4, T=1 with "
           "wrapping pos and T=1024 from 0")
+
+    # 4b. K5 vs paged_kv_append_rows_ref into a full pool (the paged
+    # phases draw from their own generator, so the ring phases see the
+    # same data whether or not these phases run) -------------------------
+    rng_pg = np.random.default_rng([args.seed, 1])
+
+    def fresh_pool(fmt, packed):
+        return fresh_ring(fmt, packed, (POOL_PAGES * PS,), rng_pg)
+
+    # a seeded shuffle of the physical pages; slots 2 and 5 idle (all 0)
+    table = torch.from_numpy((1 + rng_pg.permutation(B * PMAX)).reshape(
+        B, PMAX).astype(np.int32)).to(dev)
+    table_idle = table.clone()
+    table_idle[[2, 5]] = 0
+    pos_pg = torch.tensor([0, 15, 300, 1000, 1008, 77, 511, 64],
+                          dtype=torch.int32, device=dev)
+    for name, packed in KV_FORMATS:
+        fmt = get_fmt(name)
+        for t in (1, 16):
+            dst = pkv.flat_dst_rows_chunk(table_idle, pos_pg, t, PS)
+            kc, ks = fresh_pool(fmt, packed)
+            vc, vs = fresh_pool(fmt, packed)
+            kn, vn = rows(t, src=rng_pg), rows(t, src=rng_pg)
+            got = pkv.paged_kv_append_rows(kc.clone(), ks.clone(),
+                                           vc.clone(), vs.clone(), kn, vn,
+                                           dst, fmt, packed=packed)
+            want = pkv.paged_kv_append_rows_ref(kc.clone(), ks.clone(),
+                                                vc.clone(), vs.clone(), kn,
+                                                vn, dst, fmt, packed)
+            for g, w_ in zip(got, want):        # every row past page 0
+                assert bits_equal(g[PS:], w_[PS:]), (name, t)
+            keep = torch.ones(POOL_PAGES * PS, dtype=torch.bool, device=dev)
+            keep[dst.reshape(-1).long()] = False
+            keep[:PS] = False
+            for g, orig in zip(got, (kc, ks, vc, vs)):
+                assert torch.equal(g[keep], orig[keep]), (name, t)
+    phase(f"phase 4b K5 paged_kv_append_rows bit-exact (codes, scales on "
+          f"rows past trash page 0; untouched rows) into {POOL_PAGES} pages "
+          f"of {PS} rows, shuffled table with 2 idle slots, posit16/8/4, "
+          "T=1 and T=16")
 
     # 5. K4 vs decode_attention_ref: K/V rows of O(1) magnitude (per-row
     # scales over 2^-2..2^2, as post-RoPE K/V at init), so 1e-5 is a few
@@ -299,130 +363,246 @@ def main() -> int:
         phase(f"phase 5 K4 decode_attention {name}: max |err| {errs[0]:.3e}"
               f", {errs[1]:.3e} with empty slots (rtol 1e-5, atol 1e-5)")
 
+    # 5b. K6 vs paged_decode_attention_ref over the shuffled table ------
+    table_bad = table.clone()                   # clipped to [0, num_pages)
+    table_bad[0, 0], table_bad[3, 5], table_bad[7, 63] = -3, 10_000, -1
+    for name, packed in KV_FORMATS:
+        fmt = get_fmt(name)
+        pool = []
+        for _ in range(2):
+            x = rows(POOL_PAGES * PS // B, 2, rng_pg).reshape(-1, NKV, HD)
+            c, sc = kvk.encode_kv_rows(x, fmt, packed)
+            pool += [c.to(_build.code_dtype(fmt)), sc[..., 0].contiguous()]
+        q = torch.from_numpy(rng_pg.normal(0, 1, (B, 1, NH, HD)).astype(
+            np.float32)).to(dev)
+        errs = []
+        for tb, sl in ((table, cache_len), (table, empty_len),
+                       (table_bad, cache_len)):
+            got = pkv.paged_decode_attention(q, *pool, tb, sl, fmt,
+                                             page_size=PS, packed=packed)
+            want = pkv.paged_decode_attention_ref(q, *pool, tb, sl, fmt,
+                                                  page_size=PS,
+                                                  packed=packed)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            errs.append(float((got - want).abs().max()))
+        if name == "posit8_2":
+            err["paged_decode_attention"] = errs[0]
+        phase(f"phase 5b K6 paged_decode_attention {name}: max |err| "
+              f"{errs[0]:.3e}, {errs[1]:.3e} with empty slots, {errs[2]:.3e} "
+              "with out-of-range table entries (rtol 1e-5, atol 1e-5)")
+
     # 6. main path: full-width paper-edge, posit8 ring, 8 requests -----
     cfg = get_config("paper-edge")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=dev)
     n_params = cfg.param_count()
-    eng = ServingEngine(cfg, params, ServeConfig(
-        max_batch=8, max_len=1024, kv_format="posit8"),
-        policy="paper_edge_p8")
-    finite = []
-    prefill_fn, generate_fn = eng.engine.prefill, eng.engine.generate
-
-    def prefill_checked(*a):
-        out = prefill_fn(*a)
-        finite.append(torch.isfinite(out["logits"]).all())
-        return out
-
-    def generate_checked(*a):
-        state, logits = generate_fn(*a)
-        finite.append(torch.isfinite(logits).all())
-        return state, logits
-
-    eng.engine.prefill, eng.engine.generate = prefill_checked, \
-        generate_checked
-    eng.serve([Request(uid=-1, prompt=rng.integers(0, cfg.vocab, 64),
-                       max_new=3)])                       # warm-up
+    warm = rng.integers(0, cfg.vocab, 64)
     lens = rng.integers(64, 901, 8)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)),
-                    max_new=32) for i, n in enumerate(lens)]
-    eng.tracer.reset()
-    eng.tracer.enable()
-    steps0, tokens0 = eng.stats["decode_steps"], eng.stats["tokens"]
-    torch.cuda.synchronize()
-    reset_launches()
-    stats = eng.serve(reqs)
-    torch.cuda.synchronize()
-    main_launches = dict(LAUNCHES)
-    eng.tracer.disable()
-    steps = eng.stats["decode_steps"] - steps0
-    tokens = eng.stats["tokens"] - tokens0
-    st = eng.tracer.self_times()
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
 
-    def stage_ms(stage):
-        n = st[f"{stage}.device"]["count"]
-        return 1e3 * (st[f"{stage}.dispatch"]["total_s"]
-                      + st[f"{stage}.device"]["total_s"]) / n, n
+    def serve_main(scfg):
+        """Serve the 8 prompts (max_new 32) through a fresh engine after a
+        warm-up request, with every kernel count set to 0 just before the
+        serve and read just after it."""
+        eng = ServingEngine(cfg, params, scfg, policy="paper_edge_p8")
+        finite = []
+        prefill_fn, generate_fn = eng.engine.prefill, eng.engine.generate
 
-    prefill_ms, n_prefill = stage_ms("prefill")
-    decode_ms, _ = stage_ms("generate")
-    assert all(bool(f) for f in finite), "non-finite logits"
-    assert all(len(r.out_tokens) == 32 for r in reqs)
-    assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+        def prefill_checked(*a):
+            out = prefill_fn(*a)
+            finite.append(torch.isfinite(out["logits"]).all())
+            return out
+
+        def generate_checked(*a):
+            state, logits = generate_fn(*a)
+            finite.append(torch.isfinite(logits).all())
+            return state, logits
+
+        eng.engine.prefill, eng.engine.generate = prefill_checked, \
+            generate_checked
+        eng.serve([Request(uid=-1, prompt=warm, max_new=3)])   # warm-up
+        reqs = [Request(uid=i, prompt=p, max_new=32)
+                for i, p in enumerate(prompts)]
+        eng.tracer.reset()
+        eng.tracer.enable()
+        steps0, tokens0 = eng.stats["decode_steps"], eng.stats["tokens"]
+        calls = eng.metrics.counter("stage.prefill.calls")
+        calls0 = calls.value
+        torch.cuda.synchronize()
+        reset_launches()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        eng.tracer.disable()
+        st = eng.tracer.self_times()
+
+        def stage_ms(stage):
+            n = st[f"{stage}.device"]["count"]
+            return 1e3 * (st[f"{stage}.dispatch"]["total_s"]
+                          + st[f"{stage}.device"]["total_s"]) / n
+
+        assert all(bool(f) for f in finite), "non-finite logits"
+        assert all(len(r.out_tokens) == 32 for r in reqs)
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+        tokens = eng.stats["tokens"] - tokens0
+        return {"eng": eng, "generate": generate_fn, "reqs": reqs,
+                "launches": launches, "prefill_calls": calls.value - calls0,
+                "steps": eng.stats["decode_steps"] - steps0,
+                "prefill_ms": stage_ms("prefill"),
+                "decode_ms": stage_ms("generate"),
+                "tok_s": tokens / stats["wall_s"]}
+
+    ring = serve_main(ServeConfig(max_batch=8, max_len=1024,
+                                  kv_format="posit8"))
+    eng, main_launches, steps = ring["eng"], ring["launches"], ring["steps"]
     for k in ("kv_append_rows", "decode_attention"):
         assert main_launches[k] >= cfg.n_layers * steps, (k, main_launches)
     phase(f"phase 6 main path: paper-edge {cfg.n_layers}L d{cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads}h hd{cfg.head_dim} vocab "
           f"{cfg.vocab} ({n_params / 1e6:.1f} M params, {cfg.dtype_name}), "
           f"posit8 ring, 8 requests of {sorted(int(n) for n in lens)} "
-          f"prompt tokens, max_new 32: prefill {prefill_ms:.2f} ms/call "
-          f"({n_prefill} calls), decode {decode_ms:.3f} ms/step ({steps} "
-          f"steps), {tokens / stats['wall_s']:.1f} tok/s, KV "
-          f"{eng.kv_cache_bytes()} B, launches K3 "
-          f"{main_launches['kv_append_rows']} K4 "
+          f"prompt tokens, max_new 32: prefill {ring['prefill_ms']:.2f} "
+          f"ms/call ({ring['prefill_calls']} calls), decode "
+          f"{ring['decode_ms']:.3f} ms/step ({steps} steps), "
+          f"{ring['tok_s']:.1f} tok/s, KV {eng.kv_cache_bytes()} B, "
+          f"launches K3 {main_launches['kv_append_rows']} K4 "
           f"{main_launches['decode_attention']}")
 
     # 6b. where a decode step's time goes: one profiled window --------
     from torch.profiler import ProfilerActivity, profile
     n_prof = 5
-    torch.cuda.synchronize()
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            eng.cache, logits = generate_fn(eng.params, eng.cache)
-            logits.float().cpu()
+
+    def profile_steps(step):
+        """Wall per call of ``step`` over ``n_prof`` calls, kernel launches
+        per call, and device busy / idle share from a profiler trace."""
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n_prof
-    per_step = {k: v / n_prof for k, v in LAUNCHES.items()}
-    per_kernel = {k: v / n_prof / 1e3
-                  for k, v in device_events(prof).items()}
-    busy = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    device = (f"device busy {busy:.3f} ms/step, idle share "
-              f"{1 - busy / wall_ms:.3f}; top kernels (ms/step): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in top)) if per_kernel \
-        else "device busy and idle share not measured (the profiler " \
-             "trace held no device events)"
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+        per_step = {k: v / n_prof for k, v in LAUNCHES.items()}
+        per_kernel = {k: v / n_prof / 1e3
+                      for k, v in device_events(prof).items()}
+        busy = sum(per_kernel.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        device = (f"device busy {busy:.3f} ms/step, idle share "
+                  f"{1 - busy / wall_ms:.3f}; top kernels (ms/step): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in top)) \
+            if per_kernel else "device busy and idle share not measured " \
+                               "(the profiler trace held no device events)"
+        return wall_ms, per_step, device
+
+    def ring_generate():
+        eng.cache, logits = ring["generate"](eng.params, eng.cache)
+        logits.float().cpu()
+
+    wall_ms, per_step, device = profile_steps(ring_generate)
     phase(f"phase 6b decode-step profile ({n_prof} generate calls at the "
           f"served positions): wall {wall_ms:.3f} ms/step, {device}")
 
-    # 7. the whole slice, card vs CPU at float32 ----------------------
+    # 6c. the paged main path: same weights and prompts, half the pool -
+    paged = serve_main(ServeConfig(max_batch=8, max_len=1024,
+                                   kv_format="posit8", kv_layout="paged",
+                                   page_size=PS, num_pages=ENGINE_PAGES))
+    eng_p, lp = paged["eng"], paged["launches"]
+    n_l, steps_p = cfg.n_layers, paged["steps"]
+    assert lp["paged_kv_append_rows"] == n_l * steps_p, lp
+    assert lp["paged_decode_attention"] == n_l * steps_p, lp
+    assert lp["decode_attention"] == 0, lp
+    assert lp["kv_append_rows"] == n_l * paged["prefill_calls"], lp
+    for k in ("paged_kv_append_rows", "paged_decode_attention"):
+        main_launches[k] = lp[k]
+        per_step[k] = lp[k] / steps_p
+    eng_p.allocator.assert_consistent()
+    assert eng_p.allocator.live_pages == 0
+    reserved = (ENGINE_PAGES * PS * cfg.n_kv_heads * (cfg.head_dim + 4)
+                * 2 * n_l)                      # posit8 codes + f32 scales
+    assert eng_p.kv_cache_bytes() == reserved, eng_p.kv_cache_bytes()
+    agree = [sum(a == b for a, b in zip(x.out_tokens, y.out_tokens))
+             for x, y in zip(paged["reqs"], ring["reqs"])]
+    worst = sum(-(-(len(r.prompt) + 32) // PS) for r in paged["reqs"])
+    phase(f"phase 6c paged main path: posit8 pool of {ENGINE_PAGES} pages "
+          f"x {PS} rows, same 8 prompts, max_new 32: prefill "
+          f"{paged['prefill_ms']:.2f} ms/call ({paged['prefill_calls']} "
+          f"calls), decode {paged['decode_ms']:.3f} ms/step ({steps_p} "
+          f"steps), {paged['tok_s']:.1f} tok/s; worst-case reservations "
+          f"{worst} of {ENGINE_PAGES - 1} pages; KV reserved {reserved} B "
+          f"(ring {eng.kv_cache_bytes()} B), peak live "
+          f"{eng_p.kv_cache_peak_live_bytes()} B "
+          f"({eng_p.stats['peak_live_pages']} pages), evictions "
+          f"{eng_p.stats['evictions']}; launches K3 {lp['kv_append_rows']} "
+          f"K4 {lp['decode_attention']} K5 {lp['paged_kv_append_rows']} K6 "
+          f"{lp['paged_decode_attention']}; greedy tokens equal to the ring "
+          f"run's per request {agree} of 32 (not asserted)")
+
+    # 6d. a paged decode step's profile: the 8 prompts readmitted (those
+    # whose reservations fit), 5 engine steps (page growth, generate,
+    # sampling), then drained -------------------------------------------
+    eng_p.add_requests([Request(uid=100 + i, prompt=p, max_new=32)
+                        for i, p in enumerate(prompts)])
+    n_active = sum(r is not None for r in eng_p.slot_req)
+    wall_p, _, device_p = profile_steps(eng_p.step)
+    eng_p.serve([])
+    eng_p.allocator.assert_consistent()
+    assert eng_p.allocator.live_pages == 0
+    phase(f"phase 6d paged decode-step profile ({n_prof} engine steps, "
+          f"{n_active} slots active at the prompt lengths): wall "
+          f"{wall_p:.3f} ms/step, {device_p}")
+
+    # 7. the whole slice, card vs CPU at float32, ring and paged -------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = dataclasses.replace(cfg, dtype_name="float32")
     params32 = lm.init_params(cfg32, gen, device=dev)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (19, 40)]
-    runs = {}
-    for device in ("cuda", "cpu"):         # the engine moves the params
-        e32 = ServingEngine(cfg32, params32, ServeConfig(
-            max_batch=2, max_len=64, kv_format="posit8"),
-            policy="paper_edge_p8", device=device)
-        logs = []
-        gen_fn = e32.engine.generate
+    prompts32 = [rng.integers(0, cfg.vocab, n) for n in (19, 40)]
 
-        def generate_logged(*a, _g=gen_fn, _l=logs):
-            state, logits = _g(*a)
-            _l.append(logits.detach().cpu())
-            return state, logits
+    def card_vs_cpu(label, **layout):
+        runs = {}
+        for device in ("cuda", "cpu"):     # the engine moves the params
+            e32 = ServingEngine(cfg32, params32, ServeConfig(
+                max_batch=2, max_len=64, kv_format="posit8", **layout),
+                policy="paper_edge_p8", device=device)
+            logs = []
+            gen_fn = e32.engine.generate
 
-        e32.engine.generate = generate_logged
-        rq = [Request(uid=i, prompt=pr, max_new=8)
-              for i, pr in enumerate(prompts)]
-        e32.serve(rq)
-        runs[device] = (logs, [r.out_tokens for r in rq])
-    for i in range(2):
-        torch.testing.assert_close(runs["cuda"][0][i], runs["cpu"][0][i],
-                                   rtol=1e-3, atol=1e-3)
-    dmax = max(float((runs["cuda"][0][i] - runs["cpu"][0][i]).abs().max())
-               for i in range(2))
-    same = [sum(a == b for a, b in zip(x, y))
-            for x, y in zip(runs["cuda"][1], runs["cpu"][1])]
-    phase(f"phase 7 card vs CPU (float32, TF32 off): first two decode "
-          f"steps' logits within rtol 1e-3 atol 1e-3 (max |diff| "
-          f"{dmax:.3e}); identical greedy tokens per request "
-          f"{same} of 8")
+            def generate_logged(*a, _g=gen_fn, _l=logs):
+                state, logits = _g(*a)
+                _l.append(logits.detach().cpu())
+                return state, logits
+
+            e32.engine.generate = generate_logged
+            rq = [Request(uid=i, prompt=pr, max_new=8)
+                  for i, pr in enumerate(prompts32)]
+            e32.serve(rq)
+            runs[device] = (logs, [r.out_tokens for r in rq],
+                            e32.cache["blocks"][0])
+        # posit8 codes and scales the two devices wrote (pool: past trash
+        # page 0): a K/V value at a rounding midpoint can take the next code
+        # on one device, which moves the logits by more than f32 noise
+        cut = PS if layout else 0
+        diff = {k: (runs["cuda"][2][k].cpu()[:, cut:].to(torch.float32)
+                    != runs["cpu"][2][k][:, cut:].to(torch.float32))
+                for k in ("k", "v", "k_scale", "v_scale")}
+        codes_diff = int(diff["k"].sum() + diff["v"].sum())
+        scales_diff = int(diff["k_scale"].sum() + diff["v_scale"].sum())
+        for i in range(2):
+            torch.testing.assert_close(runs["cuda"][0][i], runs["cpu"][0][i],
+                                       rtol=1e-3, atol=1e-3)
+        dmax = max(float((runs["cuda"][0][i] - runs["cpu"][0][i]).abs()
+                         .max()) for i in range(2))
+        same = [sum(a == b for a, b in zip(x, y))
+                for x, y in zip(runs["cuda"][1], runs["cpu"][1])]
+        phase(f"{label} card vs CPU (float32, TF32 off): first two decode "
+              f"steps' logits within rtol 1e-3 atol 1e-3 (max |diff| "
+              f"{dmax:.3e}); identical greedy tokens per request "
+              f"{same} of 8; KV codes that differ {codes_diff} of "
+              f"{2 * diff['k'].numel()}, scales {scales_diff}")
+
+    card_vs_cpu("phase 7 ring")
+    card_vs_cpu("phase 7b paged", kv_layout="paged", page_size=PS)
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
@@ -445,6 +625,20 @@ def main() -> int:
     q_step = torch.from_numpy(rng.normal(0, 1, (B, 1, NH, HD)).astype(
         np.float32)).to(dev).to(torch.bfloat16)
     live = int(cache_len.sum())
+    # K5/K6: one full pool per layer, every slot's 1024 rows written
+    # through the shuffled table
+    kc_p = torch.zeros((layers, POOL_PAGES * PS, NKV, HD), dtype=torch.uint8,
+                       device=dev)
+    ks_p = torch.ones((layers, POOL_PAGES * PS, NKV), device=dev)
+    vc_p, vs_p = kc_p.clone(), ks_p.clone()
+    dst_all = pkv.flat_dst_rows_chunk(
+        table, torch.zeros(B, dtype=torch.int32, device=dev), W, PS)
+    for i in range(layers):
+        pkv.paged_kv_append_rows(kc_p[i], ks_p[i], vc_p[i], vs_p[i],
+                                 rows(W, src=rng_pg), rows(W, src=rng_pg),
+                                 dst_all, p8)
+    dst_step = pkv.flat_dst_rows(table, pos_step, PS)
+    pages_read = int(((cache_len + PS - 1) // PS).sum())
 
     def k1(i, plain=False):
         return (decode_tile if plain else posit_decode)(code_sets[i], p8)
@@ -464,6 +658,17 @@ def main() -> int:
         return fn(q_step, kc_l[i], ks_l[i], vc_l[i], vs_l[i], cache_len,
                   p8, **kw)
 
+    def k5(i, plain=False):
+        fn = pkv.paged_kv_append_ref if plain else pkv.paged_kv_append
+        return fn(kc_p[i], ks_p[i], vc_p[i], vs_p[i], k_step, v_step,
+                  dst_step, p8, packed=False)
+
+    def k6(i, plain=False):
+        fn = (pkv.paged_decode_attention_ref if plain
+              else pkv.paged_decode_attention)
+        return fn(q_step, kc_p[i], ks_p[i], vc_p[i], vs_p[i], table,
+                  cache_len, p8, page_size=PS, packed=False)
+
     # 8b. K4's device time against the 64-row blocks each slot walks
     walk_us = {}
     for n_rows in (64, 256, 1024):
@@ -482,10 +687,16 @@ def main() -> int:
         "kv_append_rows": 2 * B * NKV * (HD * 4 + HD + 4) + B * 4,
         "decode_attention": 2 * live * NKV * (HD + 4) + B * 4
         + 2 * B * NH * HD * 4,
+        "paged_kv_append_rows": 2 * B * NKV * (HD * 4 + HD + 4) + B * 4,
+        # live rows, seq_lens, the table entries the walk reads, q and out
+        "paged_decode_attention": 2 * live * NKV * (HD + 4) + B * 4
+        + pages_read * 4 + 2 * B * NH * HD * 4,
     }
-    flops = {"decode_attention": live * NH * 4 * HD}
+    flops = {"decode_attention": live * NH * 4 * HD,
+             "paged_decode_attention": live * NH * 4 * HD}
     fns = {"posit_decode": k1, "posit_encode": k2, "kv_append_rows": k3,
-           "decode_attention": k4}
+           "decode_attention": k4, "paged_kv_append_rows": k5,
+           "paged_decode_attention": k6}
     out = []
     for name, fn in fns.items():
         ms = graph_ms(fn, layers)

@@ -45,10 +45,18 @@ SIGNATURES = {
         # B, nkv, grp, hd, W, nbits, es, bias, stream
         "decode_attention": [_P] * 7 + [_I] * 8 + [_P],
     },
+    "paged_kv": {
+        # k_new, v_new, k_codes, k_scale, v_codes, v_scale, dst,
+        # B, T, H, hd, R, nbits, es, bias, stream
+        "paged_kv_append_rows": [_P] * 7 + [_I] * 8 + [_P],
+        # q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens, out,
+        # B, nkv, grp, hd, ps, Pmax, num_pages, nbits, es, bias, stream
+        "paged_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
+    },
 }
 
-LAUNCHES: Dict[str, int] = {"posit_decode": 0, "posit_encode": 0,
-                            "kv_append_rows": 0, "decode_attention": 0}
+LAUNCHES: Dict[str, int] = {fn: 0 for entries in SIGNATURES.values()
+                            for fn in entries}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -164,3 +172,18 @@ def check_fmt(name: str, fmt) -> None:
         raise ValueError(f"{name}: no CUDA instantiation for posit"
                          f"({fmt.bits},{fmt.es}); built: "
                          f"{sorted(KERNEL_FORMATS)}")
+
+
+def check_kv(name: str, fmt, packed: bool, codes, scales) -> None:
+    """What every KV-cache kernel takes: a built format, nibble packing
+    exactly for 4-bit codes, codes of ``code_dtype(fmt)`` and float32
+    scales."""
+    check_fmt(name, fmt)
+    if packed != (fmt.bits == 4):
+        raise ValueError(f"{name}: nibble packing is for 4-bit codes")
+    for c in codes:
+        if c.dtype != code_dtype(fmt):
+            raise TypeError(f"{name}: codes must be {code_dtype(fmt)}")
+    for s in scales:
+        if s.dtype != torch.float32:
+            raise TypeError(f"{name}: scales must be float32")

@@ -116,9 +116,8 @@ def kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
     if not k_codes.is_cuda:
         return kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale, k_new,
                                   v_new, pos, fmt, packed)
-    _build.check_fmt("kv_append_rows", fmt)
-    if packed != (fmt.bits == 4):
-        raise ValueError("kv_append_rows: nibble packing is for 4-bit codes")
+    _build.check_kv("kv_append_rows", fmt, packed, (k_codes, v_codes),
+                    (k_scale, v_scale))
     b, w, h, dc = k_codes.shape
     t, hd = k_new.shape[1], k_new.shape[-1]
     if (k_new.shape != (b, t, h, hd) or v_new.shape != k_new.shape
@@ -128,12 +127,6 @@ def kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
         raise ValueError("kv_append_rows: inconsistent shapes")
     if hd > 256 or hd % 2:
         raise ValueError("kv_append_rows: head dim must be even and <= 256")
-    for c in (k_codes, v_codes):
-        if c.dtype != _build.code_dtype(fmt):
-            raise TypeError(f"kv_append_rows: codes must be "
-                            f"{_build.code_dtype(fmt)}")
-    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
-        raise TypeError("kv_append_rows: scales must be float32")
     k_new = k_new.to(torch.float32).contiguous()
     v_new = v_new.to(torch.float32).contiguous()
     pos = torch.as_tensor(pos, device=k_codes.device).to(
@@ -181,10 +174,8 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, cache_len,
     if not q.is_cuda:
         return decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
                                     cache_len, fmt, packed)
-    _build.check_fmt("decode_attention", fmt)
-    if packed != (fmt.bits == 4):
-        raise ValueError("decode_attention: nibble packing is for 4-bit "
-                         "codes")
+    _build.check_kv("decode_attention", fmt, packed, (k_codes, v_codes),
+                    (k_scale, v_scale))
     b, w, nkv, dc = k_codes.shape
     nh, hd = q.shape[2], q.shape[3]
     if (q.shape != (b, 1, nh, hd) or nh % nkv

@@ -1,6 +1,6 @@
 """Serving path of the dense attention stack: cache init, bucketed prefill
-and single-token decode (port of ``repro.models.serve_model``, ring
-layout).
+and single-token decode (port of ``repro.models.serve_model``, ring and
+paged layouts).
 
 Caches keep the reference's layout: ``{"pos", "blocks": ({...},)}`` where a
 posit cache block holds ``k``/``v`` codes (P, B, W, nkv, Dc) and
@@ -8,11 +8,16 @@ posit cache block holds ``k``/``v`` codes (P, B, W, nkv, Dc) and
 ``k``/``v`` (P, B, W, nkv, hd).  ``pos`` is a scalar or a (B,) per-slot
 vector.  Ring writes land at row pos mod W.
 
+With ``policy.kv_layout == "paged"`` the per-slot rings become one flat
+page pool per layer, (P, R, nkv, Dc|hd) with R = num_pages * page_size
+rows and no batch axis, plus a top-level ``page_table`` (B, Pmax) int32
+and a (B,) ``pos`` (``kernels/paged_kv.py`` has the layout).
+
 In place: ``prefill`` and ``decode_step`` write K/V rows into the cache
 tensors they are given (per-layer views of the stacked buffers) and return
 the same dict with a new ``pos``; the reference returns new arrays.  On
-CUDA tensors the posit writes are the K3 kernel and the posit reads the K4
-kernel; on CPU tensors their plain versions.
+CUDA tensors the posit writes are the K3 (ring) / K5 (paged) kernels and
+the posit reads K4 / K6; on CPU tensors their plain versions.
 """
 from __future__ import annotations
 
@@ -23,45 +28,65 @@ import torch
 from .. import resolve_device
 from ..core.transprecision import BF16, KVStorage, TCPolicy, kv_storage
 from ..kernels import kv_cache as kv_kernels
+from ..kernels import paged_kv as paged_kernels
 from . import attention
 from .common import _einsum, apply_rope, rms_norm
 from .lm import ModelCfg, _mlp, _qkv, _qw, _rope_cs, layer_params, lm_head
 
-def check_layout(policy: TCPolicy) -> None:
-    """Only the ring layout is ported; the paged one raises."""
-    if policy.kv_layout == "paged":
-        raise NotImplementedError("the paged KV layout is a later slice of "
-                                  "the port; use kv_layout='ring'")
-    if policy.kv_layout != "ring":
-        raise ValueError(f"unknown kv_layout {policy.kv_layout!r}")
+def check_layout(policy: TCPolicy) -> bool:
+    """True for the paged KV layout, False for the ring; raises on any
+    other."""
+    if policy.kv_layout not in ("ring", "paged"):
+        raise ValueError(f"unknown kv_layout {policy.kv_layout!r}; known: "
+                         "ring|paged")
+    return policy.kv_layout == "paged"
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
-               policy: TCPolicy = BF16, *, device="cuda") -> Dict[str, Any]:
+               policy: TCPolicy = BF16, *, num_pages: Optional[int] = None,
+               device="cuda") -> Dict[str, Any]:
     """Empty decode state for ``batch`` sequences up to ``max_len`` tokens.
 
     A posit ``kv_format`` stores codes (zeros) plus per-row f32 pow2 scales
-    (ones); otherwise K/V are floats in the format's (or model's) dtype."""
-    check_layout(policy)
+    (ones); otherwise K/V are floats in the format's (or model's) dtype.
+    Paged: ``num_pages=None`` reserves the full pool (1 trash page + batch
+    * Pmax) with the identity table (slot i owns pages 1 + i*Pmax ..), so
+    standalone prefill/decode needs no allocator; an explicit
+    ``num_pages`` gives a zero (all-trash) table that the caller owns."""
+    paged = check_layout(policy)
     device = resolve_device(device)
     spec = kv_storage(policy)
     hd, nkv, P = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    if paged:
+        ps = policy.kv_page_size
+        pmax = -(-max_len // ps)            # logical pages per slot
+        full_pool = num_pages is None
+        if full_pool:
+            num_pages = 1 + batch * pmax    # page 0 is the trash page
+        rows = (P, num_pages * ps, nkv)
+    else:
+        rows = (P, batch, max_len, nkv)
     if spec is not None and spec.is_posit:
         dc = kv_kernels.code_channels(hd, spec.fmt, spec.packed)
-        shape = (P, batch, max_len, nkv)
-        blk = {"k": torch.zeros(shape + (dc,), dtype=spec.fmt.storage_dtype,
+        blk = {"k": torch.zeros(rows + (dc,), dtype=spec.fmt.storage_dtype,
                                 device=device),
-               "v": torch.zeros(shape + (dc,), dtype=spec.fmt.storage_dtype,
+               "v": torch.zeros(rows + (dc,), dtype=spec.fmt.storage_dtype,
                                 device=device),
-               "k_scale": torch.ones(shape, device=device),
-               "v_scale": torch.ones(shape, device=device)}
+               "k_scale": torch.ones(rows, device=device),
+               "v_scale": torch.ones(rows, device=device)}
     else:
         dt = dtype or (spec.dtype if spec is not None else cfg.dtype)
-        shape = (P, batch, max_len, nkv, hd)
-        blk = {"k": torch.zeros(shape, dtype=dt, device=device),
-               "v": torch.zeros(shape, dtype=dt, device=device)}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "blocks": (blk,)}
+        blk = {"k": torch.zeros(rows + (hd,), dtype=dt, device=device),
+               "v": torch.zeros(rows + (hd,), dtype=dt, device=device)}
+    cache = {"pos": torch.zeros((batch,) if paged else (), dtype=torch.int32,
+                                device=device),
+             "blocks": (blk,)}
+    if paged:
+        table = (1 + torch.arange(batch * pmax, device=device).reshape(
+            batch, pmax) if full_pool
+            else torch.zeros((batch, pmax), device=device))
+        cache["page_table"] = table.to(torch.int32)
+    return cache
 
 
 def _layer_cache(cache, i: int) -> Dict[str, torch.Tensor]:
@@ -84,8 +109,29 @@ def _ring_write(buf, val, pos):
         buf[:, int(pos) % w] = val[:, 0].to(buf.dtype)
 
 
+def _attn_decode_paged(c, qp, kp, vp, paged, spec: Optional[KVStorage]):
+    """Paged-pool K/V append + page-walking attention for one layer.
+    ``paged`` is (dst (B,) flat rows, seq_lens (B,), page table (B, Pmax),
+    page size), shared by every layer of the step."""
+    dst, seq_lens, table, ps = paged
+    if spec is not None and spec.is_posit:
+        paged_kernels.paged_kv_append(
+            c["k"], c["k_scale"], c["v"], c["v_scale"], kp.to(torch.float32),
+            vp.to(torch.float32), dst, spec.fmt, packed=spec.packed)
+        return paged_kernels.paged_decode_attention(
+            qp, c["k"], c["k_scale"], c["v"], c["v_scale"], table, seq_lens,
+            spec.fmt, page_size=ps, packed=spec.packed)
+    # float formats: plain scatter + gather, as the reference (no kernel)
+    rows = dst.long()
+    c["k"][rows] = kp[:, 0].to(c["k"].dtype)
+    c["v"][rows] = vp[:, 0].to(c["v"].dtype)
+    return attention.decode_attention(
+        qp, paged_kernels.gather_pages(c["k"], table, ps),
+        paged_kernels.gather_pages(c["v"], table, ps), seq_lens)
+
+
 def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
-                 spec: Optional[KVStorage]):
+                 spec: Optional[KVStorage], paged=None):
     b = x.shape[0]
     h = rms_norm(x, p["ln"])
     qp, kp, vp = _qkv(p, h, cfg, policy)
@@ -93,19 +139,22 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     cos, sin = _rope_cs(cfg, posv)
     qp = apply_rope(qp, cos, sin)
     kp = apply_rope(kp, cos, sin)
-    w = c["k"].shape[1]
-    cl = torch.clamp(pos + 1, max=w)
-    if spec is not None and spec.is_posit:
-        kv_kernels.kv_append_rows(c["k"], c["k_scale"], c["v"], c["v_scale"],
-                                  kp.to(torch.float32), vp.to(torch.float32),
-                                  pos, spec.fmt, packed=spec.packed)
-        ao = attention.decode_attention_packed(
-            qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
-            v_scale=c["v_scale"], spec=spec)
+    if paged is not None:
+        ao = _attn_decode_paged(c, qp, kp, vp, paged, spec)
     else:
-        _ring_write(c["k"], kp, pos)
-        _ring_write(c["v"], vp, pos)
-        ao = attention.decode_attention(qp, c["k"], c["v"], cl)
+        cl = torch.clamp(pos + 1, max=c["k"].shape[1])
+        if spec is not None and spec.is_posit:
+            kv_kernels.kv_append_rows(
+                c["k"], c["k_scale"], c["v"], c["v_scale"],
+                kp.to(torch.float32), vp.to(torch.float32), pos, spec.fmt,
+                packed=spec.packed)
+            ao = attention.decode_attention_packed(
+                qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
+                v_scale=c["v_scale"], spec=spec)
+        else:
+            _ring_write(c["k"], kp, pos)
+            _ring_write(c["v"], vp, pos)
+            ao = attention.decode_attention(qp, c["k"], c["v"], cl)
     # attention may run at higher precision than the stream (f32-decoded
     # K/V); the residual stream keeps the model dtype
     x = x + _einsum("bsk,kd->bsd", ao.reshape(b, 1, -1),
@@ -116,15 +165,24 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
 def decode_step(params, cache, tokens, cfg: ModelCfg,
                 policy: TCPolicy = BF16):
     """One serving step. tokens: (B, 1) int.  Returns (logits (B,
-    vocab_pad), cache) with K/V rows written in place and ``pos`` + 1."""
+    vocab_pad), cache) with K/V rows written in place and ``pos`` + 1.
+    Paged caches (``cache["page_table"]``) take per-slot positions; a
+    scalar ``pos`` is broadcast to every slot."""
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
     emb = policy.quantize_weight(params["embed"], "embed_weights")
     x = emb[tokens].to(cfg.dtype)
+    table, paged, pos_l = cache.get("page_table"), None, pos
+    if table is not None:
+        pos_l = pos.expand(x.shape[0]) if pos.ndim == 0 else pos
+        ps = policy.kv_page_size
+        paged = (paged_kernels.flat_dst_rows(table, pos_l, ps), pos_l + 1,
+                 table, ps)
     for i in range(cfg.n_layers):
         x = _attn_decode(layer_params(params["blocks"][0], i),
-                         _layer_cache(cache, i), x, cfg, policy, pos, spec)
+                         _layer_cache(cache, i), x, cfg, policy, pos_l, spec,
+                         paged)
     x = rms_norm(x, params["final_norm"])
     logits = _einsum("bsd,dv->bsv", x, lm_head(params, cfg))[:, 0]
     cache["pos"] = pos + 1
@@ -147,17 +205,24 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     ``true_len`` (scalar or (B,)) enables right-padded bucketed prefill:
     ``batch["tokens"]`` is padded to a shared width S and only the first
     ``true_len[b]`` tokens of each row are real.  Padding rows are causally
-    masked out of every real row, their K/V rows hold cache-init values
-    (codes 0, scale 1), logits come from position ``true_len - 1`` and
-    ``cache["pos"]`` is the per-slot ``true_len`` vector.
+    masked out of every real row, logits come from position
+    ``true_len - 1`` and ``cache["pos"]`` is the per-slot ``true_len``
+    vector.  Ring: padding K/V rows hold cache-init values (codes 0,
+    scale 1).  Paged (full pool, identity table; S <= max_len): prompt row
+    t of slot b lands at ``page_table[b, t//ps]*ps + t%ps`` and padding
+    rows land on trash row 0.
 
     Posit caches are written by the K3 path (``kv_append_rows`` from
     position ``max(S - W, 0)``) into the fresh ring, then the padding rows
-    are reset: the same bits as the reference's bulk encode."""
-    check_layout(policy)
+    are reset: the same bits as the reference's bulk encode.  Paged posit
+    pools are written by the K5 path at T = S with those flat rows."""
+    paged = check_layout(policy)
     tokens = batch["tokens"]
     dev = tokens.device
     b, s = tokens.shape
+    if paged and s > max_len:
+        raise ValueError(f"prompt length {s} exceeds max_len {max_len} "
+                         "for the paged KV layout")
     emb = policy.quantize_weight(params["embed"], "embed_weights")
     x = emb[tokens].to(cfg.dtype)
     valid = None
@@ -174,8 +239,18 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     vm = None if valid is None else valid[:, start:start + length]
     positions = torch.arange(s, device=dev)
     cos, sin = _rope_cs(cfg, positions)
+    if paged:
+        ps = policy.kv_page_size
+        rows2d = (cache["page_table"][:, positions // ps].long() * ps
+                  + (positions % ps)[None, :])                   # (B, S)
+        if valid is not None:
+            rows2d = torch.where(valid, rows2d, 0)
 
     def fill(c, name, kv):
+        if paged:
+            c[name][rows2d.reshape(-1)] = kv.reshape(
+                (b * s,) + kv.shape[2:]).to(c[name].dtype)
+            return
         rows = kv[:, start:start + length]
         if vm is not None:      # padding rows hold cache-init zeros
             rows = torch.where(vm[:, :, None, None], rows, 0)
@@ -200,7 +275,12 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
                                            kv_block=cfg.kv_block)
         x = x + _einsum("bsk,kd->bsd", ao.reshape(b, s, -1),
                         _qw(policy, "attn_weights")(p["wo"]))
-        if posit_kv:
+        if posit_kv and paged:
+            paged_kernels.paged_kv_append_rows(
+                c["k"], c["k_scale"], c["v"], c["v_scale"],
+                kp.to(torch.float32), vp.to(torch.float32), rows2d,
+                spec.fmt, packed=spec.packed)
+        elif posit_kv:
             kv_kernels.kv_append_rows(
                 c["k"], c["k_scale"], c["v"], c["v_scale"],
                 kp[:, start:start + length].to(torch.float32),
@@ -217,6 +297,10 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     x_last = (x[:, -1] if true_len is None
               else x[torch.arange(b, device=dev), true_len.long() - 1])
     logits = _einsum("bd,dv->bv", x_last, lm_head(params, cfg))
-    cache["pos"] = (true_len if true_len is not None
-                    else torch.tensor(s, dtype=torch.int32, device=dev))
+    if true_len is not None:
+        cache["pos"] = true_len
+    else:
+        cache["pos"] = (torch.full((b,), s, dtype=torch.int32, device=dev)
+                        if paged else
+                        torch.tensor(s, dtype=torch.int32, device=dev))
     return logits, cache

@@ -1,5 +1,5 @@
 """Serving-engine API: three stages over one shared decode state (port of
-``repro.serve.engine_api``, ring layout).
+``repro.serve.engine_api``, ring and paged layouts).
 
     prefill(params, tokens, lengths) -> Prefix
     insert(prefix, decode_state, slot) -> decode_state
@@ -10,7 +10,10 @@
   causally masked to exact-zero contributions.
 * **Prefix = bucket-width cache.**  ``prefill`` returns a ``Prefix`` whose
   cache leaves are (B, bucket, ...) ring rows; ``insert`` copies one row's
-  prefix into rows [0, bucket) of a slot's ring IN PLACE.
+  prefix into rows [0, bucket) of a slot's ring IN PLACE.  Paged engines
+  prefill through a ring copy of the policy at bucket width (the same
+  codec as the pool) and ``insert`` scatters the prefix rows straight to
+  the flat pool rows ``dst_rows``; no max_len ring is ever built.
 * **generate** is one decode tick for the whole batch with per-slot
   positions; it writes K/V rows in place and advances ``state["tok"]`` to
   the greedy argmax per slot on the device.
@@ -23,6 +26,7 @@ traces.  With tracing disabled nothing is synchronized.
 """
 from __future__ import annotations
 
+import dataclasses
 from time import perf_counter
 from typing import Any, Dict, Optional
 
@@ -47,12 +51,19 @@ class TransprecisionEngine:
     The engine owns no request/queue state — drivers do."""
 
     def __init__(self, cfg, policy: TCPolicy, max_batch: int, max_len: int,
-                 *, device="cuda", tracer: Optional[Tracer] = None,
+                 *, num_pages: Optional[int] = None, device="cuda",
+                 tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  stage_prefix: str = ""):
         self.cfg = cfg
         self.policy = get_policy(policy)
-        check_layout(self.policy)
+        self.paged = check_layout(self.policy)
+        self.num_pages = num_pages
+        # paged: prompts prefill through the ring datapath at bucket width
+        # and insert scatters the rows into pool pages
+        self._prefill_policy = (dataclasses.replace(
+            self.policy, kv_layout="ring", name=self.policy.name + "+prefix")
+            if self.paged else self.policy)
         self.device = resolve_device(device)
         self.tracer = tracer
         self.metrics = metrics
@@ -93,9 +104,12 @@ class TransprecisionEngine:
     # ---- stage: decode-state construction ----
     def init_decode_state(self) -> Dict[str, Any]:
         """Empty decode state for ``max_batch`` slots: the KV cache with
-        per-slot ``pos`` plus the ``"tok"`` next-input leaf."""
+        per-slot ``pos`` plus the ``"tok"`` next-input leaf.  Paged engines
+        with an explicit pool size get a zero page table (the driver owns
+        it)."""
         state = init_cache(self.cfg, self.max_batch, self.max_len,
-                           policy=self.policy, device=self.device)
+                           policy=self.policy, num_pages=self.num_pages,
+                           device=self.device)
         state["pos"] = torch.zeros((self.max_batch,), dtype=torch.int32,
                                    device=self.device)
         state["tok"] = torch.zeros((self.max_batch, 1), dtype=torch.int32,
@@ -120,7 +134,7 @@ class TransprecisionEngine:
 
         def impl(p, t, l):
             logits, cache = prefill(p, {"tokens": t}, self.cfg, s,
-                                    self.policy, true_len=l)
+                                    self._prefill_policy, true_len=l)
             length = (l if l is not None else
                       torch.full((b,), s, dtype=torch.int32,
                                  device=self.device))
@@ -132,18 +146,27 @@ class TransprecisionEngine:
         return self._staged("prefill", impl, params, tokens, lengths)
 
     # ---- stage: insert ----
-    def insert(self, prefix: Prefix, state, slot: int, row: int = 0):
+    def insert(self, prefix: Prefix, state, slot: int, row: int = 0,
+               dst_rows=None):
         """Copy prefix row ``row`` into decode-state slot ``slot``, in
-        place: its bucket-width K/V rows land at ring rows [0, bucket) and
-        ``pos[slot]`` becomes the prompt length."""
+        place, and set ``pos[slot]`` to the prompt length.  Ring: its
+        bucket-width K/V rows land at ring rows [0, bucket).  Paged: they
+        scatter to the ``dst_rows`` flat pool rows ((N,) int, N <= bucket,
+        padded with trash row 0)."""
+        if dst_rows is not None:
+            dst_rows = torch.as_tensor(dst_rows, device=self.device).to(
+                torch.int64)
         return self._staged("insert", self._insert_impl, state,
-                            prefix["cache"], prefix["length"], slot, row)
+                            prefix["cache"], prefix["length"], slot, row,
+                            dst_rows)
 
-    def _insert_impl(self, state, pcache, length, slot, row):
+    def _insert_impl(self, state, pcache, length, slot, row, dst_rows):
         for dst, src in zip(state["blocks"], pcache["blocks"]):
             for name, d in dst.items():
-                w = src[name].shape[2]
-                d[:, slot, :w] = src[name][:, row]
+                if dst_rows is None:
+                    d[:, slot, :src[name].shape[2]] = src[name][:, row]
+                else:       # (P, R, ...) <- (P, w, ...)
+                    d[:, dst_rows] = src[name][:, row, :len(dst_rows)]
         state["pos"][slot] = length[row]
         return state
 

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
-its entry points default to the GPU and raise without one, and the parts
-left to later slices raise ``NotImplementedError``."""
+its entry points (ring and paged) default to the GPU and raise without
+one, and the parts left to later slices raise ``NotImplementedError``."""
 import ast
 import os
 import subprocess
@@ -93,11 +93,6 @@ def test_kernel_build_raises_without_nvcc():
 
 def test_later_slices_raise_not_implemented():
     cfg = get_config("paper-edge", smoke=True)
-    paged = TCPolicy(name="p", kv_format="posit8", kv_layout="paged")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve_model.init_cache(cfg, 2, 32, policy=paged, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TransprecisionEngine(cfg, paged, 2, 32, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         serve_model.verify_step()
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -109,3 +104,24 @@ def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32),
                       device="cpu", guard=True)
+
+
+def test_paged_entry_points_default_to_gpu():
+    """The paged layout's entry points run on the card unless the caller
+    asks for the CPU, and raise without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    cfg = get_config("paper-edge", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    scfg = ServeConfig(max_batch=2, max_len=32, kv_format="posit8",
+                       kv_layout="paged", page_size=4)
+    paged = TCPolicy(name="p", kv_format="posit8", kv_layout="paged")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ServingEngine(cfg, params, scfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        TransprecisionEngine(cfg, paged, 2, 32, num_pages=5)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        serve_model.init_cache(cfg, 2, 32, policy=paged)
+    eng = ServingEngine(cfg, params, scfg, device="cpu")
+    assert eng.paged and eng.cache["page_table"].device.type == "cpu"
