@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``).
 
-Builds the hand-written CUDA kernels (K1..K6) from ``src/repro_torch/csrc``,
+Builds the hand-written CUDA kernels (K1..K7) from ``src/repro_torch/csrc``,
 holds each against its plain PyTorch version on the card, serves the
 full-width paper-edge model through ``ServingEngine`` with a posit8 KV ring
 and then a posit8 paged pool, checks card against CPU at float32 in both
-layouts, times every kernel and prints one JSON line per contract.  Needs
-one CUDA GPU; run from the repository root:
+layouts, runs the quickstart path at full width (the codec, K7 through
+``qt_matmul`` on every weight matrix, five PAPER_EDGE train steps), checks
+a train step card against CPU, times every kernel and prints one JSON line
+per contract.  Needs one CUDA GPU; run from the repository root:
 
     python3 chip_smoke.py [--seed N]
 
 Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5; 5 K4; 5b K6; 6 ring main path;
 6b ring decode-step profile; 6c paged main path; 6d paged decode-step
 profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8 kernel times;
-8b K4 by blocks walked.
+8b K4 by blocks walked; 9 K7; 10 the quickstart path (serving's
+counterpart: training); 10b train step card vs CPU; then K7's times.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
@@ -23,9 +26,19 @@ Every phase asserts; nothing is caught.  Tolerances:
   K4, K6         rtol 1e-5, atol 1e-5 against decode_attention_ref /
                  paged_decode_attention_ref on K/V of O(1) magnitude
                  (online vs dense softmax: f32 summation order).
-  card vs CPU    rtol 1e-3, atol 1e-3 on the first two decode steps' logits
-                 (float32 model, TF32 off on the card; matmul summation
-                 order differs between cuBLAS and the CPU), ring and paged.
+  K7             rtol 2e-5, atol 2e-4 against posit_matmul_plain (the
+                 reference's own tolerance: f32 accumulation order) on
+                 weights encoded from N(0, 1); NaN exactly in a NaR column.
+  card vs CPU    (a) the CPU's first two decode steps from the card's cache
+                 and rows within rtol 1e-3, atol 1e-3 of the card's logits
+                 (float32 model, TF32 off: matmul summation order); (b) the
+                 caches each device wrote: scales equal, codes differing on
+                 < 0.1 % of the written codes, each one posit step from its
+                 counterpart (a value at a rounding midpoint) or, near zero,
+                 within 2^-12 of the row's scale (posit8's spacing there is
+                 below f32 noise), ring and paged.
+  train step     card vs CPU at float32: loss rtol 1e-4, grad norm rtol
+                 1e-3, every updated param and master leaf atol 1e-5.
 The paged run's greedy tokens are compared with the ring run's and the
 count printed, not asserted: K4 and K6 sum in different orders in bf16.
 
@@ -34,9 +47,12 @@ wrapper call, from a CUDA graph of 20 calls replayed between CUDA events,
 so no host launch cost enters it (the attention wrappers add their q
 scaling and output cast, small elementwise ops, to the kernel);
 ``plain_ms`` is the plain PyTorch version per call, between CUDA events
-around eager calls.  The decode-step profiles of phases 6b and 6d (device
-busy, idle share) come from a torch.profiler trace and read "not
-measured" where the trace holds no device events.
+around eager calls.  K7's entry also carries its M = 8 shape (``m8``) and
+``decoded_matmul_ms``, torch.matmul of x by the already decoded f32
+weights: a labelled yardstick, not the same function (no PyTorch call
+decodes posit codes, so ``library_ms`` is null).  The decode-step and
+train-step profiles (device busy, idle share) come from a torch.profiler
+trace and read "not measured" where the trace holds no device events.
 """
 from __future__ import annotations
 
@@ -69,6 +85,8 @@ KERNELS = {
                              "src/repro/kernels/paged_kv.py:123"),
     "paged_decode_attention": ("src/repro_torch/csrc/paged_kv.cu",
                                "src/repro/kernels/paged_kv.py:234"),
+    "posit_matmul": ("src/repro_torch/csrc/posit_matmul.cu",
+                     "src/repro/kernels/posit_matmul.py:50"),
 }
 CODEC_FORMATS = ("posit4_1", "posit8_0", "posit8_2", "posit16_1", "posit16_2")
 # the main path's shape: max_batch 8, max_len 1024, 4 KV heads of 64
@@ -559,47 +577,133 @@ def main() -> int:
     params32 = lm.init_params(cfg32, gen, device=dev)
     prompts32 = [rng.integers(0, cfg.vocab, n) for n in (19, 40)]
 
+    def snapshot(tree):
+        """A CPU copy of a decode state (tensors cloned, others kept)."""
+        if isinstance(tree, dict):
+            return {k: snapshot(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(snapshot(v) for v in tree)
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().to("cpu", copy=True)
+        return tree
+
+    def signed_codes(c):
+        """posit8 codes as signed integers: their order is the posits'."""
+        c = c.to(torch.int16)
+        return torch.where(c >= 128, c - 256, c)
+
+    p8_kv = get_fmt("posit8_2")
+    near_zero = 2.0 ** -12      # of the row's scale: posit8 keeps ~2 bits
+
+    def code_flips(a, b):
+        """Codes two devices wrote for one set of K/V values.  Each code
+        that differs must be the neighbour of its counterpart in posit
+        order, or, near zero (|values| far below the row's scale, where
+        posit8's spacing falls under f32 noise and a sign may cross), decode
+        within 2^-12 of the row's scale of it.  Returns (differ, near
+        zero)."""
+        sa, sb = signed_codes(a), signed_codes(b)
+        far = (sa - sb).abs() > 1
+        gap = (decode_tile(a[far], p8_kv) - decode_tile(b[far], p8_kv)).abs()
+        assert bool((gap <= near_zero).all()), float(gap.max())
+        return int((sa != sb).sum()), int(far.sum())
+
     def card_vs_cpu(label, **layout):
+        """(a) The CPU runs its first two decode steps from the card's
+        cache (codes, scales, page table and input tokens copied over); in
+        each layer the row the CPU just wrote is then replaced by the card's
+        (its codes are held as in (b)), so every step reads identical caches
+        and the logits are held to the card's.  (b) The caches each device
+        wrote from its own prefill: scales equal, codes held by
+        ``code_flips`` on < 0.1 % of the written codes.  The greedy tokens
+        of the two independent runs are counted."""
         runs = {}
         for device in ("cuda", "cpu"):     # the engine moves the params
             e32 = ServingEngine(cfg32, params32, ServeConfig(
                 max_batch=2, max_len=64, kv_format="posit8", **layout),
                 policy="paper_edge_p8", device=device)
-            logs = []
+            rec = {"logits": [], "tok": [], "states": []}
             gen_fn = e32.engine.generate
 
-            def generate_logged(*a, _g=gen_fn, _l=logs):
-                state, logits = _g(*a)
-                _l.append(logits.detach().cpu())
+            def generate_logged(params, state, _g=gen_fn, _r=rec):
+                if len(_r["tok"]) < 3:      # after insert, then per step
+                    _r["states"].append(snapshot(state))
+                _r["tok"].append(state["tok"].detach().cpu().clone())
+                state, logits = _g(params, state)
+                _r["logits"].append(logits.detach().cpu())
                 return state, logits
 
             e32.engine.generate = generate_logged
             rq = [Request(uid=i, prompt=pr, max_new=8)
                   for i, pr in enumerate(prompts32)]
             e32.serve(rq)
-            runs[device] = (logs, [r.out_tokens for r in rq],
-                            e32.cache["blocks"][0])
-        # posit8 codes and scales the two devices wrote (pool: past trash
-        # page 0): a K/V value at a rounding midpoint can take the next code
-        # on one device, which moves the logits by more than f32 noise
-        cut = PS if layout else 0
-        diff = {k: (runs["cuda"][2][k].cpu()[:, cut:].to(torch.float32)
-                    != runs["cpu"][2][k][:, cut:].to(torch.float32))
-                for k in ("k", "v", "k_scale", "v_scale")}
-        codes_diff = int(diff["k"].sum() + diff["v"].sum())
-        scales_diff = int(diff["k_scale"].sum() + diff["v_scale"].sum())
-        for i in range(2):
-            torch.testing.assert_close(runs["cuda"][0][i], runs["cpu"][0][i],
-                                       rtol=1e-3, atol=1e-3)
-        dmax = max(float((runs["cuda"][0][i] - runs["cpu"][0][i]).abs()
-                         .max()) for i in range(2))
+            runs[device] = (rec, [r.out_tokens for r in rq], e32, gen_fn)
+        card, cpu = runs["cuda"][0], runs["cpu"][0]
+        cut = PS if layout else 0          # pool: past trash page 0
+        # (a) two CPU decode steps from the card's cache
+        e_cpu, cpu_generate = runs["cpu"][2], runs["cpu"][3]
+        mod, fn_name = (pkv, "paged_kv_append") if layout else \
+            (kvk, "kv_append_rows")
+        cpu_write = getattr(mod, fn_name)
+        state = snapshot(card["states"][0])
+        dmax, row_flips = 0.0, [0, 0]
+
+        def card_rows(after, layer):
+            def write(kc, ks, vc, vs, *a, **kw):
+                cpu_write(kc, ks, vc, vs, *a, **kw)
+                lay = next(layer)
+                for t, name in ((kc, "k"), (ks, "k_scale"), (vc, "v"),
+                                (vs, "v_scale")):
+                    want = after[name][lay]
+                    if name.endswith("scale"):
+                        assert torch.equal(t[cut:], want[cut:]), (label, lay)
+                    else:
+                        flips = code_flips(t[cut:], want[cut:])
+                        row_flips[0] += flips[0]
+                        row_flips[1] += flips[1]
+                    t.copy_(want)
+            return write
+
+        try:
+            for i in range(2):
+                layer = iter(range(cfg32.n_layers))
+                setattr(mod, fn_name, card_rows(
+                    card["states"][i + 1]["blocks"][0], layer))
+                state["tok"] = card["tok"][i].clone()
+                if layout:                  # the pages the card's step had
+                    state["page_table"] = card["states"][i][
+                        "page_table"].clone()
+                state, logits = cpu_generate(e_cpu.params, state)
+                assert next(layer, None) is None    # every layer's row
+                torch.testing.assert_close(logits, card["logits"][i],
+                                           rtol=1e-3, atol=1e-3)
+                dmax = max(dmax, float((logits - card["logits"][i]).abs()
+                                       .max()))
+        finally:
+            setattr(mod, fn_name, cpu_write)
+        # (b) the caches each device wrote from its own prefill
+        c0, p0 = card["states"][0]["blocks"][0], cpu["states"][0]["blocks"][0]
+        for k in ("k_scale", "v_scale"):
+            assert torch.equal(c0[k][:, cut:], p0[k][:, cut:]), (label, k)
+        flips = [code_flips(c0[k][:, cut:], p0[k][:, cut:])
+                 for k in ("k", "v")]
+        codes_diff = sum(f[0] for f in flips)
+        written = (int(card["states"][0]["pos"].sum()) * cfg32.n_layers
+                   * cfg32.n_kv_heads * cfg32.head_dim * 2)
+        assert codes_diff < 1e-3 * written, (label, codes_diff, written)
         same = [sum(a == b for a, b in zip(x, y))
                 for x, y in zip(runs["cuda"][1], runs["cpu"][1])]
-        phase(f"{label} card vs CPU (float32, TF32 off): first two decode "
-              f"steps' logits within rtol 1e-3 atol 1e-3 (max |diff| "
-              f"{dmax:.3e}); identical greedy tokens per request "
-              f"{same} of 8; KV codes that differ {codes_diff} of "
-              f"{2 * diff['k'].numel()}, scales {scales_diff}")
+        phase(f"{label} card vs CPU (float32, TF32 off): (a) CPU decoding "
+              f"from the card's cache and rows, first two steps' logits "
+              f"within rtol 1e-3 atol 1e-3 (max |diff| {dmax:.3e}); the "
+              f"rows those steps wrote: scales equal, {row_flips[0]} of "
+              f"{2 * 2 * cfg32.n_layers * cfg32.n_kv_heads * cfg32.head_dim * 2}"
+              f" codes differ ({row_flips[1]} of them near zero); (b) caches "
+              f"from each device's own prefill: scales equal, {codes_diff} "
+              f"of {written} written K/V codes differ "
+              f"({sum(f[1] for f in flips)} near zero, the rest one posit "
+              f"step); independent runs' greedy tokens equal per request "
+              f"{same} of 8 (not asserted)")
 
     card_vs_cpu("phase 7 ring")
     card_vs_cpu("phase 7b paged", kv_layout="paged", page_size=PS)
@@ -713,9 +817,264 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
+    # 9. K7 vs its plain version on the card (own generator: phases 2-8
+    # draw what they drew before) ------------------------------------------
+    from repro_torch import quickstart
+    from repro_torch.core.formats import POSIT8_2, POSIT16_2
+    from repro_torch.core.quant import quantize
+    from repro_torch.core.transprecision import PAPER_EDGE
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels.ops import qt_matmul
+    from repro_torch.kernels.posit_matmul import (posit_matmul,
+                                                  posit_matmul_plain)
+    from repro_torch.models.common import rms_norm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import (TrainState, init_train_state,
+                                        make_train_step)
+    assert not torch.backends.cuda.matmul.allow_tf32   # off since phase 7
+    rng_mm = np.random.default_rng([args.seed, 2])
+    mm_tol = dict(rtol=2e-5, atol=2e-4)
+
+    def nan_free_err(got, want):
+        return float((got - want).abs().nan_to_num(0.0).max())
+
+    n_cases = 0
+    for name in ("posit8_2", "posit8_0", "posit8_1", "posit16_2"):
+        fmt = get_fmt(name)
+        for m, n, k in ((16, 16, 16), (100, 60, 130), (33, 17, 47),
+                        (1, 200, 7), (8192, 4096, 768), (8, 4096, 768)):
+            w = torch.from_numpy(rng_mm.normal(0, 1, (k, n)).astype(
+                np.float32)).to(dev)
+            codes = encode_tile(w, fmt)
+            codes[k // 2, n // 2] = 0x80 if fmt.bits == 8 else -0x8000  # NaR
+            x = torch.from_numpy(rng_mm.normal(0, 1, (m, k)).astype(
+                np.float32)).to(dev)
+            sv = torch.from_numpy(rng_mm.uniform(0.5, 2.0, n).astype(
+                np.float32)).to(dev)
+            for scale in (None, 2.0, sv, sv[None]):
+                for xd, cd in ((torch.float32, torch.float32),
+                               (torch.bfloat16, torch.float32),
+                               (torch.float32, torch.bfloat16)):
+                    got = posit_matmul(x.to(xd), codes, fmt, scale,
+                                       compute_dtype=cd)
+                    want = posit_matmul_plain(x.to(xd), codes, fmt, scale,
+                                              compute_dtype=cd)
+                    torch.testing.assert_close(got, want, equal_nan=True,
+                                               **mm_tol)
+                    assert torch.isnan(got[:, n // 2]).all()
+                    assert not torch.isnan(got[:, :n // 2]).any()
+                    err["posit_matmul"] = max(err["posit_matmul"],
+                                              nan_free_err(got, want))
+                    n_cases += 1
+            before = LAUNCHES["posit_matmul"]
+            try:
+                posit_matmul(x, codes, fmt, sv[:, None])
+            except ValueError as e:
+                assert "scale" in str(e), e
+            else:
+                raise AssertionError("an (N, 1) scale did not raise")
+            assert LAUNCHES["posit_matmul"] == before
+    phase(f"phase 9 K7 posit_matmul: {n_cases} cases (posit8_2/8_0/8_1/"
+          f"16_2; (m, n, k) (16,16,16) (100,60,130) (33,17,47) (1,200,7) "
+          f"(8192,4096,768) (8,4096,768); scale None / scalar / (N,) / "
+          f"(1,N); x f32, x bf16, compute bf16; a NaR column) within rtol "
+          f"2e-5 atol 2e-4 of the plain version, max |err| "
+          f"{err['posit_matmul']:.3e}; NaR column NaN in both; (N,1) scale "
+          f"raises before any launch")
+
+    # 10. the quickstart path at full width on the card ------------------
+    rng_qs = np.random.default_rng([args.seed, 3])
+    torch.cuda.synchronize()
+    reset_launches()
+    xq, cq, bq = quickstart.codec_roundtrip("cuda")
+    _, cq_cpu, bq_cpu = quickstart.codec_roundtrip("cpu")
+    assert torch.equal(cq.cpu(), cq_cpu) and torch.equal(bq.cpu(), bq_cpu)
+    # part 2: every layer's six matrices (posit8_2) and the head
+    # (posit16_2) through qt_matmul on hidden states of 8 x 1024 tokens
+    blk0 = params["blocks"][0]
+    toks = torch.from_numpy(rng_qs.integers(0, cfg.vocab, (8, 1024))).to(dev)
+    hid = rms_norm(params["embed"][toks], blk0["ln"][0]).reshape(
+        -1, cfg.d_model)                                   # (8192, 768) bf16
+    qs_err = 0.0
+
+    def qt_checked(xin, wq):
+        nonlocal qs_err
+        got = qt_matmul(xin, wq)
+        want = posit_matmul_plain(xin, wq.data, wq.fmt, wq.scale)
+        torch.testing.assert_close(got, want, **mm_tol)
+        qs_err = max(qs_err, float((got - want).abs().max()))
+        return got
+
+    for i in range(cfg.n_layers):
+        lp = lm.layer_params(blk0, i)
+        for name in ("wq", "wk", "wv", "wo"):
+            qt_checked(hid, quantize(lp[name], POSIT8_2, axis=0))
+        gate, up = qt_checked(hid, quantize(lp["wi"], POSIT8_2,
+                                            axis=0)).chunk(2, dim=-1)
+        qt_checked(torch.nn.functional.silu(gate) * up,
+                   quantize(lp["wo_mlp"], POSIT8_2, axis=0))
+    qt_checked(hid, quantize(params["lm_head"], POSIT16_2, axis=0))
+    # part 3: five PAPER_EDGE train steps of full-width paper-edge
+    opt_cfg = AdamWConfig(total_steps=10)
+    tstate = init_train_state(cfg, opt_cfg, PAPER_EDGE, generator=gen,
+                              device=dev)
+    tstep = make_train_step(cfg, opt_cfg, PAPER_EDGE)
+    pipe = make_pipeline(cfg, global_batch=8, seq_len=1024, seed=args.seed,
+                         device=dev)
+    batches = [pipe(s) for s in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+
+    def train_step(s):
+        nonlocal tstate
+        tstate, m = tstep(tstate, batches[s])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+
+    for s in range(3):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        train_step(s)
+        ev1.record()
+        torch.cuda.synchronize()
+        step_ms.append(ev0.elapsed_time(ev1))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in (3, 4):
+            train_step(s)
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0) / 2
+    peak = torch.cuda.max_memory_allocated()
+    qs_launches = dict(LAUNCHES)
+    per_op = {k: v / 2 / 1e3 for k, v in device_events(prof).items()}
+    busy = sum(per_op.values())
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
+    train_device = (f"device busy {busy:.3f} ms/step, idle share "
+                    f"{1 - busy / prof_wall:.3f}; top ops (ms/step): "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in top)) \
+        if per_op else ("device busy and idle share not measured (the "
+                        "profiler trace held no device events)")
+    with torch.no_grad():
+        loss_after = float(lm.loss_fn(tstate.params, batches[0], cfg,
+                                      PAPER_EDGE)[0])
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (
+        losses, gnorms)
+    assert loss_after < losses[0], (loss_after, losses)
+    assert qs_launches["posit_matmul"] == 6 * cfg.n_layers + 1, qs_launches
+    main_launches["posit_matmul"] = qs_launches["posit_matmul"]
+    per_step["posit_matmul"] = 0
+    ms_step = statistics.median(step_ms[1:])
+    phase(f"phase 10 quickstart path at full width: part 1 P(8,2) codes "
+          f"{cq.tolist()} equal to the CPU codec's; part 2 "
+          f"{qs_launches['posit_matmul']} qt_matmul launches (12 layers x "
+          f"wq wk wv wo wi wo_mlp posit8_2 + head posit16_2, M = 8192) "
+          f"within rtol 2e-5 atol 2e-4 of the plain version (max |err| "
+          f"{qs_err:.3e}); part 3 {len(losses)} PAPER_EDGE train steps "
+          f"(bf16 params, f32 master, batch 8 x 1024): loss "
+          f"{[round(v, 4) for v in losses]}, grad norm "
+          f"{[round(v, 4) for v in gnorms]}, loss on step 1's batch after 5 "
+          f"steps {loss_after:.4f}; {ms_step:.2f} ms/step (CUDA events, "
+          f"steps 2-3; per step {[round(v, 2) for v in step_ms]}), "
+          f"{8192 / ms_step * 1e3:.0f} tokens/s, peak memory {peak} B; "
+          f"profiled steps 4-5: wall {prof_wall:.2f} ms/step, "
+          f"{train_device}; other launches "
+          f"{ {k: v for k, v in qs_launches.items() if k != 'posit_matmul'} }")
+
+    # 10b. one train step, card vs CPU, float32, TF32 off -----------------
+    cfg_t32 = dataclasses.replace(cfg, dtype_name="float32")
+    p_card = lm.init_params(cfg_t32, gen, device=dev)
+    p_cpu = snapshot(p_card)
+    stepped = {}
+    for device, p in (("cuda", p_card), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        st, m = make_train_step(cfg_t32, opt_cfg, PAPER_EDGE)(
+            TrainState(p, adamw_init(p)),
+            make_pipeline(cfg_t32, global_batch=2, seq_len=256,
+                          seed=args.seed, device=device)(0))
+        stepped[device] = (st, m, time.perf_counter() - t0)
+    (sc, mc, tc), (sp, mp, tp) = stepped["cuda"], stepped["cpu"]
+    np.testing.assert_allclose(float(mc["loss"]), float(mp["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(mc["grad_norm"]),
+                               float(mp["grad_norm"]), rtol=1e-3)
+    leaf_diff, beyond = {}, 0
+    for label_, tree_c, tree_p in (("params", sc.params, sp.params),
+                                   ("master", sc.opt["master"],
+                                    sp.opt["master"])):
+        for key in ("embed", "final_norm", "lm_head"):
+            d_ = (tree_c[key].cpu() - tree_p[key]).abs()
+            leaf_diff[f"{label_}.{key}"] = float(d_.max())
+            beyond += int((d_ > 1e-5).sum())
+        for key, leaf in tree_c["blocks"][0].items():
+            d_ = (leaf.cpu() - tree_p["blocks"][0][key]).abs()
+            leaf_diff[f"{label_}.{key}"] = float(d_.max())
+            beyond += int((d_ > 1e-5).sum())
+    # both steps fake-quantize identical weights (a posit midpoint flip
+    # needs inputs that differ), so no updated element may leave 1e-5
+    assert beyond == 0, (beyond, leaf_diff)
+    phase(f"phase 10b train step card vs CPU (float32, TF32 off, batch 2 x "
+          f"256, same params): loss {float(mc['loss']):.6f} vs "
+          f"{float(mp['loss']):.6f} (rtol 1e-4, |diff| "
+          f"{abs(float(mc['loss']) - float(mp['loss'])):.3e}), grad norm "
+          f"{float(mc['grad_norm']):.6f} vs {float(mp['grad_norm']):.6f} "
+          f"(rtol 1e-3); updated params and master within atol 1e-5, "
+          f"elements beyond 0; max |diff| per leaf "
+          + ", ".join(f"{k} {v:.2e}" for k, v in leaf_diff.items())
+          + f"; step {tc:.1f} s card, {tp:.1f} s CPU")
+
+    # kernels line, K7: x (M, 768) f32 times one layer's wi (768 x 4096,
+    # posit8_2, (1, N) scale), argument sets rotated over the 12 layers
+    gen_mm = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    w_sets = [quantize(blk0["wi"][i], POSIT8_2, axis=0)
+              for i in range(layers)]
+    dec_sets = [decode_tile(w.data, POSIT8_2) for w in w_sets]
+    mk, nk = cfg.d_model, 2 * cfg.d_ff
+    k7 = {}
+    for mrows in (8192, 8):
+        xs = [torch.randn((mrows, mk), generator=gen_mm, device=dev)
+              for _ in range(layers)]
+
+        def k7_call(i, plain=False, _xs=xs):
+            fn = posit_matmul_plain if plain else posit_matmul
+            return fn(_xs[i], w_sets[i].data, POSIT8_2, w_sets[i].scale)
+
+        def decoded_matmul(i, _xs=xs):
+            return torch.matmul(_xs[i], dec_sets[i]) * w_sets[i].scale
+
+        t_bytes = ((mrows * mk * 4 + mk * nk + nk * 4 + mrows * nk * 4)
+                   / H100_BYTES_PER_S * 1e3)
+        t_ops = 2 * mrows * mk * nk / H100_F32_FLOPS * 1e3
+        k7[mrows] = {
+            "ms": graph_ms(k7_call, layers),
+            "plain_ms": time_ms(lambda i: k7_call(i, plain=True), layers,
+                                iters=3, reps=3),
+            "decoded_matmul_ms": graph_ms(decoded_matmul, layers),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del xs
+    src, repl = KERNELS["posit_matmul"]
+    out.append({
+        "name": "posit_matmul", "route": "cuda", "source": src,
+        "replaces": repl, "launches": main_launches["posit_matmul"],
+        "launches_per_decode_step": 0,
+        "max_abs_err": err["posit_matmul"], **k7[8192],
+        "library_ms": None,
+        "shape": "x (8192, 768) f32 x wi (768, 4096) posit8_2, (1, N) scale",
+        "decoded_matmul_note": "torch.matmul of x by the decoded f32 W, "
+                               "times the scale: a labelled reference, not "
+                               "the same function",
+        "m8": k7[8]})
+    phase("kernels line, K7 device µs per call (CUDA graph of 20 calls): "
+          + "; ".join(f"M={m_}: {1e3 * v['ms']:.2f} (bound "
+                      f"{1e3 * v['bound_ms']:.2f} by {v['bound_by']}, plain "
+                      f"{1e3 * v['plain_ms']:.2f}, decoded-W torch.matmul "
+                      f"{1e3 * v['decoded_matmul_ms']:.2f})"
+                      for m_, v in k7.items()))
     print(json.dumps({"kernels": out}), flush=True)
 
-    # 9. last line ------------------------------------------------------
+    # last line ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Weight bridge: a nested dict of numpy arrays -> the port's params.
+"""Weight bridge: a nested dict of numpy arrays -> the port's params (and
+a train state around them).
 
 The tree is the reference's params pytree after ``np.asarray`` on every
 leaf (tuples stay tuples, so ``blocks`` keeps its (dict,) form and every
@@ -53,3 +54,14 @@ def params_from_numpy(tree, device="cuda", dtype=torch.float32):
         return t
 
     return conv(tree, None)
+
+
+def train_state_from_numpy(params_tree, device="cuda", dtype=torch.float32):
+    """The reference's ``TrainState.params`` (as a numpy tree, see module
+    docstring) -> a port ``TrainState`` whose AdamW state ``adamw_init``
+    rebuilds from the converted params (step 0, zero moments, f32
+    master)."""
+    from .optim import adamw_init
+    from .train.step import TrainState
+    params = params_from_numpy(params_tree, device, dtype)
+    return TrainState(params, adamw_init(params))

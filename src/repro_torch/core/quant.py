@@ -36,6 +36,14 @@ class QuantizedTensor:
     def dtype(self):
         return self.data.dtype
 
+    @property
+    def nbytes_packed(self) -> int:
+        """Storage bytes at the format's bit width, scale included."""
+        n = self.data.numel() * self.fmt.bits / 8
+        if self.scale is not None:
+            n += torch.as_tensor(self.scale).numel() * 4
+        return int(n)
+
     def dequantize(self, dtype=torch.float32):
         return dequantize(self, dtype)
 

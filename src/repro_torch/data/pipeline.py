@@ -1,0 +1,61 @@
+"""Deterministic synthetic LM batches (port of ``repro.data.pipeline``).
+
+Batch content is a pure function of (seed, step): the numpy builder is the
+reference's, so both packages draw identical tokens and labels for the same
+(seed, step).  The stream is affine orbits ``x[t+1] = (a * x[t] + b) %
+vocab`` with sampled (a, b), so a model can learn it and the loss falls.
+This port carries the dense family, whose batches are tokens and labels
+only; per-host slicing of the global batch is a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.lm import ModelCfg
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    global_batch: int = 8
+    seq_len: int = 128
+    vocab: int = 256
+
+
+class SyntheticLM:
+    def __init__(self, cfg: DataConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = device
+
+    def global_batch(self, step: int) -> Dict[str, np.ndarray]:
+        c = self.cfg
+        rng = np.random.default_rng(np.uint64(c.seed * 1_000_003 + step))
+        a = 1 + 2 * rng.integers(0, 16, (c.global_batch, 1))   # odd
+        b = rng.integers(0, c.vocab, (c.global_batch, 1))
+        x0 = rng.integers(0, c.vocab, (c.global_batch, 1))
+        toks = np.empty((c.global_batch, c.seq_len), np.int64)
+        cur = x0[:, 0]
+        for i in range(c.seq_len):
+            toks[:, i] = cur
+            cur = (a[:, 0] * cur + b[:, 0]) % c.vocab
+        labels = np.concatenate([toks[:, 1:], cur[:, None]], axis=1)
+        return {"tokens": toks.astype(np.int32),
+                "labels": labels.astype(np.int32)}
+
+    def __call__(self, step: int) -> Dict[str, torch.Tensor]:
+        """The step's batch as int64 tensors on the pipeline's device."""
+        dev = resolve_device(self.device)
+        return {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+                for k, v in self.global_batch(step).items()}
+
+
+def make_pipeline(model_cfg: ModelCfg, *, global_batch: int, seq_len: int,
+                  seed: int = 0, device="cuda") -> SyntheticLM:
+    return SyntheticLM(
+        DataConfig(seed=seed, global_batch=global_batch, seq_len=seq_len,
+                   vocab=model_cfg.vocab), device)

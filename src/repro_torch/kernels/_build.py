@@ -53,6 +53,11 @@ SIGNATURES = {
         # B, nkv, grp, hd, ps, Pmax, num_pages, nbits, es, bias, stream
         "paged_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
     },
+    "posit_matmul": {
+        # x, w_codes, scale, out, M, K, N, nbits, es, bias, x_bf16,
+        # compute_bf16, stream
+        "posit_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    },
 }
 
 LAUNCHES: Dict[str, int] = {fn: 0 for entries in SIGNATURES.values()

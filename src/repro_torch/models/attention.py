@@ -1,11 +1,14 @@
-"""Attention (port of ``repro.models.attention``, forward only): the
-blockwise online-softmax prefill path, one-token decode against a float
-cache, and decode against a posit-coded cache.
+"""Attention (port of ``repro.models.attention``): the blockwise
+online-softmax path with its flash backward, the dense reference, one-token
+decode against a float cache, and decode against a posit-coded cache.
 
 ``blockwise_attention`` carries the reference's online-softmax loop as it
 is (outer loop over query blocks, inner loop over KV blocks, (m, l, acc)
 in f32), so CPU parity with the JAX package holds; it is plain tensor code,
-not a kernel.
+not a kernel.  Its gradient is the reference's flash backward
+(``_Flash``, a ``torch.autograd.Function``): the forward saves only the
+output and the per-row logsumexp, the backward recomputes each score tile
+once.  ``vjp="naive"`` differentiates the forward loop instead.
 """
 from __future__ import annotations
 
@@ -28,14 +31,33 @@ def _bias_block(qpos, kpos, causal: bool, skv):
     return b
 
 
+def dense_attention(q, k, v, *, causal=True, positions=None):
+    """Reference attention.  q: (B, S, nh, hd), k/v: (B, S, nkv, hd)."""
+    b, sq, nh, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, sq, nkv, nh // nkv, hd) * (hd ** -0.5)
+    scores = _einsum("bqkgh,bskh->bkgqs", qg, k)
+    qpos = (positions if positions is not None
+            else torch.arange(sq, device=q.device))
+    kpos = torch.arange(k.shape[1], device=q.device)
+    scores = scores + _bias_block(qpos, kpos, causal, None)
+    p = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    out = _einsum("bkgqs,bskh->bqkgh", p, v)
+    return out.reshape(b, sq, nh, hd)
+
+
+def _rep(x, grp):
+    return x.repeat_interleave(grp, dim=2) if grp > 1 else x
+
+
 def _flash_fwd(q, k, v, causal, q_block, kv_block, skv):
     """q pre-scaled (B, Sp, nh, hd); k/v (B, Skp, nkv, hd); Sp/Skp padded.
-    Returns out (B, Sp, nh, hd) in q's dtype."""
+    Returns (out (B, Sp, nh, hd) in q's dtype, lse (B, nh, Sp) f32)."""
     b, sp, nh, hd = q.shape
     skp, nkv = k.shape[1], k.shape[2]
     grp = nh // nkv
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, sp, q_block):
         qblk = q[:, q0:q0 + q_block]                  # (B, qb, nh, hd)
         qpos = q0 + torch.arange(q_block, device=dev)
@@ -43,8 +65,8 @@ def _flash_fwd(q, k, v, causal, q_block, kv_block, skv):
         l = torch.zeros((b, nh, q_block), device=dev)
         acc = torch.zeros((b, nh, q_block, hd), device=dev)
         for k0 in range(0, skp, kv_block):
-            kblk = k[:, k0:k0 + kv_block].repeat_interleave(grp, dim=2)
-            vblk = v[:, k0:k0 + kv_block].repeat_interleave(grp, dim=2)
+            kblk = _rep(k[:, k0:k0 + kv_block], grp)
+            vblk = _rep(v[:, k0:k0 + kv_block], grp)
             kpos = k0 + torch.arange(kv_block, device=dev)
             s_blk = torch.einsum("bqhd,bshd->bhqs", qblk, kblk).to(
                 torch.float32)
@@ -56,16 +78,82 @@ def _flash_fwd(q, k, v, causal, q_block, kv_block, skv):
             acc = acc * corr[..., None] + torch.einsum(
                 "bhqs,bshd->bhqd", p.to(q.dtype), vblk).to(torch.float32)
             m = m_new
-        outs.append(acc / l.clamp(min=1e-30)[..., None])
+        l = l.clamp(min=1e-30)
+        outs.append(acc / l[..., None])
+        lses.append(m + torch.log(l))
     out = torch.cat(outs, dim=2)                      # (B, nh, Sp, hd)
-    return out.transpose(1, 2).to(q.dtype)
+    return out.transpose(1, 2).to(q.dtype), torch.cat(lses, dim=2)
 
 
-def blockwise_attention(q, k, v, *, causal=True, q_block=512, kv_block=1024):
-    """Flash-style online-softmax attention (forward).
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's single-pass backward:
+
+        dS = P * (dP - D),  dP = dO V^T,  D = rowsum(dO * O)
+        dQ = dS K,  dK = dS^T Q,  dV = P^T dO
+
+    every (q block, kv block) tile is recomputed once; dK/dV accumulate per
+    KV block, dQ in a full f32 buffer; the repeated GQA heads fold back onto
+    the KV heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, kv_block, skv):
+        out, lse = _flash_fwd(q, k, v, causal, q_block, kv_block, skv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, q_block, kv_block, skv)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_block, kv_block, skv = ctx.cfg
+        b, sp, nh, hd = q.shape
+        skp, nkv = k.shape[1], k.shape[2]
+        grp = nh // nkv
+        dev = q.device
+        f32 = torch.float32
+        g = g.to(q.dtype)
+        d_rows = torch.einsum("bshd,bshd->bhs", g.to(f32), out.to(f32))
+        dq = torch.zeros((b, sp, nh, hd), dtype=f32, device=dev)
+        dks, dvs = [], []
+        for k0 in range(0, skp, kv_block):
+            kblk = _rep(k[:, k0:k0 + kv_block], grp)
+            vblk = _rep(v[:, k0:k0 + kv_block], grp)
+            kpos = k0 + torch.arange(kv_block, device=dev)
+            dk = torch.zeros((b, kv_block, nh, hd), dtype=f32, device=dev)
+            dv = torch.zeros_like(dk)
+            for q0 in range(0, sp, q_block):
+                qblk, gblk = q[:, q0:q0 + q_block], g[:, q0:q0 + q_block]
+                qpos = q0 + torch.arange(q_block, device=dev)
+                s_blk = torch.einsum("bqhd,bshd->bhqs", qblk, kblk).to(f32)
+                s_blk = s_blk + _bias_block(qpos, kpos, causal, skv)
+                p = torch.exp(s_blk - lse[:, :, q0:q0 + q_block, None])
+                dp = torch.einsum("bqhd,bshd->bhqs", gblk, vblk).to(f32)
+                ds = p * (dp - d_rows[:, :, q0:q0 + q_block, None])
+                dv = dv + torch.einsum("bhqs,bqhd->bshd", p.to(q.dtype),
+                                       gblk).to(f32)
+                dk = dk + torch.einsum("bhqs,bqhd->bshd", ds.to(q.dtype),
+                                       qblk).to(f32)
+                dq[:, q0:q0 + q_block] += torch.einsum(
+                    "bhqs,bshd->bqhd", ds.to(q.dtype), kblk).to(f32)
+            if grp > 1:
+                dk = dk.reshape(b, kv_block, nkv, grp, hd).sum(3)
+                dv = dv.reshape(b, kv_block, nkv, grp, hd).sum(3)
+            dks.append(dk)
+            dvs.append(dv)
+        return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+                torch.cat(dvs, 1).to(v.dtype), None, None, None, None)
+
+
+def blockwise_attention(q, k, v, *, causal=True, q_block=512, kv_block=1024,
+                        vjp="flash"):
+    """Flash-style online-softmax attention.
 
     q: (B, S, nh, hd); k/v: (B, S, nkv, hd).  GQA repeats the KV heads per
-    block inside the loop, as the reference does."""
+    block inside the loop, as the reference does.  ``vjp="flash"`` (the
+    default) differentiates through ``_Flash``'s backward; ``"naive"``
+    through the forward loop (autograd saves every probability tile)."""
+    if vjp not in ("flash", "naive"):
+        raise ValueError(f"vjp must be 'flash' or 'naive', got {vjp!r}")
     b, s, nh, hd = q.shape
     skv = k.shape[1]
     q_block = min(q_block, s)
@@ -77,7 +165,11 @@ def blockwise_attention(q, k, v, *, causal=True, q_block=512, kv_block=1024):
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
     qs = (q * (hd ** -0.5)).to(q.dtype)
-    out = _flash_fwd(qs, k, v, causal, q_block, kv_block, skv if pk else None)
+    skv_mask = skv if pk else None
+    if vjp == "naive":
+        out = _flash_fwd(qs, k, v, causal, q_block, kv_block, skv_mask)[0]
+    else:
+        out = _Flash.apply(qs, k, v, causal, q_block, kv_block, skv_mask)
     return out[:, :s]
 
 

@@ -1,5 +1,5 @@
-"""Shared model components: init, RMSNorm, RoPE (port of
-``repro.models.common``, dense family)."""
+"""Shared model components: init, RMSNorm, RoPE, the training loss (port
+of ``repro.models.common``, dense family)."""
 from __future__ import annotations
 
 import math
@@ -71,3 +71,23 @@ def apply_rope(x, cos, sin):
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, vocab: int):
+    """Mean CE over valid labels (label == -1 masked); logits may be padded
+    beyond ``vocab`` and the pad region is masked.  logsumexp in f32."""
+    vpad = logits.shape[-1]
+    if vpad > vocab:
+        pad = torch.arange(vpad, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e9)
+    valid = labels >= 0
+    labels_c = labels.clamp(0, vocab - 1).to(torch.int64)
+    l32 = logits.to(torch.float32)
+    logz = torch.logsumexp(l32, dim=-1)
+    gold = torch.gather(l32, -1, labels_c[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)

@@ -1,20 +1,26 @@
-"""Dense decoder-only language model: config, init and the per-block
-pieces the serving path uses (port of ``repro.models.lm``, dense family).
+"""Dense decoder-only language model: config, init, the training forward
+and loss, and the per-block pieces the serving path uses (port of
+``repro.models.lm``, dense family).
 
 Params are a plain dict with the reference's leaf names:
 ``{"embed", "final_norm", "lm_head", "blocks": ({"ln", "wq", "wk", "wv",
 "wo", "ln2", "wi", "wo_mlp"},)}`` where every ``blocks`` leaf is stacked
 over layers (leading axis P = n_layers).  The reference scans over that
-axis; this port loops over layers in Python (``layer_params``).
+axis; this port loops over layers in Python (``layer_params``).  Every
+weight matmul passes through the TC policy hook (``_qw``), which
+fake-quantizes each layer's slice on every call.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..core.transprecision import TCPolicy
-from .common import _einsum, dense_init, embed_init, rms_norm, rope_freqs
+from ..core.transprecision import BF16, TCPolicy
+from .attention import blockwise_attention
+from .common import (_einsum, apply_rope, cross_entropy, dense_init,
+                     embed_init, rms_norm, rope_freqs)
 
 
 def _round_up(x, m):
@@ -36,8 +42,11 @@ class ModelCfg:
     rope_theta: float = 10000.0
     qk_norm: bool = False
     dtype_name: str = "bfloat16"
+    remat: str = "full"        # none | full (save block inputs only); dots
+                               # is a later slice
     q_block: int = 512
     kv_block: int = 1024
+    attn_vjp: str = "flash"    # flash (custom bwd) | naive (autograd loop)
     tie_embed: bool = False
 
     def __post_init__(self):
@@ -154,6 +163,61 @@ def _qkv(p, x, cfg: ModelCfg, policy):
 
 def _rope_cs(cfg: ModelCfg, positions):
     return rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+
+
+def _attn_block(p, x, cfg: ModelCfg, policy):
+    """Training attention block (+MLP): dense, causal, RoPE, no
+    cross-attention."""
+    b, s, _ = x.shape
+    h = rms_norm(x, p["ln"])
+    qp, kp, vp = _qkv(p, h, cfg, policy)
+    cos, sin = _rope_cs(cfg, torch.arange(s, device=x.device))
+    qp = apply_rope(qp, cos, sin)
+    kp = apply_rope(kp, cos, sin)
+    ao = blockwise_attention(qp, kp, vp, causal=True, q_block=cfg.q_block,
+                             kv_block=cfg.kv_block, vjp=cfg.attn_vjp)
+    ao = _einsum("bsk,kd->bsd", ao.reshape(b, s, -1),
+                 _qw(policy, "attn_weights")(p["wo"]))
+    x = x + ao
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+
+
+def _run_stack(blocks, x, cfg: ModelCfg, policy):
+    """The layer stack: a Python loop over the stacked layer axis, each
+    layer under ``torch.utils.checkpoint`` for ``remat="full"`` (only the
+    block inputs are saved; the block recomputes in the backward)."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: only 'none' and 'full' are ported; "
+            "'dots' (save matmul outputs) is a later slice of the port")
+    for i in range(cfg.n_layers):
+        p_i = layer_params(blocks[0], i)
+        if cfg.remat == "full":
+            x = checkpoint(_attn_block, p_i, x, cfg, policy,
+                           use_reentrant=False)
+        else:
+            x = _attn_block(p_i, x, cfg, policy)
+    return x
+
+
+def forward(params, batch, cfg: ModelCfg, policy: TCPolicy = BF16):
+    """Training / scoring forward: returns (logits (B, S, vocab_pad),
+    aux_loss); the dense family has no auxiliary loss (0)."""
+    emb_q = policy.quantize_weight(params["embed"], "embed_weights")
+    x = emb_q[batch["tokens"]].to(cfg.dtype)
+    x = _run_stack(params["blocks"], x, cfg, policy)
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
+    head = policy.quantize_weight(head, "embed_weights", node="lm_head")
+    logits = _einsum("bsd,dv->bsv", x, head.to(cfg.dtype))
+    return logits, torch.zeros((), device=logits.device)
+
+
+def loss_fn(params, batch, cfg: ModelCfg, policy: TCPolicy = BF16):
+    """Mean next-token cross entropy (+ 0.01 x aux) and its parts."""
+    logits, aux = forward(params, batch, cfg, policy)
+    ce = cross_entropy(logits, batch["labels"], cfg.vocab)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def hoist_weight_quant(params, policy: TCPolicy):

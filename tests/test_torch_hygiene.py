@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
-its entry points (ring and paged) default to the GPU and raise without
-one, and the parts left to later slices raise ``NotImplementedError``."""
+its entry points (ring and paged serving, the matmul kernel, training and
+the quickstart) default to the GPU and raise without one, and the parts
+left to later slices raise ``NotImplementedError``."""
 import ast
 import os
 import subprocess
@@ -22,6 +23,10 @@ from repro_torch.serve.engine_api import TransprecisionEngine  # noqa: E402
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# modules of the quickstart / training slice the import checks must reach
+SLICE3 = ("repro_torch.kernels.posit_matmul", "repro_torch.kernels.ops",
+          "repro_torch.quickstart", "repro_torch.optim.adamw",
+          "repro_torch.data.pipeline", "repro_torch.train.step")
 
 
 def _imported(tree):
@@ -35,6 +40,9 @@ def _imported(tree):
 def test_no_jax_or_repro_imports_in_source():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
+    names = {".".join(("repro_torch",) + f.relative_to(PKG).with_suffix(
+        "").parts) for f in files}
+    assert set(SLICE3) <= names, set(SLICE3) - names
     for f in files:
         for mod in _imported(ast.parse(f.read_text())):
             assert mod.split(".")[0] not in FORBIDDEN, (f, mod)
@@ -49,6 +57,8 @@ def test_whole_port_imports_without_jax_or_repro():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
+        f"missing = set({SLICE3!r}) - set(sys.modules)\n"
+        "assert not missing, missing\n"
         "print('ok', len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -125,3 +135,25 @@ def test_paged_entry_points_default_to_gpu():
         serve_model.init_cache(cfg, 2, 32, policy=paged)
     eng = ServingEngine(cfg, params, scfg, device="cpu")
     assert eng.paged and eng.cache["page_table"].device.type == "cpu"
+
+
+def test_training_and_quickstart_entry_points_default_to_gpu():
+    """The slice-3 entry points (train state, data pipeline, weight
+    bridge, quickstart parts) run on the card unless the caller asks for
+    the CPU, and raise without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from repro_torch import quickstart
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state
+    cfg = get_config("paper-edge", smoke=True)
+    for call in (lambda: init_train_state(cfg, AdamWConfig()),
+                 lambda: make_pipeline(cfg, global_batch=2, seq_len=8)(0),
+                 lambda: train_state_from_numpy(
+                     {"w": np.zeros((2, 2), np.float32)}),
+                 quickstart.codec_roundtrip, quickstart.posit_matmul_demo,
+                 quickstart.train_step_demo, lambda: quickstart.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()

@@ -1,0 +1,327 @@
+"""Transprecision training of the PyTorch port vs the JAX package.
+
+Smoke-size paper-edge (2 layers, d_model 64, 4/2 heads, vocab 256) at
+float32 under PAPER_EDGE (every weight fake-quantized through P(8,2),
+embeddings and head through P(16,2)), with 16-query / 32-key attention
+blocks so the flash backward walks several tiles.  Both packages start
+from the reference's params (converted) and draw the same SyntheticLM
+batches (bit-identical tokens and labels).
+
+Tolerances (float32): loss within 1e-5; every gradient leaf within rtol
+1e-4 and an atol of 1e-4 x the leaf's largest |gradient| (f32 summation
+order: single elements near zero carry no relative precision); after one
+step, params and the f32 master within 1e-6 (a third of the step-1
+update, lr x 1 = 3e-6), ``mu``/``nu`` within rtol 1e-4 of their scale,
+and the metrics within rtol 1e-5; three steps' losses within rtol 1e-4.
+bf16 rounds at other places in the two frameworks (XLA keeps fused
+elementwise chains in f32), so bf16 is held to the reference's bf16 by
+loss, within 2e-3 absolute, never to float32.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core.transprecision import PAPER_EDGE as JPAPER_EDGE  # noqa: E402
+from repro.data.pipeline import make_pipeline as jmake_pipeline  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro.train.step import init_train_state as jinit  # noqa: E402
+from repro.train.step import make_train_step as jmake_step  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import train_state_from_numpy  # noqa: E402
+from repro_torch.core.transprecision import MIXED_TC, PAPER_EDGE  # noqa: E402
+from repro_torch.data.pipeline import make_pipeline  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
+
+BATCH, SEQ, STEPS = 4, 64, 3
+BLOCKS = dict(q_block=16, kv_block=32)
+
+
+def _cfgs(dtype_name):
+    j = dataclasses.replace(jget_config("paper-edge", smoke=True),
+                            dtype_name=dtype_name, **BLOCKS)
+    t = dataclasses.replace(get_config("paper-edge", smoke=True),
+                            dtype_name=dtype_name, **BLOCKS)
+    return j, t
+
+
+def _np_tree(t):
+    """The reference's pytree as numpy; bf16 leaves widen to f32 (exact)."""
+    if isinstance(t, dict):
+        return {k: _np_tree(v) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_np_tree(v) for v in t)
+    return np.array(t, np.float32) if t.dtype == jnp.bfloat16 \
+        else np.array(t)
+
+
+def _np(x):
+    return np.asarray(x.detach().to(torch.float32).numpy())
+
+
+def _port_grads(params, batch, cfg, policy=PAPER_EDGE):
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = lm.loss_fn(params, batch, cfg, policy)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), [_np(g) for g in grads]
+
+
+def _close_to_scale(got, want, rtol):
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * float(np.abs(want).max()))
+
+
+@pytest.fixture(scope="module")
+def ref32():
+    """The reference at float32: step-0 loss and grads, the state after
+    one step, and the losses of three steps (one jit of each)."""
+    jcfg, _ = _cfgs("float32")
+    state = jinit(jax.random.PRNGKey(0), jcfg,
+                  jadamw.AdamWConfig(total_steps=10), JPAPER_EDGE)
+    pipe = jmake_pipeline(jcfg, global_batch=BATCH, seq_len=SEQ)
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss_fn(p, b, jcfg, JPAPER_EDGE), has_aux=True))(
+            state.params, pipe(0))
+    init = _np_tree(state.params)
+    step = jax.jit(jmake_step(jcfg, jadamw.AdamWConfig(total_steps=10),
+                              JPAPER_EDGE))
+    metrics, after1 = [], None
+    for s in range(STEPS):
+        state, m = step(state, pipe(s))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        if s == 0:
+            after1 = {"params": _np_tree(state.params),
+                      **{k: _np_tree(state.opt[k])
+                         for k in ("mu", "nu", "master")}}
+    return {"init": init, "loss": float(loss),
+            "grads": [np.asarray(g) for g in jax.tree_util.tree_leaves(grads)],
+            "after1": after1, "metrics": metrics}
+
+
+def _port_state(tree, dtype=torch.float32):
+    return train_state_from_numpy(tree, device="cpu", dtype=dtype)
+
+
+def test_batches_bit_identical():
+    jcfg, tcfg = _cfgs("float32")
+    for seed, step in ((0, 0), (0, 5), (3, 2)):
+        jb = jmake_pipeline(jcfg, global_batch=BATCH, seq_len=SEQ,
+                            seed=seed)(step)
+        tb = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ, seed=seed,
+                           device="cpu")(step)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
+
+
+def test_cross_entropy_vs_jax():
+    """Padded vocab masked, label -1 masked, logsumexp in f32."""
+    rng = np.random.default_rng(0)
+    logits = rng.normal(0, 3, (2, 5, 256)).astype(np.float32)
+    labels = rng.integers(0, 200, (2, 5)).astype(np.int32)
+    labels[0, 1] = labels[1, 4] = -1
+    want = jcommon.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                 200)
+    got = tcommon.cross_entropy(torch.from_numpy(logits),
+                                torch.from_numpy(labels), 200)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("s,causal", [(40, True), (64, True), (40, False)])
+def test_attention_and_flash_backward_vs_jax(s, causal):
+    """Forward of the blockwise path and the dense reference, and the
+    flash backward's dq/dk/dv (GQA heads folded back, ragged length padded
+    to the blocks) against ``jax.grad`` of the reference's."""
+    rng = np.random.default_rng(1)
+    q = rng.normal(0, 1, (2, s, 4, 16)).astype(np.float32)
+    k = rng.normal(0, 1, (2, s, 2, 16)).astype(np.float32)
+    v = rng.normal(0, 1, (2, s, 2, 16)).astype(np.float32)
+    w = rng.normal(0, 1, (2, s, 4, 16)).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jattn.blockwise_attention(q, k, v, causal=causal, **BLOCKS)
+        return jnp.sum(out * w), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                       has_aux=True)(q, k, v)
+    jdense = jattn.dense_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    for vjp in ("flash", "naive"):
+        out = tattn.blockwise_attention(tq, tk, tv, causal=causal, vjp=vjp,
+                                        **BLOCKS)
+        tg = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                                 (tq, tk, tv))
+        np.testing.assert_allclose(_np(out), np.asarray(jout), rtol=1e-5,
+                                   atol=1e-6)
+        for a, b in zip(tg, jg):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-4,
+                                       atol=1e-5)
+    dense = tattn.dense_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(dense), np.asarray(jdense), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_loss_and_grads_vs_jax(ref32):
+    _, tcfg = _cfgs("float32")
+    st = _port_state(ref32["init"])
+    batch = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ,
+                          device="cpu")(0)
+    loss, grads = _port_grads(st.params, batch, tcfg)
+    assert abs(loss - ref32["loss"]) <= 1e-5, (loss, ref32["loss"])
+    assert len(grads) == len(ref32["grads"]) == 11
+    for g, want in zip(grads, ref32["grads"]):
+        assert g.shape == want.shape
+        _close_to_scale(g, want, 1e-4)
+
+
+@pytest.mark.parametrize("field,value", [("attn_vjp", "naive"),
+                                         ("remat", "none")])
+def test_grads_equal_across_vjp_and_remat(ref32, field, value):
+    """Flash vs naive attention gradients (rtol 1e-5 of each leaf's scale:
+    two summation orders of the same f32 math) and remat full vs none
+    (bit-identical: the checkpoint recomputes the same ops)."""
+    _, tcfg = _cfgs("float32")
+    batch = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ,
+                          device="cpu")(0)
+    params = _port_state(ref32["init"]).params
+    base = _port_grads(params, batch, tcfg)
+    other = _port_grads(params, batch,
+                        dataclasses.replace(tcfg, **{field: value}))
+    assert abs(base[0] - other[0]) <= 1e-6
+    for a, b in zip(base[1], other[1]):
+        if field == "remat":
+            np.testing.assert_array_equal(a, b)
+        else:
+            _close_to_scale(a, b, 1e-5)
+
+
+def test_one_step_state_and_metrics_vs_jax(ref32):
+    _, tcfg = _cfgs("float32")
+    st = _port_state(ref32["init"])
+    step = make_train_step(tcfg, tadamw.AdamWConfig(total_steps=10),
+                           PAPER_EDGE)
+    pipe = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ, device="cpu")
+    st, m = step(st, pipe(0))
+    want = ref32["metrics"][0]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m[k]), want[k], rtol=1e-5)
+    assert int(st.opt["step"]) == 1
+    got = {"params": st.params, **{k: st.opt[k]
+                                   for k in ("mu", "nu", "master")}}
+    for name, tree in got.items():
+        for g, w in zip(tree_leaves(tree), jax.tree_util.tree_leaves(
+                ref32["after1"][name])):
+            g = _np(g)
+            if name in ("params", "master"):
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+            else:
+                _close_to_scale(g, w, 1e-4)
+    # the master is a copy, never the param itself
+    for p, mst in zip(tree_leaves(st.params), tree_leaves(st.opt["master"])):
+        assert p.data_ptr() != mst.data_ptr()
+
+
+def test_three_step_losses_vs_jax(ref32):
+    _, tcfg = _cfgs("float32")
+    st = _port_state(ref32["init"])
+    step = make_train_step(tcfg, tadamw.AdamWConfig(total_steps=10),
+                           PAPER_EDGE)
+    pipe = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ, device="cpu")
+    for s in range(STEPS):
+        st, m = step(st, pipe(s))
+        want = ref32["metrics"][s]
+        np.testing.assert_allclose(float(m["loss"]), want["loss"], rtol=1e-4)
+        np.testing.assert_allclose(float(m["lr"]), want["lr"], rtol=1e-6)
+
+
+def test_bf16_losses_vs_jax_bf16():
+    jcfg, tcfg = _cfgs("bfloat16")
+    opt = dict(total_steps=10)
+    jst = jinit(jax.random.PRNGKey(1), jcfg, jadamw.AdamWConfig(**opt),
+                JPAPER_EDGE)
+    st = _port_state(_np_tree(jst.params), torch.bfloat16)
+    assert st.params["blocks"][0]["wq"].dtype == torch.bfloat16
+    assert st.opt["master"]["blocks"][0]["wq"].dtype == torch.float32
+    jstep = jax.jit(jmake_step(jcfg, jadamw.AdamWConfig(**opt), JPAPER_EDGE))
+    step = make_train_step(tcfg, tadamw.AdamWConfig(**opt), PAPER_EDGE)
+    jpipe = jmake_pipeline(jcfg, global_batch=BATCH, seq_len=SEQ)
+    pipe = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ, device="cpu")
+    for s in range(2):
+        jst, jm = jstep(jst, jpipe(s))
+        st, m = step(st, pipe(s))
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= 2e-3, s
+
+
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
+def test_schedule_and_adamw_update_vs_jax(schedule):
+    """The schedule at warmup, mid-decay and past the end; one update of a
+    tree holding a stacked (P, d) norm (decayed: ndim >= 2), a vector (not
+    decayed) and a bf16 matrix with its f32 master."""
+    cfg = dict(warmup_steps=3, total_steps=10, schedule=schedule,
+               grad_clip=0.5)
+    jsched = jadamw.make_schedule(jadamw.AdamWConfig(**cfg))
+    tsched = tadamw.make_schedule(tadamw.AdamWConfig(**cfg))
+    for s in (0, 1, 3, 6, 10, 12):
+        np.testing.assert_allclose(float(tsched(s)),
+                                   float(jsched(jnp.int32(s))), rtol=1e-6)
+    rng = np.random.default_rng(2)
+    tree = {"ln": rng.normal(0, 1, (2, 8)).astype(np.float32),
+            "final_norm": rng.normal(0, 1, (8,)).astype(np.float32),
+            "w": rng.normal(0, 1, (8, 4)).astype(np.float32)}
+    grads = {k: rng.normal(0, 1, v.shape).astype(np.float32)
+             for k, v in tree.items()}
+    jp = {k: jnp.asarray(v, jnp.bfloat16 if k == "w" else jnp.float32)
+          for k, v in tree.items()}
+    tp = {k: torch.from_numpy(np.array(v, np.float32)).to(
+        torch.bfloat16 if k == "w" else torch.float32) for k, v in jp.items()}
+    jst = jadamw.adamw_init(jp)
+    tst = tadamw.adamw_init(tp)
+    for _ in range(2):
+        jp, jst, jm = jadamw.adamw_update(
+            {k: jnp.asarray(v) for k, v in grads.items()}, jst, jp,
+            jadamw.AdamWConfig(**cfg))
+        tm = tadamw.adamw_update({k: torch.from_numpy(v)
+                                  for k, v in grads.items()}, tst, tp,
+                                 tadamw.AdamWConfig(**cfg))
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-6)
+    for k in tree:
+        np.testing.assert_allclose(_np(tst["master"][k]),
+                                   np.asarray(jst["master"][k]), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(_np(tp[k]), np.asarray(jp[k], np.float32),
+                                   rtol=0, atol=1e-2 if k == "w" else 1e-6)
+
+
+def test_later_slice_options_raise():
+    _, tcfg = _cfgs("float32")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_train_step(tcfg, tadamw.AdamWConfig(), MIXED_TC)
+    params = lm.init_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    batch = make_pipeline(tcfg, global_batch=1, seq_len=8, device="cpu")(0)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        lm.loss_fn(params, batch, dataclasses.replace(tcfg, remat="dots"))
+    with pytest.raises(ValueError, match="vjp"):
+        tattn.blockwise_attention(torch.zeros(1, 4, 2, 8),
+                                  torch.zeros(1, 4, 2, 8),
+                                  torch.zeros(1, 4, 2, 8), vjp="fast")
