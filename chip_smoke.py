@@ -12,11 +12,14 @@ per contract.  Needs one CUDA GPU; run from the repository root:
 
     python3 chip_smoke.py [--seed N]
 
-Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5; 5 K4; 5b K6; 6 ring main path;
-6b ring decode-step profile; 6c paged main path; 6d paged decode-step
-profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8 kernel times;
-8b K4 by blocks walked; 9 K7; 10 the quickstart path (serving's
-counterpart: training); 10b train step card vs CPU; then K7's times.
+Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5; 5 K4; 5b K6 (split boundaries
+too); 6 ring main path; 6b ring decode-step profile; 6c paged main path; 6d
+paged decode-step profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8
+kernel times; 8b K4 by blocks walked; 8c K6 by blocks walked over the same
+rows; 9 K7 (both paths, the crossover's neighbours); 9b K7's two paths
+timed by M (the crossover); 10 the quickstart path (serving's counterpart:
+training; part 2's device time); 10b train step card vs CPU; then K7's
+times.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
@@ -44,13 +47,17 @@ count printed, not asserted: K4 and K6 sum in different orders in bf16.
 
 Kernel times (the kernels JSON line): ``ms`` is the device time per
 wrapper call, from a CUDA graph of 20 calls replayed between CUDA events,
-so no host launch cost enters it (the attention wrappers add their q
-scaling and output cast, small elementwise ops, to the kernel);
+so no host launch cost enters it (K4's wrapper adds its q scaling and
+output cast, small elementwise ops; K6 does both inside its two kernels,
+and K7's split-K path is two kernels too);
 ``plain_ms`` is the plain PyTorch version per call, between CUDA events
-around eager calls.  K7's entry also carries its M = 8 shape (``m8``) and
+around eager calls.  K7's entry also carries its M = 8 shape (``m8``),
 ``decoded_matmul_ms``, torch.matmul of x by the already decoded f32
 weights: a labelled yardstick, not the same function (no PyTorch call
-decodes posit codes, so ``library_ms`` is null).  The decode-step and
+decodes posit codes, so ``library_ms`` is null), its tensor-core bound
+(``bound_ms``: 3 bf16 passes at the tensor cores' peak) beside the bound
+of the same product in f32 without tensor cores (``bound_f32_simt_ms``),
+and the crossover between its two paths with the times it was set from.  The decode-step and
 train-step profiles (device busy, idle share) come from a torch.profiler
 trace and read "not measured" where the trace holds no device events.
 """
@@ -71,6 +78,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # non-tensor-core float32, H100 SXM
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, H100 SXM
 
 KERNELS = {
     "posit_decode": ("src/repro_torch/csrc/posit_codec.cu",
@@ -384,6 +392,11 @@ def main() -> int:
     # 5b. K6 vs paged_decode_attention_ref over the shuffled table ------
     table_bad = table.clone()                   # clipped to [0, num_pages)
     table_bad[0, 0], table_bad[3, 5], table_bad[7, 63] = -3, 10_000, -1
+    # K6's split boundaries (pkv.SPLIT_ROWS rows per CTA) and page edges
+    sr = pkv.SPLIT_ROWS
+    edge_lens = [torch.tensor(v, dtype=torch.int32, device=dev) for v in (
+        [-1, PS - 1, PS, PS + 1, sr - 1, sr, sr + 1, W],
+        [0, 1, 2 * sr - 1, 2 * sr, 2 * sr + 1, W - sr, W - 1, W])]
     for name, packed in KV_FORMATS:
         fmt = get_fmt(name)
         pool = []
@@ -395,7 +408,8 @@ def main() -> int:
             np.float32)).to(dev)
         errs = []
         for tb, sl in ((table, cache_len), (table, empty_len),
-                       (table_bad, cache_len)):
+                       (table_bad, cache_len), (table, edge_lens[0]),
+                       (table_bad, edge_lens[1])):
             got = pkv.paged_decode_attention(q, *pool, tb, sl, fmt,
                                              page_size=PS, packed=packed)
             want = pkv.paged_decode_attention_ref(q, *pool, tb, sl, fmt,
@@ -407,7 +421,9 @@ def main() -> int:
             err["paged_decode_attention"] = errs[0]
         phase(f"phase 5b K6 paged_decode_attention {name}: max |err| "
               f"{errs[0]:.3e}, {errs[1]:.3e} with empty slots, {errs[2]:.3e} "
-              "with out-of-range table entries (rtol 1e-5, atol 1e-5)")
+              f"with out-of-range table entries, {max(errs[3:]):.3e} at "
+              f"seq_lens on split ({sr}-row) and page edges "
+              f"{[v.tolist() for v in edge_lens]} (rtol 1e-5, atol 1e-5)")
 
     # 6. main path: full-width paper-edge, posit8 ring, 8 requests -----
     cfg = get_config("paper-edge")
@@ -784,6 +800,21 @@ def main() -> int:
           "64 rows each): " + ", ".join(f"{k}: {v:.2f}"
                                         for k, v in walk_us.items())
           + f"; {(walk_us[16] - walk_us[1]) / 15:.2f} µs per block")
+    # 8c. K6 over the same numbers of rows per slot, through the table
+    split_us = {}
+    for n_rows in (64, 256, 1024):
+        cl_n = torch.full((B,), n_rows, dtype=torch.int32, device=dev)
+        split_us[n_rows // 64] = 1e3 * graph_ms(
+            lambda i, _cl=cl_n: pkv.paged_decode_attention(
+                q_step, kc_p[i], ks_p[i], vc_p[i], vs_p[i], table, _cl, p8,
+                page_size=PS), layers)
+    slope_k6 = (split_us[16] - split_us[1]) / 15
+    phase("phase 8c K6 device µs per call by 64-row blocks per slot (B=8, "
+          f"{pkv.SPLIT_ROWS}-row splits): "
+          + ", ".join(f"{k}: {v:.2f} (K4 {walk_us[k]:.2f})"
+                      for k, v in split_us.items())
+          + f"; {slope_k6:.2f} µs per block (K4 "
+          f"{(walk_us[16] - walk_us[1]) / 15:.2f})")
 
     byts = {
         "posit_decode": n_codes * (1 + 4),
@@ -824,6 +855,7 @@ def main() -> int:
     from repro_torch.core.quant import quantize
     from repro_torch.core.transprecision import PAPER_EDGE
     from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import posit_matmul as pmm
     from repro_torch.kernels.ops import qt_matmul
     from repro_torch.kernels.posit_matmul import (posit_matmul,
                                                   posit_matmul_plain)
@@ -839,10 +871,15 @@ def main() -> int:
         return float((got - want).abs().nan_to_num(0.0).max())
 
     n_cases = 0
+    paths = {"tensor_core": 0, "split_k": 0}
+    xo = pmm.SKINNY_MAX_M            # the crossover and its neighbours
     for name in ("posit8_2", "posit8_0", "posit8_1", "posit16_2"):
         fmt = get_fmt(name)
         for m, n, k in ((16, 16, 16), (100, 60, 130), (33, 17, 47),
-                        (1, 200, 7), (8192, 4096, 768), (8, 4096, 768)):
+                        (1, 200, 7), (8192, 4096, 768), (8, 4096, 768),
+                        (16, 4096, 768), (17, 4096, 768), (xo, 4096, 768),
+                        (xo + 1, 4096, 768), (128, 4096, 768),
+                        (8, 32000, 768)):
             w = torch.from_numpy(rng_mm.normal(0, 1, (k, n)).astype(
                 np.float32)).to(dev)
             codes = encode_tile(w, fmt)
@@ -857,6 +894,8 @@ def main() -> int:
                                (torch.float32, torch.bfloat16)):
                     got = posit_matmul(x.to(xd), codes, fmt, scale,
                                        compute_dtype=cd)
+                    paths["tensor_core" if m > xo and pmm.tensor_core_ok(
+                        x.to(xd), codes) else "split_k"] += 1
                     want = posit_matmul_plain(x.to(xd), codes, fmt, scale,
                                               compute_dtype=cd)
                     torch.testing.assert_close(got, want, equal_nan=True,
@@ -874,13 +913,40 @@ def main() -> int:
             else:
                 raise AssertionError("an (N, 1) scale did not raise")
             assert LAUNCHES["posit_matmul"] == before
+    assert all(paths.values()), paths
     phase(f"phase 9 K7 posit_matmul: {n_cases} cases (posit8_2/8_0/8_1/"
           f"16_2; (m, n, k) (16,16,16) (100,60,130) (33,17,47) (1,200,7) "
-          f"(8192,4096,768) (8,4096,768); scale None / scalar / (N,) / "
-          f"(1,N); x f32, x bf16, compute bf16; a NaR column) within rtol "
-          f"2e-5 atol 2e-4 of the plain version, max |err| "
-          f"{err['posit_matmul']:.3e}; NaR column NaN in both; (N,1) scale "
-          f"raises before any launch")
+          f"(8192,4096,768) (8,4096,768), M = 16, 17, {xo}, {xo + 1}, 128 at "
+          f"(4096, 768) around the crossover M = {xo}, (8,32000,768); scale "
+          f"None / scalar / (N,) / (1,N); x f32, x bf16, compute bf16; a NaR "
+          f"column; {paths['tensor_core']} on the tensor-core path, "
+          f"{paths['split_k']} split-K) within rtol 2e-5 atol 2e-4 of the "
+          f"plain version, max |err| {err['posit_matmul']:.3e}; NaR column "
+          f"NaN in both; (N,1) scale raises before any launch")
+
+    # 9b. the crossover: both paths by M at the kernels line's shape (x f32
+    # times wi, 768 x 4096 posit8_2, (1, N) scale)
+    w_x = quantize(params["blocks"][0]["wi"][0], POSIT8_2, axis=0)
+    dec_x = decode_tile(w_x.data, POSIT8_2)
+    crossover = {}
+    for mrows in (8, 32, 48, 64, 128, 512):
+        xs_c = [torch.from_numpy(rng_mm.normal(0, 1, (mrows, cfg.d_model))
+                                 .astype(np.float32)).to(dev)
+                for _ in range(4)]
+        crossover[mrows] = {
+            f"{p_}_us": 1e3 * graph_ms(
+                lambda i, _p=p_: posit_matmul(xs_c[i], w_x.data, POSIT8_2,
+                                              w_x.scale, path=_p), 4)
+            for p_ in ("split_k", "tensor_core")}
+        crossover[mrows]["decoded_matmul_us"] = 1e3 * graph_ms(
+            lambda i: torch.matmul(xs_c[i], dec_x) * w_x.scale, 4)
+    phase("phase 9b K7 device µs by M, split-K / tensor-core / decoded-W "
+          "torch.matmul (x f32, wi 768 x 4096 posit8_2): "
+          + "; ".join(f"M={m_}: {v['split_k_us']:.2f} / "
+                      f"{v['tensor_core_us']:.2f} / "
+                      f"{v['decoded_matmul_us']:.2f}"
+                      for m_, v in crossover.items())
+          + f"; the wrapper takes split-K up to M = {xo}")
 
     # 10. the quickstart path at full width on the card ------------------
     rng_qs = np.random.default_rng([args.seed, 3])
@@ -896,9 +962,11 @@ def main() -> int:
     hid = rms_norm(params["embed"][toks], blk0["ln"][0]).reshape(
         -1, cfg.d_model)                                   # (8192, 768) bf16
     qs_err = 0.0
+    part2 = []                       # (x, W) of every call, for its timing
 
     def qt_checked(xin, wq):
         nonlocal qs_err
+        part2.append((xin, wq))
         got = qt_matmul(xin, wq)
         want = posit_matmul_plain(xin, wq.data, wq.fmt, wq.scale)
         torch.testing.assert_close(got, want, **mm_tol)
@@ -914,6 +982,13 @@ def main() -> int:
         qt_checked(torch.nn.functional.silu(gate) * up,
                    quantize(lp["wo_mlp"], POSIT8_2, axis=0))
     qt_checked(hid, quantize(params["lm_head"], POSIT16_2, axis=0))
+    # part 2's device time: its calls replayed as one CUDA graph; these
+    # replays are not the path's run, so the K7 count is put back after
+    k7_count = LAUNCHES["posit_matmul"]
+    part2_ms = len(part2) * graph_ms(lambda i: qt_matmul(*part2[i]),
+                                     len(part2), iters=len(part2), reps=3)
+    LAUNCHES["posit_matmul"] = k7_count
+    del part2
     # part 3: five PAPER_EDGE train steps of full-width paper-edge
     opt_cfg = AdamWConfig(total_steps=10)
     tstate = init_train_state(cfg, opt_cfg, PAPER_EDGE, generator=gen,
@@ -971,7 +1046,9 @@ def main() -> int:
           f"{qs_launches['posit_matmul']} qt_matmul launches (12 layers x "
           f"wq wk wv wo wi wo_mlp posit8_2 + head posit16_2, M = 8192) "
           f"within rtol 2e-5 atol 2e-4 of the plain version (max |err| "
-          f"{qs_err:.3e}); part 3 {len(losses)} PAPER_EDGE train steps "
+          f"{qs_err:.3e}), {part2_ms:.3f} ms of device time for the "
+          f"{qs_launches['posit_matmul']} calls (one CUDA graph); part 3 "
+          f"{len(losses)} PAPER_EDGE train steps "
           f"(bf16 params, f32 master, batch 8 x 1024): loss "
           f"{[round(v, 4) for v in losses]}, grad norm "
           f"{[round(v, 4) for v in gnorms]}, loss on step 1's batch after 5 "
@@ -1045,14 +1122,18 @@ def main() -> int:
 
         t_bytes = ((mrows * mk * 4 + mk * nk + nk * 4 + mrows * nk * 4)
                    / H100_BYTES_PER_S * 1e3)
-        t_ops = 2 * mrows * mk * nk / H100_F32_FLOPS * 1e3
+        # x f32 is three bf16 pieces, posit8 weights one: 3 passes
+        t_ops = 3 * 2 * mrows * mk * nk / H100_BF16_FLOPS * 1e3
         k7[mrows] = {
             "ms": graph_ms(k7_call, layers),
             "plain_ms": time_ms(lambda i: k7_call(i, plain=True), layers,
                                 iters=3, reps=3),
             "decoded_matmul_ms": graph_ms(decoded_matmul, layers),
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_simt_ms": max(
+                t_bytes, 2 * mrows * mk * nk / H100_F32_FLOPS * 1e3),
+            "path": "tensor_core" if mrows > pmm.SKINNY_MAX_M else "split_k"}
         del xs
     src, repl = KERNELS["posit_matmul"]
     out.append({
@@ -1065,10 +1146,17 @@ def main() -> int:
         "decoded_matmul_note": "torch.matmul of x by the decoded f32 W, "
                                "times the scale: a labelled reference, not "
                                "the same function",
-        "m8": k7[8]})
+        "bound_note": "bound_ms: 3 bf16 tensor-core passes (x f32 as three "
+                      "bf16 pieces) or the bytes; bound_f32_simt_ms: the "
+                      "same product at the f32 SIMT peak",
+        "m8": k7[8],
+        "crossover": {"split_k_max_m": pmm.SKINNY_MAX_M,
+                      "times_us_by_m": crossover},
+        "quickstart_part2_ms": part2_ms})
     phase("kernels line, K7 device µs per call (CUDA graph of 20 calls): "
-          + "; ".join(f"M={m_}: {1e3 * v['ms']:.2f} (bound "
-                      f"{1e3 * v['bound_ms']:.2f} by {v['bound_by']}, plain "
+          + "; ".join(f"M={m_}: {1e3 * v['ms']:.2f} ({v['path']}; bound "
+                      f"{1e3 * v['bound_ms']:.2f} by {v['bound_by']}, f32 "
+                      f"SIMT bound {1e3 * v['bound_f32_simt_ms']:.2f}, plain "
                       f"{1e3 * v['plain_ms']:.2f}, decoded-W torch.matmul "
                       f"{1e3 * v['decoded_matmul_ms']:.2f})"
                       for m_, v in k7.items()))

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Device times of the port's K4, K6 and K7 at the main paths' shapes, for
+one checkout of the port, so that two commits can be compared in one run
+on one card (parent, change, change, parent):
+
+    python3 scripts/port_kernel_times.py [--root DIR] [--seed N]
+
+``--root`` names the checkout whose ``src/repro_torch`` is timed (default:
+this one); it builds that checkout's kernels under its own ``build/``.
+Only entry points that every slice of the port has are called.  Times are
+device ms per call from a CUDA graph of the calls replayed between CUDA
+events (``chip_smoke.graph_ms``), argument sets rotated over 12 layers'
+buffers as in ``chip_smoke.py``'s kernels line:
+
+- K6 (paged) and K4 (ring): B = 8, nh = 12 over 4 KV heads of 64, posit8
+  codes, 16-row pages through a shuffled table, seq_lens {1, 17, 128,
+  129, 500, 1000, 1023, 1024}, q bf16;
+- K7: x (M, 768) f32 times wi (768 x 4096, posit8_2, (1, N) scale) at
+  M = 8192 and M = 8, beside torch.matmul by the decoded f32 W;
+- quickstart part 2: the 73 ``qt_matmul`` calls of ``chip_smoke.py``
+  phase 10 (12 layers x wq wk wv wo wi wo_mlp in posit8_2 and the head
+  in posit16_2, bf16 activations of 8 x 1024 tokens), one graph of all.
+
+Prints the card's name and power limit, then one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("port_kernel_times: no CUDA GPU available", file=sys.stderr)
+        return 2
+    root = args.root.resolve()
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import graph_ms
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.core.formats import POSIT8_2, POSIT16_2
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import kv_cache as kvk
+    from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels.ops import qt_matmul
+    from repro_torch.kernels.posit_decode import decode_tile
+    from repro_torch.kernels.posit_matmul import posit_matmul
+    import repro_torch
+    assert Path(repro_torch.__file__).resolve().is_relative_to(root)
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    layers, b, nkv, hd, nh, ps, w = 12, 8, 4, 64, 12, 16, 1024
+    pmax = w // ps
+    pages = 1 + b * pmax
+    res = {"root": str(root)}
+
+    # K4 / K6 over the same live rows
+    lens = torch.tensor([1, 17, 128, 129, 500, 1000, 1023, 1024],
+                        dtype=torch.int32, device=dev)
+    table = torch.from_numpy((1 + rng.permutation(b * pmax)).reshape(
+        b, pmax).astype(np.int32)).to(dev)
+    q = torch.randn(b, 1, nh, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def codes(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    def scales(*shape):
+        return torch.exp2(torch.randint(-8, 8, shape, generator=gen,
+                                        device=dev).float())
+
+    pool = [(codes(pages * ps, nkv, hd), scales(pages * ps, nkv),
+             codes(pages * ps, nkv, hd), scales(pages * ps, nkv))
+            for _ in range(layers)]
+    ring = [(codes(b, w, nkv, hd), scales(b, w, nkv), codes(b, w, nkv, hd),
+             scales(b, w, nkv)) for _ in range(layers)]
+    res["k6_us"] = 1e3 * graph_ms(lambda i: pkv.paged_decode_attention(
+        q, *pool[i], table, lens, POSIT8_2, page_size=ps), layers)
+    res["k4_us"] = 1e3 * graph_ms(lambda i: kvk.decode_attention(
+        q, *ring[i], lens, POSIT8_2), layers)
+    del pool, ring
+
+    # K7 at the kernels line's shapes
+    wi = [quantize(0.02 * torch.randn(768, 4096, generator=gen, device=dev),
+                   POSIT8_2, axis=0) for _ in range(layers)]
+    dec = [decode_tile(t.data, POSIT8_2) for t in wi]
+    res["k7_us"], res["decoded_matmul_us"] = {}, {}
+    for m in (8192, 8):
+        xs = [torch.randn(m, 768, generator=gen, device=dev)
+              for _ in range(layers)]
+        res["k7_us"][m] = 1e3 * graph_ms(lambda i, _x=xs: posit_matmul(
+            _x[i], wi[i].data, POSIT8_2, wi[i].scale), layers)
+        res["decoded_matmul_us"][m] = 1e3 * graph_ms(
+            lambda i, _x=xs: torch.matmul(_x[i], dec[i]) * wi[i].scale,
+            layers)
+    del dec
+
+    # quickstart part 2: 73 qt_matmul calls
+    hid = torch.randn(8192, 768, generator=gen, device=dev).to(
+        torch.bfloat16)
+    act = torch.randn(8192, 2048, generator=gen, device=dev).to(
+        torch.bfloat16)
+    calls = []
+    for _ in range(layers):
+        for k, n in ((768, 768), (768, 256), (768, 256), (768, 768),
+                     (768, 4096)):
+            calls.append((hid, quantize(0.02 * torch.randn(
+                k, n, generator=gen, device=dev), POSIT8_2, axis=0)))
+        calls.append((act, quantize(0.02 * torch.randn(
+            2048, 768, generator=gen, device=dev), POSIT8_2, axis=0)))
+    calls.append((hid, quantize(0.02 * torch.randn(
+        768, 32000, generator=gen, device=dev), POSIT16_2, axis=0)))
+    res["part2_ms"] = len(calls) * graph_ms(
+        lambda i: qt_matmul(*calls[i]), len(calls), iters=len(calls),
+        reps=3)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

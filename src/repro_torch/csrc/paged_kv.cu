@@ -2,14 +2,15 @@
 //
 // K5 paged_kv_append_rows_kernel replaces
 // repro/kernels/paged_kv.py::paged_kv_append_rows (Pallas; paged_kv_append
-// is its T=1 case).  K6 paged_decode_attention_kernel replaces
-// repro/kernels/paged_kv.py::paged_decode_attention (Pallas).  Their bodies
-// are kv_rows.cuh's encode_row and attention_walk, shared with the ring's
-// K3 and K4 (kv_cache.cu); this file holds the pool addressing.
+// is its T=1 case).  K6 paged_decode_split_kernel + paged_decode_combine_
+// kernel replace repro/kernels/paged_kv.py::paged_decode_attention
+// (Pallas).  Their bodies are kv_rows.cuh's encode_row (shared with the
+// ring's K3, kv_cache.cu) and attention_split / attention_combine; this
+// file holds the pool addressing.
 //
 // Layouts (row-major, contiguous):
-//   k/v_new    (B, T, H, hd) f32         q    (B*nkv, grp, hd) f32, pre-scaled
-//   k/v_codes  (R, H, Dc) codes          out  (B*nkv, grp, hd) f32
+//   k/v_new    (B, T, H, hd) f32         q    (B*nkv, grp, hd) f32 or bf16
+//   k/v_codes  (R, H, Dc) codes          out  (B*nkv, grp, hd) q's type
 //   k/v_scale  (R, H) f32                page_table (B, Pmax) int32
 //   dst        (B, T) int32 flat rows    seq_lens   (B,) int32
 // R = num_pages * ps; page p owns flat rows [p*ps, (p+1)*ps); page 0 is the
@@ -57,21 +58,23 @@ __global__ void paged_kv_append_rows_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K6: page-walking fused decode-on-read one-token GQA attention.
+// K6: page-walking fused decode-on-read one-token GQA attention, as a split
+// walk across CTAs (flash-decoding) and a combine.
 //
 // Bound on the H100: device-memory bytes, as K4 -- each live row's codes and
 // scale are read once (at B=8, nkv=4, hd=64, posit8 and seq_lens
-// {1,17,128,129,500,1000,1023,1024}: 3,822 rows, 2.08 MB, 0.62 us).
-// Design: not the Pallas grid (B, nkv, Pmax) carried over -- blocks run in
-// no order, so nothing can carry (m, l, acc) across a grid axis.  One CTA per
-// (slot, kv-head) loads its own page-table row (no scalar prefetch on
-// Hopper) and runs kv::attention_walk over logical rows
-// [0, min(seq_lens[b], Pmax*ps)).  Pages are only 16 rows, so each 64-row
-// block gathers 64/ps table entries into shared memory and keeps K4's block
-// loop instead of four times its barriers.  Table entries are clipped to
-// [0, num_pages), as in the reference; seq_lens[b] <= 0 walks all Pmax pages
-// with every score masked, which gives the mean of V over the listed pages,
-// trash included.
+// {1,17,128,129,500,1000,1023,1024}: 3,822 rows, 2.08 MB, 0.62 us), so the
+// latency of the two launches sets the floor.  Design: not the Pallas grid
+// (B, nkv, Pmax) carried over -- blocks run in no order, so nothing can
+// carry (m, l, acc) across a grid axis.  Kernel A has a CTA per (slot,
+// kv-head, SR-row split): it scales its q rows by hd^-0.5 in q's type, loads
+// its own page-table entries (no scalar prefetch on Hopper; clipped to
+// [0, num_pages), as in the reference) and runs kv::attention_split, so a
+// slot's rows are walked by ceil(len / SR) SMs at once with many rows in
+// flight on each; kernel B merges a slot's live splits with log-sum-exp
+// weights and writes the output in q's type.  seq_lens[b] <= 0 walks all
+// Pmax pages with every score masked, which gives the mean of V over the
+// listed pages, trash included.
 // ---------------------------------------------------------------------------
 struct PageRows {
   const int* table;  // the slot's (Pmax,) page-table row
@@ -82,25 +85,67 @@ struct PageRows {
   }
 };
 
-template <int N, int ES>
-__global__ void __launch_bounds__(kv::kAttnThreads)
-    paged_decode_attention_kernel(
-        const float* __restrict__ q,
+template <int N, int ES, int VB, typename QT>
+__global__ void __launch_bounds__(kv::kSplitThreads)
+    paged_decode_split_kernel(
+        const QT* __restrict__ q,
         const typename posit::Code<N>::type* __restrict__ k_codes,
         const float* __restrict__ k_scale,
         const typename posit::Code<N>::type* __restrict__ v_codes,
         const float* __restrict__ v_scale,
         const int* __restrict__ page_table, const int* __restrict__ seq_lens,
-        float* __restrict__ out, int nkv, int grp, int hd, int ps, int pmax,
-        int num_pages, int bias) {
+        float* __restrict__ part, int nkv, int grp, int hd, int ps, int pmax,
+        int num_pages, int bias, float qscale, int SR, int S) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rowid = blockIdx.x;                 // b * nkv + h
+  const int rowid = blockIdx.x, split = blockIdx.y;   // rowid = b * nkv + h
   const int b = rowid / nkv, h = rowid % nkv;
-  const long long qo = (long long)rowid * grp * hd;
-  kv::attention_walk<N, ES>(
-      q + qo, k_codes, k_scale, v_codes, v_scale, seq_lens[b], pmax * ps,
+  kv::attention_split<N, ES, VB>(
+      q + (long long)rowid * grp * hd, qscale, k_codes, k_scale, v_codes,
+      v_scale, seq_lens[b], pmax * ps, split * SR, SR,
       PageRows{page_table + (long long)b * pmax, ps, num_pages, nkv, h},
-      out + qo, grp, hd, bias, smem);
+      part + ((long long)rowid * S + split) * grp * (hd + 2), grp, hd, bias,
+      smem);
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(kv::kSplitThreads)
+    paged_decode_combine_kernel(const float* __restrict__ part,
+                                const int* __restrict__ seq_lens,
+                                OT* __restrict__ out, int nkv, int grp,
+                                int hd, int W, int SR, int S) {
+  const int rowid = blockIdx.x;
+  kv::attention_combine<OT>(part + (long long)rowid * S * grp * (hd + 2),
+                            seq_lens[rowid / nkv], W, SR, S,
+                            out + (long long)rowid * grp * hd, grp, hd);
+}
+
+template <int N, int ES, int VB, typename QT>
+int launch_split(const void* q, const void* k_codes, const void* k_scale,
+                 const void* v_codes, const void* v_scale,
+                 const void* page_table, const void* seq_lens, void* out,
+                 void* part, int B, int nkv, int grp, int hd, int ps,
+                 int pmax, int num_pages, int bias, float qscale, int SR,
+                 cudaStream_t st) {
+  using CodeT = typename posit::Code<N>::type;
+  const int S = (pmax * ps + SR - 1) / SR;
+  const size_t smem = kv::split_smem_bytes(grp, hd, SR);
+  auto kern = paged_decode_split_kernel<N, ES, VB, QT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<dim3(B * nkv, S), kv::kSplitThreads, smem, st>>>(
+      (const QT*)q, (const CodeT*)k_codes, (const float*)k_scale,
+      (const CodeT*)v_codes, (const float*)v_scale, (const int*)page_table,
+      (const int*)seq_lens, (float*)part, nkv, grp, hd, ps, pmax, num_pages,
+      bias, qscale, SR, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_combine_kernel<QT><<<B * nkv, kv::kSplitThreads, 0, st>>>(
+      (const float*)part, (const int*)seq_lens, (QT*)out, nkv, grp, hd,
+      pmax * ps, SR, S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -131,24 +176,41 @@ extern "C" int paged_kv_append_rows(const void* k_new, const void* v_new,
   return (int)cudaErrorInvalidValue;
 }
 
+// q (B, nkv, grp, hd) and out in q's type (f32, or bf16 with q_bf16), part
+// a (B * nkv, S, grp, hd + 2) f32 workspace, S = ceil(Pmax * ps / SR).  Rows
+// of codes must be 4 * 2^i bytes, at most 512.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_codes, const void* k_scale,
     const void* v_codes, const void* v_scale, const void* page_table,
-    const void* seq_lens, void* out, int B, int nkv, int grp, int hd, int ps,
-    int pmax, int num_pages, int nbits, int es, int bias, void* stream) {
-  if (ps < 1 || pmax < 1 || num_pages < 1) return (int)cudaErrorInvalidValue;
+    const void* seq_lens, void* out, void* part, int B, int nkv, int grp,
+    int hd, int ps, int pmax, int num_pages, int nbits, int es, int bias,
+    int q_bf16, int SR, float qscale, void* stream) {
+  if (ps < 1 || pmax < 1 || num_pages < 1 || SR < 1 || grp < 1 || grp > 128)
+    return (int)cudaErrorInvalidValue;
+  if (B * nkv == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define ATTN_CASE(N, ES)                                                      \
+  const int row_bytes = nbits <= 4 ? hd / 2 : hd * (nbits / 8);
+  const bool al16 = (((uintptr_t)k_codes | (uintptr_t)v_codes) & 15) == 0;
+  const bool al4 = (((uintptr_t)k_codes | (uintptr_t)v_codes) & 3) == 0;
+  const int vb = row_bytes % 16 == 0 && al16 ? 16
+                 : row_bytes % 4 == 0 && al4 ? 4 : 0;
+  const int lpr = vb ? row_bytes / vb : 0;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) || (nbits <= 4 && hd % 2))
+    return (int)cudaErrorInvalidValue;
+#define SPLIT_CASE(N, ES)                                                     \
   if (nbits == N && es == ES) {                                               \
-    using CodeT = posit::Code<N>::type;                                       \
-    return kv::launch_attention(                                              \
-        paged_decode_attention_kernel<N, ES>, B * nkv, grp, hd, st,           \
-        (const float*)q, (const CodeT*)k_codes, (const float*)k_scale,        \
-        (const CodeT*)v_codes, (const float*)v_scale,                         \
-        (const int*)page_table, (const int*)seq_lens, (float*)out, nkv, grp,  \
-        hd, ps, pmax, num_pages, bias);                                       \
+    auto go = [&](auto vbt, auto qt) {                                        \
+      return launch_split<N, ES, decltype(vbt)::value, decltype(qt)>(         \
+          q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens, out,   \
+          part, B, nkv, grp, hd, ps, pmax, num_pages, bias, qscale, SR, st);   \
+    };                                                                        \
+    using V16 = std::integral_constant<int, 16>;                              \
+    using V4 = std::integral_constant<int, 4>;                                \
+    if (vb == 16)                                                             \
+      return q_bf16 ? go(V16{}, __nv_bfloat16{}) : go(V16{}, float{});        \
+    return q_bf16 ? go(V4{}, __nv_bfloat16{}) : go(V4{}, float{});            \
   }
-  POSIT_FORMATS(ATTN_CASE)
-#undef ATTN_CASE
+  POSIT_FORMATS(SPLIT_CASE)
+#undef SPLIT_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> {C entry: argtypes}; every entry returns cudaGetLastError()
 SIGNATURES = {
     "posit_codec": {
@@ -50,13 +50,14 @@ SIGNATURES = {
         # B, T, H, hd, R, nbits, es, bias, stream
         "paged_kv_append_rows": [_P] * 7 + [_I] * 8 + [_P],
         # q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens, out,
-        # B, nkv, grp, hd, ps, Pmax, num_pages, nbits, es, bias, stream
-        "paged_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
+        # part, B, nkv, grp, hd, ps, Pmax, num_pages, nbits, es, bias, q_bf16,
+        # split_rows, qscale, stream
+        "paged_decode_attention": [_P] * 9 + [_I] * 12 + [_F, _P],
     },
     "posit_matmul": {
-        # x, w_codes, scale, out, M, K, N, nbits, es, bias, x_bf16,
-        # compute_bf16, stream
-        "posit_matmul": [_P] * 4 + [_I] * 8 + [_P],
+        # x, w_codes, scale, out, work, M, K, N, nbits, es, bias, x_bf16,
+        # compute_bf16, splits, stream
+        "posit_matmul": [_P] * 5 + [_I] * 9 + [_P],
     },
 }
 

@@ -20,8 +20,9 @@ Layout (per attention layer; no batch axis — pages are shared):
       of the (B, T) ``dst`` matrix (``flat_dst_rows_chunk``); no other row
       moves.  ``paged_kv_append`` is its T=1 case.
   read path   K6 ``paged_decode_attention`` — one-token GQA that walks
-      each slot's page list, decoding codes to f32 on-chip inside the
-      online softmax.
+      each slot's page list in splits of ``SPLIT_ROWS`` rows across CTAs,
+      decoding codes to f32 on-chip, then merges the splits' softmax
+      partials (flash-decoding).
 
 Idle slots point every logical page at trash page 0, so several rows of
 one append may land on the same trash row, in no set order: trash rows
@@ -170,16 +171,22 @@ def paged_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
     return decode_attention(q, k, v, seq_lens)
 
 
+# Logical rows per CTA of K6's split walk (a multiple of 64).
+SPLIT_ROWS = 128
+
+
 def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
                            page_table, seq_lens, fmt: PositFormat, *,
                            page_size: int, packed: bool = False):
     """K6: fused one-token GQA attention over a paged posit pool (contract
-    of ``paged_decode_attention_ref``; output in q's dtype).  q is
-    pre-scaled by hd^-0.5 in q's dtype, as in the reference kernel; one
-    CTA per (slot, kv-head) on the card walks the slot's pages up to
-    ``seq_lens[b]`` (all Pmax pages, every row masked and so weighed
-    equally, where ``seq_lens[b] <= 0``).  Table entries are clipped to
-    [0, num_pages)."""
+    of ``paged_decode_attention_ref``; output in q's dtype, float32 or
+    bfloat16 on the card).  q is scaled by hd^-0.5 in q's dtype, as in the
+    reference kernel.  On the card the slot's rows up to ``seq_lens[b]``
+    (all Pmax pages, every row masked and so weighed equally, where
+    ``seq_lens[b] <= 0``) are walked in splits of ``SPLIT_ROWS`` rows, one
+    CTA each, and a second kernel merges the splits; the q scaling and the
+    output cast happen inside the kernels.  Table entries are clipped to
+    [0, num_pages).  A row of codes must be 4 * 2^i bytes, at most 512."""
     if not q.is_cuda:
         return paged_decode_attention_ref(
             q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens,
@@ -195,21 +202,32 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
             or page_table.shape != (b, pmax) or r % page_size
             or dc != code_channels(hd, fmt, packed)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if hd > 256:
-        raise ValueError(f"{name}: head dim must be <= 256")
+    row_bytes = dc * k_codes.element_size()
+    if hd > 256 or row_bytes < 4 or row_bytes > 512 or row_bytes & (
+            row_bytes - 1):
+        raise ValueError(f"{name}: head dim must be <= 256 and give rows of "
+                         f"codes of 4 * 2^i bytes, at most 512 (got "
+                         f"{row_bytes})")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be float32 or bfloat16")
     grp = nh // nkv
-    qg = (q.reshape(b, nkv, grp, hd) * (hd ** -0.5)).to(
-        torch.float32).contiguous()
+    if grp > 128:
+        raise ValueError(f"{name}: at most 128 query heads per KV head")
+    q = q.contiguous()
     tbl = page_table.to(torch.int32).contiguous()
     lens = torch.as_tensor(seq_lens, device=q.device).to(
         torch.int32).reshape(-1).expand(b).contiguous()
-    out = torch.empty((b, nkv, grp, hd), dtype=torch.float32, device=q.device)
-    _build.check_cuda(name, qg, k_codes, k_scale, v_codes, v_scale, tbl,
-                      lens, out)
+    splits = -(-pmax * page_size // SPLIT_ROWS)
+    part = torch.empty((b * nkv, splits, grp, hd + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((b, 1, nh, hd), dtype=q.dtype, device=q.device)
+    _build.check_cuda(name, q, k_codes, k_scale, v_codes, v_scale, tbl,
+                      lens, out, part)
     _build.launch("paged_kv", name, q.device,
-                  qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+                  q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
                   v_codes.data_ptr(), v_scale.data_ptr(), tbl.data_ptr(),
-                  lens.data_ptr(), out.data_ptr(), b, nkv, grp, hd,
-                  page_size, pmax, r // page_size, fmt.bits, fmt.es,
-                  fmt.bias)
-    return out.reshape(b, 1, nh, hd).to(q.dtype)
+                  lens.data_ptr(), out.data_ptr(), part.data_ptr(), b, nkv,
+                  grp, hd, page_size, pmax, r // page_size, fmt.bits, fmt.es,
+                  fmt.bias, int(q.dtype == torch.bfloat16), SPLIT_ROWS,
+                  hd ** -0.5)
+    return out

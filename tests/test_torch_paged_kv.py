@@ -8,18 +8,23 @@ order).  The plain K6 is within rtol/atol 1e-5 of the reference's Pallas
 ``paged_decode_attention`` in interpret mode at f32 q (online vs dense
 softmax: float32 summation order); at bf16 q the plain version rounds the
 softmax weights to bf16 where the Pallas kernel keeps them in f32, so it
-is held to one bf16 rounding (2^-7).
+is held to one bf16 rounding (2^-7).  ``test_kernel_matches_plain_on_card``
+needs the GPU (marker ``cuda``) and holds K6's split-walk kernels to the
+plain version there; the machine with the GPU has no JAX, so the JAX
+imports are optional and only the card test runs there.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
-
-from repro.core import formats as jformats  # noqa: E402
-from repro.kernels import kv_cache as jkv  # noqa: E402
-from repro.kernels import paged_kv as jpkv  # noqa: E402
+try:
+    import jax.numpy as jnp
+    from repro.core import formats as jformats
+    from repro.kernels import kv_cache as jkv
+    from repro.kernels import paged_kv as jpkv
+except ImportError:      # the GPU machine: only the card test runs there
+    jnp = None
 from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.kernels import kv_cache as tkv  # noqa: E402
 from repro_torch.kernels import paged_kv as tpkv  # noqa: E402
@@ -202,3 +207,67 @@ def test_paged_decode_matches_ring_decode_on_identity_table():
     paged = tpkv.paged_decode_attention_ref(q, *pool, table, lens, ft,
                                             page_size=ps)
     torch.testing.assert_close(paged, ring, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """K6's split walk and combine against the plain version on the card:
+    seq_lens at every page and split boundary (-1, 0, 1, ps - 1, ps,
+    ps + 1, R - 1, R, R + 1, Pmax * ps for R = SPLIT_ROWS), page sizes 8
+    and 16, out-of-range table entries, posit16/8 and packed posit4; f32 q
+    within rtol/atol 1e-5, bf16 q (output bf16) within one bf16 rounding of
+    the plain version on the same q values in f32 (hd^-0.5 = 1/8 scales
+    bf16 exactly, and the plain version would round its softmax weights
+    to bf16); one launch per call, and an unsupported head dim raises
+    before any."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from repro_torch.kernels import LAUNCHES
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    sr = tpkv.SPLIT_ROWS
+    nkv, grp, hd = 2, 3, 64
+    w = 2 * sr
+    for name, packed in FMTS:
+        ft = tformats.get(name)
+        for ps in (8, 16):
+            pmax = w // ps
+            lens = torch.tensor([-1, 0, 1, ps - 1, ps, ps + 1, sr - 1, sr,
+                                 sr + 1, w], dtype=torch.int32, device=dev)
+            b = len(lens)
+            num_pages = 1 + b * pmax
+            pool = []
+            for _ in range(2):
+                mag = np.exp2(rng.uniform(-2, 2, (num_pages * ps, nkv, 1)))
+                c, sc = tkv.encode_kv_rows(torch.from_numpy((rng.normal(
+                    0, 1, (num_pages * ps, nkv, hd)) * mag).astype(
+                        np.float32)), ft, packed)
+                pool += [c.to(dev), sc[..., 0].contiguous().to(dev)]
+            table = torch.from_numpy(_shuffled_table(rng, b, pmax)).to(dev)
+            table[2, pmax // 2:] = 0
+            table[8, 0], table[9, -1] = -3, num_pages + 5
+            q = torch.from_numpy(rng.normal(0, 1, (b, 1, nkv * grp, hd))
+                                 .astype(np.float32)).to(dev)
+            for qd, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -8)):
+                want = tpkv.paged_decode_attention_ref(
+                    q.to(qd).float(), *pool, table, lens, ft, page_size=ps,
+                    packed=packed)
+                before = LAUNCHES["paged_decode_attention"]
+                got = tpkv.paged_decode_attention(
+                    q.to(qd), *pool, table, lens, ft, page_size=ps,
+                    packed=packed)
+                assert LAUNCHES["paged_decode_attention"] == before + 1
+                assert got.dtype == qd and got.shape == q.shape
+                torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                           atol=1e-5)
+    before = LAUNCHES["paged_decode_attention"]
+    c, sc = tkv.encode_kv_rows(torch.zeros(16, 2, 48), tformats.POSIT8_2)
+    with pytest.raises(ValueError, match="head dim"):
+        tpkv.paged_decode_attention(
+            torch.zeros(1, 1, 2, 48, device=dev), c.to(dev),
+            sc[..., 0].contiguous().to(dev), c.to(dev),
+            sc[..., 0].contiguous().to(dev),
+            torch.ones(1, 4, dtype=torch.int32, device=dev),
+            torch.tensor([3], dtype=torch.int32, device=dev),
+            tformats.POSIT8_2, page_size=4)
+    assert LAUNCHES["paged_decode_attention"] == before

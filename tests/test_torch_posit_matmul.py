@@ -237,19 +237,26 @@ def test_shape_property_vs_jax(m, n, k, es):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card, TF32 off:
+    """The CUDA kernels against their plain version on the card, TF32 off:
     formats, ragged shapes, f32/bf16 x, bf16 compute, every scale form,
-    a NaR column, and the scale errors raised before any launch."""
+    a NaR column, both paths (the wrapper's choice, split-K forced, and
+    the tensor-core path forced where TMA can load the operands: M on
+    both sides of the crossover, K short of a 64-step, K % 64 <= 32), and
+    the scale errors raised before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import posit_matmul as pmm
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(12)
+    xo = pmm.SKINNY_MAX_M
     for name in ("posit8_0", "posit8_1", "posit8_2", "posit16_2"):
         fmt = tformats.get(name)
         for m, n, k in ((16, 16, 16), (100, 60, 130), (33, 17, 47),
-                        (1, 200, 7)):
+                        (1, 200, 7), (8, 256, 64), (xo, 512, 136),
+                        (xo + 1, 512, 136), (200, 64, 40), (300, 384, 200),
+                        (4, 4096, 768)):
             w = torch.from_numpy(rng.normal(0, 1, (k, n)).astype(np.float32))
             codes = tref.posit.encode_f32(w, fmt).to(dev)
             codes[k // 2, n // 2] = 0x80 if fmt.bits == 8 else -0x8000
@@ -261,15 +268,22 @@ def test_kernel_matches_plain_on_card():
                 for xd, cd in ((torch.float32, torch.float32),
                                (torch.bfloat16, torch.float32),
                                (torch.float32, torch.bfloat16)):
-                    before = LAUNCHES["posit_matmul"]
-                    got = posit_matmul(x.to(xd), codes, fmt, scale,
-                                       compute_dtype=cd)
-                    assert LAUNCHES["posit_matmul"] == before + 1
-                    want = posit_matmul_plain(x.to(xd), codes, fmt, scale,
-                                              compute_dtype=cd)
-                    torch.testing.assert_close(got, want, rtol=RTOL,
-                                               atol=ATOL, equal_nan=True)
-                    assert torch.isnan(got[:, n // 2]).all()
+                    paths = [None, "split_k"]
+                    if pmm.tensor_core_ok(x.to(xd), codes):
+                        paths.append("tensor_core")
+                    for path in paths:
+                        before = LAUNCHES["posit_matmul"]
+                        got = posit_matmul(x.to(xd), codes, fmt, scale,
+                                           compute_dtype=cd, path=path)
+                        assert LAUNCHES["posit_matmul"] == before + 1
+                        want = posit_matmul_plain(x.to(xd), codes, fmt,
+                                                  scale, compute_dtype=cd)
+                        torch.testing.assert_close(got, want, rtol=RTOL,
+                                                   atol=ATOL, equal_nan=True)
+                        assert torch.isnan(got[:, n // 2]).all()
+            if not pmm.tensor_core_ok(x, codes):
+                with pytest.raises(ValueError, match="tensor-core"):
+                    posit_matmul(x, codes, fmt, path="tensor_core")
             before = LAUNCHES["posit_matmul"]
             for bad in (sv[:, None], sv[1:]):
                 if bad.shape in ((1,), (1, 1)):
