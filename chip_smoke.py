@@ -12,14 +12,16 @@ per contract.  Needs one CUDA GPU; run from the repository root:
 
     python3 chip_smoke.py [--seed N]
 
-Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5; 5 K4; 5b K6 (split boundaries
-too); 6 ring main path; 6b ring decode-step profile; 6c paged main path; 6d
-paged decode-step profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8
-kernel times; 8b K4 by blocks walked; 8c K6 by blocks walked over the same
-rows; 9 K7 (both paths, the crossover's neighbours); 9b K7's two paths
-timed by M (the crossover); 10 the quickstart path (serving's counterpart:
-training; part 2's device time); 10b train step card vs CPU; then K7's
-times.
+Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5 (f32 and bf16 rows); 5 K4 (split
+boundaries, f32 and bf16 q); 5b K6 (split boundaries too); 6 ring main
+path; 6b ring decode-step profile; 6c paged main path; 6d paged decode-step
+profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8 kernel times; 8b
+K4 by blocks walked; 8c K6 by blocks walked over the same rows, beside K4;
+8d one paged decode layer's append as the step calls it, and K5 at a
+prefill's T = 1024; 9 K7 (both paths, the crossover's neighbours); 9b K7's
+two paths timed by M (the crossover); 10 the quickstart path (serving's
+counterpart: training; part 2's device time); 10b train step card vs CPU;
+then K7's times.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
@@ -28,7 +30,9 @@ Every phase asserts; nothing is caught.  Tolerances:
                  where idle slots collide in no set order).
   K4, K6         rtol 1e-5, atol 1e-5 against decode_attention_ref /
                  paged_decode_attention_ref on K/V of O(1) magnitude
-                 (online vs dense softmax: f32 summation order).
+                 (split vs dense softmax: f32 summation order); K4 with a
+                 bf16 q rtol/atol 2^-7 against the plain version on the
+                 same bf16 q (one bf16 rounding of the output).
   K7             rtol 2e-5, atol 2e-4 against posit_matmul_plain (the
                  reference's own tolerance: f32 accumulation order) on
                  weights encoded from N(0, 1); NaN exactly in a NaR column.
@@ -43,13 +47,15 @@ Every phase asserts; nothing is caught.  Tolerances:
   train step     card vs CPU at float32: loss rtol 1e-4, grad norm rtol
                  1e-3, every updated param and master leaf atol 1e-5.
 The paged run's greedy tokens are compared with the ring run's and the
-count printed, not asserted: K4 and K6 sum in different orders in bf16.
+count printed, not asserted: K4 and K6 now share one split walk, but the
+layouts batch the requests differently (one paged request waits for
+pages), and a bf16 model's results depend on the batch.
 
 Kernel times (the kernels JSON line): ``ms`` is the device time per
 wrapper call, from a CUDA graph of 20 calls replayed between CUDA events,
-so no host launch cost enters it (K4's wrapper adds its q scaling and
-output cast, small elementwise ops; K6 does both inside its two kernels,
-and K7's split-K path is two kernels too);
+so no host launch cost enters it (K4 and K6 are two kernels each, a
+split walk and a combine, with q's scaling and the output cast inside, and
+K7's split-K path is two kernels too);
 ``plain_ms`` is the plain PyTorch version per call, between CUDA events
 around eager calls.  K7's entry also carries its M = 8 shape (``m8``),
 ``decoded_matmul_ms``, torch.matmul of x by the already decoded f32
@@ -341,23 +347,29 @@ def main() -> int:
             kc, ks = fresh_pool(fmt, packed)
             vc, vs = fresh_pool(fmt, packed)
             kn, vn = rows(t, src=rng_pg), rows(t, src=rng_pg)
-            got = pkv.paged_kv_append_rows(kc.clone(), ks.clone(),
-                                           vc.clone(), vs.clone(), kn, vn,
-                                           dst, fmt, packed=packed)
-            want = pkv.paged_kv_append_rows_ref(kc.clone(), ks.clone(),
-                                                vc.clone(), vs.clone(), kn,
-                                                vn, dst, fmt, packed)
-            for g, w_ in zip(got, want):        # every row past page 0
-                assert bits_equal(g[PS:], w_[PS:]), (name, t)
-            keep = torch.ones(POOL_PAGES * PS, dtype=torch.bool, device=dev)
-            keep[dst.reshape(-1).long()] = False
-            keep[:PS] = False
-            for g, orig in zip(got, (kc, ks, vc, vs)):
-                assert torch.equal(g[keep], orig[keep]), (name, t)
+            # f32 rows, and the model's bf16 rows with v a strided view (as
+            # the fused QKV projection's split gives it)
+            kv_bf16 = torch.cat([kn, vn], dim=-1).to(torch.bfloat16)
+            for k_in, v_in in ((kn, vn), (kv_bf16[..., :HD].contiguous(),
+                                          kv_bf16[..., HD:])):
+                got = pkv.paged_kv_append_rows(
+                    kc.clone(), ks.clone(), vc.clone(), vs.clone(), k_in,
+                    v_in, dst, fmt, packed=packed)
+                want = pkv.paged_kv_append_rows_ref(
+                    kc.clone(), ks.clone(), vc.clone(), vs.clone(), k_in,
+                    v_in, dst, fmt, packed)
+                for g, w_ in zip(got, want):    # every row past page 0
+                    assert bits_equal(g[PS:], w_[PS:]), (name, t, k_in.dtype)
+                keep = torch.ones(POOL_PAGES * PS, dtype=torch.bool,
+                                  device=dev)
+                keep[dst.reshape(-1).long()] = False
+                keep[:PS] = False
+                for g, orig in zip(got, (kc, ks, vc, vs)):
+                    assert torch.equal(g[keep], orig[keep]), (name, t)
     phase(f"phase 4b K5 paged_kv_append_rows bit-exact (codes, scales on "
           f"rows past trash page 0; untouched rows) into {POOL_PAGES} pages "
           f"of {PS} rows, shuffled table with 2 idle slots, posit16/8/4, "
-          "T=1 and T=16")
+          "T=1 and T=16, f32 rows and bf16 rows (v a strided view)")
 
     # 5. K4 vs decode_attention_ref: K/V rows of O(1) magnitude (per-row
     # scales over 2^-2..2^2, as post-RoPE K/V at init), so 1e-5 is a few
@@ -367,6 +379,11 @@ def main() -> int:
     # slots with nothing cached: every row masked, the mean of V
     empty_len = torch.tensor([0, 17, 0, 129, 500, 0, 1023, 1024],
                              dtype=torch.int32, device=dev)
+    # K4's split boundaries (kvk.SPLIT_ROWS rows per CTA), 0, -1 and past W
+    sr = kvk.SPLIT_ROWS
+    ring_edges = [torch.tensor(v, dtype=torch.int32, device=dev) for v in (
+        [1, sr - 1, sr, sr + 1, 2 * sr - 1, 2 * sr, 2 * sr + 1, W - 1],
+        [W, 0, W + 1, -1, 2 * W, W - sr, 3 * sr, 3 * sr + 1])]
     for name, packed in KV_FORMATS:
         fmt = get_fmt(name)
         kc, ks = fresh_ring(fmt, packed)
@@ -376,24 +393,37 @@ def main() -> int:
                                fmt, packed)
         q = torch.from_numpy(rng.normal(0, 1, (B, 1, NH, HD)).astype(
             np.float32)).to(dev)
-        errs = []
-        for cl in (cache_len, empty_len):
+        errs, errs_bf16 = [], []
+        for cl in (cache_len, empty_len, *ring_edges):
             got = kvk.decode_attention(q, kc, ks, vc, vs, cl, fmt,
                                        packed=packed)
             want = kvk.decode_attention_ref(q, kc, ks, vc, vs, cl, fmt,
                                             packed)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
             errs.append(float((got - want).abs().max()))
+            # bf16 q against the plain version on the same bf16 q
+            # (hd^-0.5 = 1/8 scales bf16 exactly): one bf16 rounding
+            qb = q.to(torch.bfloat16)
+            got = kvk.decode_attention(qb, kc, ks, vc, vs, cl, fmt,
+                                       packed=packed)
+            want = kvk.decode_attention_ref(qb, kc, ks, vc, vs, cl, fmt,
+                                            packed)
+            assert got.dtype == torch.bfloat16
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=2 ** -7)
+            errs_bf16.append(float((got.float() - want.float()).abs().max()))
         if name == "posit8_2":
             err["decode_attention"] = errs[0]
         phase(f"phase 5 K4 decode_attention {name}: max |err| {errs[0]:.3e}"
-              f", {errs[1]:.3e} with empty slots (rtol 1e-5, atol 1e-5)")
+              f", {errs[1]:.3e} with empty slots, {max(errs[2:]):.3e} at "
+              f"cache_len on split ({sr}-row) edges, 0, -1 and past W "
+              f"{[v.tolist() for v in ring_edges]} (rtol 1e-5, atol 1e-5); "
+              f"bf16 q {max(errs_bf16):.3e} (rtol 2^-7, atol 2^-7)")
 
     # 5b. K6 vs paged_decode_attention_ref over the shuffled table ------
     table_bad = table.clone()                   # clipped to [0, num_pages)
     table_bad[0, 0], table_bad[3, 5], table_bad[7, 63] = -3, 10_000, -1
-    # K6's split boundaries (pkv.SPLIT_ROWS rows per CTA) and page edges
-    sr = pkv.SPLIT_ROWS
+    # K6's split boundaries and page edges
     edge_lens = [torch.tensor(v, dtype=torch.int32, device=dev) for v in (
         [-1, PS - 1, PS, PS + 1, sr - 1, sr, sr + 1, W],
         [0, 1, 2 * sr - 1, 2 * sr, 2 * sr + 1, W - sr, W - 1, W])]
@@ -522,8 +552,13 @@ def main() -> int:
                       for k, v in device_events(prof).items()}
         busy = sum(per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        # K4's or K6's two kernels (the step runs one of the two layouts)
+        walk = sum(per_kernel.get(k, 0.0) for k in ("split_kernel",
+                                                     "combine_kernel"))
         device = (f"device busy {busy:.3f} ms/step, idle share "
-                  f"{1 - busy / wall_ms:.3f}; top kernels (ms/step): "
+                  f"{1 - busy / wall_ms:.3f}; split walk (split_kernel + "
+                  f"combine_kernel) {walk:.3f} ms/step; top kernels "
+                  f"(ms/step): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in top)) \
             if per_kernel else "device busy and idle share not measured " \
                                "(the profiler trace held no device events)"
@@ -789,16 +824,17 @@ def main() -> int:
         return fn(q_step, kc_p[i], ks_p[i], vc_p[i], vs_p[i], table,
                   cache_len, p8, page_size=PS, packed=False)
 
-    # 8b. K4's device time against the 64-row blocks each slot walks
+    # 8b. K4's device time (the split walk over ring rows) against the
+    # 64-row blocks each slot walks
     walk_us = {}
     for n_rows in (64, 256, 1024):
         cl_n = torch.full((B,), n_rows, dtype=torch.int32, device=dev)
         walk_us[n_rows // 64] = 1e3 * graph_ms(
             lambda i, _cl=cl_n: kvk.decode_attention(
                 q_step, kc_l[i], ks_l[i], vc_l[i], vs_l[i], _cl, p8), layers)
-    phase("phase 8b K4 device µs per call by blocks walked per slot (B=8, "
-          "64 rows each): " + ", ".join(f"{k}: {v:.2f}"
-                                        for k, v in walk_us.items())
+    phase(f"phase 8b K4 device µs per call by 64-row blocks walked per "
+          f"slot (B=8, {kvk.SPLIT_ROWS}-row splits over ring rows): "
+          + ", ".join(f"{k}: {v:.2f}" for k, v in walk_us.items())
           + f"; {(walk_us[16] - walk_us[1]) / 15:.2f} µs per block")
     # 8c. K6 over the same numbers of rows per slot, through the table
     split_us = {}
@@ -816,16 +852,52 @@ def main() -> int:
           + f"; {slope_k6:.2f} µs per block (K4 "
           f"{(walk_us[16] - walk_us[1]) / 15:.2f})")
 
+    # 8d. one paged decode layer's append as the step calls it, from the
+    # model's bf16 K/V (v a strided view of the fused QKV output): the
+    # casts to f32 and K5 (the call sequence before K5 read bf16) against
+    # K5 alone; and K5 at a paged prefill's T = 1024, B = 1, bf16
+    qkv_step = torch.cat([k_step, k_step, v_step], dim=-1).to(torch.bfloat16)
+    kb_step = qkv_step[..., HD:2 * HD].contiguous()
+    vb_step = qkv_step[..., 2 * HD:]
+
+    def k5_step(i, cast):
+        kin, vin = ((kb_step.float(), vb_step.float()) if cast
+                    else (kb_step, vb_step))
+        return pkv.paged_kv_append(kc_p[i], ks_p[i], vc_p[i], vs_p[i], kin,
+                                   vin, dst_step, p8)
+
+    append_us = {
+        "casts_and_k5": 1e3 * graph_ms(lambda i: k5_step(i, True), layers),
+        "k5_bf16": 1e3 * graph_ms(lambda i: k5_step(i, False), layers)}
+    t_pf = 1024
+    kv_pf = rows(t_pf, src=rng_pg)[:1].to(torch.bfloat16)
+    dst_pf = pkv.flat_dst_rows_chunk(
+        table[:1], torch.zeros(1, dtype=torch.int32, device=dev), t_pf, PS)
+    append_us["k5_t1024_bf16"] = 1e3 * graph_ms(
+        lambda i: pkv.paged_kv_append_rows(kc_p[i], ks_p[i], vc_p[i],
+                                           vs_p[i], kv_pf, kv_pf, dst_pf, p8),
+        layers)
+    # each bf16 row read once, its codes and scale written once, dst read
+    pf_bound_us = 1e6 * (2 * t_pf * NKV * (HD * 2 + HD + 4) + t_pf * 4) \
+        / H100_BYTES_PER_S
+    phase(f"phase 8d one paged decode layer's append from bf16 K/V (B=8, "
+          f"posit8): casts to f32 + K5 {append_us['casts_and_k5']:.2f} µs, "
+          f"K5 alone {append_us['k5_bf16']:.2f} µs; K5 at T={t_pf}, B=1, "
+          f"bf16 (a paged prefill) {append_us['k5_t1024_bf16']:.2f} µs "
+          f"against its bytes bound {pf_bound_us:.3f} µs")
+
+    q_bytes = q_step.element_size()
     byts = {
         "posit_decode": n_codes * (1 + 4),
         "posit_encode": n_codes * (4 + 1),
         "kv_append_rows": 2 * B * NKV * (HD * 4 + HD + 4) + B * 4,
+        # live rows, cache_len, q and out (q's dtype)
         "decode_attention": 2 * live * NKV * (HD + 4) + B * 4
-        + 2 * B * NH * HD * 4,
+        + 2 * B * NH * HD * q_bytes,
         "paged_kv_append_rows": 2 * B * NKV * (HD * 4 + HD + 4) + B * 4,
         # live rows, seq_lens, the table entries the walk reads, q and out
         "paged_decode_attention": 2 * live * NKV * (HD + 4) + B * 4
-        + pages_read * 4 + 2 * B * NH * HD * 4,
+        + pages_read * 4 + 2 * B * NH * HD * q_bytes,
     }
     flops = {"decode_attention": live * NH * 4 * HD,
              "paged_decode_attention": live * NH * 4 * HD}

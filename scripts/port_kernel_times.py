@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the port's K4, K6 and K7 at the main paths' shapes, for
+"""Device times of the port's K4-K7 at the main paths' shapes, for
 one checkout of the port, so that two commits can be compared in one run
 on one card (parent, change, change, parent):
 
@@ -15,6 +15,13 @@ buffers as in ``chip_smoke.py``'s kernels line:
 - K6 (paged) and K4 (ring): B = 8, nh = 12 over 4 KV heads of 64, posit8
   codes, 16-row pages through a shuffled table, seq_lens {1, 17, 128,
   129, 500, 1000, 1023, 1024}, q bf16;
+- K5 (paged append, posit8, B = 8, T = 1, into the same pool): f32 rows
+  (``k5_us``, the kernels line's shape); the paged decode step's append
+  from the model's bf16 K/V (v a strided view of the fused QKV output) as
+  casts to f32 then K5 (``k5_casts_us``) and as the wrapper given the bf16
+  rows (``k5_bf16_us``: a checkout whose K5 reads bf16 launches K5 alone,
+  an older one casts inside its wrapper); and the wrapper given bf16 rows
+  at a paged prefill's T = 1024, B = 1 (``k5_t1024_bf16_us``);
 - K7: x (M, 768) f32 times wi (768 x 4096, posit8_2, (1, N) scale) at
   M = 8192 and M = 8, beside torch.matmul by the decoded f32 W;
 - quickstart part 2: the 73 ``qt_matmul`` calls of ``chip_smoke.py``
@@ -97,6 +104,28 @@ def main() -> int:
         q, *pool[i], table, lens, POSIT8_2, page_size=ps), layers)
     res["k4_us"] = 1e3 * graph_ms(lambda i: kvk.decode_attention(
         q, *ring[i], lens, POSIT8_2), layers)
+
+    # K5 into the same pool
+    pos = torch.tensor([int(n) + 16 for n in lens], dtype=torch.int32,
+                       device=dev)
+    dst = pkv.flat_dst_rows(table, pos, ps)
+    k1 = torch.randn(b, 1, nkv, hd, generator=gen, device=dev)
+    v1 = torch.randn(b, 1, nkv, hd, generator=gen, device=dev)
+    qkv = torch.cat([k1, k1, v1], dim=-1).to(torch.bfloat16)
+    kb, vb = qkv[..., hd:2 * hd].contiguous(), qkv[..., 2 * hd:]
+    res["k5_us"] = 1e3 * graph_ms(lambda i: pkv.paged_kv_append(
+        *pool[i], k1, v1, dst, POSIT8_2), layers)
+    res["k5_casts_us"] = 1e3 * graph_ms(lambda i: pkv.paged_kv_append(
+        *pool[i], kb.float(), vb.float(), dst, POSIT8_2), layers)
+    res["k5_bf16_us"] = 1e3 * graph_ms(lambda i: pkv.paged_kv_append(
+        *pool[i], kb, vb, dst, POSIT8_2), layers)
+    kv_pf = torch.randn(1, w, nkv, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    dst_pf = pkv.flat_dst_rows_chunk(
+        table[:1], torch.zeros(1, dtype=torch.int32, device=dev), w, ps)
+    res["k5_t1024_bf16_us"] = 1e3 * graph_ms(
+        lambda i: pkv.paged_kv_append_rows(*pool[i], kv_pf, kv_pf, dst_pf,
+                                           POSIT8_2), layers)
     del pool, ring
 
     # K7 at the kernels line's shapes

@@ -1,14 +1,16 @@
 // K3 and K4: the posit-coded KV ring of serving decode.
 //
 // K3 kv_append_rows_kernel replaces repro/kernels/kv_cache.py::kv_append_rows
-// (Pallas; kv_append is its T=1 case).  K4 decode_attention_kernel replaces
+// (Pallas; kv_append is its T=1 case).  K4, kv_rows.cuh's split_kernel +
+// combine_kernel over ring rows, replaces
 // repro/kernels/kv_cache.py::decode_attention (Pallas).  Their bodies are
-// kv_rows.cuh's encode_row and attention_walk, shared with the paged
-// layout's K5 and K6 (paged_kv.cu); this file holds the ring addressing.
+// kv_rows.cuh's encode_row and attention_split / attention_combine; K6
+// (paged_kv.cu) runs the same split walk through its page table.  This
+// file holds the ring addressing.
 //
 // Layouts (row-major, contiguous):
-//   k/v_new   (B, T, H, hd) f32          q    (B*nkv, grp, hd) f32, pre-scaled
-//   k/v_codes (B, W, H, Dc) codes        out  (B*nkv, grp, hd) f32
+//   k/v_new   (B, T, H, hd) f32          q    (B*nkv, grp, hd) f32 or bf16
+//   k/v_codes (B, W, H, Dc) codes        out  (B*nkv, grp, hd) q's type
 //   k/v_scale (B, W, H) f32              pos, cache_len  (B,) int32
 // Dc = hd, or hd/2 for 4-bit codes nibble-packed split-half (byte j holds
 // element j in its low nibble and element j + hd/2 in its high nibble).
@@ -53,15 +55,19 @@ __global__ void kv_append_rows_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4: fused decode-on-read one-token GQA attention over the ring.
+// K4: fused decode-on-read one-token GQA attention over the ring, as a split
+// walk across CTAs (flash-decoding) and a combine.
 //
 // Bound on the H100: device-memory bytes -- every live K/V code and scale is
 // read once (~2 * B * len * nkv * (Dc + 4) bytes per layer) against ~4 flops
-// per decoded element.  Design: one CTA per (slot, kv-head) row runs
-// kv::attention_walk over ring rows [0, min(cache_len[b], W)) -- the whole
-// ring, every score masked, where cache_len[b] <= 0.  One CTA per row
-// leaves SMs idle at small batch: splitting the walk across CTAs
-// (flash-decoding) is later work.
+// per decoded element; at B=8 and a few thousand live rows that is under a
+// microsecond, so the two launches and a round trip of loads set the floor.
+// Design: K6's (kv::launch_split_walk), with ring rows in place of the page
+// table: a CTA per (slot, kv-head, SR-row split) reads ring rows [0,
+// min(cache_len[b], W)) -- all W, every score masked, where cache_len[b] <=
+// 0 -- so no table load sits in front of a row's loads; splits past the
+// live length leave at once.  q is scaled by hd^-0.5 in q's type inside,
+// and the combine writes the output in q's type.
 // ---------------------------------------------------------------------------
 struct RingRows {
   long long first;   // b * W: the slot's first ring row
@@ -71,23 +77,12 @@ struct RingRows {
   }
 };
 
-template <int N, int ES>
-__global__ void __launch_bounds__(kv::kAttnThreads) decode_attention_kernel(
-    const float* __restrict__ q,
-    const typename posit::Code<N>::type* __restrict__ k_codes,
-    const float* __restrict__ k_scale,
-    const typename posit::Code<N>::type* __restrict__ v_codes,
-    const float* __restrict__ v_scale, const int* __restrict__ cache_len,
-    float* __restrict__ out, int nkv, int grp, int hd, int W, int bias) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rowid = blockIdx.x;                 // b * nkv + h
-  const int b = rowid / nkv, h = rowid % nkv;
-  const long long qo = (long long)rowid * grp * hd;
-  kv::attention_walk<N, ES>(q + qo, k_codes, k_scale, v_codes, v_scale,
-                            cache_len[b], W,
-                            RingRows{(long long)b * W, nkv, h}, out + qo,
-                            grp, hd, bias, smem);
-}
+struct RingLayout {
+  int W, nkv;
+  __device__ RingRows rows(int b, int h) const {
+    return RingRows{(long long)b * W, nkv, h};
+  }
+};
 
 }  // namespace
 
@@ -116,23 +111,18 @@ extern "C" int kv_append_rows(const void* k_new, const void* v_new,
   return (int)cudaErrorInvalidValue;
 }
 
+// q (B, nkv, grp, hd) and out in q's type (f32, or bf16 with q_bf16), part
+// a (B * nkv, S, grp, hd + 2) f32 workspace, S = ceil(W / SR).  Rows of
+// codes must be 4 * 2^i bytes, at most 512.
 extern "C" int decode_attention(const void* q, const void* k_codes,
                                 const void* k_scale, const void* v_codes,
                                 const void* v_scale, const void* cache_len,
-                                void* out, int B, int nkv, int grp, int hd,
-                                int W, int nbits, int es, int bias,
+                                void* out, void* part, int B, int nkv,
+                                int grp, int hd, int W, int nbits, int es,
+                                int bias, int q_bf16, int SR, float qscale,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define ATTN_CASE(N, ES)                                                      \
-  if (nbits == N && es == ES) {                                               \
-    using CodeT = posit::Code<N>::type;                                       \
-    return kv::launch_attention(                                              \
-        decode_attention_kernel<N, ES>, B * nkv, grp, hd, st,                 \
-        (const float*)q, (const CodeT*)k_codes, (const float*)k_scale,        \
-        (const CodeT*)v_codes, (const float*)v_scale,                         \
-        (const int*)cache_len, (float*)out, nkv, grp, hd, W, bias);           \
-  }
-  POSIT_FORMATS(ATTN_CASE)
-#undef ATTN_CASE
-  return (int)cudaErrorInvalidValue;
+  return kv::launch_split_walk(
+      RingLayout{W, nkv}, q, k_codes, k_scale, v_codes, v_scale, cache_len,
+      out, part, B, nkv, grp, hd, W, nbits, es, bias, q_bf16, SR, qscale,
+      (cudaStream_t)stream);
 }

@@ -1,23 +1,28 @@
 // Device bodies shared by the posit KV-cache kernels of both layouts:
 //
-//   encode_row      one warp scales and encodes one K or V row -- the write
-//                   path of K3 (ring, kv_cache.cu) and K5 (paged,
-//                   paged_kv.cu); only the destination row differs.
-//   attention_walk  one CTA's fused decode-on-read one-token GQA over the
-//                   logical rows of one (slot, kv-head) -- the read path of
-//                   K4 (ring); a Rows functor maps logical row j to its
-//                   (row, head) entry, so only the addressing differs.
-//   attention_split one CTA's share of a split walk (flash-decoding): the
-//                   same attention over one R-row split of a (slot,
-//                   kv-head)'s rows, written as (m, l, acc) partials --
-//   attention_combine  merged per (slot, kv-head) with log-sum-exp weights;
-//                   together the read path of K6 (paged).
+//   encode_row        one warp scales and encodes one f32 K or V row -- the
+//                     write path of K3 (ring, kv_cache.cu).
+//   encode_row_group  a group of (row bytes) / 16 lanes scales and encodes
+//                     one f32 or bf16 row, 16 B per lane -- the write path
+//                     of K5 (paged, paged_kv.cu).
+//   attention_split   one CTA's share of a split walk (flash-decoding): the
+//                     fused decode-on-read one-token GQA over one R-row
+//                     split of a (slot, kv-head)'s logical rows, written as
+//                     (m, l, acc) partials --
+//   attention_combine merged per (slot, kv-head) with log-sum-exp weights;
+//                     together the read path of K4 (ring) and K6 (paged),
+//                     launched by launch_split_walk.  A Layout maps (slot,
+//                     kv-head) to a Rows functor that maps logical row j to
+//                     its (row, head) entry: the two layouts differ only
+//                     there.
 //
 // Codes are posit<N, ES> (posit_codec.cuh); 4-bit codes are nibble-packed
 // split-half (byte j holds element j low, element j + hd/2 high).
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "posit_codec.cuh"
 
@@ -27,7 +32,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMaxHd = 256;
 
 // ---------------------------------------------------------------------------
-// Row encode.  The warp's lanes own hd/32 elements each: a shuffle
+// Row encode (K3).  The warp's lanes own hd/32 elements each: a shuffle
 // reduction gives the row's sum |x| in f32, the pow2 scale is the exponent
 // bits of max(mean, 1e-30) (NaN propagates), and every lane encodes its
 // elements with the flushing encoder.  4-bit codes meet their split-half
@@ -73,137 +78,122 @@ __device__ __forceinline__ void encode_row(
 }
 
 // ---------------------------------------------------------------------------
-// Attention walk.  One CTA of kAttnThreads holds its grp query rows in
-// shared memory and walks the logical rows in blocks of kBlockRows,
-// stopping at the block that holds `len` (later rows would only add exact
-// zeros).  Per block it first resolves the rows' (row, head) entries into
-// shared memory (the paged walk gathers 64/ps page-table entries there),
-// then decodes codes x scale into shared f32 tiles (K rows padded by one
-// float against bank conflicts), and keeps scores and the online softmax
-// (m, l, acc) in f32; full-precision K/V never touch device memory.
-// `len_raw <= 0` masks every score: as in the dense masked softmax, all W
-// logical rows then weigh equally and the output is the mean of V.
+// Lane-group row encode (K5).  A group of G = min(32, row bytes / 16) lanes
+// holds one row of x (f32 or bf16; bf16 -> f32 is exact), each lane C =
+// (row bytes) / (16 G) 16-B loads of E = 16 / sizeof(x) elements: chunk
+// li + k G of the row for k < C.  The row's sum |x| is each lane's own sum
+// (chunk by chunk, element by element) then a butterfly over the group,
+// which every lane ends with bit-identical (f32 addition commutes); the
+// scale and the encode are encode_row's.  Each lane writes its chunk's
+// codes in one vector store.  Packed 4-bit codes: element j < hd/2 pairs
+// with j + hd/2, which is chunk li + G/2 of the group (C = 1: its codes
+// come by one shuffle) or this lane's own second chunk (C = 2).
+// `ok` (the destination row lies in the pool) is only read at the stores,
+// so the caller's load of that row and the row's loads are in flight
+// together; a row that is not ok is skipped.
 // ---------------------------------------------------------------------------
-constexpr int kAttnThreads = 128;
-constexpr int kBlockRows = 64;
+constexpr int kGroupThreads = 128;
 
-inline size_t attention_smem_bytes(int grp, int hd) {
-  return sizeof(long long) * kBlockRows +
-         sizeof(float) * ((size_t)kBlockRows * (hd + 1) +
-                          (size_t)kBlockRows * hd + 2 * (size_t)grp * hd +
-                          (size_t)grp * kBlockRows + 3 * (size_t)grp);
+template <int Bytes>
+struct VecBytes;
+template <>
+struct VecBytes<4> {
+  using type = uint32_t;
+};
+template <>
+struct VecBytes<8> {
+  using type = uint2;
+};
+template <>
+struct VecBytes<16> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {       // element 2i sits in the low half
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
 }
 
-// q, out: this CTA's (grp, hd) f32 rows; q pre-scaled by hd^-0.5.
-// rows(j): index of logical row j's entry in the (rows, nkv) scale arrays
-// (its codes start at that index times Dc).
-template <int N, int ES, class Rows>
-__device__ __forceinline__ void attention_walk(
-    const float* __restrict__ q,
-    const typename posit::Code<N>::type* __restrict__ k_codes,
-    const float* __restrict__ k_scale,
-    const typename posit::Code<N>::type* __restrict__ v_codes,
-    const float* __restrict__ v_scale, int len_raw, int W, const Rows& rows,
-    float* __restrict__ out, int grp, int hd, int bias,
-    unsigned char* smem) {
+// x: this group's row (16-B aligned); codes / scale: the destination
+// entry's codes and scale, written only when `ok`.
+template <int N, int ES, int C, typename XT>
+__device__ __forceinline__ void encode_row_group(
+    const XT* __restrict__ x, int hd, int G, int li, bool ok,
+    typename posit::Code<N>::type* __restrict__ codes,
+    float* __restrict__ scale_out, int bias) {
+  using CodeT = typename posit::Code<N>::type;
+  constexpr int E = 16 / (int)sizeof(XT);
   constexpr bool kPacked = N <= 4;
-  long long* roff = reinterpret_cast<long long*>(smem);   // kBlockRows
-  float* ks = reinterpret_cast<float*>(roff + kBlockRows);  // kBlockRows x ldk
-  const int ldk = hd + 1;
-  float* vs = ks + kBlockRows * ldk;            // kBlockRows x hd
-  float* qs = vs + kBlockRows * hd;             // grp x hd
-  float* ps = qs + grp * hd;                    // grp x kBlockRows
-  float* acc = ps + grp * kBlockRows;           // grp x hd
-  float* ms = acc + grp * hd;                   // grp
-  float* ls = ms + grp;                         // grp
-  float* corr = ls + grp;                       // grp
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int nwarps = kAttnThreads / 32;
-  const int dc = kPacked ? hd / 2 : hd;
-
-  for (int e = tid; e < grp * hd; e += kAttnThreads) {
-    qs[e] = q[e];
-    acc[e] = 0.f;
-  }
-  for (int g = tid; g < grp; g += kAttnThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.f;
-  }
-  const bool masked = len_raw <= 0;             // every score is kNegInf
-  const int len = masked ? W : min(len_raw, W);
-
-  for (int base = 0; base < len; base += kBlockRows) {
-    const int nb = min(kBlockRows, len - base);   // live rows this block
-    __syncthreads();   // previous block's readers are done with the tiles
-    for (int j = tid; j < nb; j += kAttnThreads) roff[j] = rows(base + j);
-    __syncthreads();
-    // decode-on-read: codes x scale -> f32 tiles in shared memory
-    for (int e = tid; e < nb * dc; e += kAttnThreads) {
-      const int j = e / dc, c = e % dc;
-      const long long off = roff[j];
-      const float sk = k_scale[off], sv = v_scale[off];
-      const uint32_t kc = k_codes[off * dc + c], vc = v_codes[off * dc + c];
-      if (kPacked) {
-        ks[j * ldk + c] = posit::decode<N, ES>(kc & 0xFu, bias) * sk;
-        ks[j * ldk + c + dc] = posit::decode<N, ES>(kc >> 4, bias) * sk;
-        vs[j * hd + c] = posit::decode<N, ES>(vc & 0xFu, bias) * sv;
-        vs[j * hd + c + dc] = posit::decode<N, ES>(vc >> 4, bias) * sv;
-      } else {
-        ks[j * ldk + c] = posit::decode<N, ES>(kc, bias) * sk;
-        vs[j * hd + c] = posit::decode<N, ES>(vc, bias) * sv;
-      }
-    }
-    __syncthreads();
-    // scores s[g][j] = q_g . k_j over the live rows
-    for (int e = tid; e < grp * kBlockRows; e += kAttnThreads) {
-      const int g = e / kBlockRows, j = e % kBlockRows;
-      float s = kNegInf;
-      if (j < nb && !masked) {
-        s = 0.f;
-        for (int d = 0; d < hd; ++d) s += qs[g * hd + d] * ks[j * ldk + d];
-      }
-      ps[e] = s;
-    }
-    __syncthreads();
-    // online softmax: one warp per query row
-    for (int g = warp; g < grp; g += nwarps) {
-      float mx = kNegInf;
-      for (int j = lane; j < kBlockRows; j += 32)
-        mx = fmaxf(mx, ps[g * kBlockRows + j]);
+  float v[C][E];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-      const float m_new = fmaxf(ms[g], mx);
-      float psum = 0.f;
-      for (int j = lane; j < kBlockRows; j += 32) {
-        const float p = j < nb ? expf(ps[g * kBlockRows + j] - m_new) : 0.f;
-        ps[g * kBlockRows + j] = p;
-        psum += p;
-      }
+  for (int k = 0; k < C; ++k) load16(x + (li + k * G) * E, v[k]);
+  float sum = 0.f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xFFFFFFFFu, psum, o);
-      if (lane == 0) {
-        const float c = expf(ms[g] - m_new);
-        corr[g] = c;
-        ls[g] = ls[g] * c + psum;
-        ms[g] = m_new;
-      }
+  for (int k = 0; k < C; ++k)
+#pragma unroll
+    for (int e = 0; e < E; ++e) sum += fabsf(v[k][e]);
+  for (int o = G / 2; o > 0; o >>= 1)
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, o);
+  const float mean = sum / (float)hd;
+  const float m = isnan(mean) ? mean : fmaxf(mean, 1e-30f);
+  const float scale = __uint_as_float(__float_as_uint(m) & 0x7F800000u);
+  uint32_t c[C][E];
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      c[k][e] = posit::encode<N, ES>(v[k][e] / scale, bias);
+  if constexpr (kPacked) {
+    // the high nibbles: chunk li + G/2's codes (C = 1) or chunk li + G's
+    // (C = 2, this lane's own)
+    uint32_t hi[E];
+    if constexpr (C == 1) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) word |= c[0][e] << (4 * e);
+      word = __shfl_xor_sync(0xFFFFFFFFu, word, G / 2);
+#pragma unroll
+      for (int e = 0; e < E; ++e) hi[e] = (word >> (4 * e)) & 0xFu;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) hi[e] = c[1][e];
     }
-    __syncthreads();
-    // acc = acc * corr + p @ V
-    for (int e = tid; e < grp * hd; e += kAttnThreads) {
-      const int g = e / hd, d = e % hd;
-      float a = 0.f;
-      for (int j = 0; j < nb; ++j) a += ps[g * kBlockRows + j] * vs[j * hd + d];
-      acc[e] = acc[e] * corr[g] + a;
+    union {
+      typename VecBytes<E>::type vec;
+      uint8_t b[E];
+    } u;
+#pragma unroll
+    for (int e = 0; e < E; ++e) u.b[e] = (uint8_t)(c[0][e] | (hi[e] << 4));
+    if (ok && (C == 2 || li < G / 2))
+      *reinterpret_cast<typename VecBytes<E>::type*>(codes + li * E) = u.vec;
+  } else {
+    union {
+      typename VecBytes<E * sizeof(CodeT)>::type vec;
+      CodeT b[E];
+    } u;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) u.b[e] = (CodeT)c[k][e];
+      if (ok)
+        *reinterpret_cast<typename VecBytes<E * sizeof(CodeT)>::type*>(
+            codes + (li + k * G) * E) = u.vec;
     }
   }
-  __syncthreads();
-  for (int e = tid; e < grp * hd; e += kAttnThreads)
-    out[e] = acc[e] / fmaxf(ls[e / hd], 1e-30f);
+  if (ok && li == 0) *scale_out = scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -421,20 +411,107 @@ __device__ __forceinline__ void attention_combine(
   }
 }
 
-// Launch an attention_walk kernel: one CTA per (slot, kv-head), dynamic
-// shared memory past 48 KB opted in first.  Returns cudaGetLastError().
-template <class... KArgs, class... Args>
-inline int launch_attention(void (*kern)(KArgs...), int ctas, int grp,
-                            int hd, cudaStream_t st, Args... args) {
-  if (ctas == 0) return 0;
-  const size_t smem = attention_smem_bytes(grp, hd);
+// ---------------------------------------------------------------------------
+// The split walk's two kernels and their launcher, shared by K4 and K6.  A
+// Layout is a small struct passed by value whose rows(b, h) gives the Rows
+// functor of slot b's kv-head h; W is the number of logical rows listed per
+// slot (the ring's width, or Pmax * page size).
+// ---------------------------------------------------------------------------
+template <int N, int ES, int VB, typename QT, class Layout>
+__global__ void __launch_bounds__(kSplitThreads) split_kernel(
+    const QT* __restrict__ q,
+    const typename posit::Code<N>::type* __restrict__ k_codes,
+    const float* __restrict__ k_scale,
+    const typename posit::Code<N>::type* __restrict__ v_codes,
+    const float* __restrict__ v_scale, const int* __restrict__ lens,
+    float* __restrict__ part, Layout lay, int nkv, int grp, int hd, int W,
+    int bias, float qscale, int SR, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rowid = blockIdx.x, split = blockIdx.y;   // rowid = b * nkv + h
+  const int b = rowid / nkv, h = rowid % nkv;
+  attention_split<N, ES, VB>(
+      q + (long long)rowid * grp * hd, qscale, k_codes, k_scale, v_codes,
+      v_scale, lens[b], W, split * SR, SR, lay.rows(b, h),
+      part + ((long long)rowid * S + split) * grp * (hd + 2), grp, hd, bias,
+      smem);
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(kSplitThreads) combine_kernel(
+    const float* __restrict__ part, const int* __restrict__ lens,
+    OT* __restrict__ out, int nkv, int grp, int hd, int W, int SR, int S) {
+  const int rowid = blockIdx.x;
+  attention_combine<OT>(part + (long long)rowid * S * grp * (hd + 2),
+                        lens[rowid / nkv], W, SR, S,
+                        out + (long long)rowid * grp * hd, grp, hd);
+}
+
+template <int N, int ES, int VB, typename QT, class Layout>
+int launch_split(const Layout& lay, const void* q, const void* k_codes,
+                 const void* k_scale, const void* v_codes,
+                 const void* v_scale, const void* lens, void* out, void* part,
+                 int B, int nkv, int grp, int hd, int W, int bias,
+                 float qscale, int SR, cudaStream_t st) {
+  using CodeT = typename posit::Code<N>::type;
+  const int S = (W + SR - 1) / SR;
+  const size_t smem = split_smem_bytes(grp, hd, SR);
+  auto kern = split_kernel<N, ES, VB, QT, Layout>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<ctas, kAttnThreads, smem, st>>>(args...);
+  kern<<<dim3(B * nkv, S), kSplitThreads, smem, st>>>(
+      (const QT*)q, (const CodeT*)k_codes, (const float*)k_scale,
+      (const CodeT*)v_codes, (const float*)v_scale, (const int*)lens,
+      (float*)part, lay, nkv, grp, hd, W, bias, qscale, SR, S);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  combine_kernel<QT><<<B * nkv, kSplitThreads, 0, st>>>(
+      (const float*)part, (const int*)lens, (QT*)out, nkv, grp, hd, W, SR,
+      S);
   return (int)cudaGetLastError();
+}
+
+// Split walk + combine: q (B, nkv, grp, hd) and out in q's type (f32, or
+// bf16 with q_bf16), lens (B,) int32, part a (B * nkv, S, grp, hd + 2) f32
+// workspace, S = ceil(W / SR).  Rows of codes must be 4 * 2^i bytes, at
+// most 512 (16-B loads where the row and the pointers allow, else 4-B).
+// Returns a CUDA error code, 0 on success.
+template <class Layout>
+int launch_split_walk(const Layout& lay, const void* q, const void* k_codes,
+                      const void* k_scale, const void* v_codes,
+                      const void* v_scale, const void* lens, void* out,
+                      void* part, int B, int nkv, int grp, int hd, int W,
+                      int nbits, int es, int bias, int q_bf16, int SR,
+                      float qscale, cudaStream_t st) {
+  if (W < 1 || SR < 1 || grp < 1 || grp > 128)
+    return (int)cudaErrorInvalidValue;
+  if (B * nkv == 0) return 0;
+  const int row_bytes = nbits <= 4 ? hd / 2 : hd * (nbits / 8);
+  const bool al16 = (((uintptr_t)k_codes | (uintptr_t)v_codes) & 15) == 0;
+  const bool al4 = (((uintptr_t)k_codes | (uintptr_t)v_codes) & 3) == 0;
+  const int vb = row_bytes % 16 == 0 && al16 ? 16
+                 : row_bytes % 4 == 0 && al4 ? 4 : 0;
+  const int lpr = vb ? row_bytes / vb : 0;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) || (nbits <= 4 && hd % 2))
+    return (int)cudaErrorInvalidValue;
+#define SPLIT_CASE(N, ES)                                                     \
+  if (nbits == N && es == ES) {                                               \
+    auto go = [&](auto vbt, auto qt) {                                        \
+      return launch_split<N, ES, decltype(vbt)::value, decltype(qt)>(         \
+          lay, q, k_codes, k_scale, v_codes, v_scale, lens, out, part, B,     \
+          nkv, grp, hd, W, bias, qscale, SR, st);                             \
+    };                                                                        \
+    using V16 = std::integral_constant<int, 16>;                              \
+    using V4 = std::integral_constant<int, 4>;                                \
+    if (vb == 16)                                                             \
+      return q_bf16 ? go(V16{}, __nv_bfloat16{}) : go(V16{}, float{});        \
+    return q_bf16 ? go(V4{}, __nv_bfloat16{}) : go(V4{}, float{});            \
+  }
+  POSIT_FORMATS(SPLIT_CASE)
+#undef SPLIT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace kv

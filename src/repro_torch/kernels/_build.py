@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # library -> {C entry: argtypes}; every entry returns cudaGetLastError()
 SIGNATURES = {
     "posit_codec": {
@@ -41,14 +42,16 @@ SIGNATURES = {
         # k_new, v_new, k_codes, k_scale, v_codes, v_scale, pos,
         # B, T, H, hd, W, nbits, es, bias, stream
         "kv_append_rows": [_P] * 7 + [_I] * 8 + [_P],
-        # q, k_codes, k_scale, v_codes, v_scale, cache_len, out,
-        # B, nkv, grp, hd, W, nbits, es, bias, stream
-        "decode_attention": [_P] * 7 + [_I] * 8 + [_P],
+        # q, k_codes, k_scale, v_codes, v_scale, cache_len, out, part,
+        # B, nkv, grp, hd, W, nbits, es, bias, q_bf16, split_rows, qscale,
+        # stream
+        "decode_attention": [_P] * 8 + [_I] * 10 + [_F, _P],
     },
     "paged_kv": {
         # k_new, v_new, k_codes, k_scale, v_codes, v_scale, dst,
-        # B, T, H, hd, R, nbits, es, bias, stream
-        "paged_kv_append_rows": [_P] * 7 + [_I] * 8 + [_P],
+        # k_new's and v_new's element strides along b, t, head,
+        # B, T, H, hd, R, nbits, es, bias, x_bf16, stream
+        "paged_kv_append_rows": [_P] * 7 + [_L] * 6 + [_I] * 9 + [_P],
         # q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens, out,
         # part, B, nkv, grp, hd, ps, Pmax, num_pages, nbits, es, bias, q_bf16,
         # split_rows, qscale, stream

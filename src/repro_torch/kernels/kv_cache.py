@@ -7,9 +7,12 @@ power-of-two scale:
   write path  K3 ``kv_append_rows`` — T tokens' K/V rows per slot are
       scaled, RNE-encoded (subnormals flushed) and written IN PLACE at
       ring rows (pos[b] + t) mod W; no other row moves.
-  read path   K4 ``decode_attention`` — one-token GQA: codes are decoded
-      to f32 on-chip inside the online-softmax loop; full-precision K/V
-      never reach device memory.
+  read path   K4 ``decode_attention`` — one-token GQA that walks each
+      slot's ring rows in splits of ``SPLIT_ROWS`` rows across CTAs,
+      decoding codes to f32 on-chip, then merges the splits' softmax
+      partials (flash-decoding); full-precision K/V never reach device
+      memory.  The paged K6 runs the same split walk through its page
+      table, and both take their geometry from ``split_geometry``.
 
 P(4, 1) codes are nibble-packed two per byte along the head dim
 (split-half: byte j holds elements j and j + hd/2).
@@ -144,6 +147,38 @@ def kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
 # K4: fused decode-on-read one-token attention
 # ---------------------------------------------------------------------------
 
+# Logical rows per CTA of K4's and K6's split walk (a multiple of 64).
+SPLIT_ROWS = 128
+
+
+def split_geometry(name: str, hd: int, row_bytes: int, grp: int, q_dtype,
+                   listed_rows: int):
+    """The contract and geometry of the split walk (K4 and K6), checked
+    before any launch.  ``row_bytes``: bytes of one row of codes (one
+    token, one kv-head, ``hd`` channels); ``grp``: query heads per
+    kv-head; ``listed_rows``: logical rows per slot (the ring's width, or
+    Pmax * page size).
+    Returns (S, lanes per row): the splits per (slot, kv-head), each of
+    ``SPLIT_ROWS`` rows, and the lanes that share a row, each loading 16
+    bytes of it (4 where the row is 4 or 8 bytes).  Raises ``ValueError``
+    unless hd <= 256 and a row of codes is 4 * 2^i bytes, at most 512
+    (hd = 64: 64, 128 and 32 B for posit8, posit16 and packed posit4), and
+    unless 1 <= grp <= 128; ``TypeError`` unless q is float32 or
+    bfloat16."""
+    if (hd > 256 or row_bytes < 4 or row_bytes > 512
+            or row_bytes & (row_bytes - 1)):
+        raise ValueError(f"{name}: head dim must be <= 256 and give rows of "
+                         f"codes of 4 * 2^i bytes, at most 512 (got hd {hd}, "
+                         f"{row_bytes} B)")
+    if not 1 <= grp <= 128:
+        raise ValueError(f"{name}: 1 to 128 query heads per KV head "
+                         f"(got {grp})")
+    if q_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be float32 or bfloat16")
+    lanes = row_bytes // 16 if row_bytes >= 16 else row_bytes // 4
+    return -(-listed_rows // SPLIT_ROWS), lanes
+
+
 def decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, cache_len,
                          fmt: PositFormat, packed: bool = False):
     """Plain version of K4: decode the whole ring, dense masked softmax.
@@ -167,35 +202,40 @@ def decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, cache_len,
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, cache_len,
                      fmt: PositFormat, *, packed: bool = False):
     """K4: fused one-token GQA attention over a posit ring (contract of
-    ``decode_attention_ref``).  q is pre-scaled by hd^-0.5 in q's dtype, as
-    in the reference kernel; one CTA per (slot, kv-head) row on the card,
-    walking the ring only up to ``cache_len[b]`` (the whole ring, every row
-    masked and so weighed equally, where ``cache_len[b] <= 0``)."""
+    ``decode_attention_ref``; output in q's dtype, float32 or bfloat16 on
+    the card).  q is scaled by hd^-0.5 in q's dtype, as in the reference
+    kernel.  On the card the slot's ring rows up to ``cache_len[b]`` (all
+    W, every row masked and so weighed equally, where ``cache_len[b] <=
+    0``) are walked in splits of ``SPLIT_ROWS`` rows, one CTA each, and a
+    second kernel merges the splits; the q scaling and the output cast
+    happen inside the kernels (``split_geometry`` has the limits)."""
     if not q.is_cuda:
         return decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
                                     cache_len, fmt, packed)
-    _build.check_kv("decode_attention", fmt, packed, (k_codes, v_codes),
-                    (k_scale, v_scale))
+    name = "decode_attention"
+    _build.check_kv(name, fmt, packed, (k_codes, v_codes), (k_scale, v_scale))
     b, w, nkv, dc = k_codes.shape
     nh, hd = q.shape[2], q.shape[3]
     if (q.shape != (b, 1, nh, hd) or nh % nkv
             or v_codes.shape != k_codes.shape
             or k_scale.shape != (b, w, nkv) or v_scale.shape != (b, w, nkv)
             or dc != code_channels(hd, fmt, packed)):
-        raise ValueError("decode_attention: inconsistent shapes")
-    if hd > 256:
-        raise ValueError("decode_attention: head dim must be <= 256")
+        raise ValueError(f"{name}: inconsistent shapes")
     grp = nh // nkv
-    qg = (q.reshape(b, nkv, grp, hd) * (hd ** -0.5)).to(
-        torch.float32).contiguous()
+    splits, _ = split_geometry(name, hd, dc * k_codes.element_size(), grp,
+                               q.dtype, w)
+    q = q.contiguous()
     cl = torch.as_tensor(cache_len, device=q.device).to(
         torch.int32).reshape(-1).expand(b).contiguous()
-    out = torch.empty((b, nkv, grp, hd), dtype=torch.float32, device=q.device)
-    _build.check_cuda("decode_attention", qg, k_codes, k_scale, v_codes,
-                      v_scale, cl, out)
-    _build.launch("kv_cache", "decode_attention", q.device,
-                  qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+    part = torch.empty((b * nkv, splits, grp, hd + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((b, 1, nh, hd), dtype=q.dtype, device=q.device)
+    _build.check_cuda(name, q, k_codes, k_scale, v_codes, v_scale, cl, out,
+                      part)
+    _build.launch("kv_cache", name, q.device,
+                  q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
                   v_codes.data_ptr(), v_scale.data_ptr(), cl.data_ptr(),
-                  out.data_ptr(), b, nkv, grp, hd, w, fmt.bits, fmt.es,
-                  fmt.bias)
-    return out.reshape(b, 1, nh, hd).to(q.dtype)
+                  out.data_ptr(), part.data_ptr(), b, nkv, grp, hd, w,
+                  fmt.bits, fmt.es, fmt.bias, int(q.dtype == torch.bfloat16),
+                  SPLIT_ROWS, hd ** -0.5)
+    return out

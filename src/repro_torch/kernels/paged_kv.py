@@ -15,10 +15,11 @@ Layout (per attention layer; no batch axis — pages are shared):
                               the allocator reserves as a trash page
   seq_lens     (B,) i32       valid tokens per slot (masks trash reads)
 
-  write path  K5 ``paged_kv_append_rows`` — T tokens' K/V rows per slot
-      are scaled, RNE-encoded and written IN PLACE at the flat pool rows
-      of the (B, T) ``dst`` matrix (``flat_dst_rows_chunk``); no other row
-      moves.  ``paged_kv_append`` is its T=1 case.
+  write path  K5 ``paged_kv_append_rows`` — T tokens' K/V rows per slot,
+      f32 or bf16 as the model made them, are scaled, RNE-encoded and
+      written IN PLACE at the flat pool rows of the (B, T) ``dst`` matrix
+      (``flat_dst_rows_chunk``); no other row moves.  ``paged_kv_append``
+      is its T=1 case.
   read path   K6 ``paged_decode_attention`` — one-token GQA that walks
       each slot's page list in splits of ``SPLIT_ROWS`` rows across CTAs,
       decoding codes to f32 on-chip, then merges the splits' softmax
@@ -40,7 +41,8 @@ import torch
 from ..core.formats import PositFormat
 from ..models.attention import decode_attention
 from . import _build
-from .kv_cache import code_channels, decode_kv_rows, encode_kv_rows
+from .kv_cache import (SPLIT_ROWS, code_channels, decode_kv_rows,
+                       encode_kv_rows, split_geometry)
 
 
 def flat_dst_rows(page_table, pos, page_size: int):
@@ -92,11 +94,48 @@ def paged_kv_append_ref(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
                                     k_new, v_new, dst, fmt, packed)
 
 
+def append_geometry(name: str, hd: int, x_dtype):
+    """The contract and geometry of K5's lane groups, checked before any
+    launch: a row of hd elements of ``x_dtype`` is read by (row bytes) / 16
+    lanes, at most 32, each with one 16-byte load (two at f32 hd = 256).
+    Returns (lanes per row, loads per lane).  Raises ``TypeError`` unless
+    the rows are float32 or bfloat16, ``ValueError`` unless hd <= 256 and
+    a row is 32 * 2^i bytes (f32: hd 8 to 256, bf16: 16 to 256, powers of
+    two)."""
+    if x_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: K/V rows must be float32 or bfloat16")
+    row_bytes = hd * (4 if x_dtype == torch.float32 else 2)
+    if hd > 256 or row_bytes < 32 or row_bytes & (row_bytes - 1):
+        raise ValueError(f"{name}: head dim must be <= 256 and give rows of "
+                         f"32 * 2^i bytes in the input's dtype (got hd {hd},"
+                         f" {row_bytes} B)")
+    lanes = min(row_bytes // 16, 32)
+    return lanes, row_bytes // 16 // lanes
+
+
+def _row_strides(name: str, x):
+    """Element strides of (B, T, H, hd) rows along b, t, head (0 along an
+    axis of size 1); each row must be contiguous and start 16-byte
+    aligned (the kernel's loads)."""
+    strides = tuple(0 if n == 1 else st
+                    for n, st in zip(x.shape[:3], x.stride()[:3]))
+    align = 16 // x.element_size()
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or any(st % align for st in strides)):
+        raise ValueError(f"{name}: K/V rows must be contiguous and 16-byte "
+                         f"aligned")
+    return strides
+
+
 def paged_kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
                          dst, fmt: PositFormat, *, packed: bool = False):
     """K5: encode-on-write append of a T-token chunk into the paged pool,
     in place (contract of ``paged_kv_append_rows_ref``; ``dst`` rows must
-    lie in [0, R)).  One warp per (b, t, head) row on the card."""
+    lie in [0, R)).  On the card k/v_new are read as they are, float32 or
+    bfloat16 (bf16 -> f32 is exact, so the codes are those of the f32
+    rows), at any strides that keep each row contiguous and 16-byte
+    aligned (``append_geometry`` has the limits): one launch, a group of
+    (row bytes) / 16 lanes per (b, t, head) row."""
     if not k_codes.is_cuda:
         return paged_kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale,
                                         k_new, v_new, dst, fmt, packed)
@@ -109,18 +148,22 @@ def paged_kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
             or k_scale.shape != (r, h) or v_scale.shape != (r, h)
             or dc != code_channels(hd, fmt, packed)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if hd > 256 or hd % 2:
-        raise ValueError(f"{name}: head dim must be even and <= 256")
-    k_new = k_new.to(torch.float32).contiguous()
-    v_new = v_new.to(torch.float32).contiguous()
+    if v_new.dtype != k_new.dtype:
+        raise TypeError(f"{name}: k_new and v_new must share a dtype")
+    append_geometry(name, hd, k_new.dtype)
+    strides = _row_strides(name, k_new) + _row_strides(name, v_new)
     dst = torch.as_tensor(dst, device=k_codes.device).to(
         torch.int32).reshape(b, t).contiguous()
-    _build.check_cuda(name, k_codes, k_scale, v_codes, v_scale, k_new,
-                      v_new, dst)
+    _build.check_cuda(name, k_codes, k_scale, v_codes, v_scale, dst)
+    for x in (k_new, v_new):
+        if x.device != k_codes.device:
+            raise ValueError(f"{name}: all tensors must be on "
+                             f"{k_codes.device}, got {x.device}")
     _build.launch("paged_kv", name, k_codes.device,
                   k_new.data_ptr(), v_new.data_ptr(), k_codes.data_ptr(),
                   k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-                  dst.data_ptr(), b, t, h, hd, r, fmt.bits, fmt.es, fmt.bias)
+                  dst.data_ptr(), *strides, b, t, h, hd, r, fmt.bits,
+                  fmt.es, fmt.bias, int(k_new.dtype == torch.bfloat16))
     return k_codes, k_scale, v_codes, v_scale
 
 
@@ -171,10 +214,6 @@ def paged_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
     return decode_attention(q, k, v, seq_lens)
 
 
-# Logical rows per CTA of K6's split walk (a multiple of 64).
-SPLIT_ROWS = 128
-
-
 def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
                            page_table, seq_lens, fmt: PositFormat, *,
                            page_size: int, packed: bool = False):
@@ -186,7 +225,8 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
     ``seq_lens[b] <= 0``) are walked in splits of ``SPLIT_ROWS`` rows, one
     CTA each, and a second kernel merges the splits; the q scaling and the
     output cast happen inside the kernels.  Table entries are clipped to
-    [0, num_pages).  A row of codes must be 4 * 2^i bytes, at most 512."""
+    [0, num_pages).  The limits are ``split_geometry``'s, shared with the
+    ring's K4."""
     if not q.is_cuda:
         return paged_decode_attention_ref(
             q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens,
@@ -202,22 +242,13 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
             or page_table.shape != (b, pmax) or r % page_size
             or dc != code_channels(hd, fmt, packed)):
         raise ValueError(f"{name}: inconsistent shapes")
-    row_bytes = dc * k_codes.element_size()
-    if hd > 256 or row_bytes < 4 or row_bytes > 512 or row_bytes & (
-            row_bytes - 1):
-        raise ValueError(f"{name}: head dim must be <= 256 and give rows of "
-                         f"codes of 4 * 2^i bytes, at most 512 (got "
-                         f"{row_bytes})")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: q must be float32 or bfloat16")
     grp = nh // nkv
-    if grp > 128:
-        raise ValueError(f"{name}: at most 128 query heads per KV head")
+    splits, _ = split_geometry(name, hd, dc * k_codes.element_size(), grp,
+                               q.dtype, pmax * page_size)
     q = q.contiguous()
     tbl = page_table.to(torch.int32).contiguous()
     lens = torch.as_tensor(seq_lens, device=q.device).to(
         torch.int32).reshape(-1).expand(b).contiguous()
-    splits = -(-pmax * page_size // SPLIT_ROWS)
     part = torch.empty((b * nkv, splits, grp, hd + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty((b, 1, nh, hd), dtype=q.dtype, device=q.device)

@@ -115,9 +115,9 @@ def _attn_decode_paged(c, qp, kp, vp, paged, spec: Optional[KVStorage]):
     page size), shared by every layer of the step."""
     dst, seq_lens, table, ps = paged
     if spec is not None and spec.is_posit:
-        paged_kernels.paged_kv_append(
-            c["k"], c["k_scale"], c["v"], c["v_scale"], kp.to(torch.float32),
-            vp.to(torch.float32), dst, spec.fmt, packed=spec.packed)
+        paged_kernels.paged_kv_append(   # K5 reads the model's dtype
+            c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, dst,
+            spec.fmt, packed=spec.packed)
         return paged_kernels.paged_decode_attention(
             qp, c["k"], c["k_scale"], c["v"], c["v_scale"], table, seq_lens,
             spec.fmt, page_size=ps, packed=spec.packed)
@@ -277,8 +277,7 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
                         _qw(policy, "attn_weights")(p["wo"]))
         if posit_kv and paged:
             paged_kernels.paged_kv_append_rows(
-                c["k"], c["k_scale"], c["v"], c["v_scale"],
-                kp.to(torch.float32), vp.to(torch.float32), rows2d,
+                c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, rows2d,
                 spec.fmt, packed=spec.packed)
         elif posit_kv:
             kv_kernels.kv_append_rows(

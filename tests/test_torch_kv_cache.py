@@ -4,17 +4,23 @@ Codes and scales bit-exact (row codec, the plain K3 against the reference's
 Pallas ``kv_append_rows`` in interpret mode); the plain K4 against the
 reference's Pallas ``decode_attention`` in interpret mode within rtol 1e-5,
 atol 1e-6 (online vs dense softmax: float32 summation order).
+``test_kernel_matches_plain_on_card`` needs the GPU (marker ``cuda``) and
+holds K4's split-walk kernels to the plain version there; the machine with
+the GPU has no JAX, so the JAX imports are optional and only the card test
+runs there.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
-
-from repro.core import formats as jformats  # noqa: E402
-from repro.core import transprecision as jtp  # noqa: E402
-from repro.kernels import kv_cache as jkv  # noqa: E402
+try:
+    import jax.numpy as jnp
+    from repro.core import formats as jformats
+    from repro.core import transprecision as jtp
+    from repro.kernels import kv_cache as jkv
+except ImportError:      # the GPU machine: only the card test runs there
+    jnp = None
 from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.core import transprecision as ttp  # noqa: E402
 from repro_torch.kernels import kv_cache as tkv  # noqa: E402
@@ -151,3 +157,60 @@ def test_kv_storage_resolution_matches_reference():
     assert legacy.is_posit and legacy.fmt.bits == 16
     with pytest.raises(KeyError):
         ttp.kv_storage(ttp.TCPolicy(name="x", kv_format="fp7"))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """K4's split walk and combine over ring rows against the plain version
+    on the card: cache_len at every split boundary, 0, -1 and past W, a
+    ring of 2 R + 72 rows (a partial last split), posit16/8 and packed
+    posit4; f32 q within rtol/atol 1e-5, bf16 q (output bf16) within one
+    bf16 rounding (2^-7) of the plain version on the same bf16 q (hd^-0.5
+    = 1/8 scales bf16 exactly); one launch per call, and unsupported
+    shapes and dtypes raise before any."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from repro_torch.kernels import LAUNCHES
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    sr = tkv.SPLIT_ROWS
+    nkv, grp, hd = 2, 3, 64
+    w = 2 * sr + 72
+    lens = torch.tensor([-1, 0, 1, sr - 1, sr, sr + 1, 2 * sr - 1, 2 * sr,
+                         2 * sr + 1, w - 1, w, w + 1, 5 * w],
+                        dtype=torch.int32, device=dev)
+    b = len(lens)
+    for name, packed in FMTS:
+        ft = tformats.get(name)
+        ring = []
+        for _ in range(2):
+            mag = np.exp2(rng.uniform(-2, 2, (b, w, nkv, 1)))
+            c, sc = tkv.encode_kv_rows(torch.from_numpy((rng.normal(
+                0, 1, (b, w, nkv, hd)) * mag).astype(np.float32)), ft, packed)
+            ring += [c.to(dev), sc[..., 0].contiguous().to(dev)]
+        q = torch.from_numpy(rng.normal(0, 1, (b, 1, nkv * grp, hd))
+                             .astype(np.float32)).to(dev)
+        for qd, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+            want = tkv.decode_attention_ref(q.to(qd), *ring, lens, ft,
+                                            packed)
+            before = LAUNCHES["decode_attention"]
+            got = tkv.decode_attention(q.to(qd), *ring, lens, ft,
+                                       packed=packed)
+            assert LAUNCHES["decode_attention"] == before + 1
+            assert got.dtype == qd and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+    before = LAUNCHES["decode_attention"]
+    c, sc = tkv.encode_kv_rows(torch.zeros(1, 16, 2, 48), tformats.POSIT8_2)
+    c, sc = c.to(dev), sc[..., 0].contiguous().to(dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tkv.decode_attention(torch.zeros(1, 1, 2, 48, device=dev), c, sc, c,
+                             sc, 3, tformats.POSIT8_2)
+    c64, sc64 = tkv.encode_kv_rows(torch.zeros(1, 16, 2, 64),
+                                   tformats.POSIT8_2)
+    c64, sc64 = c64.to(dev), sc64[..., 0].contiguous().to(dev)
+    with pytest.raises(TypeError, match="q must be"):
+        tkv.decode_attention(torch.zeros(1, 1, 2, 64, dtype=torch.float16,
+                                         device=dev), c64, sc64, c64, sc64, 3,
+                             tformats.POSIT8_2)
+    assert LAUNCHES["decode_attention"] == before

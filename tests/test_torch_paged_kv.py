@@ -9,9 +9,10 @@ order).  The plain K6 is within rtol/atol 1e-5 of the reference's Pallas
 softmax: float32 summation order); at bf16 q the plain version rounds the
 softmax weights to bf16 where the Pallas kernel keeps them in f32, so it
 is held to one bf16 rounding (2^-7).  ``test_kernel_matches_plain_on_card``
-needs the GPU (marker ``cuda``) and holds K6's split-walk kernels to the
-plain version there; the machine with the GPU has no JAX, so the JAX
-imports are optional and only the card test runs there.
+and ``test_append_kernel_matches_plain_on_card`` need the GPU (marker
+``cuda``) and hold K6's split-walk kernels and K5's lane-group append to
+the plain versions there; the machine with the GPU has no JAX, so the JAX
+imports are optional and only the card tests run there.
 """
 import numpy as np
 import pytest
@@ -271,3 +272,64 @@ def test_kernel_matches_plain_on_card():
             torch.tensor([3], dtype=torch.int32, device=dev),
             tformats.POSIT8_2, page_size=4)
     assert LAUNCHES["paged_decode_attention"] == before
+
+
+@pytest.mark.cuda
+def test_append_kernel_matches_plain_on_card():
+    """K5 against the plain version on the card, bit-exact on every row
+    past trash page 0 and untouched elsewhere: f32 rows and the model's
+    bf16 rows (v a strided view of a fused QKV output), T = 1 and 5 over a
+    page boundary, idle slots on the trash page, posit16/8 and packed
+    posit4, hd 64 (lane groups of 16 and 8) and f32 hd 256 (two loads per
+    lane); one launch per call, and unsupported rows raise before any."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from repro_torch.kernels import LAUNCHES
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    b, h, ps, pmax = 4, 2, 4, 3
+    r = (1 + b * pmax) * ps
+    table = torch.from_numpy(_shuffled_table(rng, b, pmax, idle=[1])).to(dev)
+    pos = torch.tensor([2, 0, 6, 3], dtype=torch.int32, device=dev)
+    for name, packed in FMTS:
+        ft = tformats.get(name)
+        for hd, dtypes in ((64, (torch.float32, torch.bfloat16)),
+                           (256, (torch.float32,))):
+            dc = tkv.code_channels(hd, ft, packed)
+            for t in (1, 5):
+                dst = tpkv.flat_dst_rows_chunk(table, pos, t, ps)
+                hi = 1 << (16 if ft.bits == 16 else 8)
+                codes = torch.from_numpy(rng.integers(0, hi, (2, r, h, dc)))
+                if ft.bits == 16:
+                    codes = torch.where(codes >= 1 << 15, codes - hi, codes)
+                codes = codes.to(tpkv._build.code_dtype(ft)).to(dev)
+                scales = torch.exp2(torch.from_numpy(rng.integers(
+                    -4, 4, (2, r, h))).float()).to(dev)
+                bufs = (codes[0], scales[0], codes[1], scales[1])
+                x = torch.from_numpy(_rows(rng, (b, t, h, 3 * hd))).to(dev)
+                for xd in dtypes:
+                    kv = x.to(xd)
+                    kn, vn = kv[..., hd:2 * hd].contiguous(), kv[..., 2 * hd:]
+                    want = tpkv.paged_kv_append_rows_ref(
+                        *[a.clone() for a in bufs], kn, vn, dst, ft, packed)
+                    before = LAUNCHES["paged_kv_append_rows"]
+                    got = tpkv.paged_kv_append_rows(
+                        *[a.clone() for a in bufs], kn, vn, dst, ft,
+                        packed=packed)
+                    assert LAUNCHES["paged_kv_append_rows"] == before + 1
+                    for g, w_ in zip(got, want):
+                        assert torch.equal(g[ps:], w_[ps:]), (name, hd, t, xd)
+    before = LAUNCHES["paged_kv_append_rows"]
+    ft = tformats.POSIT8_2
+    c = torch.zeros(r, h, 48, dtype=torch.uint8, device=dev)
+    sc = torch.ones(r, h, device=dev)
+    dst = torch.ones(b, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tpkv.paged_kv_append_rows(c, sc, c, sc, torch.zeros(
+            b, 1, h, 48, device=dev), torch.zeros(b, 1, h, 48, device=dev),
+            dst, ft)
+    c = torch.zeros(r, h, 64, dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        x16 = torch.zeros(b, 1, h, 64, dtype=torch.float16, device=dev)
+        tpkv.paged_kv_append_rows(c, sc, c, sc, x16, x16, dst, ft)
+    assert LAUNCHES["paged_kv_append_rows"] == before
