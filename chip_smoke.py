@@ -12,22 +12,27 @@ per contract.  Needs one CUDA GPU; run from the repository root:
 
     python3 chip_smoke.py [--seed N]
 
-Phases: 1 build; 2 K1; 3 K2; 4 K3; 4b K5 (f32 and bf16 rows); 5 K4 (split
-boundaries, f32 and bf16 q); 5b K6 (split boundaries too); 6 ring main
-path; 6b ring decode-step profile; 6c paged main path; 6d paged decode-step
-profile; 7 card vs CPU (ring); 7b card vs CPU (paged); 8 kernel times; 8b
-K4 by blocks walked; 8c K6 by blocks walked over the same rows, beside K4;
-8d one paged decode layer's append as the step calls it, and K5 at a
-prefill's T = 1024; 9 K7 (both paths, the crossover's neighbours); 9b K7's
-two paths timed by M (the crossover); 10 the quickstart path (serving's
+Phases: 1 build; 2 K1; 3 K2 (every f32 bit pattern for posit8_2 and
+posit16_2; misaligned views and ragged lengths); 4 K3 (f32 and bf16 rows,
+a strided v, a prefill that wraps inside the call); 4b K5 (f32 and bf16
+rows); 5 K4 (split boundaries, f32 and bf16 q); 5b K6 (split boundaries
+too); 6 ring main path; 6b ring decode-step profile; 6c paged main path;
+6d paged decode-step profile; 7 card vs CPU (ring); 7b card vs CPU
+(paged); 8 kernel times; 8b K4 by blocks walked; 8c K6 by blocks walked
+over the same rows, beside K4; 8d one paged decode layer's append as the
+step calls it, and K5 at a prefill's T = 1024; 8e the same for the ring's
+K3; 9 K7 (both paths, the crossover's neighbours); 9b K7's two paths
+timed by M (the crossover); 10 the quickstart path (serving's
 counterpart: training; part 2's device time); 10b train step card vs CPU;
 then K7's times.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
                  kv_append_rows_ref / paged_kv_append_rows_ref (NaN exactly
-                 at NaR for K1; K5 on every pool row outside trash page 0,
-                 where idle slots collide in no set order).
+                 at NaR for K1; K3 and K5 from bf16 rows against the plain
+                 version on the same values as f32; K5 on every pool row
+                 outside trash page 0, where idle slots collide in no set
+                 order).
   K4, K6         rtol 1e-5, atol 1e-5 against decode_attention_ref /
                  paged_decode_attention_ref on K/V of O(1) magnitude
                  (split vs dense softmax: f32 summation order); K4 with a
@@ -103,6 +108,9 @@ KERNELS = {
                      "src/repro/kernels/posit_matmul.py:50"),
 }
 CODEC_FORMATS = ("posit4_1", "posit8_0", "posit8_2", "posit16_1", "posit16_2")
+ALL_FORMATS = ("posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",
+               "posit16_1", "posit16_2")
+EXHAUSTIVE_FORMATS = ("posit8_2", "posit16_2")
 # the main path's shape: max_batch 8, max_len 1024, 4 KV heads of 64
 B, W, NKV, HD, NH = 8, 1024, 4, 64, 12
 # the paged main path: 16-row pages, Pmax = W / PS logical pages per slot,
@@ -186,8 +194,11 @@ def graph_ms(fn, n_args: int, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_events(prof):
-    """Total device µs by short kernel name in a profiler trace."""
+def device_events(prof, launches=None):
+    """Total device µs by short kernel name in a profiler trace; where a
+    dict ``launches`` is given, the kernel launches by name are added to
+    it (copies, as a cast runs, are named ``*[copy]``; memcpy and memset
+    are not kernels and are left out)."""
     import torch
     out = {}
     for e in prof.events():
@@ -199,7 +210,11 @@ def device_events(prof):
         functor = re.search(r"::(\w*Functor\w*)", e.name)
         if functor:                 # which op a generic elementwise ran
             name += f"[{functor.group(1)}]"
+        elif "copy_kernel" in e.name:
+            name += "[copy]"
         out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
+        if launches is not None and not e.name.startswith("Mem"):
+            launches[name] = launches.get(name, 0) + 1
     return out
 
 
@@ -262,7 +277,10 @@ def main() -> int:
     phase(f"phase 2 K1 posit_decode bit-exact on every code of "
           f"{', '.join(CODEC_FORMATS)} (f32 and bf16 out)")
 
-    # 3. K2 vs encode_tile ---------------------------------------------
+    # 3. K2 vs encode_tile: every f32 bit pattern for posit8_2 and
+    # posit16_2; every format on sampled inputs, also from a view that
+    # starts off a 16-byte boundary and at lengths not a multiple of 4 ---
+    t3 = time.perf_counter()
     normal = rng.normal(0, 1, 1 << 16).astype(np.float32)
     special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40,
                         1.4e-45, -1.17e-38, 1.18e-38, 3.4e38, -3.4e38],
@@ -271,12 +289,33 @@ def main() -> int:
         np.uint32).view(np.float32)
     x = torch.from_numpy(np.concatenate(
         [normal, normal * 1e-8, normal * 1e8, special, pats])).to(dev)
-    for name in CODEC_FORMATS:
+    views = (x, x[1:], x[:-1], x[3:-2])     # heads 0/3/0/1, tails 0/0/3/2
+    for name in ALL_FORMATS:
         fmt = get_fmt(name)
-        assert bits_equal(posit_encode(x, fmt), encode_tile(x, fmt)), name
-    phase(f"phase 3 K2 posit_encode bit-exact on {x.numel()} inputs "
-          f"(normal at 1, 1e-8, 1e8; +-0, +-inf, NaN, subnormals; 2^20 "
-          f"random bit patterns)")
+        for xv in views:
+            before = LAUNCHES["posit_encode"]
+            assert bits_equal(posit_encode(xv, fmt), encode_tile(xv, fmt)), \
+                (name, xv.numel(), xv.data_ptr() % 16)
+            assert LAUNCHES["posit_encode"] == before + 1
+    t_sampled = time.perf_counter() - t3
+    chunk = 1 << 26
+    for name in EXHAUSTIVE_FORMATS:
+        fmt = get_fmt(name)
+        for c0 in range(0, 1 << 32, chunk):
+            p_ = torch.arange(c0, c0 + chunk, dtype=torch.int64, device=dev)
+            xs = torch.where(p_ >= 1 << 31, p_ - (1 << 32), p_).to(
+                torch.int32).view(torch.float32)
+            assert torch.equal(posit_encode(xs, fmt), encode_tile(xs, fmt)), \
+                (name, c0)
+        del p_, xs
+    torch.cuda.synchronize()
+    phase(f"phase 3 K2 posit_encode bit-exact on all 2^32 f32 bit patterns "
+          f"for {', '.join(EXHAUSTIVE_FORMATS)} (chunks of 2^26 from "
+          f"torch.arange; {time.perf_counter() - t3 - t_sampled:.1f} s), and "
+          f"for {', '.join(ALL_FORMATS)} on {x.numel()} inputs (normal at 1, "
+          f"1e-8, 1e8; +-0, +-inf, NaN, subnormals; 2^20 random bit "
+          f"patterns) as x, x[1:], x[:-1] and x[3:-2] (scalar heads and "
+          f"tails); phase {time.perf_counter() - t3:.1f} s")
 
     # 4. K3 vs kv_append_rows_ref at the main path's shape -------------
     def fresh_ring(fmt, packed, lead=(B, W), src=rng):
@@ -300,30 +339,46 @@ def main() -> int:
 
     pos_wrap = torch.tensor([0, 5, 1023, 1024, 1500, 2047, 3000, 77],
                             dtype=torch.int32, device=dev)
+    # a prefill of T = 1024 from pos 1500 wraps inside the call; drawn
+    # from its own generator, so the later phases see the same data
+    rng_k3 = np.random.default_rng([args.seed, 4])
+    cases = ((1, pos_wrap, rng),
+             (W, torch.zeros(B, dtype=torch.int32, device=dev), rng),
+             (W, torch.full((B,), 1500, dtype=torch.int32, device=dev),
+              rng_k3))
     for name, packed in KV_FORMATS:
         fmt = get_fmt(name)
-        for t, pos in ((1, pos_wrap),
-                       (W, torch.zeros(B, dtype=torch.int32, device=dev))):
-            kc, ks = fresh_ring(fmt, packed)
-            vc, vs = fresh_ring(fmt, packed)
-            kn, vn = rows(t), rows(t)
-            got = kvk.kv_append_rows(kc.clone(), ks.clone(), vc.clone(),
-                                     vs.clone(), kn, vn, pos, fmt,
-                                     packed=packed)
-            want = kvk.kv_append_rows_ref(kc.clone(), ks.clone(), vc.clone(),
-                                          vs.clone(), kn, vn, pos, fmt,
-                                          packed)
-            for g, w_ in zip(got, want):
-                assert bits_equal(g, w_), (name, t)
-            if t == 1:          # rows not written are unchanged
-                idx = pos_wrap.long() % W
-                keep = torch.ones((B, W), dtype=torch.bool, device=dev)
-                keep[torch.arange(B, device=dev), idx] = False
-                assert torch.equal(got[0][keep], kc[keep]), name
-                assert torch.equal(got[1][keep], ks[keep]), name
+        for t, pos, src in cases:
+            kc, ks = fresh_ring(fmt, packed, src=src)
+            vc, vs = fresh_ring(fmt, packed, src=src)
+            kn, vn = rows(t, src=src), rows(t, src=src)
+            # f32 rows, and the model's bf16 rows as the step makes them: k
+            # contiguous, v a strided view of the fused QKV output
+            qkv = torch.cat([kn, kn, vn], dim=-1).to(torch.bfloat16)
+            for k_in, v_in in ((kn, vn), (qkv[..., HD:2 * HD].contiguous(),
+                                          qkv[..., 2 * HD:])):
+                before = LAUNCHES["kv_append_rows"]
+                got = kvk.kv_append_rows(kc.clone(), ks.clone(), vc.clone(),
+                                         vs.clone(), k_in, v_in, pos, fmt,
+                                         packed=packed)
+                assert LAUNCHES["kv_append_rows"] == before + 1
+                want = kvk.kv_append_rows_ref(
+                    kc.clone(), ks.clone(), vc.clone(), vs.clone(),
+                    k_in.float(), v_in.float(), pos, fmt, packed)
+                for g, w_ in zip(got, want):
+                    assert bits_equal(g, w_), (name, t, k_in.dtype)
+                if t == 1:          # rows not written are unchanged
+                    idx = pos_wrap.long() % W
+                    keep = torch.ones((B, W), dtype=torch.bool, device=dev)
+                    keep[torch.arange(B, device=dev), idx] = False
+                    for g, orig in zip(got, (kc, ks, vc, vs)):
+                        assert torch.equal(g[keep], orig[keep]), name
     phase("phase 4 K3 kv_append_rows bit-exact (codes, scales, untouched "
           f"rows) at B={B} W={W} nkv={NKV} hd={HD}, posit16/8/4, T=1 with "
-          "wrapping pos and T=1024 from 0")
+          "wrapping pos, T=1024 from 0 and from 1500 (wrapping inside the "
+          "call); f32 rows and the model's bf16 rows (v a strided view of a "
+          "fused QKV tensor) against the plain version on the same values "
+          "as f32")
 
     # 4b. K5 vs paged_kv_append_rows_ref into a full pool (the paged
     # phases draw from their own generator, so the ring phases see the
@@ -537,8 +592,9 @@ def main() -> int:
     n_prof = 5
 
     def profile_steps(step):
-        """Wall per call of ``step`` over ``n_prof`` calls, kernel launches
-        per call, and device busy / idle share from a profiler trace."""
+        """Wall per call of ``step`` over ``n_prof`` calls, wrapper launches
+        per call, and device busy / idle share and kernel launches per call
+        from a profiler trace."""
         torch.cuda.synchronize()
         reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -548,15 +604,19 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / n_prof
         per_step = {k: v / n_prof for k, v in LAUNCHES.items()}
+        n_kernels = {}
         per_kernel = {k: v / n_prof / 1e3
-                      for k, v in device_events(prof).items()}
+                      for k, v in device_events(prof, n_kernels).items()}
+        copies = sum(n for k, n in n_kernels.items() if k.endswith("[copy]"))
         busy = sum(per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         # K4's or K6's two kernels (the step runs one of the two layouts)
         walk = sum(per_kernel.get(k, 0.0) for k in ("split_kernel",
                                                      "combine_kernel"))
         device = (f"device busy {busy:.3f} ms/step, idle share "
-                  f"{1 - busy / wall_ms:.3f}; split walk (split_kernel + "
+                  f"{1 - busy / wall_ms:.3f}; kernel launches "
+                  f"{sum(n_kernels.values()) / n_prof:.1f}/step, of which "
+                  f"copies {copies / n_prof:.1f}; split walk (split_kernel + "
                   f"combine_kernel) {walk:.3f} ms/step; top kernels "
                   f"(ms/step): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in top)) \
@@ -569,8 +629,18 @@ def main() -> int:
         logits.float().cpu()
 
     wall_ms, per_step, device = profile_steps(ring_generate)
+    # the same step with the K/V cast to f32 before every K3 call, as the
+    # call sites did while K3 read only f32 rows
+    k3_wrapper = kvk.kv_append_rows
+    kvk.kv_append_rows = lambda kc, ks, vc, vs, k, v, *a, **kw: k3_wrapper(
+        kc, ks, vc, vs, k.float(), v.float(), *a, **kw)
+    try:
+        _, _, device_cast = profile_steps(ring_generate)
+    finally:
+        kvk.kv_append_rows = k3_wrapper
     phase(f"phase 6b decode-step profile ({n_prof} generate calls at the "
-          f"served positions): wall {wall_ms:.3f} ms/step, {device}")
+          f"served positions): wall {wall_ms:.3f} ms/step, {device}; with "
+          f"K/V cast to f32 before each K3 call: {device_cast}")
 
     # 6c. the paged main path: same weights and prompts, half the pool -
     paged = serve_main(ServeConfig(max_batch=8, max_len=1024,
@@ -886,6 +956,36 @@ def main() -> int:
           f"bf16 (a paged prefill) {append_us['k5_t1024_bf16']:.2f} µs "
           f"against its bytes bound {pf_bound_us:.3f} µs")
 
+    # 8e. one ring decode layer's append as the step calls it, from the
+    # model's bf16 K/V (the same views): the casts to f32 and K3 (the call
+    # sequence before K3 read bf16) against K3 alone; and K3 at a ring
+    # prefill's T = 1024, B = 1, bf16 (own generator)
+    def k3_step(i, cast):
+        kin, vin = ((kb_step.float(), vb_step.float()) if cast
+                    else (kb_step, vb_step))
+        return kvk.kv_append_rows(kc_l[i], ks_l[i], vc_l[i], vs_l[i], kin,
+                                  vin, pos_step, p8)
+
+    ring_append_us = {
+        "casts_and_k3": 1e3 * graph_ms(lambda i: k3_step(i, True), layers),
+        "k3_bf16": 1e3 * graph_ms(lambda i: k3_step(i, False), layers)}
+    rng_8e = np.random.default_rng([args.seed, 5])
+    kv_rpf = torch.from_numpy(rng_8e.normal(0, 1, (1, t_pf, NKV, HD)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    pos0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    ring_append_us["k3_t1024_bf16"] = 1e3 * graph_ms(
+        lambda i: kvk.kv_append_rows(kc_l[i][:1], ks_l[i][:1], vc_l[i][:1],
+                                     vs_l[i][:1], kv_rpf, kv_rpf, pos0, p8),
+        layers)
+    # each bf16 row read once, its codes and scale written once, pos read
+    rpf_bound_us = 1e6 * (2 * t_pf * NKV * (HD * 2 + HD + 4) + 4) \
+        / H100_BYTES_PER_S
+    phase(f"phase 8e one ring decode layer's append from bf16 K/V (B=8, "
+          f"posit8): casts to f32 + K3 {ring_append_us['casts_and_k3']:.2f} "
+          f"µs, K3 alone {ring_append_us['k3_bf16']:.2f} µs; K3 at T={t_pf}, "
+          f"B=1, bf16 (a ring prefill) {ring_append_us['k3_t1024_bf16']:.2f} "
+          f"µs against its bytes bound {rpf_bound_us:.3f} µs")
+
     q_bytes = q_step.element_size()
     byts = {
         "posit_decode": n_codes * (1 + 4),
@@ -912,14 +1012,15 @@ def main() -> int:
         t_bytes = byts[name] / H100_BYTES_PER_S * 1e3
         t_ops = flops.get(name, 0) / H100_F32_FLOPS * 1e3
         src, repl = KERNELS[name]
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": main_launches[name],
             "launches_per_decode_step": per_step[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": None}
+        out.append(entry)
     # 9. K7 vs its plain version on the card (own generator: phases 2-8
     # draw what they drew before) ------------------------------------------
     from repro_torch import quickstart

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Where K5's time goes, on the card: the paged append built again with its
+"""Where the appends' time goes, on the card: K5 (paged) and K3 (ring),
+which share ``kv_rows.cuh``'s lane-group append, built again with their
 posit encode switched off, both variants timed at the main paths' shapes.
 The GPU machine has no `ncu`, so this is the breakdown it can give.
 
     python3 scripts/k5_ablation.py      # from the repository root, one GPU
 
-Variants (copies of ``src/repro_torch/csrc/paged_kv.cu`` and its headers,
-built into ``build/k5_ablation/<variant>/`` and swapped in for the
-``paged_kv`` library): ``base``; ``noenc`` (each element's code is the top
-bits of x / scale instead of ``posit::encode``: the launch, the loads, the
-row's sum, the shuffles and the stores stay).  Only ``base`` computes K5.
-Run order base, noenc, base, noenc.  Prints the card's name and power
-limit, then one JSON line per run: device µs per call from a CUDA graph of
-20 calls replayed between CUDA events (``chip_smoke.graph_ms``), argument
-sets rotated over 12 layers' pools, posit8, B = 8, nkv = 4, hd = 64:
-``f32_us`` (T = 1, f32 rows, the kernels line's shape), ``bf16_us`` (T =
-1, the model's bf16 rows, v a strided view), ``t1024_bf16_us`` (T = 1024,
-B = 1, bf16: a paged prefill).
+Variants (copies of ``src/repro_torch/csrc/paged_kv.cu``,
+``kv_cache.cu`` and their headers, built into
+``build/k5_ablation/<variant>/`` and swapped in for the ``paged_kv`` and
+``kv_cache`` libraries): ``base``; ``noenc`` (each element's code is the
+top bits of x / scale instead of ``posit::encode``: the launch, the loads,
+the row's sum, the shuffles and the stores stay).  Only ``base`` computes
+K5 and K3.  Run order base, noenc, base, noenc.  Prints the card's name
+and power limit, then one JSON line per run: device µs per call from a
+CUDA graph of 20 calls replayed between CUDA events
+(``chip_smoke.graph_ms``), argument sets rotated over 12 layers' pools or
+rings, posit8, B = 8, nkv = 4, hd = 64: K5's ``f32_us`` (T = 1, f32 rows,
+the kernels line's shape), ``bf16_us`` (T = 1, the model's bf16 rows, v a
+strided view), ``t1024_bf16_us`` (T = 1024, B = 1, bf16: a paged
+prefill); K3's ``k3_bf16_us`` (T = 1 from the same bf16 rows into
+1024-row rings: the ring decode step's append).
 """
 from __future__ import annotations
 
@@ -31,11 +35,12 @@ ENCODE = "c[k][e] = posit::encode<N, ES>(v[k][e] / scale, bias);"
 VARIANTS = {"base": ENCODE,
             "noenc": "c[k][e] = __float_as_uint(v[k][e] / scale) >> "
                      "(32 - N);"}
+LIBS = ("paged_kv", "kv_cache")
 
 
-def build(variant: str, nvcc_flags) -> Path:
+def build(variant: str, nvcc_flags) -> dict:
     """Copy the sources with ``variant``'s encode line, build, return the
-    library's path."""
+    libraries' paths by name."""
     from repro_torch.kernels import _build
     out = _build.BUILD_ROOT / "k5_ablation" / variant
     out.mkdir(parents=True, exist_ok=True)
@@ -47,13 +52,22 @@ def build(variant: str, nvcc_flags) -> Path:
                                    "kv_rows.cuh; update ENCODE")
             text = text.replace(ENCODE, VARIANTS[variant])
         (out / src.name).write_text(text)
-    (out / "paged_kv.cu").write_text((_build.CSRC / "paged_kv.cu").read_text())
-    lib = out / "libpaged_kv.so"
-    if not lib.exists():
-        subprocess.run([_build._nvcc(), *nvcc_flags, "-o", str(lib),
-                        str(out / "paged_kv.cu")], check=True,
-                       capture_output=True)
-    return lib
+    libs, procs = {}, {}
+    for name in LIBS:
+        (out / f"{name}.cu").write_text(
+            (_build.CSRC / f"{name}.cu").read_text())
+        libs[name] = out / f"lib{name}.so"
+        if not libs[name].exists():
+            with open(out / f"{name}.log", "w") as log:
+                procs[name] = subprocess.Popen(
+                    [_build._nvcc(), *nvcc_flags, "-o", str(libs[name]),
+                     str(out / f"{name}.cu")], stdout=log,
+                    stderr=subprocess.STDOUT)
+    for name, proc in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"k5_ablation: nvcc failed for {variant}:\n"
+                               + (out / f"{name}.log").read_text())
+    return libs
 
 
 def main() -> int:
@@ -66,6 +80,7 @@ def main() -> int:
     from chip_smoke import graph_ms
     from repro_torch.core.formats import POSIT8_2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import kv_cache as kvk
     from repro_torch.kernels import paged_kv as pkv
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -92,23 +107,33 @@ def main() -> int:
     dst_pf = pkv.flat_dst_rows_chunk(
         table[:1], torch.zeros(1, dtype=torch.int32, device=dev), 1024, ps)
 
+    rings = [(torch.zeros(b, 1024, nkv, hd, dtype=torch.uint8, device=dev),
+              torch.ones(b, 1024, nkv, device=dev)) for _ in range(layers)]
+
     def call(i, k, v, d):
         c, s = pools[i]
         return pkv.paged_kv_append_rows(c, s, c, s, k, v, d, POSIT8_2)
 
+    def call_ring(i, k, v):
+        c, s = rings[i]
+        return kvk.kv_append_rows(c, s, c, s, k, v, pos, POSIT8_2)
+
     for variant in ("base", "noenc", "base", "noenc"):
-        cdll = ctypes.CDLL(str(libs[variant]))
-        for fn, argtypes in _build.SIGNATURES["paged_kv"].items():
-            getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
-        _build._libs["paged_kv"] = cdll
+        for name in LIBS:
+            cdll = ctypes.CDLL(str(libs[variant][name]))
+            for fn, argtypes in _build.SIGNATURES[name].items():
+                getattr(cdll, fn).argtypes = argtypes
+                getattr(cdll, fn).restype = ctypes.c_int
+            _build._libs[name] = cdll
         res = {"variant": variant,
                "f32_us": 1e3 * graph_ms(
                    lambda i: call(i, k1, v1, dst[:, None]), layers),
                "bf16_us": 1e3 * graph_ms(
                    lambda i: call(i, kb, vb, dst[:, None]), layers),
                "t1024_bf16_us": 1e3 * graph_ms(
-                   lambda i: call(i, kv_pf, kv_pf, dst_pf), layers)}
+                   lambda i: call(i, kv_pf, kv_pf, dst_pf), layers),
+               "k3_bf16_us": 1e3 * graph_ms(
+                   lambda i: call_ring(i, kb, vb), layers)}
         print(json.dumps(res), flush=True)
     return 0
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the port's K4-K7 at the main paths' shapes, for
+"""Device times of the port's K2-K7 at the main paths' shapes, for
 one checkout of the port, so that two commits can be compared in one run
 on one card (parent, change, change, parent):
 
@@ -12,6 +12,15 @@ device ms per call from a CUDA graph of the calls replayed between CUDA
 events (``chip_smoke.graph_ms``), argument sets rotated over 12 layers'
 buffers as in ``chip_smoke.py``'s kernels line:
 
+- K2 (``k2_us``): 2,097,152 f32 values (one layer's posit8 K ring, the
+  kernels line's shape) to posit8_2 codes;
+- K3 (ring append, posit8, B = 8, T = 1, into 1024-row rings): f32 rows
+  (``k3_us``, the kernels line's shape); the ring decode step's append
+  from the model's bf16 K/V (v a strided view of the fused QKV output) as
+  casts to f32 then K3 (``k3_casts_us``) and as the wrapper given the bf16
+  rows (``k3_bf16_us``: a checkout whose K3 reads bf16 launches K3 alone,
+  an older one casts inside its wrapper); and the wrapper given bf16 rows
+  at a ring prefill's T = 1024, B = 1 (``k3_t1024_bf16_us``);
 - K6 (paged) and K4 (ring): B = 8, nh = 12 over 4 KV heads of 64, posit8
   codes, 16-row pages through a shuffled table, seq_lens {1, 17, 128,
   129, 500, 1000, 1023, 1024}, q bf16;
@@ -63,6 +72,7 @@ def main() -> int:
     from repro_torch.kernels import paged_kv as pkv
     from repro_torch.kernels.ops import qt_matmul
     from repro_torch.kernels.posit_decode import decode_tile
+    from repro_torch.kernels.posit_encode import posit_encode
     from repro_torch.kernels.posit_matmul import posit_matmul
     import repro_torch
     assert Path(repro_torch.__file__).resolve().is_relative_to(root)
@@ -105,7 +115,14 @@ def main() -> int:
     res["k4_us"] = 1e3 * graph_ms(lambda i: kvk.decode_attention(
         q, *ring[i], lens, POSIT8_2), layers)
 
-    # K5 into the same pool
+    # K2 over one layer's posit8 K ring of values
+    xs = [decode_tile(codes(b * w * nkv * hd), POSIT8_2)
+          for _ in range(layers)]
+    res["k2_us"] = 1e3 * graph_ms(lambda i: posit_encode(xs[i], POSIT8_2),
+                                  layers)
+    del xs
+
+    # K3 into the rings and K5 into the pool
     pos = torch.tensor([int(n) + 16 for n in lens], dtype=torch.int32,
                        device=dev)
     dst = pkv.flat_dst_rows(table, pos, ps)
@@ -113,6 +130,13 @@ def main() -> int:
     v1 = torch.randn(b, 1, nkv, hd, generator=gen, device=dev)
     qkv = torch.cat([k1, k1, v1], dim=-1).to(torch.bfloat16)
     kb, vb = qkv[..., hd:2 * hd].contiguous(), qkv[..., 2 * hd:]
+    res["k3_us"] = 1e3 * graph_ms(lambda i: kvk.kv_append_rows(
+        *ring[i], k1, v1, pos, POSIT8_2), layers)
+    res["k3_casts_us"] = 1e3 * graph_ms(lambda i: kvk.kv_append_rows(
+        *ring[i], kb.float(), vb.float(), pos, POSIT8_2), layers)
+    res["k3_bf16_us"] = 1e3 * graph_ms(lambda i: kvk.kv_append_rows(
+        *ring[i], kb, vb, pos, POSIT8_2), layers)
+    pos0 = torch.zeros(1, dtype=torch.int32, device=dev)
     res["k5_us"] = 1e3 * graph_ms(lambda i: pkv.paged_kv_append(
         *pool[i], k1, v1, dst, POSIT8_2), layers)
     res["k5_casts_us"] = 1e3 * graph_ms(lambda i: pkv.paged_kv_append(
@@ -126,6 +150,9 @@ def main() -> int:
     res["k5_t1024_bf16_us"] = 1e3 * graph_ms(
         lambda i: pkv.paged_kv_append_rows(*pool[i], kv_pf, kv_pf, dst_pf,
                                            POSIT8_2), layers)
+    res["k3_t1024_bf16_us"] = 1e3 * graph_ms(
+        lambda i: kvk.kv_append_rows(*(t[:1] for t in ring[i]), kv_pf,
+                                     kv_pf, pos0, POSIT8_2), layers)
     del pool, ring
 
     # K7 at the kernels line's shapes

@@ -1,15 +1,14 @@
 // K3 and K4: the posit-coded KV ring of serving decode.
 //
-// K3 kv_append_rows_kernel replaces repro/kernels/kv_cache.py::kv_append_rows
-// (Pallas; kv_append is its T=1 case).  K4, kv_rows.cuh's split_kernel +
-// combine_kernel over ring rows, replaces
-// repro/kernels/kv_cache.py::decode_attention (Pallas).  Their bodies are
-// kv_rows.cuh's encode_row and attention_split / attention_combine; K6
-// (paged_kv.cu) runs the same split walk through its page table.  This
-// file holds the ring addressing.
+// K3, kv_rows.cuh's append_kernel with ring destinations, replaces
+// repro/kernels/kv_cache.py::kv_append_rows (Pallas; kv_append is its T=1
+// case).  K4, kv_rows.cuh's split_kernel + combine_kernel over ring rows,
+// replaces repro/kernels/kv_cache.py::decode_attention (Pallas).  K5 and K6
+// (paged_kv.cu) run the same append and split walk through their page
+// table: this file holds the ring addressing.
 //
-// Layouts (row-major, contiguous):
-//   k/v_new   (B, T, H, hd) f32          q    (B*nkv, grp, hd) f32 or bf16
+// Layouts (row-major; k/v_new with the strides given, the rest contiguous):
+//   k/v_new   (B, T, H, hd) f32 or bf16  q    (B*nkv, grp, hd) f32 or bf16
 //   k/v_codes (B, W, H, Dc) codes        out  (B*nkv, grp, hd) q's type
 //   k/v_scale (B, W, H) f32              pos, cache_len  (B,) int32
 // Dc = hd, or hd/2 for 4-bit codes nibble-packed split-half (byte j holds
@@ -21,38 +20,25 @@ namespace {
 // ---------------------------------------------------------------------------
 // K3: encode-on-write ring append.
 //
-// Bound on the H100: at T=1 (every decode layer) it moves a few KB, so
-// launch latency, not bytes or operations, sets its time; at prefill
-// (T = bucket) it is bytes-bound (4 B read per element, 1-2 B written).
-// Design: one warp per (b, t, head) row of K or V (kv::encode_row).  Only
-// ring row (pos[b] + t) mod W is written; nothing else in the ring moves.
+// Bound on the H100: at T=1 (every decode layer; B=8, nkv=4, hd=64, posit8)
+// it moves ~12.6 KB from the model's bf16 rows (~20.8 KB from f32), 0.004-
+// 0.006 us at 3.35 TB/s, so launch latency and the chain of dependent loads
+// set its time; at prefill (T = bucket) it is bytes-bound.  Design: K5's
+// (kv::launch_append): a group of (row bytes) / 16 lanes per (b, t, head)
+// row, read in the model's dtype at its strides, so the caller launches no
+// cast; RingDst computes ring row (pos[b] + t) mod W from one int per slot,
+// loaded beside the row.  A ring row is always in range; nothing else in
+// the ring moves.
 // ---------------------------------------------------------------------------
-template <int N, int ES>
-__global__ void kv_append_rows_kernel(
-    const float* __restrict__ k_new, const float* __restrict__ v_new,
-    typename posit::Code<N>::type* __restrict__ k_codes,
-    float* __restrict__ k_scale,
-    typename posit::Code<N>::type* __restrict__ v_codes,
-    float* __restrict__ v_scale, const int* __restrict__ pos, int B, int T,
-    int H, int hd, int W, int bias) {
-  __shared__ uint8_t nib[kv::kAppendWarps][kv::kMaxHd];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long rows = (long long)B * T * H;
-  const long long row = (long long)blockIdx.x * kv::kAppendWarps + warp;
-  if (row >= 2 * rows) return;             // whole warp leaves together
-  const bool is_v = row >= rows;
-  const long long r = is_v ? row - rows : row;  // (b, t, h) row index
-  const int h = (int)(r % H);
-  const int t = (int)((r / H) % T);
-  const int b = (int)(r / ((long long)H * T));
-  const int ring = (pos[b] + t) % W;
-  const long long dst = ((long long)b * W + ring) * H + h;
-  const int dc = N <= 4 ? hd / 2 : hd;
-  kv::encode_row<N, ES>((is_v ? v_new : k_new) + r * hd, hd,
-                        (is_v ? v_codes : k_codes) + dst * dc,
-                        (is_v ? v_scale : k_scale) + dst, nib[warp], lane,
-                        bias);
-}
+struct RingDst {
+  const int* pos;   // (B,)
+  int W;
+  __device__ long long operator()(int b, int t, bool live) const {
+    int r = (pos[b] + t) % W;     // pos + t < 2^31; a floor mod, as the
+    r += r < 0 ? W : 0;           // reference's
+    return live ? (long long)b * W + r : -1;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // K4: fused decode-on-read one-token GQA attention over the ring, as a split
@@ -86,29 +72,21 @@ struct RingLayout {
 
 }  // namespace
 
-extern "C" int kv_append_rows(const void* k_new, const void* v_new,
-                              void* k_codes, void* k_scale, void* v_codes,
-                              void* v_scale, const void* pos, int B, int T,
-                              int H, int hd, int W, int nbits, int es,
-                              int bias, void* stream) {
-  if (hd > kv::kMaxHd) return (int)cudaErrorInvalidValue;
-  const long long blocks = kv::append_blocks(B, T, H);
-  if (blocks == 0) return 0;
-  if (blocks < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define APPEND_CASE(N, ES)                                                    \
-  if (nbits == N && es == ES) {                                               \
-    using CodeT = posit::Code<N>::type;                                       \
-    kv_append_rows_kernel<N, ES>                                              \
-        <<<(int)blocks, 32 * kv::kAppendWarps, 0, st>>>(                      \
-            (const float*)k_new, (const float*)v_new, (CodeT*)k_codes,        \
-            (float*)k_scale, (CodeT*)v_codes, (float*)v_scale,                \
-            (const int*)pos, B, T, H, hd, W, bias);                           \
-    return (int)cudaGetLastError();                                           \
-  }
-  POSIT_FORMATS(APPEND_CASE)
-#undef APPEND_CASE
-  return (int)cudaErrorInvalidValue;
+// k/v_new rows of hd f32 (x_bf16 0) or bf16 (x_bf16 1) elements at the
+// element strides given (kv::launch_append has the limits).  Returns a
+// CUDA error code, 0 on success.
+extern "C" int kv_append_rows(
+    const void* k_new, const void* v_new, void* k_codes, void* k_scale,
+    void* v_codes, void* v_scale, const void* pos, long long ksb,
+    long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, int B, int T, int H, int hd, int W, int nbits, int es,
+    int bias, int x_bf16, void* stream) {
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  return kv::launch_append(RingDst{(const int*)pos, W}, k_new, v_new,
+                           k_codes, k_scale, v_codes, v_scale,
+                           kv::RowStrides{ksb, kst, ksh},
+                           kv::RowStrides{vsb, vst, vsh}, B, T, H, hd, nbits,
+                           es, bias, x_bf16, (cudaStream_t)stream);
 }
 
 // q (B, nkv, grp, hd) and out in q's type (f32, or bf16 with q_bf16), part

@@ -1,10 +1,12 @@
 // Device bodies shared by the posit KV-cache kernels of both layouts:
 //
-//   encode_row        one warp scales and encodes one f32 K or V row -- the
-//                     write path of K3 (ring, kv_cache.cu).
 //   encode_row_group  a group of (row bytes) / 16 lanes scales and encodes
-//                     one f32 or bf16 row, 16 B per lane -- the write path
-//                     of K5 (paged, paged_kv.cu).
+//                     one f32 or bf16 row, 16 B per lane --
+//   append_kernel     one launch over every (b, t, head) row of K and V;
+//                     together the write path of K3 (ring, kv_cache.cu) and
+//                     K5 (paged, paged_kv.cu), launched by launch_append.
+//                     A Dst functor maps (b, t) to the flat destination
+//                     row: the two layouts differ only there.
 //   attention_split   one CTA's share of a split walk (flash-decoding): the
 //                     fused decode-on-read one-token GQA over one R-row
 //                     split of a (slot, kv-head)'s logical rows, written as
@@ -32,60 +34,16 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMaxHd = 256;
 
 // ---------------------------------------------------------------------------
-// Row encode (K3).  The warp's lanes own hd/32 elements each: a shuffle
-// reduction gives the row's sum |x| in f32, the pow2 scale is the exponent
-// bits of max(mean, 1e-30) (NaN propagates), and every lane encodes its
-// elements with the flushing encoder.  4-bit codes meet their split-half
-// partner in `nib`, the warp's kMaxHd-byte slice of shared memory.
-// ---------------------------------------------------------------------------
-constexpr int kAppendWarps = 4;   // rows (warps) per block of an append
-
-// Blocks of an append of T rows per slot into H heads, K and V: one warp
-// per row; 0 when there is nothing to write, -1 past the grid's limit.
-inline long long append_blocks(int B, int T, int H) {
-  const long long blocks = (2LL * B * T * H + kAppendWarps - 1) / kAppendWarps;
-  return blocks > 0x7FFFFFFFLL ? -1 : blocks;
-}
-
-template <int N, int ES>
-__device__ __forceinline__ void encode_row(
-    const float* __restrict__ x, int hd,
-    typename posit::Code<N>::type* __restrict__ out,
-    float* __restrict__ scale_out, uint8_t* nib, int lane, int bias) {
-  using CodeT = typename posit::Code<N>::type;
-  constexpr bool kPacked = N <= 4;
-  float sum = 0.f;
-  for (int j = lane; j < hd; j += 32) sum += fabsf(x[j]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xFFFFFFFFu, sum, o);
-  const float mean = sum / (float)hd;
-  const float m = isnan(mean) ? mean : fmaxf(mean, 1e-30f);
-  const float scale = __uint_as_float(__float_as_uint(m) & 0x7F800000u);
-  for (int j = lane; j < hd; j += 32) {
-    const uint32_t c = posit::encode<N, ES>(x[j] / scale, bias);
-    if (kPacked)
-      nib[j] = (uint8_t)c;
-    else
-      out[j] = (CodeT)c;
-  }
-  if (kPacked) {
-    __syncwarp();
-    const int dc = hd / 2;
-    for (int j = lane; j < dc; j += 32)
-      out[j] = (CodeT)(nib[j] | (nib[j + dc] << 4));
-  }
-  if (lane == 0) *scale_out = scale;
-}
-
-// ---------------------------------------------------------------------------
-// Lane-group row encode (K5).  A group of G = min(32, row bytes / 16) lanes
-// holds one row of x (f32 or bf16; bf16 -> f32 is exact), each lane C =
-// (row bytes) / (16 G) 16-B loads of E = 16 / sizeof(x) elements: chunk
+// Lane-group row encode (K3, K5).  A group of G = min(32, row bytes / 16)
+// lanes holds one row of x (f32 or bf16; bf16 -> f32 is exact), each lane C
+// = (row bytes) / (16 G) 16-B loads of E = 16 / sizeof(x) elements: chunk
 // li + k G of the row for k < C.  The row's sum |x| is each lane's own sum
 // (chunk by chunk, element by element) then a butterfly over the group,
 // which every lane ends with bit-identical (f32 addition commutes); the
-// scale and the encode are encode_row's.  Each lane writes its chunk's
-// codes in one vector store.  Packed 4-bit codes: element j < hd/2 pairs
+// pow2 scale is the exponent bits of max(mean, 1e-30) (NaN propagates),
+// and every element is encoded by the branch-free posit::encode, so a
+// lane's C E encodes overlap.  Each lane writes its chunk's codes in one
+// vector store.  Packed 4-bit codes: element j < hd/2 pairs
 // with j + hd/2, which is chunk li + G/2 of the group (C = 1: its codes
 // come by one shuffle) or this lane's own second chunk (C = 2).
 // `ok` (the destination row lies in the pool) is only read at the stores,
@@ -194,6 +152,95 @@ __device__ __forceinline__ void encode_row_group(
     }
   }
   if (ok && li == 0) *scale_out = scale;
+}
+
+// ---------------------------------------------------------------------------
+// The append kernel and its launcher, shared by K3 and K5.  One launch
+// covers K and V of every (b, t, head) row: a group of G lanes per row
+// (encode_row_group), K rows first.  k/v_new are (B, T, H, hd) rows at the
+// element strides given (each row contiguous and 16-B aligned), in the
+// model's dtype.  A Dst is a small struct passed by value whose
+// operator()(b, t, live) gives the flat destination row, or -1 for a row
+// not to write; its loads are only tested at the stores, so they and the
+// row's 16-B loads are in flight together.  Codes land at flat row * H +
+// head.
+// ---------------------------------------------------------------------------
+struct RowStrides {   // elements between rows of k/v_new along b, t, head
+  long long b, t, h;
+};
+
+template <int N, int ES, int C, typename XT, class Dst>
+__global__ void __launch_bounds__(kGroupThreads) append_kernel(
+    const XT* __restrict__ k_new, const XT* __restrict__ v_new,
+    typename posit::Code<N>::type* __restrict__ k_codes,
+    float* __restrict__ k_scale,
+    typename posit::Code<N>::type* __restrict__ v_codes,
+    float* __restrict__ v_scale, Dst dst, RowStrides ks, RowStrides vs,
+    int T, int H, int hd, int G, long long rows, int bias) {
+  const long long tid = (long long)blockIdx.x * kGroupThreads + threadIdx.x;
+  if ((tid & ~31LL) / G >= 2 * rows) return;   // whole warp leaves together
+  const bool live = tid / G < 2 * rows;
+  const long long row = live ? tid / G : 2 * rows - 1;
+  const bool is_v = row >= rows;
+  const long long r = is_v ? row - rows : row;  // (b, t, h) row index
+  const int h = (int)(r % H);
+  const long long bt = r / H;                   // b * T + t
+  const int b = (int)(bt / T), t = (int)(bt % T);
+  const long long flat = dst(b, t, live);       // tested after the loads
+  const RowStrides st = is_v ? vs : ks;
+  const long long xo = b * st.b + t * st.t + h * st.h;
+  const long long off = flat * H + h;
+  const int dc = N <= 4 ? hd / 2 : hd;
+  encode_row_group<N, ES, C>((is_v ? v_new : k_new) + xo, hd, G,
+                             (int)(tid % G), flat >= 0,
+                             (is_v ? v_codes : k_codes) + off * dc,
+                             (is_v ? v_scale : k_scale) + off, bias);
+}
+
+// Rows of hd f32 (x_bf16 0) or bf16 (x_bf16 1) elements, 32 * 2^i bytes up
+// to 1024 (so hd <= 256), 16-B aligned, at the element strides given;
+// codes 16-B aligned.  Returns a CUDA error code, 0 on success.
+template <class Dst>
+int launch_append(const Dst& dst, const void* k_new, const void* v_new,
+                  void* k_codes, void* k_scale, void* v_codes, void* v_scale,
+                  RowStrides ks, RowStrides vs, int B, int T, int H, int hd,
+                  int nbits, int es, int bias, int x_bf16, cudaStream_t st) {
+  const int esize = x_bf16 ? 2 : 4;
+  const int chunks = hd * esize / 16;           // 16-B loads per row
+  if (hd > kMaxHd || hd * esize % 16 || chunks < 2 || chunks > 64 ||
+      (chunks & (chunks - 1)))
+    return (int)cudaErrorInvalidValue;
+  const long long strides[6] = {ks.b, ks.t, ks.h, vs.b, vs.t, vs.h};
+  for (long long sd : strides)
+    if (sd * esize % 16) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)k_new | (uintptr_t)v_new | (uintptr_t)k_codes |
+       (uintptr_t)v_codes) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const long long rows = (long long)B * T * H;
+  const int G = chunks < 32 ? chunks : 32, C = chunks / G;
+  const long long blocks = (2 * rows * G + kGroupThreads - 1) / kGroupThreads;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+#define APPEND_CASE(N, ES)                                                    \
+  if (nbits == N && es == ES) {                                               \
+    using CodeT = typename posit::Code<N>::type;                              \
+    auto go = [&](auto ct, auto xt) {                                         \
+      using XT = decltype(xt);                                                \
+      append_kernel<N, ES, decltype(ct)::value, XT, Dst>                      \
+          <<<(int)blocks, kGroupThreads, 0, st>>>(                            \
+              (const XT*)k_new, (const XT*)v_new, (CodeT*)k_codes,            \
+              (float*)k_scale, (CodeT*)v_codes, (float*)v_scale, dst, ks, vs, \
+              T, H, hd, G, rows, bias);                                       \
+      return (int)cudaGetLastError();                                         \
+    };                                                                        \
+    using C1 = std::integral_constant<int, 1>;                                \
+    using C2 = std::integral_constant<int, 2>;                                \
+    if (x_bf16) return go(C1{}, __nv_bfloat16{});  /* hd <= 256: C = 1 */    \
+    return C == 1 ? go(C1{}, float{}) : go(C2{}, float{});                    \
+  }
+  POSIT_FORMATS(APPEND_CASE)
+#undef APPEND_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

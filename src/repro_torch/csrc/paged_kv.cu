@@ -1,12 +1,12 @@
 // K5 and K6: the paged posit-KV pool of serving decode.
 //
-// K5 paged_kv_append_rows_kernel replaces
-// repro/kernels/paged_kv.py::paged_kv_append_rows (Pallas; paged_kv_append
-// is its T=1 case).  K6, kv_rows.cuh's split_kernel + combine_kernel over
-// page-table rows, replaces repro/kernels/paged_kv.py::paged_decode_attention
-// (Pallas).  Their bodies are kv_rows.cuh's encode_row_group and
-// attention_split / attention_combine, the latter shared with the ring's K4
-// (kv_cache.cu); this file holds the pool addressing.
+// K5, kv_rows.cuh's append_kernel with table-addressed destinations,
+// replaces repro/kernels/paged_kv.py::paged_kv_append_rows (Pallas;
+// paged_kv_append is its T=1 case).  K6, kv_rows.cuh's split_kernel +
+// combine_kernel over page-table rows, replaces
+// repro/kernels/paged_kv.py::paged_decode_attention (Pallas).  Both are
+// shared with the ring's K3 and K4 (kv_cache.cu); this file holds the pool
+// addressing.
 //
 // Layouts (row-major; k/v_new with the strides given, the rest contiguous):
 //   k/v_new    (B, T, H, hd) f32 or bf16 q    (B*nkv, grp, hd) f32 or bf16
@@ -25,50 +25,26 @@ namespace {
 // Bound on the H100: at T=1 (every decode layer; B=8, nkv=4, hd=64, posit8)
 // it moves ~20.8 KB from f32 rows (~12.6 KB from bf16), 0.006 us at 3.35
 // TB/s, so launch latency and the chain of dependent loads set its time;
-// at T=1024 (a paged prefill) ~1.6 MB, bytes-bound.  Design: a lane group
-// of (row bytes) / 16 lanes per (b, t, head) row of K or V
-// (kv::encode_row_group): the row is read in the model's dtype (f32 or
-// bf16, any row strides), so the caller launches no cast; the dst[b, t]
-// load is in flight beside the row's 16-B loads; the row's sum is a
-// shuffle reduction within the group; each lane stores its codes in one
-// vector store.  One launch covers K and V of every row.  Idle slots all
-// point at the trash page, so several groups may write one trash row in no
-// set order: benign, and no check compares trash rows.  A dst row outside
-// [0, R) is skipped rather than written out of bounds.
+// at T=1024 (a paged prefill) ~1.6 MB, bytes-bound.  Design:
+// kv::launch_append, shared with the ring's K3: a lane group of (row bytes)
+// / 16 lanes per (b, t, head) row of K or V (kv::encode_row_group): the row
+// is read in the model's dtype (f32 or bf16, any row strides), so the
+// caller launches no cast; PageDst's dst[b, t] load is in flight beside the
+// row's 16-B loads; the row's sum is a shuffle reduction within the group;
+// each lane stores its codes in one vector store.  One launch covers K and
+// V of every row.  Idle slots all point at the trash page, so several
+// groups may write one trash row in no set order: benign, and no check
+// compares trash rows.  A dst row outside [0, R) is skipped rather than
+// written out of bounds.
 // ---------------------------------------------------------------------------
-struct RowStrides {   // elements between rows of k/v_new along b, t, head
-  long long b, t, h;
+struct PageDst {
+  const int* dst;   // (B, T) flat pool rows
+  int T, R;
+  __device__ long long operator()(int b, int t, bool live) const {
+    const int f = live ? dst[(long long)b * T + t] : -1;
+    return f >= 0 && f < R ? f : -1;
+  }
 };
-
-template <int N, int ES, int C, typename XT>
-__global__ void __launch_bounds__(kv::kGroupThreads)
-    paged_kv_append_rows_kernel(
-        const XT* __restrict__ k_new, const XT* __restrict__ v_new,
-        typename posit::Code<N>::type* __restrict__ k_codes,
-        float* __restrict__ k_scale,
-        typename posit::Code<N>::type* __restrict__ v_codes,
-        float* __restrict__ v_scale, const int* __restrict__ dst,
-        RowStrides ks, RowStrides vs, int T, int H, int hd, int R, int G,
-        long long rows, int bias) {
-  const long long tid = (long long)blockIdx.x * kv::kGroupThreads +
-                        threadIdx.x;
-  if ((tid & ~31LL) / G >= 2 * rows) return;   // whole warp leaves together
-  const bool live = tid / G < 2 * rows;
-  const long long row = live ? tid / G : 2 * rows - 1;
-  const bool is_v = row >= rows;
-  const long long r = is_v ? row - rows : row;  // (b, t, h) row index
-  const int h = (int)(r % H);
-  const long long bt = r / H;                   // b * T + t
-  const int flat = live ? dst[bt] : -1;         // tested after the loads
-  const RowStrides st = is_v ? vs : ks;
-  const long long xo = bt / T * st.b + bt % T * st.t + h * st.h;
-  const long long off = (long long)flat * H + h;
-  const int dc = N <= 4 ? hd / 2 : hd;
-  kv::encode_row_group<N, ES, C>((is_v ? v_new : k_new) + xo, hd, G,
-                                 (int)(tid % G), flat >= 0 && flat < R,
-                                 (is_v ? v_codes : k_codes) + off * dc,
-                                 (is_v ? v_scale : k_scale) + off, bias);
-}
 
 // ---------------------------------------------------------------------------
 // K6: page-walking fused decode-on-read one-token GQA attention, as a split
@@ -109,54 +85,20 @@ struct PageLayout {
 
 }  // namespace
 
-// k/v_new rows of hd f32 (x_bf16 0) or bf16 (x_bf16 1) elements, 32 * 2^i
-// bytes up to 1024 (so hd <= 256), 16-B aligned, at the element strides
-// given.  Returns a CUDA error code, 0 on success.
+// k/v_new rows of hd f32 (x_bf16 0) or bf16 (x_bf16 1) elements at the
+// element strides given (kv::launch_append has the limits).  Returns a
+// CUDA error code, 0 on success.
 extern "C" int paged_kv_append_rows(
     const void* k_new, const void* v_new, void* k_codes, void* k_scale,
     void* v_codes, void* v_scale, const void* dst, long long ksb,
     long long kst, long long ksh, long long vsb, long long vst,
     long long vsh, int B, int T, int H, int hd, int R, int nbits, int es,
     int bias, int x_bf16, void* stream) {
-  const int esize = x_bf16 ? 2 : 4;
-  const int chunks = hd * esize / 16;           // 16-B loads per row
-  if (hd > kv::kMaxHd || hd * esize % 16 || chunks < 2 || chunks > 64 ||
-      (chunks & (chunks - 1)))
-    return (int)cudaErrorInvalidValue;
-  const long long strides[6] = {ksb, kst, ksh, vsb, vst, vsh};
-  for (long long sd : strides)
-    if (sd * esize % 16) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)k_new | (uintptr_t)v_new | (uintptr_t)k_codes |
-       (uintptr_t)v_codes) & 15)
-    return (int)cudaErrorMisalignedAddress;
-  const long long rows = (long long)B * T * H;
-  const int G = chunks < 32 ? chunks : 32, C = chunks / G;
-  const long long blocks =
-      (2 * rows * G + kv::kGroupThreads - 1) / kv::kGroupThreads;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const RowStrides ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
-#define APPEND_CASE(N, ES)                                                    \
-  if (nbits == N && es == ES) {                                               \
-    using CodeT = posit::Code<N>::type;                                       \
-    auto go = [&](auto ct, auto xt) {                                         \
-      using XT = decltype(xt);                                                \
-      paged_kv_append_rows_kernel<N, ES, decltype(ct)::value, XT>             \
-          <<<(int)blocks, kv::kGroupThreads, 0, st>>>(                        \
-              (const XT*)k_new, (const XT*)v_new, (CodeT*)k_codes,            \
-              (float*)k_scale, (CodeT*)v_codes, (float*)v_scale,              \
-              (const int*)dst, ks, vs, T, H, hd, R, G, rows, bias);           \
-      return (int)cudaGetLastError();                                         \
-    };                                                                        \
-    using C1 = std::integral_constant<int, 1>;                                \
-    using C2 = std::integral_constant<int, 2>;                                \
-    if (x_bf16) return go(C1{}, __nv_bfloat16{});  /* hd <= 256: C = 1 */    \
-    return C == 1 ? go(C1{}, float{}) : go(C2{}, float{});                    \
-  }
-  POSIT_FORMATS(APPEND_CASE)
-#undef APPEND_CASE
-  return (int)cudaErrorInvalidValue;
+  return kv::launch_append(PageDst{(const int*)dst, T, R}, k_new, v_new,
+                           k_codes, k_scale, v_codes, v_scale,
+                           kv::RowStrides{ksb, kst, ksh},
+                           kv::RowStrides{vsb, vst, vsh}, B, T, H, hd, nbits,
+                           es, bias, x_bf16, (cudaStream_t)stream);
 }
 
 // q (B, nkv, grp, hd) and out in q's type (f32, or bf16 with q_bf16), part

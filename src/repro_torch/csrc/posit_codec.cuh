@@ -1,5 +1,5 @@
 // Posit codec for Hopper: device-inline decode and encode, templated on
-// <N, ES>, shared by every kernel of the port (K1..K4).
+// <N, ES>, shared by every kernel of the port (K1..K7).
 //
 // Port of the Pallas bodies repro/kernels/posit_decode.py::decode_tile and
 // repro/kernels/posit_encode.py::encode_tile.  Decode keeps Algorithm 1's
@@ -7,10 +7,17 @@
 // compares (no __clz), so this code and the plain PyTorch version
 // (repro_torch/core/posit.py) run the same algorithm.  Encode is bit-exact
 // RNE with guard/sticky, saturating to maxpos/minpos; NaN/inf -> NaR; float32
-// subnormals are flushed to zero.
+// subnormals are flushed to zero.  Encode is branch-free (one 64-bit word,
+// one rounding add, one clamp), so the encodes a thread holds overlap: it
+// is the write path of K2, K3 and K5.  Its static SASS per element
+// (sm_90a, scripts/encoder_sass.py: a one-element kernel less its
+// skeleton) is 29 for posit8_2 and posit16_2, 26 for ES = 0, 30 for
+// posit4_1; the branching encoder it replaced took 84-85 (ES > 0) and
+// 65-66 (ES = 0).
 //
-// Shifts by >= 32 are undefined in C++; every variable shift goes through
-// the clamped helpers below (a shift by >= 32 gives 0), as in the reference.
+// Shifts by >= 32 are undefined in C++; every variable shift of the decoder
+// goes through the clamped helpers below (a shift by >= 32 gives 0), as in
+// the reference; the encoder's one variable shift is at most N - 2.
 #pragma once
 
 #include <cstdint>
@@ -72,49 +79,48 @@ __device__ __forceinline__ float decode(uint32_t code, int bias) {
 }
 
 // float32 -> posit code (low N bits), RNE; float32 subnormals flushed.
+//
+// Branch-free: every input takes one straight-line path of integer ops and
+// selects.  The regime k = floor(t / 2^ES) of the total exponent t is
+// clamped to [-(N-1), N-2], where the result is already minpos or maxpos,
+// so the posit string fits one 64-bit word: a head of 10 (k >= 0) or 01
+// (k < 0), then the ES exponent bits, then the 23 fraction bits, in the
+// word's high half; an arithmetic shift right by k (or by -k - 1) turns the
+// head into the regime run and its terminator.  The body is the word's top
+// N - 1 bits, rounded to nearest even by one add of (half - 1) + lsb below
+// the cut (the guard and the sticky bits carry into the body exactly when
+// RNE rounds up) and one shift; one clamp to [1, 2^(N-1) - 1] keeps
+// minpos/maxpos (never 0 or NaR), then the sign is applied.  Zero,
+// subnormals and NaN/inf are selects at the end.
+// tests/test_torch_encoder.py models these integer steps in numpy.
 template <int N, int ES>
 __device__ __forceinline__ uint32_t encode(float x, int bias) {
+  static_assert(N >= 3 && N <= 16 && ES >= 0 && ES <= 7,
+                "the posit string fits 64 bits");
+  constexpr int kCut = 65 - N;                 // word bits below the body
   const uint32_t bits = __float_as_uint(x);
   const uint32_t s = bits >> 31;
-  const int exp_raw = (int)((bits >> 23) & 0xFFu);
-  const uint32_t frac = bits & 0x7FFFFFu;
-  if (exp_raw == 255) return 1u << (N - 1);  // inf/NaN -> NaR
-  if (exp_raw == 0) return 0u;               // zero and flushed subnormals
-  const int t = exp_raw - 127 - bias;
-  const int fw = 23;
-  // floor division by 2^ES (written out: >> of a negative int is
-  // implementation-defined before C++20)
-  const int k = t >= 0 ? (t >> ES) : -((-t + (1 << ES) - 1) >> ES);
-  const uint32_t e_field = (uint32_t)(t - k * (1 << ES));
-  const bool sat_hi = k >= N - 2;   // regime fills the body: >= maxpos
-  const bool sat_lo = k <= -(N - 1);
-  const int k_c = min(max(k, -(N - 2)), N - 3);
-  const bool pos = k_c >= 0;
-  const int w0 = pos ? k_c + 2 : 1 - k_c;
-  const uint32_t reg = pos ? shl(mask((uint32_t)(k_c + 1)), 1) : 1u;
-  const int avail = N - 1 - w0;
-  const int ef_shift = avail + 1 - ES;   // fraction bits incl. guard
-  uint32_t efg;
-  bool st;
-  if (ef_shift >= 0) {
-    const uint32_t efp = (uint32_t)ef_shift;
-    const uint32_t take = min(efp, (uint32_t)fw);
-    const uint32_t fbits = shl(shr(frac, (uint32_t)fw - take), efp - take);
-    st = (frac & mask((uint32_t)fw - take)) != 0u;
-    efg = shl(e_field, efp) | fbits;
-  } else {                               // the exponent itself is cut
-    const uint32_t cut = (uint32_t)(-ef_shift);
-    efg = shr(e_field, cut);
-    st = ((e_field & mask(cut)) != 0u) || (frac != 0u);
-  }
-  const uint32_t guard = efg & 1u;
-  const uint32_t kept = efg >> 1;
-  uint32_t body = shl(reg, (uint32_t)avail) | kept;
-  body = body + (guard & ((st ? 1u : 0u) | (body & 1u)));
-  if (sat_hi) body = mask(N - 1);
-  if (sat_lo) body = 1u;
-  body = min(max(body, 1u), mask(N - 1));  // never round to 0/NaR
-  return s ? negate_code<N>(body) : body;
+  const uint32_t exp_raw = (bits >> 23) & 0xFFu;
+  const int t = (int)exp_raw - 127 - bias;
+  // floor division by 2^ES: nvcc compiles >> of a signed int as an
+  // arithmetic shift (shr.s32)
+  const int k = min(max(t >> ES, -(N - 1)), N - 2);
+  const uint32_t ef = (((uint32_t)t & ((1u << ES) - 1u)) << 23) |
+                      (bits & 0x7FFFFFu);      // exponent, fraction
+  const int neg = k >> 31;                     // -1 for k < 0, else 0
+  const uint32_t hi = ((uint32_t)(2 + neg) << 30) | (ef << (7 - ES));
+  // arithmetic shift (shr.s64): 10.. by k gives k + 1 ones then 0; 01.. by
+  // -k - 1 gives -k zeros then 1
+  const uint64_t word =
+      (uint64_t)((int64_t)((uint64_t)hi << 32) >> (k ^ neg));
+  const uint64_t lsb = (word >> kCut) & 1u;
+  uint32_t body =
+      (uint32_t)((word + ((1ull << (kCut - 1)) - 1u) + lsb) >> kCut);
+  body = min(max(body, 1u), (1u << (N - 1)) - 1u);
+  const uint32_t code = ((body ^ (0u - s)) + s) & ((1u << N) - 1u);
+  return exp_raw == 255u ? 1u << (N - 1)       // inf/NaN -> NaR
+         : exp_raw == 0u ? 0u                  // zero and flushed subnormals
+                         : code;
 }
 
 }  // namespace posit

@@ -40,8 +40,9 @@ SIGNATURES = {
     },
     "kv_cache": {
         # k_new, v_new, k_codes, k_scale, v_codes, v_scale, pos,
-        # B, T, H, hd, W, nbits, es, bias, stream
-        "kv_append_rows": [_P] * 7 + [_I] * 8 + [_P],
+        # k_new's and v_new's element strides along b, t, head,
+        # B, T, H, hd, W, nbits, es, bias, x_bf16, stream
+        "kv_append_rows": [_P] * 7 + [_L] * 6 + [_I] * 9 + [_P],
         # q, k_codes, k_scale, v_codes, v_scale, cache_len, out, part,
         # B, nkv, grp, hd, W, nbits, es, bias, q_bf16, split_rows, qscale,
         # stream

@@ -4,9 +4,12 @@ plain versions (port of ``repro.kernels.kv_cache``).
 The attention K/V rings hold posit codes with a per-row (token x head)
 power-of-two scale:
 
-  write path  K3 ``kv_append_rows`` — T tokens' K/V rows per slot are
-      scaled, RNE-encoded (subnormals flushed) and written IN PLACE at
-      ring rows (pos[b] + t) mod W; no other row moves.
+  write path  K3 ``kv_append_rows`` — T tokens' K/V rows per slot, f32
+      or bf16 as the model made them, are scaled, RNE-encoded (subnormals
+      flushed) and written IN PLACE at ring rows (pos[b] + t) mod W; no
+      other row moves.  The paged K5 runs the same kernel with other
+      destinations, and both take their geometry from
+      ``append_geometry``.
   read path   K4 ``decode_attention`` — one-token GQA that walks each
       slot's ring rows in splits of ``SPLIT_ROWS`` rows across CTAs,
       decoding codes to f32 on-chip, then merges the splits' softmax
@@ -112,34 +115,89 @@ def kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
     return k_codes, k_scale, v_codes, v_scale
 
 
+def append_geometry(name: str, hd: int, x_dtype):
+    """The contract and geometry of K3's and K5's lane groups, checked
+    before any launch: a row of hd elements of ``x_dtype`` is read by (row
+    bytes) / 16 lanes, at most 32, each with one 16-byte load (two at f32
+    hd = 256).  Returns (lanes per row, loads per lane).  Raises
+    ``TypeError`` unless the rows are float32 or bfloat16, ``ValueError``
+    unless hd <= 256 and a row is 32 * 2^i bytes (f32: hd 8 to 256, bf16:
+    16 to 256, powers of two)."""
+    if x_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: K/V rows must be float32 or bfloat16")
+    row_bytes = hd * (4 if x_dtype == torch.float32 else 2)
+    if hd > 256 or row_bytes < 32 or row_bytes & (row_bytes - 1):
+        raise ValueError(f"{name}: head dim must be <= 256 and give rows of "
+                         f"32 * 2^i bytes in the input's dtype (got hd {hd},"
+                         f" {row_bytes} B)")
+    lanes = min(row_bytes // 16, 32)
+    return lanes, row_bytes // 16 // lanes
+
+
+def _row_strides(name: str, x):
+    """Element strides of (B, T, H, hd) rows along b, t, head (0 along an
+    axis of size 1); each row must be contiguous and start 16-byte
+    aligned (the kernel's loads)."""
+    strides = tuple(0 if n == 1 else st
+                    for n, st in zip(x.shape[:3], x.stride()[:3]))
+    align = 16 // x.element_size()
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or any(st % align for st in strides)):
+        raise ValueError(f"{name}: K/V rows must be contiguous and 16-byte "
+                         f"aligned")
+    return strides
+
+
+def launch_append(name: str, library: str, bufs, k_new, v_new, index,
+                  extent: int, fmt: PositFormat):
+    """The launch shared by K3 and K5 (``kv_rows.cuh`` ``launch_append``),
+    after the caller has checked its buffers' shapes: ``bufs`` are
+    (k_codes, k_scale, v_codes, v_scale), ``index`` the int32 destination
+    (K3: pos (B,); K5: dst (B, T)) and ``extent`` W or R.  k/v_new (B, T,
+    H, hd) go to the kernel as they are, float32 or bfloat16 at their own
+    strides (``append_geometry``, ``_row_strides``)."""
+    k_codes = bufs[0]
+    if v_new.dtype != k_new.dtype:
+        raise TypeError(f"{name}: k_new and v_new must share a dtype")
+    b, t, h, hd = k_new.shape
+    append_geometry(name, hd, k_new.dtype)
+    strides = _row_strides(name, k_new) + _row_strides(name, v_new)
+    _build.check_cuda(name, *bufs, index)
+    for x in (k_new, v_new):
+        if x.device != k_codes.device:
+            raise ValueError(f"{name}: all tensors must be on "
+                             f"{k_codes.device}, got {x.device}")
+    _build.launch(library, name, k_codes.device,
+                  k_new.data_ptr(), v_new.data_ptr(),
+                  *(x.data_ptr() for x in bufs), index.data_ptr(), *strides,
+                  b, t, h, hd, extent, fmt.bits, fmt.es, fmt.bias,
+                  int(k_new.dtype == torch.bfloat16))
+
+
 def kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
                    fmt: PositFormat, *, packed: bool = False):
     """K3: encode-on-write ring append, in place (see ``kv_append_rows_ref``
-    for the contract).  One warp per (b, t, head) row on the card."""
+    for the contract).  On the card k/v_new are read as they are, float32
+    or bfloat16 (bf16 -> f32 is exact, so the codes are those of the f32
+    rows), at any strides that keep each row contiguous and 16-byte
+    aligned (``append_geometry`` has the limits): one launch of K5's lane
+    groups, with ring rows (pos[b] + t) mod W as destinations."""
     if not k_codes.is_cuda:
         return kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale, k_new,
                                   v_new, pos, fmt, packed)
-    _build.check_kv("kv_append_rows", fmt, packed, (k_codes, v_codes),
-                    (k_scale, v_scale))
+    name = "kv_append_rows"
+    _build.check_kv(name, fmt, packed, (k_codes, v_codes), (k_scale, v_scale))
     b, w, h, dc = k_codes.shape
     t, hd = k_new.shape[1], k_new.shape[-1]
     if (k_new.shape != (b, t, h, hd) or v_new.shape != k_new.shape
             or v_codes.shape != k_codes.shape
             or k_scale.shape != (b, w, h) or v_scale.shape != (b, w, h)
             or dc != code_channels(hd, fmt, packed)):
-        raise ValueError("kv_append_rows: inconsistent shapes")
-    if hd > 256 or hd % 2:
-        raise ValueError("kv_append_rows: head dim must be even and <= 256")
-    k_new = k_new.to(torch.float32).contiguous()
-    v_new = v_new.to(torch.float32).contiguous()
+        raise ValueError(f"{name}: inconsistent shapes")
     pos = torch.as_tensor(pos, device=k_codes.device).to(
         torch.int32).reshape(-1).expand(b).contiguous()
-    _build.check_cuda("kv_append_rows", k_codes, k_scale, v_codes, v_scale,
-                      k_new, v_new, pos)
-    _build.launch("kv_cache", "kv_append_rows", k_codes.device,
-                  k_new.data_ptr(), v_new.data_ptr(), k_codes.data_ptr(),
-                  k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-                  pos.data_ptr(), b, t, h, hd, w, fmt.bits, fmt.es, fmt.bias)
+    launch_append(name, "kv_cache", (k_codes, k_scale, v_codes, v_scale),
+                  k_new, v_new, pos, w, fmt)
     return k_codes, k_scale, v_codes, v_scale
 
 

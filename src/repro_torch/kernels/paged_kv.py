@@ -42,7 +42,7 @@ from ..core.formats import PositFormat
 from ..models.attention import decode_attention
 from . import _build
 from .kv_cache import (SPLIT_ROWS, code_channels, decode_kv_rows,
-                       encode_kv_rows, split_geometry)
+                       encode_kv_rows, launch_append, split_geometry)
 
 
 def flat_dst_rows(page_table, pos, page_size: int):
@@ -94,39 +94,6 @@ def paged_kv_append_ref(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
                                     k_new, v_new, dst, fmt, packed)
 
 
-def append_geometry(name: str, hd: int, x_dtype):
-    """The contract and geometry of K5's lane groups, checked before any
-    launch: a row of hd elements of ``x_dtype`` is read by (row bytes) / 16
-    lanes, at most 32, each with one 16-byte load (two at f32 hd = 256).
-    Returns (lanes per row, loads per lane).  Raises ``TypeError`` unless
-    the rows are float32 or bfloat16, ``ValueError`` unless hd <= 256 and
-    a row is 32 * 2^i bytes (f32: hd 8 to 256, bf16: 16 to 256, powers of
-    two)."""
-    if x_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: K/V rows must be float32 or bfloat16")
-    row_bytes = hd * (4 if x_dtype == torch.float32 else 2)
-    if hd > 256 or row_bytes < 32 or row_bytes & (row_bytes - 1):
-        raise ValueError(f"{name}: head dim must be <= 256 and give rows of "
-                         f"32 * 2^i bytes in the input's dtype (got hd {hd},"
-                         f" {row_bytes} B)")
-    lanes = min(row_bytes // 16, 32)
-    return lanes, row_bytes // 16 // lanes
-
-
-def _row_strides(name: str, x):
-    """Element strides of (B, T, H, hd) rows along b, t, head (0 along an
-    axis of size 1); each row must be contiguous and start 16-byte
-    aligned (the kernel's loads)."""
-    strides = tuple(0 if n == 1 else st
-                    for n, st in zip(x.shape[:3], x.stride()[:3]))
-    align = 16 // x.element_size()
-    if (x.stride(-1) != 1 or x.data_ptr() % 16
-            or any(st % align for st in strides)):
-        raise ValueError(f"{name}: K/V rows must be contiguous and 16-byte "
-                         f"aligned")
-    return strides
-
-
 def paged_kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
                          dst, fmt: PositFormat, *, packed: bool = False):
     """K5: encode-on-write append of a T-token chunk into the paged pool,
@@ -148,22 +115,10 @@ def paged_kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
             or k_scale.shape != (r, h) or v_scale.shape != (r, h)
             or dc != code_channels(hd, fmt, packed)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if v_new.dtype != k_new.dtype:
-        raise TypeError(f"{name}: k_new and v_new must share a dtype")
-    append_geometry(name, hd, k_new.dtype)
-    strides = _row_strides(name, k_new) + _row_strides(name, v_new)
     dst = torch.as_tensor(dst, device=k_codes.device).to(
         torch.int32).reshape(b, t).contiguous()
-    _build.check_cuda(name, k_codes, k_scale, v_codes, v_scale, dst)
-    for x in (k_new, v_new):
-        if x.device != k_codes.device:
-            raise ValueError(f"{name}: all tensors must be on "
-                             f"{k_codes.device}, got {x.device}")
-    _build.launch("paged_kv", name, k_codes.device,
-                  k_new.data_ptr(), v_new.data_ptr(), k_codes.data_ptr(),
-                  k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-                  dst.data_ptr(), *strides, b, t, h, hd, r, fmt.bits,
-                  fmt.es, fmt.bias, int(k_new.dtype == torch.bfloat16))
+    launch_append(name, "paged_kv", (k_codes, k_scale, v_codes, v_scale),
+                  k_new, v_new, dst, r, fmt)
     return k_codes, k_scale, v_codes, v_scale
 
 

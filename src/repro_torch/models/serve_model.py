@@ -144,10 +144,9 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     else:
         cl = torch.clamp(pos + 1, max=c["k"].shape[1])
         if spec is not None and spec.is_posit:
-            kv_kernels.kv_append_rows(
-                c["k"], c["k_scale"], c["v"], c["v_scale"],
-                kp.to(torch.float32), vp.to(torch.float32), pos, spec.fmt,
-                packed=spec.packed)
+            kv_kernels.kv_append_rows(     # K3 reads the model's dtype
+                c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, pos,
+                spec.fmt, packed=spec.packed)
             ao = attention.decode_attention_packed(
                 qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
                 v_scale=c["v_scale"], spec=spec)
@@ -282,8 +281,7 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
         elif posit_kv:
             kv_kernels.kv_append_rows(
                 c["k"], c["k_scale"], c["v"], c["v_scale"],
-                kp[:, start:start + length].to(torch.float32),
-                vp[:, start:start + length].to(torch.float32),
+                kp[:, start:start + length], vp[:, start:start + length],
                 torch.full((b,), start, dtype=torch.int32, device=dev),
                 spec.fmt, packed=spec.packed)
             if vm is not None:

@@ -33,7 +33,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.transprecision import BF16, TCPolicy, get_policy
+from ..core.transprecision import BF16, TCPolicy, get_policy, kv_storage
+from ..kernels import _build
+from ..kernels.kv_cache import append_geometry, code_channels, split_geometry
 from ..models import lm
 from ..obs import MetricsRegistry, StatsView, Tracer
 from .engine_api import TransprecisionEngine
@@ -90,6 +92,27 @@ class Request:
         default=None, repr=False)
 
 
+def check_kv_kernels(cfg: lm.ModelCfg, policy: TCPolicy,
+                     max_len: int) -> None:
+    """The contracts of the card's KV kernels for this model and KV format,
+    checked when a CUDA engine is built, before any cache is written:
+    K3's and K5's lane groups (``append_geometry``: the model's K/V rows in
+    its dtype) and K4's and K6's split walk (``split_geometry``: rows of
+    codes, query heads per KV head, q in the model's dtype).  Raises
+    ``ValueError`` naming the contract (``TypeError`` for a dtype the
+    kernels do not read).  A float KV cache runs no kernel."""
+    spec = kv_storage(policy)
+    if spec is None or not spec.is_posit:
+        return
+    name, hd = "ServingEngine", cfg.head_dim
+    _build.check_fmt(name, spec.fmt)
+    code_bytes = 1 if spec.fmt.bits <= 8 else 2
+    append_geometry(name, hd, cfg.dtype)
+    split_geometry(name, hd,
+                   code_channels(hd, spec.fmt, spec.packed) * code_bytes,
+                   cfg.n_heads // cfg.n_kv_heads, cfg.dtype, max_len)
+
+
 class ServingEngine:
     def __init__(self, cfg: lm.ModelCfg, params, scfg: ServeConfig,
                  policy: TCPolicy = BF16, *, device="cuda",
@@ -116,6 +139,8 @@ class ServingEngine:
             tag = "+".join(f"{k[3:]}_{v}" for k, v in overrides.items())
             self.policy = dataclasses.replace(
                 self.policy, name=f"{self.policy.name}+{tag}", **overrides)
+        if self.device.type == "cuda":
+            check_kv_kernels(cfg, self.policy, scfg.max_len)
         params = _to_device(params, self.device)
         self.params = lm.hoist_weight_quant(params, self.policy)
         b, L = scfg.max_batch, scfg.max_len

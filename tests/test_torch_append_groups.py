@@ -13,8 +13,9 @@ j + hd/2: the codes of chunk li + G/2 come to lane li by one shuffle (C =
 port's ``paged_kv_append_rows_ref`` and to the reference's Pallas
 ``paged_kv_append_rows`` in interpret mode (on the rows past trash page
 0, where idle slots collide), with f32 and bf16 inputs, G = 2 to 32 and
-C = 1 and 2.  ``append_geometry`` (K5's contract) and the wrapper's row
-strides are checked here too.
+C = 1 and 2.  ``append_geometry`` (the contract of K5 and of the ring's K3,
+which runs the same kernel) and the wrapper's row strides are checked
+here too.
 """
 import numpy as np
 import pytest
@@ -85,7 +86,7 @@ def group_append_model(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
                        dst, fmt, packed):
     """K5 on numpy buffers (updated in place): K rows then V rows, in
     (b, t, head) order; rows whose dst is outside [0, R) are skipped."""
-    lanes, loads = tpkv.append_geometry("model", k_new.shape[-1],
+    lanes, loads = tkv.append_geometry("model", k_new.shape[-1],
                                         k_new.dtype)
     r = k_codes.shape[0]
     for codes, scale, new in ((k_codes, k_scale, k_new),
@@ -198,7 +199,7 @@ def test_group_model_nan_and_zero_rows():
     (256, torch.bfloat16, (32, 1)),
 ])
 def test_append_geometry(hd, dtype, want):
-    assert tpkv.append_geometry("k5", hd, dtype) == want
+    assert tkv.append_geometry("k5", hd, dtype) == want
 
 
 @pytest.mark.parametrize("hd,dtype,err", [
@@ -212,7 +213,7 @@ def test_append_geometry(hd, dtype, want):
 ])
 def test_append_geometry_raises(hd, dtype, err):
     with pytest.raises(err):
-        tpkv.append_geometry("k5", hd, dtype)
+        tkv.append_geometry("k5", hd, dtype)
 
 
 def test_row_strides_of_the_models_views():
@@ -222,10 +223,10 @@ def test_row_strides_of_the_models_views():
     b, s, nh, nkv, hd = 2, 3, 4, 2, 16
     qkv = torch.zeros(b, s, (nh + 2 * nkv) * hd, dtype=torch.bfloat16)
     vp = qkv[..., (nh + nkv) * hd:].reshape(b, s, nkv, hd)
-    assert tpkv._row_strides("k5", vp) == ((nh + 2 * nkv) * hd * s,
+    assert tkv._row_strides("k5", vp) == ((nh + 2 * nkv) * hd * s,
                                            (nh + 2 * nkv) * hd, hd)
     one = torch.zeros(b, 1, nkv, hd)
-    assert tpkv._row_strides("k5", one) == (nkv * hd, 0, hd)
+    assert tkv._row_strides("k5", one) == (nkv * hd, 0, hd)
     with pytest.raises(ValueError, match="aligned"):
-        tpkv._row_strides("k5", qkv[..., 1:1 + nkv * hd].reshape(
+        tkv._row_strides("k5", qkv[..., 1:1 + nkv * hd].reshape(
             b, s, nkv, hd))
