@@ -12,19 +12,21 @@ per contract.  Needs one CUDA GPU; run from the repository root:
 
     python3 chip_smoke.py [--seed N]
 
-Phases: 1 build; 2 K1; 3 K2 (every f32 bit pattern for posit8_2 and
-posit16_2; misaligned views and ragged lengths); 4 K3 (f32 and bf16 rows,
-a strided v, a prefill that wraps inside the call); 4b K5 (f32 and bf16
-rows); 5 K4 (split boundaries, f32 and bf16 q); 5b K6 (split boundaries
-too); 6 ring main path; 6b ring decode-step profile; 6c paged main path;
-6d paged decode-step profile; 7 card vs CPU (ring); 7b card vs CPU
-(paged); 8 kernel times; 8b K4 by blocks walked; 8c K6 by blocks walked
-over the same rows, beside K4; 8d one paged decode layer's append as the
-step calls it, and K5 at a prefill's T = 1024; 8e the same for the ring's
-K3; 9 K7 (both paths, the crossover's neighbours); 9b K7's two paths
-timed by M (the crossover); 10 the quickstart path (serving's
-counterpart: training; part 2's device time); 10b train step card vs CPU;
-then K7's times.
+Phases: 1 build; 2 K1 (every code of the 7 formats; 2^20 random codes over
+many CTAs; misaligned views and ragged lengths); 3 K2 (every f32 bit
+pattern for posit8_2 and posit16_2; misaligned views and ragged lengths);
+4 K3 (f32 and bf16 rows, a strided v, a prefill that wraps inside the
+call); 4b K5 (f32 and bf16 rows); 5 K4 (split boundaries, f32 and bf16 q);
+5b K6 (split boundaries too); 6 ring main path; 6b ring decode-step
+profile; 6c paged main path; 6d paged decode-step profile; 7 card vs CPU
+(ring); 7b card vs CPU (paged); 8 kernel times (K1 also held to
+decode_tile there); 8b K4 by blocks walked; 8c K6 by blocks walked over
+the same rows, beside K4; 8d one paged decode layer's append as the step
+calls it, and K5 at a prefill's T = 1024; 8e the same for the ring's K3; 9
+K7 (both paths, the crossover's neighbours; posit8 and posit16 at every
+es); 9b K7's two paths timed by M (the crossover); 10 the quickstart path
+(serving's counterpart: training; part 2's device time); 10b train step
+card vs CPU; then K7's times.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
@@ -62,7 +64,8 @@ so no host launch cost enters it (K4 and K6 are two kernels each, a
 split walk and a combine, with q's scaling and the output cast inside, and
 K7's split-K path is two kernels too);
 ``plain_ms`` is the plain PyTorch version per call, between CUDA events
-around eager calls.  K7's entry also carries its M = 8 shape (``m8``),
+around eager calls.  K1's entry also carries its time and bytes bound to
+bf16 (``bf16_out``).  K7's entry also carries its M = 8 shape (``m8``),
 ``decoded_matmul_ms``, torch.matmul of x by the already decoded f32
 weights: a labelled yardstick, not the same function (no PyTorch call
 decodes posit codes, so ``library_ms`` is null), its tensor-core bound
@@ -107,7 +110,6 @@ KERNELS = {
     "posit_matmul": ("src/repro_torch/csrc/posit_matmul.cu",
                      "src/repro/kernels/posit_matmul.py:50"),
 }
-CODEC_FORMATS = ("posit4_1", "posit8_0", "posit8_2", "posit16_1", "posit16_2")
 ALL_FORMATS = ("posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",
                "posit16_1", "posit16_2")
 EXHAUSTIVE_FORMATS = ("posit8_2", "posit16_2")
@@ -261,21 +263,48 @@ def main() -> int:
           f"{len(regs)} kernels, max {max(regs, default=0)} registers, "
           f"{spills} bytes spilled")
 
-    # 2. K1 vs decode_tile, every code ---------------------------------
-    for name in CODEC_FORMATS:
+    # 2. K1 vs decode_tile: every code of every format, also from views
+    # that start off a 16-byte boundary, at lengths not a multiple of 16 --
+    for name in ALL_FORMATS:
         fmt = get_fmt(name)
         codes = torch.arange(1 << fmt.bits, dtype=torch.int64, device=dev)
         codes = torch.where(codes >= 1 << 15, codes - (1 << 16), codes).to(
             _build.code_dtype(fmt))
-        for out_dtype in (torch.float32, torch.bfloat16):
-            got = posit_decode(codes, fmt, out_dtype=out_dtype)
-            want = decode_tile(codes, fmt, out_dtype)
-            assert bits_equal(got, want), (name, out_dtype)
-            nar = torch.zeros_like(codes, dtype=torch.bool)
-            nar[1 << (fmt.bits - 1)] = True
-            assert torch.equal(torch.isnan(got), nar), name
+        nar = torch.zeros_like(codes, dtype=torch.bool)
+        nar[1 << (fmt.bits - 1)] = True
+        more = torch.cat([codes, codes.flip(0), codes[:37]])
+        for cv in (codes, more[1:], more[3:-2], more[15:]):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                before = LAUNCHES["posit_decode"]
+                got = posit_decode(cv, fmt, out_dtype=out_dtype)
+                assert LAUNCHES["posit_decode"] == before + 1
+                want = decode_tile(cv, fmt, out_dtype)
+                assert bits_equal(got, want), (name, out_dtype, cv.numel(),
+                                               cv.data_ptr() % 16)
+                if cv is codes:
+                    assert torch.equal(torch.isnan(got), nar), name
+    # ... and on 2^20 + 37 random codes: many CTAs, every load slot of a
+    # thread (own generator: the later phases draw what they drew before)
+    rng_k1 = np.random.default_rng([args.seed, 6])
+    for name in ("posit4_1", "posit8_2", "posit16_2"):
+        fmt = get_fmt(name)
+        big = torch.from_numpy(rng_k1.integers(
+            0, 1 << fmt.bits, (1 << 20) + 37).astype(np.int64)).to(dev)
+        big = torch.where(big >= 1 << 15, big - (1 << 16), big).to(
+            _build.code_dtype(fmt))
+        for cv in (big, big[1:], big[3:-2], big[15:]):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                before = LAUNCHES["posit_decode"]
+                got = posit_decode(cv, fmt, out_dtype=out_dtype)
+                assert LAUNCHES["posit_decode"] == before + 1
+                assert bits_equal(got, decode_tile(cv, fmt, out_dtype)), (
+                    name, out_dtype, cv.numel(), cv.data_ptr() % 16)
     phase(f"phase 2 K1 posit_decode bit-exact on every code of "
-          f"{', '.join(CODEC_FORMATS)} (f32 and bf16 out)")
+          f"{', '.join(ALL_FORMATS)} (f32 and bf16 out), also as views "
+          f"c[1:], c[3:-2], c[15:] of every code twice and 37 more "
+          f"(scalar heads and tails), and on 2^20 + 37 random posit4_1, "
+          f"posit8_2 and posit16_2 codes and the same views; one launch "
+          f"per call")
 
     # 3. K2 vs encode_tile: every f32 bit pattern for posit8_2 and
     # posit16_2; every format on sampled inputs, also from a view that
@@ -1021,6 +1050,24 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
         out.append(entry)
+    # K1 at the shape timed: bit-exact against decode_tile (x_sets)
+    for i in range(layers):
+        assert bits_equal(posit_decode(code_sets[i], p8), x_sets[i]), i
+        assert bits_equal(posit_decode(code_sets[i], p8,
+                                       out_dtype=torch.bfloat16),
+                          x_sets[i].to(torch.bfloat16)), i
+    # K1 to bf16 (2 B written per code) beside its f32 entry
+    k1_bf16_ms = graph_ms(lambda i: posit_decode(
+        code_sets[i], p8, out_dtype=torch.bfloat16), layers)
+    out[0]["bf16_out"] = {
+        "ms": k1_bf16_ms,
+        "bound_ms": n_codes * (1 + 2) / H100_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    phase("phase 8 K1 posit_decode device µs per call (2,097,152 posit8_2 "
+          f"codes, bit-exact to f32 and bf16): f32 out "
+          f"{1e3 * out[0]['ms']:.2f} (bytes bound "
+          f"{1e3 * out[0]['bound_ms']:.2f}), bf16 out {1e3 * k1_bf16_ms:.2f} "
+          f"(bytes bound {1e3 * out[0]['bf16_out']['bound_ms']:.2f})")
     # 9. K7 vs its plain version on the card (own generator: phases 2-8
     # draw what they drew before) ------------------------------------------
     from repro_torch import quickstart
@@ -1046,7 +1093,8 @@ def main() -> int:
     n_cases = 0
     paths = {"tensor_core": 0, "split_k": 0}
     xo = pmm.SKINNY_MAX_M            # the crossover and its neighbours
-    for name in ("posit8_2", "posit8_0", "posit8_1", "posit16_2"):
+    for name in ("posit8_2", "posit8_0", "posit8_1", "posit16_2",
+                 "posit16_1", "posit16_0"):
         fmt = get_fmt(name)
         for m, n, k in ((16, 16, 16), (100, 60, 130), (33, 17, 47),
                         (1, 200, 7), (8192, 4096, 768), (8, 4096, 768),
@@ -1088,7 +1136,7 @@ def main() -> int:
             assert LAUNCHES["posit_matmul"] == before
     assert all(paths.values()), paths
     phase(f"phase 9 K7 posit_matmul: {n_cases} cases (posit8_2/8_0/8_1/"
-          f"16_2; (m, n, k) (16,16,16) (100,60,130) (33,17,47) (1,200,7) "
+          f"16_2/16_1/16_0; (m, n, k) (16,16,16) (100,60,130) (33,17,47) (1,200,7) "
           f"(8192,4096,768) (8,4096,768), M = 16, 17, {xo}, {xo + 1}, 128 at "
           f"(4096, 768) around the crossover M = {xo}, (8,32000,768); scale "
           f"None / scalar / (N,) / (1,N); x f32, x bf16, compute bf16; a NaR "

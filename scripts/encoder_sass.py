@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Static SASS instructions per element of the posit codec's device
 functions (``posit::encode`` and ``posit::decode`` in
-``src/repro_torch/csrc/posit_codec.cuh``) for one checkout, so that two
-commits' codecs can be compared (the parent's and the change's, unpacked
-side by side):
+``src/repro_torch/csrc/posit_codec.cuh``, and where the checkout has it
+the run-time-es form ``posit::decode_es<16>`` that K7's 16-bit paths call)
+for one checkout, so that two commits' codecs can be compared (the
+parent's and the change's, unpacked side by side):
 
     python3 scripts/encoder_sass.py [--root DIR]
 
@@ -48,6 +49,15 @@ __global__ void decode_probe(const typename posit::Code<N>::type* c,
                              float* y, int bias) {
   y[threadIdx.x] = posit::decode<N, ES>(c[threadIdx.x], bias);
 }
+#ifdef HAS_DECODE_ES
+template <int N>
+__global__ void decode_es_probe(const typename posit::Code<N>::type* c,
+                                float* y, int es, int bias) {
+  y[threadIdx.x] = posit::decode_es<N>(c[threadIdx.x], es, bias);
+}
+template __global__ void decode_es_probe<16>(const uint16_t*, float*, int,
+                                             int);
+#endif
 template <int N>
 __global__ void encode_skeleton(const float* x,
                                 typename posit::Code<N>::type* c, int bias) {
@@ -75,14 +85,17 @@ template __global__ void decode_skeleton<16>(const uint16_t*, float*, int);
 def sass_per_element(csrc: Path, out: Path, nvcc: str) -> dict:
     """Static SASS instructions (NOPs left out) of ``posit::encode`` and
     ``posit::decode`` per element for every built format, against the
-    codec header in ``csrc``.  Returns {"encode": {fmt: n}, "decode":
-    {fmt: n}}."""
+    codec header in ``csrc``, and of ``posit::decode_es<16>`` where the
+    header has it.  Returns {"encode": {fmt: n}, "decode": {fmt: n},
+    "decode_es": {"posit16": n} or {}}."""
     out.mkdir(parents=True, exist_ok=True)
     (out / "sass_probe.cu").write_text(SASS_PROBE)
     cubin = out / "sass_probe.cubin"
+    has_es = "decode_es" in (csrc / "posit_codec.cuh").read_text()
     subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-I", str(csrc), "-o", str(cubin),
-                    str(out / "sass_probe.cu")], check=True,
+                    "-std=c++17", "-O3", "-I", str(csrc),
+                    *(["-DHAS_DECODE_ES"] if has_es else []), "-o",
+                    str(cubin), str(out / "sass_probe.cu")], check=True,
                    capture_output=True, text=True)
     sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
                            str(cubin)], check=True, capture_output=True,
@@ -101,16 +114,17 @@ def sass_per_element(csrc: Path, out: Path, nvcc: str) -> dict:
             counts[name] += 1
     by = {}
     for mangled, n in counts.items():
-        m = re.search(r"(encode|decode)_(probe|skeleton)ILi(\d+)E(?:Li(\d+)E)?",
-                      mangled)
+        m = re.search(r"(encode|decode|decode_es)_(probe|skeleton)ILi(\d+)E"
+                      r"(?:Li(\d+)E)?", mangled)
         if m:
             by[m.groups()] = n
-    res = {"encode": {}, "decode": {}}
+    res = {"encode": {}, "decode": {}, "decode_es": {}}
     for (kind, role, bits, es), n in by.items():
         if role == "probe":
             code = "8" if int(bits) <= 8 else "16"
-            res[kind][f"posit{bits}_{es}"] = n - by[(kind, "skeleton", code,
-                                                     None)]
+            skeleton = by[(kind.removesuffix("_es"), "skeleton", code, None)]
+            name = f"posit{bits}" + (f"_{es}" if es else "")
+            res[kind][name] = n - skeleton
     return res
 
 

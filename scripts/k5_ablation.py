@@ -24,50 +24,18 @@ prefill); K3's ``k3_bf16_us`` (T = 1 from the same bf16 rows into
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
+import ablation_build
+
 ROOT = Path(__file__).resolve().parents[1]
 ENCODE = "c[k][e] = posit::encode<N, ES>(v[k][e] / scale, bias);"
-VARIANTS = {"base": ENCODE,
-            "noenc": "c[k][e] = __float_as_uint(v[k][e] / scale) >> "
-                     "(32 - N);"}
+VARIANTS = {"base": [],
+            "noenc": [(ENCODE, "c[k][e] = __float_as_uint(v[k][e] / scale) "
+                               ">> (32 - N);")]}
 LIBS = ("paged_kv", "kv_cache")
-
-
-def build(variant: str, nvcc_flags) -> dict:
-    """Copy the sources with ``variant``'s encode line, build, return the
-    libraries' paths by name."""
-    from repro_torch.kernels import _build
-    out = _build.BUILD_ROOT / "k5_ablation" / variant
-    out.mkdir(parents=True, exist_ok=True)
-    for src in _build.CSRC.glob("*.cuh"):
-        text = src.read_text()
-        if src.name == "kv_rows.cuh":
-            if ENCODE not in text:
-                raise RuntimeError(f"k5_ablation: {ENCODE!r} not in "
-                                   "kv_rows.cuh; update ENCODE")
-            text = text.replace(ENCODE, VARIANTS[variant])
-        (out / src.name).write_text(text)
-    libs, procs = {}, {}
-    for name in LIBS:
-        (out / f"{name}.cu").write_text(
-            (_build.CSRC / f"{name}.cu").read_text())
-        libs[name] = out / f"lib{name}.so"
-        if not libs[name].exists():
-            with open(out / f"{name}.log", "w") as log:
-                procs[name] = subprocess.Popen(
-                    [_build._nvcc(), *nvcc_flags, "-o", str(libs[name]),
-                     str(out / f"{name}.cu")], stdout=log,
-                    stderr=subprocess.STDOUT)
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"k5_ablation: nvcc failed for {variant}:\n"
-                               + (out / f"{name}.log").read_text())
-    return libs
 
 
 def main() -> int:
@@ -79,14 +47,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from chip_smoke import graph_ms
     from repro_torch.core.formats import POSIT8_2
-    from repro_torch.kernels import _build
     from repro_torch.kernels import kv_cache as kvk
     from repro_torch.kernels import paged_kv as pkv
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    libs = {v: build(v, _build.NVCC_FLAGS) for v in VARIANTS}
+    print(ablation_build.card(), flush=True)
+    libs = ablation_build.build("k5_ablation", VARIANTS, LIBS)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     layers, b, nkv, hd, ps, pmax = 12, 8, 4, 64, 16, 64
@@ -119,12 +84,7 @@ def main() -> int:
         return kvk.kv_append_rows(c, s, c, s, k, v, pos, POSIT8_2)
 
     for variant in ("base", "noenc", "base", "noenc"):
-        for name in LIBS:
-            cdll = ctypes.CDLL(str(libs[variant][name]))
-            for fn, argtypes in _build.SIGNATURES[name].items():
-                getattr(cdll, fn).argtypes = argtypes
-                getattr(cdll, fn).restype = ctypes.c_int
-            _build._libs[name] = cdll
+        ablation_build.use(libs[variant])
         res = {"variant": variant,
                "f32_us": 1e3 * graph_ms(
                    lambda i: call(i, k1, v1, dst[:, None]), layers),

@@ -4,73 +4,68 @@ built again with one part switched off at a time, each variant timed at
 the main path's shapes.  The GPU machine has no `ncu`, so this is the
 breakdown it can give.
 
-    python3 scripts/k7_ablation.py      # from the repository root, one GPU
+    python3 scripts/k7_ablation.py [--root DIR]   # from the repository root
 
-Variants (each a copy of ``src/repro_torch/csrc/posit_matmul.cu`` with a
-guard inserted, built into ``build/k7_ablation/``): ``base``; ``nodec``
-(the W tiles are not decoded: the tensor cores read stale shared memory);
-``nomma`` (no wgmma: ptxas then also drops the A-fragment splits, whose
-only use is the wgmma); ``nommadec`` (neither: TMA loads, barriers and the
-epilogue, the skeleton).  Results are times only; no variant but ``base``
-computes the product.  Prints one JSON line per variant: µs per call
-(CUDA events around 10 calls after 3 warm-up calls) by case.
+``--root`` names the checkout whose ``src/repro_torch/csrc`` is built
+(default: this one), so that two commits' K7 can be compared in one call.
+Variants (copies of ``posit_matmul.cu`` with a call switched off, built
+through ``ablation_build.py`` into ``build/k7_ablation/<root's name>/``):
+``base``; ``nodec`` (the W tiles are not decoded: the tensor cores read
+stale shared memory); ``nomma`` (no wgmma: ptxas then also drops the
+A-fragment splits, whose only use is the wgmma); ``nommadec`` (neither:
+TMA loads, barriers and the epilogue, the skeleton).  Results are times
+only; no variant but ``base`` computes the product.  Prints the card's
+name and power limit, one JSON line with ``base``'s registers and spill
+stores for each instance of ``tc_kernel`` and ``skinny_kernel`` (from
+ptxas), then one JSON line per variant: µs per call (CUDA events around
+10 calls after 3 warm-up calls) by case.
 """
 from __future__ import annotations
 
-import ctypes
+import argparse
 import json
-import subprocess
+import re
 import sys
-import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-KNOBS = {   # source text -> the same with a guard in front
-    "    decode_w_share<CB, WP>(smem + L::kC":
-        "    if (!ABL_NODEC) decode_w_share<CB, WP>(smem + L::kC",
-    "          wgmma_rs(acc, a[pc][kk],":
-        "          if (!ABL_NOMMA) wgmma_rs(acc, a[pc][kk],",
-}
-VARIANTS = {"base": {}, "nodec": {"ABL_NODEC": 1}, "nomma": {"ABL_NOMMA": 1},
-            "nommadec": {"ABL_NODEC": 1, "ABL_NOMMA": 1}}
+import ablation_build
+
+HERE = Path(__file__).resolve().parents[1]
+NODEC = ("    decode_w_share<CB, WP>(smem + L::kC",
+         "    if (false) decode_w_share<CB, WP>(smem + L::kC")
+NOMMA = ("          wgmma_rs(acc, a[pc][kk],",
+         "          if (false) wgmma_rs(acc, a[pc][kk],")
+VARIANTS = {"base": [], "nodec": [NODEC], "nomma": [NOMMA],
+            "nommadec": [NODEC, NOMMA]}
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel instance: [registers, spill store bytes]} of tc_kernel and
+    skinny_kernel in a ptxas -v report (template arguments as mangled)."""
+    res = {}
+    for m in re.finditer(r"Compiling entry function '\S*?((?:tc|skinny)_"
+                         r"kernel)(I\S+?E)E\S*'.*?(\d+) bytes spill stores"
+                         r".*?Used (\d+) registers", log, re.S):
+        res[m.group(1) + m.group(2)] = [int(m.group(4)), int(m.group(3))]
+    return res
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("k7_ablation: no CUDA GPU available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(HERE / "src"))
     from repro_torch.core.formats import get as get_fmt
-    from repro_torch.kernels import _build
     from repro_torch.kernels.posit_encode import encode_tile
 
-    src = (_build.CSRC / "posit_matmul.cu").read_text()
-    for old, new in KNOBS.items():
-        if old not in src:
-            raise RuntimeError(f"k7_ablation: {old.strip()!r} not in the "
-                               "kernel source; update KNOBS")
-        src = src.replace(old, new)
-    out = _build.BUILD_ROOT / "k7_ablation"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "posit_codec.cuh").write_text(
-        (_build.CSRC / "posit_codec.cuh").read_text())
-    (out / "k7.cu").write_text(src)
-    t0 = time.perf_counter()
-    procs = {}
-    for name, on in VARIANTS.items():
-        defs = [f"-D{k}={on.get(k, 0)}" for k in ("ABL_NODEC", "ABL_NOMMA")]
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-o",
-             str(out / f"lib{name}.so"), str(out / "k7.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-    print(f"built {len(procs)} variants in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
+    root = args.root.resolve()
+    libs = ablation_build.build(f"k7_ablation/{root.name}", VARIANTS,
+                                ("posit_matmul",),
+                                root / "src" / "repro_torch" / "csrc")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     p8, p16 = get_fmt("posit8_2"), get_fmt("posit16_2")
@@ -87,14 +82,15 @@ def main() -> int:
                                                     torch.bfloat16, p8),
         "x bf16, posit16_2, 8192 x 8192 x 768": case(8192, 768, 8192,
                                                      torch.bfloat16, p16),
+        "x bf16, posit16_2, 8192 x 32000 x 768 (the head)": case(
+            8192, 768, 32000, torch.bfloat16, p16),
     }
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(ablation_build.card(), flush=True)
+    print(json.dumps({"root": str(root), "registers_spills": ptxas_usage(
+        (libs["base"]["posit_matmul"].parent / "posit_matmul.log")
+        .read_text())}), flush=True)
     for name in VARIANTS:
-        fn = ctypes.CDLL(str(out / f"lib{name}.so")).posit_matmul
-        fn.argtypes = _build.SIGNATURES["posit_matmul"]["posit_matmul"]
-        fn.restype = ctypes.c_int
+        fn = ablation_build.use(libs[name])["posit_matmul"].posit_matmul
         row = {}
         for label, (x, w, fmt) in cases.items():
             (m, k), n = x.shape, w.shape[1]
@@ -120,7 +116,8 @@ def main() -> int:
             e1.record()
             torch.cuda.synchronize()
             row[label] = 1e3 * e0.elapsed_time(e1) / 10
-        print(json.dumps({"variant": name, "us": row}), flush=True)
+        print(json.dumps({"root": str(root), "variant": name, "us": row}),
+              flush=True)
     return 0
 
 

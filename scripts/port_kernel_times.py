@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the port's K2-K7 at the main paths' shapes, for
+"""Device times of the port's K1-K7 at the main paths' shapes, for
 one checkout of the port, so that two commits can be compared in one run
 on one card (parent, change, change, parent):
 
@@ -12,8 +12,10 @@ device ms per call from a CUDA graph of the calls replayed between CUDA
 events (``chip_smoke.graph_ms``), argument sets rotated over 12 layers'
 buffers as in ``chip_smoke.py``'s kernels line:
 
-- K2 (``k2_us``): 2,097,152 f32 values (one layer's posit8 K ring, the
-  kernels line's shape) to posit8_2 codes;
+- K1: 2,097,152 posit8_2 codes (one layer's posit8 K ring, the kernels
+  line's shape) to f32 (``k1_us``) and to bf16 (``k1_bf16_us``);
+- K2 (``k2_us``): 2,097,152 f32 values (the same shape) to posit8_2
+  codes;
 - K3 (ring append, posit8, B = 8, T = 1, into 1024-row rings): f32 rows
   (``k3_us``, the kernels line's shape); the ring decode step's append
   from the model's bf16 K/V (v a strided view of the fused QKV output) as
@@ -32,7 +34,10 @@ buffers as in ``chip_smoke.py``'s kernels line:
   an older one casts inside its wrapper); and the wrapper given bf16 rows
   at a paged prefill's T = 1024, B = 1 (``k5_t1024_bf16_us``);
 - K7: x (M, 768) f32 times wi (768 x 4096, posit8_2, (1, N) scale) at
-  M = 8192 and M = 8, beside torch.matmul by the decoded f32 W;
+  M = 8192 and M = 8, beside torch.matmul by the decoded f32 W; and
+  (``k7_p16_us``) the quickstart's head, bf16 x (8192, 768) times a
+  768 x 32000 posit16_2 W with its (1, N) scale (16-bit codes decode
+  inline);
 - quickstart part 2: the 73 ``qt_matmul`` calls of ``chip_smoke.py``
   phase 10 (12 layers x wq wk wv wo wi wo_mlp in posit8_2 and the head
   in posit16_2, bf16 activations of 8 x 1024 tokens), one graph of all.
@@ -71,7 +76,7 @@ def main() -> int:
     from repro_torch.kernels import kv_cache as kvk
     from repro_torch.kernels import paged_kv as pkv
     from repro_torch.kernels.ops import qt_matmul
-    from repro_torch.kernels.posit_decode import decode_tile
+    from repro_torch.kernels.posit_decode import decode_tile, posit_decode
     from repro_torch.kernels.posit_encode import posit_encode
     from repro_torch.kernels.posit_matmul import posit_matmul
     import repro_torch
@@ -115,9 +120,14 @@ def main() -> int:
     res["k4_us"] = 1e3 * graph_ms(lambda i: kvk.decode_attention(
         q, *ring[i], lens, POSIT8_2), layers)
 
-    # K2 over one layer's posit8 K ring of values
-    xs = [decode_tile(codes(b * w * nkv * hd), POSIT8_2)
-          for _ in range(layers)]
+    # K1 over one layer's posit8 K ring of codes, K2 over its values
+    cs = [codes(b * w * nkv * hd) for _ in range(layers)]
+    res["k1_us"] = 1e3 * graph_ms(lambda i: posit_decode(cs[i], POSIT8_2),
+                                  layers)
+    res["k1_bf16_us"] = 1e3 * graph_ms(lambda i: posit_decode(
+        cs[i], POSIT8_2, out_dtype=torch.bfloat16), layers)
+    xs = [decode_tile(c, POSIT8_2) for c in cs]
+    del cs
     res["k2_us"] = 1e3 * graph_ms(lambda i: posit_encode(xs[i], POSIT8_2),
                                   layers)
     del xs
@@ -169,6 +179,14 @@ def main() -> int:
             lambda i, _x=xs: torch.matmul(_x[i], dec[i]) * wi[i].scale,
             layers)
     del dec
+    x16 = torch.randn(8192, 768, generator=gen, device=dev).to(
+        torch.bfloat16)
+    heads = [quantize(0.02 * torch.randn(768, 32000, generator=gen,
+                                         device=dev), POSIT16_2, axis=0)
+             for _ in range(2)]
+    res["k7_p16_us"] = 1e3 * graph_ms(lambda i: posit_matmul(
+        x16, heads[i].data, POSIT16_2, heads[i].scale), 2)
+    del heads
 
     # quickstart part 2: 73 qt_matmul calls
     hid = torch.randn(8192, 768, generator=gen, device=dev).to(

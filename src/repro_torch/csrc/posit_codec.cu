@@ -4,11 +4,28 @@
 // (Pallas, body decode_tile); K2 posit_encode_kernel replaces
 // repro/kernels/posit_encode.py::posit_encode (Pallas, body encode_tile).
 //
-// K1.  Bound on the H100: device-memory bytes or the integer issue rate
-// (1-2 bytes of codes and 4 of f32 per element against a few dozen integer
-// instructions).  Design: a grid-stride elementwise loop, one element per
-// thread per step with neighbouring threads on neighbouring addresses
-// (coalesced), at most 132 x 16 blocks.
+// K1.  Bound on the H100: device-memory bytes (1-2 B of codes read and 4 B
+// of f32 or 2 B of bf16 written per element: 3.13 us at 2^21 posit8 codes
+// to f32), as long as the decode issues few enough instructions per
+// element.  Design: each load takes the codes of one 16-B store of values
+// (4 f32 or 8 bf16: 4, 8 or 16 B of codes), so every lane decodes what it
+// loaded and stores it whole, neighbouring lanes on neighbouring bytes;
+// kDecodeLoads loads per thread are in flight before the first decode.
+// Codes of n <= 8 decode through a 256-entry f32 table in shared memory
+// that each CTA fills with posit::decode (one entry per thread): with the
+// lookup K1 to f32 takes as long as the same kernel with no decode at all
+// (~3.8 us for 2^21 codes; ~0.3 us more to bf16), where the inline decoder
+// (20 instructions per code) adds ~1.1 us to bf16 (scripts/k1_ablation.py).
+// 16-bit codes decode inline, in straight-line code, so the chains
+// overlap.  16-B loads of codes staged through shared memory, so that each
+// 16-B store instruction still writes 512 contiguous bytes, were 7-17 %
+// slower (the same script).
+// The grid covers the array at kDecodeLoads loads per thread.  A start
+// that is not aligned to a load (a view with an offset) is a scalar head
+// of up to 7 codes, a length that is not a multiple of a load's codes a
+// scalar tail, both in the same kernel; where the head leaves the values
+// misaligned for the vector store, each value is stored on its own
+// (kVecStore false).
 //
 // K2.  Bound on the H100: the larger of the bytes (4 B read, 1-2 B written
 // per element: 3.13 us at 2^21 elements) and the integer issue rate (the
@@ -30,23 +47,120 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Each load takes the codes of one 16-B store of values (4 B of 8-bit
+// codes to f32, 8 B to bf16; 8 B of 16-bit codes to f32, 16 B to bf16),
+// kDecodeLoads of them in flight per thread; scripts/k1_ablation.py timed
+// 1, 2, 4 and 8 loads, and 16-B loads staged through shared memory
+template <typename CodeT, typename OutT>
+constexpr int kCodesPerLoad = 16 / sizeof(OutT);
+constexpr int kDecodeLoads = 4;
 
-int grid_for(int count) {
-  long long blocks = ((long long)count + kThreads - 1) / kThreads;
-  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
-}
+// kBytes of codes in 32-bit words, loaded in one instruction
+template <int kBytes>
+struct alignas(kBytes) Words {
+  uint32_t w[kBytes / 4];
+};
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+// 32 bits of a 16-B store of values: one f32, or two bf16 (the first in
+// the low half)
+template <typename OutT>
+__device__ __forceinline__ uint32_t out_bits(const float* v, int i) {
+  if constexpr (std::is_same<OutT, float>::value)
+    return __float_as_uint(v[i]);
+  else
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))
+            << 16);
+}
+
+// Decodes (through `dec`) the kPer codes packed little-endian in `w` (code
+// e in bits kBits e up) and stores them at `dst`: one 16-B store, or one
+// value at a time.
+template <int kBits, typename OutT, bool kVecStore, int kPer, int kWords,
+          typename Dec>
+__device__ __forceinline__ void decode_store(const uint32_t (&w)[kWords],
+                                             OutT* dst, const Dec& dec) {
+  float v[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e)
+    v[e] = dec(w[e * kBits / 32] >> (e * kBits % 32));
+  if constexpr (kVecStore) {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(out_bits<OutT>(v, 0), out_bits<OutT>(v, 1),
+                   out_bits<OutT>(v, 2), out_bits<OutT>(v, 3));
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) store(dst + e, v[e]);
+  }
+}
+
+template <int N, int ES, typename OutT, bool kVecStore>
+__global__ void __launch_bounds__(kThreads) posit_decode_kernel(
+    const typename posit::Code<N>::type* __restrict__ codes,
+    OutT* __restrict__ out, int count, int head, int bias) {
+  using CodeT = typename posit::Code<N>::type;
+  constexpr int kBits = 8 * sizeof(CodeT);
+  constexpr int kPerLoad = kCodesPerLoad<CodeT, OutT>;
+  constexpr int kPerStore = 16 / sizeof(OutT);     // values per 16-B store
+  using Load = Words<kPerLoad * sizeof(CodeT)>;
+  static_assert(kThreads == 256, "one table entry per thread");
+  // codes of n <= 8: every code's value in shared memory (posit::decode, so
+  // bit-exact); 16-bit codes inline
+  __shared__ float tab[N <= 8 ? 256 : 1];
+  if constexpr (N <= 8) {
+    tab[threadIdx.x] = posit::decode<N, ES>(threadIdx.x, bias);
+    __syncthreads();
+  }
+  auto dec = [&](uint32_t c) {
+    if constexpr (N <= 8) return tab[c & 0xFFu];
+    else return posit::decode<N, ES>(c, bias);
+  };
+  const int nvec = (count - head) / kPerLoad;      // whole loads
+  const Load* cv = reinterpret_cast<const Load*>(codes + head);
+  OutT* dst = out + head;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  for (int g = tid; g < nvec; g += kDecodeLoads * stride) {
+    Load c[kDecodeLoads];
+#pragma unroll
+    for (int u = 0; u < kDecodeLoads; ++u)
+      c[u] = g + u * stride < nvec ? cv[g + u * stride] : Load{};
+#pragma unroll
+    for (int u = 0; u < kDecodeLoads; ++u)
+      if (g + u * stride < nvec)
+        decode_store<kBits, OutT, kVecStore, kPerStore>(
+            c[u].w, dst + (size_t)(g + u * stride) * kPerLoad, dec);
+  }
+  const int tail = head + kPerLoad * nvec;         // first code of the tail
+  if (tid < head) store(out + tid, dec(codes[tid]));
+  if (tid < count - tail) store(out + tail + tid, dec(codes[tail + tid]));
+}
 
 template <int N, int ES, typename OutT>
-__global__ void posit_decode_kernel(const typename posit::Code<N>::type* __restrict__ codes,
-                                    OutT* __restrict__ out, int count, int bias) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += gridDim.x * blockDim.x)
-    store(out + i, posit::decode<N, ES>(codes[i], bias));
+int launch_decode(const void* codes, void* out, int count, int bias,
+                  cudaStream_t st) {
+  using CodeT = typename posit::Code<N>::type;
+  constexpr int kPerLoad = kCodesPerLoad<CodeT, OutT>;
+  constexpr int kLoadBytes = kPerLoad * sizeof(CodeT);
+  // codes before a load's boundary
+  const int lead = (int)(((kLoadBytes - (uintptr_t)codes % kLoadBytes) %
+                          kLoadBytes) / sizeof(CodeT));
+  const int head = lead < count ? lead : count;
+  const int threads =
+      ((count - head) / kPerLoad + kDecodeLoads - 1) / kDecodeLoads;
+  const int grid = threads > kThreads ? (threads + kThreads - 1) / kThreads
+                                      : 1;
+  if (((uintptr_t)((OutT*)out + head) & 15) == 0)
+    posit_decode_kernel<N, ES, OutT, true><<<grid, kThreads, 0, st>>>(
+        (const CodeT*)codes, (OutT*)out, count, head, bias);
+  else
+    posit_decode_kernel<N, ES, OutT, false><<<grid, kThreads, 0, st>>>(
+        (const CodeT*)codes, (OutT*)out, count, head, bias);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kEncodeLoads = 2;     // 16-B loads in flight per thread
@@ -109,21 +223,16 @@ __global__ void __launch_bounds__(kThreads) posit_encode_kernel(
 
 }  // namespace
 
+// codes: count codes (any 16-B offset); out: count values.
 extern "C" int posit_decode(const void* codes, void* out, int count, int nbits,
                             int es, int bias, int out_bf16, void* stream) {
+  if (count <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int grid = grid_for(count);
 #define DECODE_CASE(N, ES)                                                    \
-  if (nbits == N && es == ES) {                                               \
-    using CodeT = posit::Code<N>::type;                                       \
-    if (out_bf16)                                                             \
-      posit_decode_kernel<N, ES><<<grid, kThreads, 0, st>>>(                  \
-          (const CodeT*)codes, (__nv_bfloat16*)out, count, bias);             \
-    else                                                                      \
-      posit_decode_kernel<N, ES><<<grid, kThreads, 0, st>>>(                  \
-          (const CodeT*)codes, (float*)out, count, bias);                     \
-    return (int)cudaGetLastError();                                           \
-  }
+  if (nbits == N && es == ES)                                                 \
+    return out_bf16 ? launch_decode<N, ES, __nv_bfloat16>(codes, out, count,  \
+                                                          bias, st)           \
+                    : launch_decode<N, ES, float>(codes, out, count, bias, st);
   POSIT_FORMATS(DECODE_CASE)
 #undef DECODE_CASE
   return (int)cudaErrorInvalidValue;

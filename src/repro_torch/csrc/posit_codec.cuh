@@ -2,22 +2,30 @@
 // <N, ES>, shared by every kernel of the port (K1..K7).
 //
 // Port of the Pallas bodies repro/kernels/posit_decode.py::decode_tile and
-// repro/kernels/posit_encode.py::encode_tile.  Decode keeps Algorithm 1's
-// form: the regime run length is the count of n-1 parallel threshold
-// compares (no __clz), so this code and the plain PyTorch version
-// (repro_torch/core/posit.py) run the same algorithm.  Encode is bit-exact
-// RNE with guard/sticky, saturating to maxpos/minpos; NaN/inf -> NaR; float32
-// subnormals are flushed to zero.  Encode is branch-free (one 64-bit word,
-// one rounding add, one clamp), so the encodes a thread holds overlap: it
-// is the write path of K2, K3 and K5.  Its static SASS per element
-// (sm_90a, scripts/encoder_sass.py: a one-element kernel less its
-// skeleton) is 29 for posit8_2 and posit16_2, 26 for ES = 0, 30 for
-// posit4_1; the branching encoder it replaced took 84-85 (ES > 0) and
-// 65-66 (ES = 0).
+// repro/kernels/posit_encode.py::encode_tile.  Both are branch-free: every
+// code or value takes one straight-line path of integer ops and selects, so
+// the decodes or encodes a thread holds overlap.
 //
-// Shifts by >= 32 are undefined in C++; every variable shift of the decoder
-// goes through the clamped helpers below (a shift by >= 32 gives 0), as in
-// the reference; the encoder's one variable shift is at most N - 2.
+// Decode (the read path of K1, K4, K6 and K7) finds the regime's run length
+// with one count of leading zeros (__clz) where Algorithm 1 runs n-1
+// threshold compares; the function is the same bit for bit.  The compares
+// mirror the TALU datapath, where they run in parallel in silicon; on an SM
+// they would be n-1 dependent instructions.  The plain PyTorch version
+// (repro_torch/core/posit.py decode_to_f32) and the reference keep
+// Algorithm 1, and tests/test_torch_decoder.py holds a numpy model of this
+// decoder's integer steps to both on every code of every built format
+// (chip_smoke.py holds K1 to the plain version on the card).  Encode is
+// bit-exact RNE with guard/sticky, saturating to maxpos/minpos; NaN/inf ->
+// NaR; float32 subnormals are flushed to zero: the write path of K2, K3
+// and K5.
+//
+// Static SASS per element (sm_90a, scripts/encoder_sass.py: a one-element
+// kernel less its skeleton, NVIDIA H100): decode 20 for posit8_2, 21 for
+// posit16_2, 19 for posit8_0, 20 for posit4_1, 23 for decode_es<16> (es at
+// run time); the decoder it replaced (Algorithm 1's compares, two early
+// returns, clamped shifts) took 70, 95, 58 and 56.  Encode 29 for posit8_2
+// and posit16_2, 26 for ES = 0, 30 for posit4_1; the branching encoder it
+// replaced took 84-85 (ES > 0) and 65-66 (ES = 0).
 #pragma once
 
 #include <cstdint>
@@ -27,55 +35,51 @@
 
 namespace posit {
 
-__device__ __forceinline__ uint32_t mask(uint32_t b) {
-  return b >= 32u ? 0xFFFFFFFFu : ((1u << b) - 1u);
-}
-__device__ __forceinline__ uint32_t shl(uint32_t x, uint32_t k) {
-  return k >= 32u ? 0u : (x << k);
-}
-__device__ __forceinline__ uint32_t shr(uint32_t x, uint32_t k) {
-  return k >= 32u ? 0u : (x >> k);
-}
-template <int N>
-__device__ __forceinline__ uint32_t negate_code(uint32_t u) {
-  return (~u + 1u) & mask(N);
-}
-
 // Storage type of one code: uint8 up to 8 bits, else the 16-bit pattern.
 template <int N>
 struct Code {
   using type = typename std::conditional<(N <= 8), uint8_t, uint16_t>::type;
 };
 
-// Posit code (low N bits of `code`) -> float32.  Exact for N <= 16.
+// Posit code (low N bits of `code`; higher bits are ignored) -> float32,
+// with the exponent size `es` a run-time argument (K7 takes the format at
+// run time).  Exact for N <= 16.
+//
+// One shift puts the code at the top of a 32-bit word, so the sign is bit
+// 31 and the bits above N drop out; |code| by two's complement (the
+// arithmetic sign mask); one more shift left-aligns the N - 1 body bits.
+// The regime run r is the count of leading zeros of the body, or of its
+// complement when the body leads with a one (body XOR its arithmetic sign
+// mask); k is r - 1 or -r by one select.  r <= N - 1 for every code but 0
+// and NaR (whose body is 0), so it needs no clamp.  The clamped funnel
+// shift (shf.l.clamp: 0 at a shift >= 32) drops the run and its
+// terminator, leaving exponent then fraction at the top of `rest`; the
+// exponent is its top es bits (0 for es = 0: the same clamped shift), and
+// exponent bits the regime cut off read as zeros, which is the posit rule.
+// The fraction (at most N - 3 <= 13 bits) goes into the mantissa with one
+// shift.  0 -> +0 and NaR -> the quiet NaN 0x7FC00000 are one select on a
+// zero body at the end.
+template <int N>
+__device__ __forceinline__ float decode_es(uint32_t code, int es, int bias) {
+  static_assert(N >= 3 && N <= 16, "decode is exact for 3 <= N <= 16");
+  const uint32_t x = code << (32 - N);                   // sign at bit 31
+  const uint32_t sx = (uint32_t)((int32_t)x >> 31);      // 0 or all ones
+  const uint32_t body = ((x ^ sx) - sx) << 1;            // |code|'s body
+  const uint32_t lead = body >> 31;
+  const int r = __clz(body ^ (uint32_t)((int32_t)body >> 31));
+  const int k = lead ? r - 1 : -r;
+  const uint32_t rest = __funnelshift_lc(0u, body, (uint32_t)(r + 1));
+  const uint32_t e = __funnelshift_rc(rest, 0u, (uint32_t)(32 - es));
+  const int t = k * (1 << es) + (int)e + bias;
+  const uint32_t v = (x & 0x80000000u) | ((uint32_t)(t + 127) << 23) |
+                     ((rest << es) >> 9);
+  return __uint_as_float(body == 0u ? sx & 0x7FC00000u : v);
+}
+
+// The same decoder with ES a template constant, which the compiler folds.
 template <int N, int ES>
 __device__ __forceinline__ float decode(uint32_t code, int bias) {
-  static_assert(N >= 3 && N <= 16, "decode is exact for 3 <= N <= 16");
-  const uint32_t u = code & mask(N);
-  if (u == 0u) return 0.0f;
-  if (u == (1u << (N - 1))) return __uint_as_float(0x7FC00000u);  // NaR
-  const uint32_t s = (u >> (N - 1)) & 1u;
-  const uint32_t mag = s ? negate_code<N>(u) : u;
-  const uint32_t body = mag & mask(N - 1);
-  const uint32_t lead = (body >> (N - 2)) & 1u;
-  const uint32_t t_val = lead ? body : (~body & mask(N - 1));
-  // Algorithm 1: n-1 parallel threshold compares V_i = T >= 2^{n-1} - 2^i
-  int r = 0;
-#pragma unroll
-  for (int i = 0; i < N - 1; ++i)
-    r += t_val >= ((1u << (N - 1)) - (1u << i)) ? 1 : 0;
-  const int k = lead ? r - 1 : -r;
-  const int rem_i = max(N - 1 - r - 1, 0);
-  const uint32_t rem = (uint32_t)rem_i;
-  const uint32_t rest = body & mask(rem);
-  const uint32_t e_have = min(rem, (uint32_t)ES);
-  const uint32_t e_field = shl(shr(rest, rem - e_have), (uint32_t)ES - e_have);
-  const uint32_t f_len = (uint32_t)max(rem_i - ES, 0);
-  const uint32_t f_field = rest & mask(f_len);
-  const int t = k * (1 << ES) + (int)e_field + bias;
-  // IEEE-754 assembly (f_len <= 13 <= 23: exact)
-  const uint32_t man = shl(f_field, 23u - f_len);
-  return __uint_as_float(shl(s, 31) | shl((uint32_t)(t + 127), 23) | man);
+  return decode_es<N>(code, ES, bias);
 }
 
 // float32 -> posit code (low N bits), RNE; float32 subnormals flushed.

@@ -58,35 +58,14 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// The formats are runtime arguments: the 8-bit (and 4-bit) ones differ only
-// in their decode table, the 16-bit ones in an es switch the whole CTA takes
-// the same way.
+// The formats are runtime arguments (the entry admits only the built
+// ones): the 8-bit (and 4-bit) ones differ only in their decode table, the
+// 16-bit ones in an es that the whole CTA takes the same way.  Both decode
+// through the codec's branch-free decoder with es at run time.
 __device__ __forceinline__ float decode_fmt(uint32_t code, int nbits, int es,
                                             int bias) {
-#define DECODE_CASE(N, ES) \
-  if (nbits == N && es == ES) return posit::decode<N, ES>(code, bias);
-  POSIT_FORMATS(DECODE_CASE)
-#undef DECODE_CASE
-  return __uint_as_float(0x7FC00000u);
-}
-
-// posit<16, es> code -> f32, bit-exact with posit::decode<16, ES>, but with
-// the regime's run length from a count of leading zeros and no branch (0
-// and NaR are selected at the end, so a warp never diverges): ~20
-// instructions, the decode the tensor-core path runs 64 times per code row.
-__device__ __forceinline__ float decode16(uint32_t code, int es, int bias) {
-  const uint32_t u = code & 0xFFFFu;
-  const uint32_t s = u >> 15;
-  const uint32_t body = (s ? 0x10000u - u : u) << 17;  // 15 bits at the top
-  const uint32_t lead = body >> 31;
-  const int r = __clz(lead ? ~body : body);            // regime run length
-  const int k = lead ? r - 1 : -r;
-  const uint32_t rest = posit::shl(body, r + 1);       // exponent, fraction
-  const uint32_t e = es ? rest >> (32 - es) : 0u;
-  const int t = k * (1 << es) + (int)e + bias;
-  const float v = __uint_as_float((s << 31) | ((uint32_t)(t + 127) << 23) |
-                                  ((rest << es) >> 9));
-  return u == 0u ? 0.0f : u == 0x8000u ? __uint_as_float(0x7FC00000u) : v;
+  return nbits == 4 ? posit::decode_es<4>(code, es, bias)
+                    : posit::decode_es<8>(code, es, bias);
 }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -289,8 +268,9 @@ __device__ __forceinline__ void decode_w_share(const uint8_t* codes,
         w0[h] = lo | (hi << 16);
       } else {
         const uint16_t* c16 = reinterpret_cast<const uint16_t*>(codes);
-        const float a = decode16(c16[k * kBN + n], es, bias);
-        const float b = decode16(c16[(k + 1) * kBN + n], es, bias);
+        const float a = posit::decode_es<16>(c16[k * kBN + n], es, bias);
+        const float b =
+            posit::decode_es<16>(c16[(k + 1) * kBN + n], es, bias);
         w0[h] = pack_bf16(a, b);
         if (WP == 2) w1[h] = pack_bf16(a - round_bf16(a), b - round_bf16(b));
       }
@@ -550,7 +530,7 @@ __global__ void __launch_bounds__(kSkThreads)
       if constexpr (CB == 1) {
         wd[j] = tab[u.c[j]];
       } else {
-        const float v = decode16(u.c[j], es, bias);
+        const float v = posit::decode_es<16>(u.c[j], es, bias);
         wd[j] = kBf16 ? round_bf16(v) : v;
       }
     }

@@ -1,9 +1,12 @@
-"""K1: posit -> float decode (Algorithm 1), CUDA kernel + plain version.
+"""K1: posit -> float decode, CUDA kernel + plain version.
 
 ``posit_decode`` launches ``csrc/posit_codec.cu::posit_decode_kernel`` for
-a CUDA tensor and takes the plain ``decode_tile`` for a CPU tensor.  Both
-find the regime with n-1 parallel threshold compares and assemble the
-IEEE-754 bits with integer ops; NaR -> NaN, 0 -> 0.  Bit-exact for n<=16.
+a CUDA tensor and takes the plain ``decode_tile`` for a CPU tensor.  The
+plain version is Algorithm 1, as in the reference: the regime's run length
+from n-1 parallel threshold compares, the IEEE-754 bits assembled with
+integer ops.  The kernel's branch-free decoder (``posit::decode``) finds the
+run with one count of leading zeros and gives the same bits on every code;
+NaR -> NaN, 0 -> 0.  Bit-exact for n<=16.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.kernels.posit_decode import decode_tile  # noqa: E402
 from repro_torch.kernels.posit_matmul import (  # noqa: E402
     posit_matmul_plain, scale_row, split_k_splits)
+from test_torch_decoder import decode_model  # noqa: E402
 
 RTOL, ATOL = 2e-5, 2e-4
 FORMATS = ["posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",
@@ -204,36 +205,19 @@ def test_split_k_splits(m, k, n, bytes_, want):
         assert chunk <= 1024 and (s - 1) * chunk < k
 
 
-def decode16_clz(codes, es, bias=0):
-    """The tensor-core and split-K paths' posit16 decode (``decode16`` in
-    csrc/posit_matmul.cu), step for step in numpy: the regime's run length
-    from the leading zeros of the left-aligned body."""
-    u = codes.astype(np.int64) & 0xFFFF
-    s = u >> 15
-    body = (np.where(s == 1, 0x10000 - u, u) << 17) & 0xFFFFFFFF
-    lead = body >> 31
-    v = np.where(lead == 1, ~body & 0xFFFFFFFF, body)
-    r = 32 - (np.floor(np.log2(np.maximum(v, 1).astype(np.float64)))
-              .astype(np.int64) + 1)
-    k = np.where(lead == 1, r - 1, -r)
-    rest = (body << (r + 1)) & 0xFFFFFFFF
-    e = rest >> (32 - es) if es else np.zeros_like(rest)
-    t = k * (1 << es) + e + bias
-    bits = (s << 31) | ((t + 127) << 23) | (((rest << es) & 0xFFFFFFFF) >> 9)
-    out = bits.astype(np.uint32).view(np.float32).copy()
-    out[u == 0] = 0.0
-    out[u == 0x8000] = np.nan
-    return out
-
-
 @pytest.mark.parametrize("name", ["posit16_0", "posit16_1", "posit16_2"])
 def test_posit16_clz_decode_is_bit_exact(name):
-    """On every code: equal bits to ``decode_tile`` (Algorithm 1's
-    threshold compares), NaN exactly at NaR."""
+    """The tensor-core and split-K paths decode 16-bit codes with the
+    codec's branch-free decoder in its run-time-es form
+    (``posit::decode_es<16>`` in csrc/posit_codec.cuh, the regime's run
+    length from the leading zeros of the left-aligned body), modelled step
+    for step by ``test_torch_decoder.decode_model``: on every code, equal
+    bits to ``decode_tile`` (Algorithm 1's threshold compares), NaN exactly
+    at NaR."""
     fmt = tformats.get(name)
     codes = all_codes(fmt)
     want = decode_tile(codes, fmt).numpy()
-    got = decode16_clz(codes.numpy(), fmt.es, fmt.bias)
+    got = decode_model(codes.numpy(), 16, fmt.es, fmt.bias).view(np.float32)
     assert np.array_equal(np.isnan(got), np.isnan(want))
     keep = ~np.isnan(want)
     np.testing.assert_array_equal(got[keep].view(np.uint32),
