@@ -26,7 +26,12 @@ calls it, and K5 at a prefill's T = 1024; 8e the same for the ring's K3; 9
 K7 (both paths, the crossover's neighbours; posit8 and posit16 at every
 es); 9b K7's two paths timed by M (the crossover); 10 the quickstart path
 (serving's counterpart: training; part 2's device time); 10b train step
-card vs CPU; then K7's times.
+card vs CPU; then K7's times.  Phases 11a-11c run after 7b (own generator):
+11a the speculative verify pass at float32, card vs CPU and vs five
+sequential decode steps, and K3/K5 at T = 5 from bf16 rows; 11b rollback,
+card vs CPU; 11c speculative serving (main path of K1) in both layouts at
+gamma 2 and 4, each beside a baseline engine, printed as a
+``{"speculative": ...}`` JSON line.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
@@ -53,6 +58,15 @@ Every phase asserts; nothing is caught.  Tolerances:
                  below f32 noise), ring and paged.
   train step     card vs CPU at float32: loss rtol 1e-4, grad norm rtol
                  1e-3, every updated param and master leaf atol 1e-5.
+  verify (11a)   card vs CPU from identical caches, and card vs five card
+                 decode steps: logits rtol 1e-3, atol 1e-3; written codes
+                 by the card-vs-CPU rule above; K3/K5 bit-exact.
+  rollback (11b) bit-exact card vs CPU outside trash page 0.
+  speculative (11c) every request gets its 32 tokens, no page leaks, K1,
+                 K3, K4 (and K5, paged) launched; the tokens equal to the
+                 baseline's stream are counted, not asserted (decode reads
+                 through K4/K6, the verify through K1 + chunk attention:
+                 another summation order, so near ties may argmax apart).
 The paged run's greedy tokens are compared with the ring run's and the
 count printed, not asserted: K4 and K6 now share one split walk, but the
 layouts batch the requests differently (one paged request waits for
@@ -727,14 +741,15 @@ def main() -> int:
     params32 = lm.init_params(cfg32, gen, device=dev)
     prompts32 = [rng.integers(0, cfg.vocab, n) for n in (19, 40)]
 
-    def snapshot(tree):
-        """A CPU copy of a decode state (tensors cloned, others kept)."""
+    def snapshot(tree, device="cpu"):
+        """A copy of a decode state on ``device`` (tensors cloned, others
+        kept)."""
         if isinstance(tree, dict):
-            return {k: snapshot(v) for k, v in tree.items()}
+            return {k: snapshot(v, device) for k, v in tree.items()}
         if isinstance(tree, (tuple, list)):
-            return type(tree)(snapshot(v) for v in tree)
+            return type(tree)(snapshot(v, device) for v in tree)
         if isinstance(tree, torch.Tensor):
-            return tree.detach().to("cpu", copy=True)
+            return tree.detach().to(device, copy=True)
         return tree
 
     def signed_codes(c):
@@ -857,6 +872,229 @@ def main() -> int:
 
     card_vs_cpu("phase 7 ring")
     card_vs_cpu("phase 7b paged", kv_layout="paged", page_size=PS)
+
+    # 11a. the speculative verify pass at float32 (own generator: the later
+    # phases draw what they drew before) ----------------------------------
+    from repro_torch.core.transprecision import TCPolicy
+    from repro_torch.models import serve_model as sm
+    from repro_torch.serve.engine_api import (rollback_paged_cache,
+                                              rollback_ring_cache)
+    from repro_torch.serve.speculative import SpeculativeEngine
+    rng_sp = np.random.default_rng([args.seed, 11])
+    n_l, t_sp = cfg.n_layers, 5                 # gamma + 1 = 5
+    params32_cpu = snapshot(params32)
+    sp_toks = torch.from_numpy(rng_sp.integers(0, cfg.vocab, (B, 256)))
+    sp_lens = torch.from_numpy(rng_sp.integers(100, 257, B).astype(np.int32))
+    sp_chunk = torch.from_numpy(rng_sp.integers(0, cfg.vocab, (B, t_sp)))
+    written = B * t_sp * n_l * NKV * HD * 2     # K and V codes per verify
+
+    def held(a, b, cut):
+        """Caches two runs wrote from one cache: scales equal, codes by
+        ``code_flips`` on < 0.1 % of the written codes (rows past ``cut``).
+        Returns (codes that differ, of them near zero)."""
+        a, b = a["blocks"][0], b["blocks"][0]
+        for k in ("k_scale", "v_scale"):
+            assert torch.equal(a[k][:, cut:].cpu(), b[k][:, cut:].cpu()), k
+        f = [code_flips(a[k][:, cut:].cpu(), b[k][:, cut:].cpu())
+             for k in ("k", "v")]
+        assert f[0][0] + f[1][0] < 1e-3 * written, f
+        return f[0][0] + f[1][0], f[0][1] + f[1][1]
+
+    verified, msgs = {}, []
+    for layout in ("ring", "paged"):
+        pol = TCPolicy(name=f"verify_{layout}", kv_format="posit8",
+                       kv_layout=layout, kv_page_size=PS)
+        cut = PS if layout == "paged" else 0
+        _, c0 = sm.prefill(params32, {"tokens": sp_toks.to(dev)}, cfg32, W,
+                           pol, true_len=sp_lens.to(dev))
+        torch.cuda.synchronize()
+        reset_launches()
+        lv, card = sm.verify_step(params32, snapshot(c0, dev),
+                                  sp_chunk.to(dev), cfg32, pol)
+        torch.cuda.synchronize()
+        append = "paged_kv_append_rows" if cut else "kv_append_rows"
+        want_l = {"posit_decode": 2 * n_l, append: n_l}
+        assert {k: v for k, v in LAUNCHES.items() if v} == want_l, LAUNCHES
+        # (1) the CPU's verify from the same cache
+        lv_cpu, cpu = sm.verify_step(params32_cpu, snapshot(c0), sp_chunk,
+                                     cfg32, pol)
+        torch.testing.assert_close(lv.cpu(), lv_cpu, rtol=1e-3, atol=1e-3)
+        d_cpu = float((lv.cpu() - lv_cpu).abs().max())
+        f_cpu = held(card, cpu, cut)
+        # (2) five sequential decode steps on the card from the same cache
+        seq, seq_logits = snapshot(c0, dev), []
+        for t in range(t_sp):
+            lg, seq = sm.decode_step(params32, seq, sp_chunk[:, t:t + 1].to(
+                dev), cfg32, pol)
+            seq_logits.append(lg)
+        seq_logits = torch.stack(seq_logits, 1)
+        torch.testing.assert_close(lv, seq_logits, rtol=1e-3, atol=1e-3)
+        d_seq = float((lv - seq_logits).abs().max())
+        f_seq = held(card, seq, cut)
+        assert torch.equal(card["pos"], seq["pos"])
+        # (3) K3 / K5 at T = 5 from the model's bf16 rows (v a strided view
+        # of a fused QKV output), per-slot pos wrapping the ring, bit-exact
+        qkv = torch.from_numpy(rng_sp.normal(0, 2, (B, t_sp, NH + 2 * NKV,
+                                                    HD)).astype(np.float32))
+        qkv = qkv.to(dev).to(torch.bfloat16)
+        k_in, v_in = qkv[:, :, NH:NH + NKV], qkv[:, :, NH + NKV:]
+        pos_t = torch.from_numpy(rng_sp.integers(0, W, B).astype(np.int32))
+        pos_t[0] = W - 2                        # writes wrap to rows 0..2
+        pos_t = pos_t.to(dev)
+        fn, ref, index = ((pkv.paged_kv_append_rows,
+                           pkv.paged_kv_append_rows_ref,
+                           pkv.flat_dst_rows_chunk(table_idle, pos_t, t_sp,
+                                                   PS)) if cut else
+                          (kvk.kv_append_rows, kvk.kv_append_rows_ref, pos_t))
+        base = [c0["blocks"][0][k][0] for k in ("k", "k_scale", "v",
+                                                 "v_scale")]
+        before = LAUNCHES[append]
+        got = fn(*[x.clone() for x in base], k_in, v_in, index, p8_kv)
+        assert LAUNCHES[append] == before + 1
+        want = ref(*[x.clone() for x in base], k_in.float(), v_in.float(),
+                   index, p8_kv)
+        for g, w_ in zip(got, want):
+            assert bits_equal(g[cut:], w_[cut:]), layout
+        verified[layout] = (pol, cut, card)
+        msgs.append(f"{layout}: verify vs the CPU's verify max |diff| "
+                    f"{d_cpu:.3e}, written codes differing {f_cpu[0]} of "
+                    f"{written} ({f_cpu[1]} near zero); vs 5 sequential card "
+                    f"decode steps max |diff| {d_seq:.3e}, codes differing "
+                    f"{f_seq[0]} ({f_seq[1]} near zero); launches {want_l}")
+    phase(f"phase 11a verify_step (float32, TF32 off, B={B}, T={t_sp}, "
+          f"prompts {sp_lens.tolist()}, logits rtol/atol 1e-3, scales equal, "
+          f"codes one posit step apart on < 0.1 %; K3/K5 at T={t_sp} from "
+          "bf16 rows with per-slot pos bit-exact): " + "; ".join(msgs))
+
+    # 11b. rollback on the card vs the CPU, on the verified caches ------
+    pre = torch.from_numpy(sp_lens.numpy().astype(np.int64))   # pre-verify
+    keep = torch.from_numpy(rng_sp.integers(1, t_sp + 1, B))
+    new_pos = (pre + keep).numpy()
+    new_pos[3] = 0                              # a slot freed this round
+    for layout in ("ring", "paged"):
+        pol, cut, card = verified[layout]
+        cpu = snapshot(card)
+        if cut:
+            tbl = card["page_table"].cpu().long()
+            scrub = np.zeros(B * t_sp, np.int64)    # padded w/ trash row 0
+            n = 0
+            for i in range(B):
+                if i == 3:
+                    continue
+                for p in range(int(new_pos[i]), int(pre[i]) + t_sp):
+                    scrub[n] = int(tbl[i, p // PS]) * PS + p % PS
+                    n += 1
+            rollback_paged_cache(card, new_pos, scrub)
+            rollback_paged_cache(cpu, new_pos, scrub)
+            scrubbed = n
+        else:
+            window_end = (pre + t_sp).numpy()
+            scrub_from = new_pos.copy()
+            scrub_from[3] = window_end[3]
+            rollback_ring_cache(card, new_pos, window_end, scrub_from, t_sp)
+            rollback_ring_cache(cpu, new_pos, window_end, scrub_from, t_sp)
+            scrubbed = int((window_end - scrub_from).sum())
+        assert card["pos"].tolist() == cpu["pos"].tolist() == new_pos.tolist()
+        for k, leaf in card["blocks"][0].items():
+            assert bits_equal(leaf[:, cut:].cpu(), cpu["blocks"][0][k][:, cut:]
+                              ), (layout, k)
+        msgs.append(f"{layout} {scrubbed} rows x {n_l} layers scrubbed")
+    phase(f"phase 11b rollback_ring_cache / rollback_paged_cache on the card "
+          f"bit-exact against the CPU on every row outside trash page 0: "
+          f"{msgs[-2]}, {msgs[-1]}")
+
+    # 11c. speculative serving at full width, bf16: BF16 target with a
+    # posit8 KV, draft posit8_2 weights and a posit8 ring; phase 6's 8
+    # prompts, each cell beside a baseline of the same config -----------
+    spec_counts = ("decode_steps", "tokens", "prefills", "spec_rounds",
+                   "draft_steps", "drafts_proposed", "drafts_accepted")
+    path_kernels = ("posit_decode", "kv_append_rows", "decode_attention",
+                    "paged_kv_append_rows")
+
+    def serve_cell(scfg, gamma=None):
+        """Serve the 8 prompts (max_new 32) through a fresh baseline
+        (``gamma`` None) or speculative engine after a warm-up request, every
+        kernel count set to 0 just before the serve and read just after."""
+        e_ = (ServingEngine(cfg, params, scfg) if gamma is None else
+              SpeculativeEngine(cfg, params, scfg, gamma=gamma))
+        e_.serve([Request(uid=-1, prompt=warm, max_new=3)])
+        keys = [k for k in spec_counts if gamma or k in e_.stats]
+        c0 = {k: e_.stats[k] for k in keys}
+        rq = [Request(uid=i, prompt=p, max_new=32)
+              for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        e_.serve(rq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        assert all(len(r.out_tokens) == 32 for r in rq)
+        assert all(0 <= t < cfg.vocab for r in rq for t in r.out_tokens)
+        if e_.paged:
+            e_.allocator.assert_consistent()
+            assert e_.allocator.live_pages == 0
+        counts = {k: e_.stats[k] - c0[k] for k in keys}
+        return e_, rq, launches, counts, wall
+
+    spec_cells, spec_launches = {}, {k: 0 for k in path_kernels}
+    for layout, extra in (("ring", {}),
+                          ("paged", {"kv_layout": "paged", "page_size": PS,
+                                     "num_pages": ENGINE_PAGES})):
+        scfg = ServeConfig(max_batch=8, max_len=W, kv_format="posit8",
+                           **extra)
+        _, b_rq, _, b_n, b_wall = serve_cell(scfg)
+        for gamma in (2, 4):
+            e_, rq, lc, n, wall = serve_cell(scfg, gamma)
+            need = ["posit_decode", "kv_append_rows", "decode_attention"]
+            need += ["paged_kv_append_rows"] if layout == "paged" else []
+            for k in need:
+                assert lc[k] > 0, (layout, gamma, k, lc)
+                spec_launches[k] += lc[k]
+            assert lc["posit_decode"] == 2 * n_l * n["spec_rounds"], lc
+            decode_tok = n["tokens"] - n["prefills"]
+            agree = sum(a == b for x, y in zip(rq, b_rq)
+                        for a, b in zip(x.out_tokens, y.out_tokens))
+            # a profiled window of 5 rounds on the prompts readmitted
+            e_.add_requests([Request(uid=100 + i, prompt=p, max_new=32)
+                             for i, p in enumerate(prompts)])
+            r_wall, r_launch, r_device = profile_steps(e_.step)
+            e_.serve([])
+            if e_.paged:
+                e_.allocator.assert_consistent()
+                assert e_.allocator.live_pages == 0
+            cell = {
+                "acceptance": n["drafts_accepted"] / n["drafts_proposed"],
+                "target_steps_per_token": n["decode_steps"] / decode_tok,
+                "draft_steps_per_token": n["draft_steps"] / decode_tok,
+                "wall_s": {"baseline": b_wall, "speculative": wall},
+                "tok_s": {"baseline": b_n["tokens"] / b_wall,
+                          "speculative": n["tokens"] / wall},
+                "kv_bytes": e_.kv_cache_bytes(),
+                "kv_bytes_draft_ring": e_._draft_kv_bytes(),
+                "counts": n, "launches": {k: lc[k] for k in path_kernels},
+                "launches_per_round_profiled": {
+                    k: r_launch[k] for k in path_kernels},
+                "round_wall_ms_profiled": r_wall,
+                "tokens_equal_to_baseline": agree}
+            spec_cells[f"{layout}_gamma{gamma}"] = cell
+            phase(f"phase 11c speculative {layout} gamma {gamma}: acceptance "
+                  f"{cell['acceptance']:.4f}, target steps/token "
+                  f"{cell['target_steps_per_token']:.4f}, draft steps/token "
+                  f"{cell['draft_steps_per_token']:.4f}; wall "
+                  f"{b_wall:.3f} s baseline / {wall:.3f} s speculative, "
+                  f"{cell['tok_s']['baseline']:.1f} / "
+                  f"{cell['tok_s']['speculative']:.1f} tok/s; KV "
+                  f"{cell['kv_bytes']} B with the draft ring "
+                  f"({cell['kv_bytes_draft_ring']} B); counts {n}; launches "
+                  f"{cell['launches']}; profiled rounds: wall {r_wall:.3f} "
+                  f"ms/round, launches/round "
+                  f"{cell['launches_per_round_profiled']}, {r_device}; "
+                  f"tokens equal to the baseline's stream {agree} of "
+                  f"{8 * 32} (not asserted)")
+            del e_
+    print(json.dumps({"speculative": spec_cells}), flush=True)
+    main_launches["posit_decode"] = spec_launches["posit_decode"]
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
@@ -1045,6 +1283,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": main_launches[name],
             "launches_per_decode_step": per_step[name],
+            "launches_speculative": spec_launches.get(name, 0),
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1360,7 +1599,7 @@ def main() -> int:
     out.append({
         "name": "posit_matmul", "route": "cuda", "source": src,
         "replaces": repl, "launches": main_launches["posit_matmul"],
-        "launches_per_decode_step": 0,
+        "launches_per_decode_step": 0, "launches_speculative": 0,
         "max_abs_err": err["posit_matmul"], **k7[8192],
         "library_ms": None,
         "shape": "x (8192, 768) f32 x wi (768, 4096) posit8_2, (1, N) scale",

@@ -130,6 +130,28 @@ def kv_storage(policy: Optional[TCPolicy]) -> Optional[KVStorage]:
     return None
 
 
+def draft_policy(policy: "TCPolicy", weights_fmt: str = "posit8_2",
+                 kv_format: str = "posit8") -> "TCPolicy":
+    """The low-precision *draft* policy of self-speculative decoding: the
+    same weights through posit8 (``weights_fmt``) and a posit8 KV ring
+    (``kv_format``).  The draft cache is always a ring (private, rolled
+    back wholesale, never shared) and overrides are dropped: the draft is
+    uniformly cheap."""
+    base = get_policy(policy)
+    return dataclasses.replace(
+        base,
+        name=f"{base.name}+draft_{kv_format}",
+        attn_weights=weights_fmt,
+        mlp_weights=weights_fmt,
+        embed_weights=base.embed_weights or "posit16_2",
+        kv_format=kv_format,
+        kv_layout="ring",
+        packed_kv=False,
+        layer_overrides=(),
+        node_overrides=(),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Presets
 # ---------------------------------------------------------------------------

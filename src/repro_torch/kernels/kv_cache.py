@@ -30,7 +30,7 @@ import torch
 
 from ..core.formats import PositFormat
 from . import _build
-from .posit_decode import decode_tile
+from .posit_decode import decode_tile, posit_decode
 from .posit_encode import encode_tile
 
 NEG_INF = -1e30
@@ -77,6 +77,21 @@ def decode_kv_rows(codes, scale, fmt: PositFormat, packed: bool = False,
     if packed:
         codes = unpack_nibbles(codes)
     return (decode_tile(codes, fmt) * scale).to(out_dtype)
+
+
+def decode_kv_rows_device(codes, scale, fmt: PositFormat,
+                          packed: bool = False):
+    """``decode_kv_rows`` to f32 through K1: on CUDA tensors the codes
+    (nibbles unpacked first) go through ``posit_decode`` and are then
+    multiplied by the row scale; CPU tensors take ``decode_kv_rows``.
+    K1 is bit-exact, so both give the same bits.  The speculative verify
+    reads the whole cache this way; ``decode_kv_rows`` stays plain, the
+    oracle of ``decode_attention_ref``."""
+    if not codes.is_cuda:
+        return decode_kv_rows(codes, scale, fmt, packed)
+    if packed:
+        codes = unpack_nibbles(codes)
+    return posit_decode(codes, fmt) * scale
 
 
 def code_channels(hd: int, fmt: PositFormat, packed: bool = False) -> int:

@@ -42,7 +42,8 @@ from ..core.formats import PositFormat
 from ..models.attention import decode_attention
 from . import _build
 from .kv_cache import (SPLIT_ROWS, code_channels, decode_kv_rows,
-                       encode_kv_rows, launch_append, split_geometry)
+                       decode_kv_rows_device, encode_kv_rows, launch_append,
+                       split_geometry)
 
 
 def flat_dst_rows(page_table, pos, page_size: int):
@@ -152,6 +153,16 @@ def gather_decode_pages(codes, scales, page_table, page_size: int,
     """Gather a slot-logical view of a posit pool and decode it:
     (R, nkv, Dc) codes + (R, nkv) scales -> (B, Pmax*ps, nkv, hd) f32."""
     return decode_kv_rows(
+        gather_pages(codes, page_table, page_size),
+        gather_pages(scales, page_table, page_size)[..., None], fmt, packed)
+
+
+def gather_decode_pages_device(codes, scales, page_table, page_size: int,
+                               fmt: PositFormat, packed: bool = False):
+    """``gather_decode_pages`` with the decode through K1
+    (``decode_kv_rows_device``): the codes and scales are gathered through
+    the table first, then decoded, so f32 is written once per row read."""
+    return decode_kv_rows_device(
         gather_pages(codes, page_table, page_size),
         gather_pages(scales, page_table, page_size)[..., None], fmt, packed)
 

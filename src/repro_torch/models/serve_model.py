@@ -13,11 +13,13 @@ page pool per layer, (P, R, nkv, Dc|hd) with R = num_pages * page_size
 rows and no batch axis, plus a top-level ``page_table`` (B, Pmax) int32
 and a (B,) ``pos`` (``kernels/paged_kv.py`` has the layout).
 
-In place: ``prefill`` and ``decode_step`` write K/V rows into the cache
-tensors they are given (per-layer views of the stacked buffers) and return
-the same dict with a new ``pos``; the reference returns new arrays.  On
-CUDA tensors the posit writes are the K3 (ring) / K5 (paged) kernels and
-the posit reads K4 / K6; on CPU tensors their plain versions.
+In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
+chunk pass of speculative decoding) write K/V rows into the cache tensors
+they are given (per-layer views of the stacked buffers) and return the
+same dict with a new ``pos``; the reference returns new arrays.  On CUDA
+tensors the posit writes are the K3 (ring) / K5 (paged) kernels, the
+decode step's posit reads K4 / K6 and the verify's whole-cache read K1;
+on CPU tensors their plain versions.
 """
 from __future__ import annotations
 
@@ -188,9 +190,121 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
     return logits, cache
 
 
-def verify_step(*args, **kwargs):
-    raise NotImplementedError("verify_step (speculative decoding) is a later "
-                              "slice of the port")
+# ---------------------------------------------------------------------------
+# verify_step: multi-token chunk decode (speculative verify)
+# ---------------------------------------------------------------------------
+
+def _ring_write_rows(buf, val, pos):
+    """buf: (B, W, ...); val: (B, T, ...); row t of slot b lands at
+    (pos[b] + t) mod W, in place."""
+    b, w = buf.shape[:2]
+    idx = (pos.long()[:, None]
+           + torch.arange(val.shape[1], device=buf.device)[None, :]) % w
+    buf[torch.arange(b, device=buf.device)[:, None], idx] = val.to(buf.dtype)
+
+
+def _attn_verify(p, c, x, cfg: ModelCfg, policy, pos,
+                 spec: Optional[KVStorage], paged=None):
+    """One attention layer of the T-token verify pass: append the chunk's
+    T K/V rows (positions pos..pos+T-1 per slot) in place, then causal
+    chunk attention against the whole cache.  Posit caches are written
+    by K3 / K5 at T rows and read by decoding every row through K1
+    (``decode_kv_rows_device`` / ``gather_decode_pages_device``); on CPU
+    tensors the plain versions, which give the logits and rows of T
+    sequential ``decode_step`` calls.  On the card, decode reads through
+    K4 / K6 instead: another summation order.  ``paged`` is (dst (B, T)
+    flat rows, page table, page size), shared by every layer."""
+    b, t = x.shape[:2]
+    posit_kv = spec is not None and spec.is_posit
+    h = rms_norm(x, p["ln"])
+    qp, kp, vp = _qkv(p, h, cfg, policy)
+    posv = pos[:, None] + torch.arange(t, dtype=pos.dtype,
+                                       device=pos.device)[None, :]
+    cos, sin = _rope_cs(cfg, posv)
+    qp = apply_rope(qp, cos, sin)
+    kp = apply_rope(kp, cos, sin)
+    if paged is not None:
+        dst, table, ps = paged
+        if posit_kv:
+            paged_kernels.paged_kv_append_rows(   # K5 at T rows
+                c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, dst,
+                spec.fmt, packed=spec.packed)
+            k_read, v_read = (paged_kernels.gather_decode_pages_device(
+                c[n], c[n + "_scale"], table, ps, spec.fmt, spec.packed)
+                for n in ("k", "v"))
+        else:
+            rows = dst.long().reshape(-1)
+            c["k"][rows] = kp.reshape((b * t,) + kp.shape[2:]).to(
+                c["k"].dtype)
+            c["v"][rows] = vp.reshape((b * t,) + vp.shape[2:]).to(
+                c["v"].dtype)
+            k_read = paged_kernels.gather_pages(c["k"], table, ps)
+            v_read = paged_kernels.gather_pages(c["v"], table, ps)
+    elif posit_kv:
+        kv_kernels.kv_append_rows(                # K3 at T rows
+            c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, pos,
+            spec.fmt, packed=spec.packed)
+        k_read, v_read = (kv_kernels.decode_kv_rows_device(
+            c[n], c[n + "_scale"][..., None], spec.fmt, spec.packed)
+            for n in ("k", "v"))
+    else:
+        _ring_write_rows(c["k"], kp, pos)
+        _ring_write_rows(c["v"], vp, pos)
+        k_read, v_read = c["k"], c["v"]
+    ao = attention.chunk_decode_attention(qp, k_read, v_read, posv)
+    x = x + _einsum("bsk,kd->bsd", ao.reshape(b, t, -1),
+                    _qw(policy, "attn_weights")(p["wo"])).to(x.dtype)
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+
+
+def check_verifiable(cfg) -> None:
+    """The reference's refusals: a verify chunk needs every token to write
+    exactly one cache row that rollback can rewind (attention-only, no
+    MoE capacity routing, no cross-attention, no sliding window)."""
+    blocks = set(getattr(cfg, "block_types", ("attn",)))
+    if blocks != {"attn"}:
+        raise ValueError("verify_step supports attention-only stacks; "
+                         f"{cfg.name} has blocks {blocks}")
+    if cfg.family == "moe":
+        raise ValueError("verify_step does not support MoE stacks (chunked "
+                         "dispatch changes capacity routing vs per-token)")
+    if cfg.family == "audio":
+        raise ValueError("verify_step does not support encoder-decoder "
+                         "stacks (no cross-attention in the chunk path)")
+    if getattr(cfg, "window", None):
+        raise ValueError("verify_step does not support sliding-window "
+                         "attention (rollback assumes no ring wraparound)")
+
+
+def verify_step(params, cache, tokens, cfg: ModelCfg,
+                policy: TCPolicy = BF16):
+    """Multi-token verify pass of self-speculative decoding: score a (B, T)
+    token chunk in one model call.  Token t of slot b is scored and its
+    K/V row written, in place, at position ``pos[b] + t``.  Returns
+    (logits (B, T, vocab_pad), cache) with ``pos`` + T; the caller commits
+    the accepted tokens and rolls the cache back past the first rejection
+    (``serve/speculative.py``)."""
+    check_verifiable(cfg)
+    check_layout(policy)
+    spec = kv_storage(policy)
+    b, t = tokens.shape
+    pos = cache["pos"]
+    pos_l = (pos.expand(b) if pos.ndim == 0 else pos).to(torch.int32)
+    emb = policy.quantize_weight(params["embed"], "embed_weights")
+    x = emb[tokens].to(cfg.dtype)
+    table, paged = cache.get("page_table"), None
+    if table is not None:
+        ps = policy.kv_page_size
+        paged = (paged_kernels.flat_dst_rows_chunk(table, pos_l, t, ps),
+                 table, ps)
+    for i in range(cfg.n_layers):
+        x = _attn_verify(layer_params(params["blocks"][0], i),
+                         _layer_cache(cache, i), x, cfg, policy, pos_l, spec,
+                         paged)
+    x = rms_norm(x, params["final_norm"])
+    logits = _einsum("bsd,dv->bsv", x, lm_head(params, cfg))
+    cache["pos"] = pos + t
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -183,18 +183,21 @@ class ServingEngine:
         self.stats["kv_cache_bytes"] = self.kv_cache_bytes()
 
     # ---- cache footprint ----
-    def _kv_bytes(self, pool_frac: float = 1.0) -> int:
-        """Bytes of the attention K/V leaves (codes + scales); the paged
-        pool's leaves scaled by an allocated-page fraction.  Leaves are
+    def _kv_bytes(self, pool_frac: float = 1.0, cache=None) -> int:
+        """Bytes of the attention K/V leaves (codes + scales) of ``cache``
+        (default: the engine's target cache); the paged pool's leaves
+        scaled by an allocated-page fraction (another cache, such as the
+        speculative engine's draft ring, is never scaled).  Leaves are
         summed in the reference's order (sorted names), scaled one by one,
         so the float result truncates alike."""
+        paged = self.paged and cache is None
         total = 0.0
-        for blk in self.cache["blocks"]:
+        for blk in (self.cache if cache is None else cache)["blocks"]:
             for name in sorted(blk):
                 if name in _KV_LEAF_NAMES:
                     t = blk[name]
                     nbytes = t.numel() * t.element_size()
-                    total += nbytes * pool_frac if self.paged else nbytes
+                    total += nbytes * pool_frac if paged else nbytes
         return int(total)
 
     def kv_cache_bytes(self) -> int:
@@ -391,16 +394,16 @@ class ServingEngine:
         self.stats["evictions"] += 1
         return slot
 
-    def _grow_pages(self, active: List[int]) -> None:
-        """Allocate pages so each active slot can write the row of this
-        tick (its position ``slot_pos``).  Under ``page_overcommit`` a dry
-        pool evicts the newest sequence instead of raising (possibly the
-        growing one: its ``slot_req`` goes None)."""
+    def _grow_pages(self, active: List[int],
+                    target: Callable[[int], int]) -> None:
+        """Allocate pages so each active slot i can write rows up to
+        ``target(i) - 1`` this tick.  Under ``page_overcommit`` a dry pool
+        evicts the newest sequence instead of raising (possibly the growing
+        one: its ``slot_req`` goes None)."""
         grew = False
         for i in active:
             while self.slot_req[i] is not None:
-                need = self.slot_pages[i].pages_needed(
-                    int(self.slot_pos[i]) + 1)
+                need = self.slot_pages[i].pages_needed(int(target(i)))
                 if not need:
                     break
                 pages = self.allocator.alloc(need)
@@ -459,7 +462,7 @@ class ServingEngine:
             return
         if self.paged:
             # every active slot needs a page for the row this tick writes
-            self._grow_pages(active)
+            self._grow_pages(active, lambda i: self.slot_pos[i] + 1)
             active = [i for i in active if self.slot_req[i] is not None]
             if not active:
                 return

@@ -17,6 +17,9 @@
 * **generate** is one decode tick for the whole batch with per-slot
   positions; it writes K/V rows in place and advances ``state["tok"]`` to
   the greedy argmax per slot on the device.
+* **verify** scores a (B, T) draft chunk in one target-precision pass and
+  **rollback_ring** / **rollback_paged** rewind the rows a round rejected
+  (the stages ``serve/speculative.py`` drives).
 
 Observability: with an enabled tracer every stage call is wrapped in a
 ``<stage>.dispatch`` span (the Python call, kernels queued) and a
@@ -35,7 +38,7 @@ import torch
 from .. import resolve_device
 from ..core.transprecision import TCPolicy, get_policy
 from ..models.serve_model import (check_layout, decode_step, init_cache,
-                                  prefill)
+                                  prefill, verify_step)
 from ..obs import MetricsRegistry, Tracer
 
 _MIN_BUCKET = 16
@@ -43,6 +46,51 @@ _MIN_BUCKET = 16
 # A Prefix: {"logits": (B, vocab_pad), "cache": prefill cache (leaf rows at
 # bucket width), "length": (B,) int32 true prompt lengths}.
 Prefix = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Rollback stages (speculative decoding)
+# ---------------------------------------------------------------------------
+
+def rollback_ring_cache(cache, new_pos, window_end, scrub_from, t: int):
+    """Rewind a ring-layout cache after a verify round, in place: set
+    ``pos`` to ``new_pos`` (B,) and reset the speculatively written rows
+    to their init values (codes / floats 0, scales 1).
+
+    Scatter form, O(B·t) rows: per slot only the window of the last ``t``
+    rows written, ``[window_end - t, window_end)`` (``window_end`` floored
+    at t), and of those the rows at positions ``>= scrub_from``.  Slots
+    with nothing to scrub pass ``scrub_from == window_end``.  Row index ==
+    position: ``verify_step`` refuses sliding windows and a round never
+    writes past the cap."""
+    dev = cache["pos"].device
+    end = torch.clamp(torch.as_tensor(window_end, device=dev).long(), min=t)
+    frm = torch.as_tensor(scrub_from, device=dev).long()
+    rows = end[:, None] - t + torch.arange(t, device=dev)[None, :]  # (B, t)
+    mask = rows >= frm[:, None]
+    slot = torch.arange(rows.shape[0], device=dev)[:, None].expand_as(rows)
+    bi, ri = slot[mask], rows[mask]
+    for blk in cache["blocks"]:              # K/V leaves (P, B, W, ...)
+        for name, leaf in blk.items():
+            leaf[:, bi, ri] = 1.0 if name.endswith("_scale") else 0
+    cache["pos"] = torch.as_tensor(new_pos, device=dev).to(torch.int32,
+                                                            copy=True)
+    return cache
+
+
+def rollback_paged_cache(cache, new_pos, scrub_rows):
+    """Rewind a paged-layout cache, in place: set ``pos`` to ``new_pos``
+    (B,) and reset the flat pool rows ``scrub_rows`` ((N,), padded with
+    trash row 0, where writes are benign) to their init values.  Page-table
+    truncation and allocator frees are the engine's host-side half."""
+    dev = cache["pos"].device
+    rows = torch.as_tensor(scrub_rows, device=dev).long()
+    for blk in cache["blocks"]:              # K/V pool leaves (P, R, ...)
+        for name, leaf in blk.items():
+            leaf[:, rows] = 1.0 if name.endswith("_scale") else 0
+    cache["pos"] = torch.as_tensor(new_pos, device=dev).to(torch.int32,
+                                                            copy=True)
+    return cache
 
 
 class TransprecisionEngine:
@@ -184,10 +232,29 @@ class TransprecisionEngine:
         ``tok``.  Returns ``(state, logits (B, vocab_pad))``."""
         return self._staged("generate", self._generate_impl, params, state)
 
-    def verify(self, *args, **kwargs):
-        raise NotImplementedError("verify (speculative decoding) is a later "
-                                  "slice of the port")
+    # ---- stage: verify (speculative rounds) ----
+    def _verify_impl(self, params, state, chunk):
+        logits, state = verify_step(params, state, chunk, self.cfg,
+                                    self.policy)
+        return state, logits
 
-    def rollback_ring(self, *args, **kwargs):
-        raise NotImplementedError("rollback (speculative decoding) is a "
-                                  "later slice of the port")
+    def verify(self, params, state, chunk):
+        """Score a (B, T) draft chunk in one target-precision pass
+        (``models.serve_model.verify_step``): token t of slot b is scored
+        and its K/V row written at position ``pos[b] + t``, in place.
+        Returns ``(state, logits (B, T, vocab_pad))``; ``state["tok"]`` is
+        left for the caller to set after acceptance."""
+        chunk = torch.as_tensor(chunk, device=self.device).to(torch.int64)
+        return self._staged("verify", self._verify_impl, params, state,
+                            chunk)
+
+    # ---- stage: rollback ----
+    def rollback_ring(self, state, new_pos, window_end, scrub_from, t: int):
+        """:func:`rollback_ring_cache`, in place."""
+        return self._staged("rollback", rollback_ring_cache, state, new_pos,
+                            window_end, scrub_from, t)
+
+    def rollback_paged(self, state, new_pos, scrub_rows):
+        """:func:`rollback_paged_cache`, in place."""
+        return self._staged("rollback", rollback_paged_cache, state,
+                            new_pos, scrub_rows)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
 its entry points (ring and paged serving, the matmul kernel, training and
-the quickstart) default to the GPU and raise without one, and the parts
-left to later slices raise ``NotImplementedError``."""
+the quickstart, speculative serving) default to the GPU and raise without
+one, and the parts left to later slices raise ``NotImplementedError``."""
 import ast
 import os
 import subprocess
@@ -27,6 +27,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 SLICE3 = ("repro_torch.kernels.posit_matmul", "repro_torch.kernels.ops",
           "repro_torch.quickstart", "repro_torch.optim.adamw",
           "repro_torch.data.pipeline", "repro_torch.train.step")
+# ... and of speculative serving
+SPECULATIVE = ("repro_torch.serve.speculative",)
+REACHED = SLICE3 + SPECULATIVE
 
 
 def _imported(tree):
@@ -42,7 +45,7 @@ def test_no_jax_or_repro_imports_in_source():
     assert len(files) > 10
     names = {".".join(("repro_torch",) + f.relative_to(PKG).with_suffix(
         "").parts) for f in files}
-    assert set(SLICE3) <= names, set(SLICE3) - names
+    assert set(REACHED) <= names, set(REACHED) - names
     for f in files:
         for mod in _imported(ast.parse(f.read_text())):
             assert mod.split(".")[0] not in FORBIDDEN, (f, mod)
@@ -57,7 +60,7 @@ def test_whole_port_imports_without_jax_or_repro():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
-        f"missing = set({SLICE3!r}) - set(sys.modules)\n"
+        f"missing = set({REACHED!r}) - set(sys.modules)\n"
         "assert not missing, missing\n"
         "print('ok', len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -103,8 +106,6 @@ def test_kernel_build_raises_without_nvcc():
 
 def test_later_slices_raise_not_implemented():
     cfg = get_config("paper-edge", smoke=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve_model.verify_step()
     with pytest.raises(NotImplementedError, match="later slice"):
         ModelCfg(family="moe")
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -157,3 +158,21 @@ def test_training_and_quickstart_entry_points_default_to_gpu():
                  quickstart.train_step_demo, lambda: quickstart.main([])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
+
+
+def test_speculative_engine_defaults_to_gpu():
+    """The speculative engine runs on the card unless the caller asks for
+    the CPU, and raises without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from repro_torch.serve.speculative import SpeculativeEngine
+    cfg = get_config("paper-edge", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    for layout in ("ring", "paged"):
+        scfg = ServeConfig(max_batch=2, max_len=32, kv_format="posit8",
+                           kv_layout=layout, page_size=4)
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            SpeculativeEngine(cfg, params, scfg)
+        eng = SpeculativeEngine(cfg, params, scfg, device="cpu")
+        assert eng.draft_cache["blocks"][0]["k"].device.type == "cpu"
