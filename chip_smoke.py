@@ -7,8 +7,12 @@ full-width paper-edge model through ``ServingEngine`` with a posit8 KV ring
 and then a posit8 paged pool, checks card against CPU at float32 in both
 layouts, runs the quickstart path at full width (the codec, K7 through
 ``qt_matmul`` on every weight matrix, five PAPER_EDGE train steps), checks
-a train step card against CPU, times every kernel and prints one JSON line
-per contract.  Needs one CUDA GPU; run from the repository root:
+a train step card against CPU, trains full-width paper-edge through the
+``Trainer`` under MIXED_TC (the posit16 gradient wire: K2 in its
+normalising mode, then K1, on every gradient leaf) with checkpoints, a
+crash and a restore, holds remat "dots" to "full", times every kernel and
+prints one JSON line per contract.  Needs one CUDA GPU; run from the
+repository root:
 
     python3 chip_smoke.py [--seed N]
 
@@ -31,7 +35,19 @@ card vs CPU; then K7's times.  Phases 11a-11c run after 7b (own generator):
 sequential decode steps, and K3/K5 at T = 5 from bf16 rows; 11b rollback,
 card vs CPU; 11c speculative serving (main path of K1) in both layouts at
 gamma 2 and 4, each beside a baseline engine, printed as a
-``{"speculative": ...}`` JSON line.
+``{"speculative": ...}`` JSON line.  Phase 12 runs after 10b (own
+generators): 12a K2's wire mode (subnormals normalised, as
+``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
+posit16_2, and on sampled inputs and views for every format; 12b the wire
+on one full-width step's gradients, kernels against the plain versions on
+the card, its launches (11 K2 + 11 K1), its time, K2 and K1 at the wi
+leaf, and train steps with and without the wire; 12c the ``Trainer``
+(MIXED_TC, batch 8 x 1024): 6 steps straight, then checkpoints every 3
+steps under ``build/``, a crash at step 4 and a fresh ``Trainer`` that
+restores and finishes, with checkpoint bytes and save / write / restore
+times; 12d two steps each under remat "dots", "none" and "full" from one
+state, in turns, with each one's step time and peak memory; a
+``{"training": ...}`` JSON line.
 
 Every phase asserts; nothing is caught.  Tolerances:
   K1, K2, K3, K5 bit-exact against decode_tile / encode_tile /
@@ -62,6 +78,20 @@ Every phase asserts; nothing is caught.  Tolerances:
                  decode steps: logits rtol 1e-3, atol 1e-3; written codes
                  by the card-vs-CPU rule above; K3/K5 bit-exact.
   rollback (11b) bit-exact card vs CPU outside trash page 0.
+  wire (12a, 12b) K2's wire mode bit-exact against encode_f32; the wire's
+                 scales, codes, decoded gradients and residuals bit-exact
+                 against quant.quantize / dequantize on the card from the
+                 same gradients and residuals; exactly 11 K2 and 11 K1
+                 launches per wire.
+  Trainer (12c)  the restored state bit-exact against the checkpoint's
+                 arrays; final loss of crash + restore within rtol 1e-5 of
+                 the straight run's (the reference's own test tolerance:
+                 the card's reductions need not repeat bit for bit);
+                 losses finite, and lower on the first batch after the 6
+                 steps; 66 K2 and 66 K1 launches in 6 steps.
+  remat (12d)    "dots" and "none" vs "full" from one state: losses
+                 equal, updated params and master within atol 1e-5
+                 (phase 10b's).
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -85,7 +115,11 @@ weights: a labelled yardstick, not the same function (no PyTorch call
 decodes posit codes, so ``library_ms`` is null), its tensor-core bound
 (``bound_ms``: 3 bf16 passes at the tensor cores' peak) beside the bound
 of the same product in f32 without tensor cores (``bound_f32_simt_ms``),
-and the crossover between its two paths with the times it was set from.  The decode-step and
+and the crossover between its two paths with the times it was set from.
+K2's ``launches`` are the training path's (12c: the Trainer's 6 steps);
+K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
+and ``wire_wi``, their time at the wire's largest leaf (wi's gradient,
+37,748,736 values, posit16_2) against its bytes bound.  The decode-step and
 train-step profiles (device busy, idle share) come from a torch.profiler
 trace and read "not measured" where the trace holds no device events.
 """
@@ -94,7 +128,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1620,6 +1656,362 @@ def main() -> int:
                       f"{1e3 * v['plain_ms']:.2f}, decoded-W torch.matmul "
                       f"{1e3 * v['decoded_matmul_ms']:.2f})"
                       for m_, v in k7.items()))
+    # 12. the rest of training at full width: the posit gradient wire (K2
+    # in its normalising mode, then K1, on every gradient leaf), the
+    # Trainer with checkpoints, a crash and a restore, and remat "dots"
+    # (own generators) ----------------------------------------------------
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.core import quant as tquant
+    from repro_torch.core.posit import encode_f32
+    from repro_torch.core.transprecision import MIXED_TC
+    from repro_torch.optim import compression as wire
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.fault_tolerance import CrashBarrier
+    p16 = get_fmt("posit16_2")
+    wire_fmt = MIXED_TC.grad_wire
+    assert wire_fmt == "posit16_2"
+    rng12 = np.random.default_rng([args.seed, 12])
+
+    # 12a. K2's wire mode against core.posit.encode_f32 (subnormals
+    # normalised: +-minpos) on every f32 bit pattern for posit8_2 and
+    # posit16_2, and for every format on sampled inputs and views
+    t12 = time.perf_counter()
+    for name in EXHAUSTIVE_FORMATS:
+        fmt = get_fmt(name)
+        for c0 in range(0, 1 << 32, chunk):
+            p_ = torch.arange(c0, c0 + chunk, dtype=torch.int64, device=dev)
+            xs = torch.where(p_ >= 1 << 31, p_ - (1 << 32), p_).to(
+                torch.int32).view(torch.float32)
+            assert torch.equal(posit_encode(xs, fmt, subnormals="normalize"),
+                               encode_f32(xs, fmt)), (name, c0)
+        del p_, xs
+    torch.cuda.synchronize()
+    t_exh = time.perf_counter() - t12
+    sub = rng12.integers(1, 1 << 23, 1 << 16, dtype=np.uint64).astype(
+        np.uint32) | (rng12.integers(0, 2, 1 << 16, dtype=np.uint64).astype(
+            np.uint32) << np.uint32(31))
+    xw = torch.from_numpy(np.concatenate([
+        rng12.standard_t(3, 1 << 16).astype(np.float32) * 2.0 ** -16,
+        sub.view(np.float32),
+        rng12.integers(0, 1 << 32, 1 << 20, dtype=np.uint64).astype(
+            np.uint32).view(np.float32)])).to(dev)
+    for name in ALL_FORMATS:
+        fmt = get_fmt(name)
+        for xv in (xw, xw[1:], xw[:-1], xw[3:-2]):
+            before = LAUNCHES["posit_encode"]
+            assert torch.equal(posit_encode(xv, fmt, subnormals="normalize"),
+                               encode_f32(xv, fmt)), (name, xv.numel(),
+                                                      xv.data_ptr() % 16)
+            assert LAUNCHES["posit_encode"] == before + 1
+        # the flush mode, the kernels' rule, still gives 0 there
+        assert not posit_encode(xw[1 << 16:2 << 16], fmt).any(), name
+    phase(f"phase 12a K2 posit_encode wire mode (subnormals normalised) "
+          f"bit-exact against encode_f32 on all 2^32 f32 bit patterns for "
+          f"{', '.join(EXHAUSTIVE_FORMATS)} ({t_exh:.1f} s), and for "
+          f"{', '.join(ALL_FORMATS)} on {xw.numel()} inputs (gradient-like "
+          f"at 2^-16, 2^16 subnormals, 2^20 random patterns) as x, x[1:], "
+          f"x[:-1], x[3:-2]; the flush mode gives 0 on every subnormal")
+    del xw
+
+    # 12b. the wire on one full-width step's gradients (MIXED_TC, batch 8 x
+    # 1024, bf16): kernels against the plain versions on the card, from
+    # identical gradients and residuals
+    opt12 = AdamWConfig(lr=1e-3, total_steps=6, warmup_steps=1)
+    pipe12 = make_pipeline(cfg, global_batch=8, seq_len=1024,
+                           seed=args.seed, device=dev)
+    gen12 = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    st12 = init_train_state(cfg, opt12, MIXED_TC, generator=gen12,
+                            device=dev)
+    leaves12 = tree_leaves(st12.params)
+    for p in leaves12:
+        p.requires_grad_(True)
+    loss12, _ = lm.loss_fn(st12.params, pipe12(0), cfg, MIXED_TC)
+    grads12 = list(torch.autograd.grad(loss12, leaves12))
+    for p in leaves12:
+        p.requires_grad_(False)
+    del st12, leaves12
+    n_grad = sum(g.numel() for g in grads12)
+    assert len(grads12) == 11 and n_grad == n_params, (len(grads12), n_grad)
+    _, r0 = wire.compress_grads(grads12, wire_fmt)   # one step's residual
+    torch.cuda.synchronize()
+    reset_launches()
+    deq_k, res_k = wire.error_feedback_update(grads12, r0, wire_fmt)
+    torch.cuda.synchronize()
+    wire_launches = {k: v for k, v in LAUNCHES.items() if v}
+    assert wire_launches == {"posit_encode": 11, "posit_decode": 11}, \
+        wire_launches
+    wires_k, res_k2 = wire.compress_grads(grads12, wire_fmt, r0)
+    for i, (g, r) in enumerate(zip(grads12, r0)):
+        g32 = g.to(torch.float32) + r
+        qt = tquant.quantize(g32, p16, axis=None)       # plain: encode_f32
+        deq = tquant.dequantize(qt)                     # plain: decode
+        assert bits_equal(wires_k[i].scale, qt.scale), i
+        assert torch.equal(wires_k[i].data, qt.data), i
+        assert bits_equal(deq_k[i], deq), i
+        assert bits_equal(res_k[i], g32 - deq), i
+        assert bits_equal(res_k2[i], g32 - deq), i
+        assert torch.isfinite(deq).all() and torch.isfinite(res_k[i]).all()
+    del deq_k, res_k, res_k2, g32, qt, deq
+    # the wire's time per step: CUDA events around the eager call, and its
+    # device busy time by kernel from a profiler trace
+    wire_ms = time_ms(lambda i: wire.error_feedback_update(
+        grads12, r0, wire_fmt), 1, iters=3, reps=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wire.error_feedback_update(grads12, r0, wire_fmt)
+        torch.cuda.synchronize()
+    wire_ops = {k: v / 1e3 for k, v in device_events(prof).items()}
+    wire_busy = sum(wire_ops.values())
+    wire_top = sorted(wire_ops.items(), key=lambda kv: -kv[1])[:6]
+    wire_device = (f"device busy {wire_busy:.3f} ms; top (ms): "
+                   + ", ".join(f"{k} {v:.3f}" for k, v in wire_top)) \
+        if wire_ops else "device busy not measured (no device events)"
+    # K2 and K1 at the largest leaf, wi (12 x 768 x 4096)
+    i_wi = max(range(11), key=lambda i: grads12[i].numel())
+    n_wi = grads12[i_wi].numel()
+    x_wi = (grads12[i_wi].to(torch.float32) + r0[i_wi]) \
+        / wires_k[i_wi].scale
+    codes_wi = posit_encode(x_wi, p16, subnormals="normalize")
+    assert torch.equal(codes_wi, wires_k[i_wi].data)
+    k2_wi_ms = graph_ms(lambda i: posit_encode(x_wi, p16,
+                                               subnormals="normalize"), 1)
+    k1_wi_ms = graph_ms(lambda i: posit_decode(codes_wi, p16), 1)
+    wi_bound_ms = n_wi * (4 + 2) / H100_BYTES_PER_S * 1e3
+    k2_wi_plain_ms = time_ms(lambda i: encode_f32(x_wi, p16), 1, iters=1,
+                             reps=3)
+    k1_wi_plain_ms = time_ms(lambda i: decode_tile(codes_wi, p16), 1,
+                             iters=1, reps=3)
+    wire_b = wire.wire_bytes(grads12, wire_fmt)
+    assert wire_b == n_params * 2 and wire.wire_bytes(grads12, None) \
+        == n_params * 4
+    del grads12, r0, wires_k, x_wi, codes_wi
+
+    def three_steps(policy):
+        """Three train steps of a fresh full-width state under ``policy``:
+        ms of each (CUDA events), the losses and the peak memory over what
+        was allocated before the state was built."""
+        gen_s = torch.Generator(device=dev).manual_seed(args.seed + 12)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st = init_train_state(cfg, opt12, policy, generator=gen_s,
+                              device=dev)
+        step = make_train_step(cfg, opt12, policy)
+        ms, losses = [], []
+        for s in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, m = step(st, pipe12(s))
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        assert all(np.isfinite(losses)), losses
+        return {"ms": ms, "losses": losses, "peak_bytes": peak,
+                "peak_over_base_bytes": peak - base}
+
+    # in turns (without, with, with, without): the host-bound step's time
+    # drifts within a call; ms/step is the median of steps 2-3 of both runs
+    runs = [three_steps(pol) for pol in (PAPER_EDGE, MIXED_TC, MIXED_TC,
+                                         PAPER_EDGE)]
+    no_wire, with_wire = runs[0], runs[1]
+    for r, other in ((no_wire, runs[3]), (with_wire, runs[2])):
+        assert r["losses"] == other["losses"], (r, other)
+        r["ms"] = [r["ms"], other["ms"]]
+        r["ms_per_step"] = statistics.median(r["ms"][0][1:]
+                                             + r["ms"][1][1:])
+    phase(f"phase 12b the posit16_2 wire on one full-width step's gradients "
+          f"(MIXED_TC, bf16, batch 8 x 1024, {n_grad} values in 11 leaves): "
+          f"scales, codes, decoded gradients and residuals bit-exact against "
+          f"the plain versions on the card (quant.quantize / dequantize) on "
+          f"all 11 leaves; launches per wire {wire_launches}; wire bytes "
+          f"{wire_b} (f32 {n_params * 4}); the wire {wire_ms:.3f} ms per "
+          f"step (CUDA events, eager), {wire_device}; at wi ({n_wi} values) "
+          f"K2 {1e3 * k2_wi_ms:.2f} µs, K1 {1e3 * k1_wi_ms:.2f} µs (CUDA "
+          f"graph; bytes bound {1e3 * wi_bound_ms:.2f} each; plain "
+          f"{1e3 * k2_wi_plain_ms:.0f} / {1e3 * k1_wi_plain_ms:.0f} µs); "
+          f"train step {no_wire['ms_per_step']:.2f} ms without the wire "
+          f"(PAPER_EDGE), {with_wire['ms_per_step']:.2f} ms with it "
+          f"(MIXED_TC) (CUDA events, median of steps 2-3 of two runs in "
+          f"turns; {no_wire['ms']} / {with_wire['ms']}); peak memory {no_wire['peak_bytes']} / "
+          f"{with_wire['peak_bytes']} B, over the state's base "
+          f"{no_wire['peak_over_base_bytes']} / "
+          f"{with_wire['peak_over_base_bytes']} B")
+
+    # 12c. the Trainer at full width under MIXED_TC: 6 steps straight, then
+    # checkpoints every 3 steps, a crash at step 4 and a fresh Trainer that
+    # restores and finishes; checkpoints under build/ (removed after)
+    ck_root = ROOT / "build" / f"chip_smoke_ckpt_{os.getpid()}"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    tkw = dict(steps=6, global_batch=8, seq_len=1024, seed=args.seed,
+               log_every=1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out1 = Trainer(cfg, TrainerConfig(**tkw), opt12, policy=MIXED_TC,
+                   device=dev).run()
+    straight_s = time.perf_counter() - t0
+    train_launches = {k: v for k, v in LAUNCHES.items() if v}
+    assert train_launches == {"posit_encode": 66, "posit_decode": 66}, \
+        train_launches
+    losses1 = [h["loss"] for h in out1["history"]]
+    assert len(losses1) == 6 and all(np.isfinite(losses1)), losses1
+    with torch.no_grad():
+        loss_first = float(lm.loss_fn(out1["state"].params, pipe12(0), cfg,
+                                      MIXED_TC)[0])
+    assert loss_first < losses1[0], (loss_first, losses1)
+    dts = [h["s_per_step"] for h in out1["history"]]
+    del out1
+    ck_cfg = TrainerConfig(checkpoint_dir=str(ck_root / "run"),
+                           checkpoint_every=3, **tkw)
+    tr2 = Trainer(cfg, ck_cfg, opt12, policy=MIXED_TC, device=dev,
+                  crash_barrier=CrashBarrier(crash_at_steps=[4]))
+    crashed = None
+    try:
+        tr2.run()
+    except CrashBarrier.SimulatedFault as e:      # the injected fault
+        crashed = str(e)
+    assert crashed is not None
+    tr2.ckpt.wait()
+    assert tr2.ckpt.steps() == [3], tr2.ckpt.steps()
+    del tr2
+    tr3 = Trainer(cfg, ck_cfg, opt12, policy=MIXED_TC, device=dev)
+    state3, start3 = tr3.restore_or_init()
+    assert start3 == 3 and int(state3.opt["step"]) == 3
+    with np.load(ck_root / "run" / "step_3" / "arrays.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    restored = _flatten(state3)
+    assert restored.keys() == saved.keys() and len(saved) == 5 * 11 + 1
+    for k, t in restored.items():
+        got = t.cpu()           # bf16 is float32 on disk: exact both ways
+        if got.dtype == torch.bfloat16:
+            got = got.to(torch.float32)
+        assert bits_equal(got, torch.from_numpy(saved[k])), k
+    ck_bytes = (ck_root / "run" / "step_3" / "arrays.npz").stat().st_size
+    del state3, saved, restored
+    out3 = tr3.run()
+    losses3 = [h["loss"] for h in out3["history"]]
+    np.testing.assert_allclose(out3["metrics"]["loss"], losses1[-1],
+                               rtol=1e-5)
+    assert tr3.ckpt.steps() == [3, 6], tr3.ckpt.steps()
+    # save (the synchronous snapshot), write (the thread) and restore times
+    # of one checkpoint of the final state
+    shutil.rmtree(ck_root / "run")
+    mgr = CheckpointManager(str(ck_root / "timed"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(out3["state"], 6, blocking=False)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mgr.wait()
+    write_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mgr.restore(out3["state"])
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    del out3, tr3, mgr
+    shutil.rmtree(ck_root)
+    phase(f"phase 12c Trainer at full width (MIXED_TC, bf16, batch 8 x "
+          f"1024, AdamW lr 1e-3): straight 6 steps, losses "
+          f"{[round(v, 5) for v in losses1]} (finite; on the first batch "
+          f"{losses1[0]:.5f} -> {loss_first:.5f}), {straight_s:.1f} s, "
+          f"step dt {[round(v, 3) for v in dts]} s (CUDA events), "
+          f"launches {train_launches} (11 K2 + 11 K1 per step); crash "
+          f"injected at step 4 ({crashed!r}) after a checkpoint at 3, a "
+          f"fresh Trainer restored step 3 bit for bit (56 leaves) and "
+          f"finished: losses {[round(v, 5) for v in losses3]}, final "
+          f"{losses3[-1]:.6f} vs {losses1[-1]:.6f} straight (rtol 1e-5); "
+          f"checkpoint {ck_bytes} B; save {save_ms:.1f} ms (snapshot to "
+          f"host), write {write_ms:.1f} ms (thread), restore "
+          f"{restore_ms:.1f} ms")
+
+    # 12d. full-width steps under remat "dots" and "none" against "full"
+    # from one state: the same ops, so the same losses and updates; each
+    # one's step time and peak memory
+    gen_d = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    st_full = init_train_state(cfg, opt12, MIXED_TC, generator=gen_d,
+                               device=dev)
+    remat = {label: {"cfg": dataclasses.replace(cfg, remat=label),
+                     "st": st_full if label == "full" else TrainState(
+                         snapshot(st_full.params, dev),
+                         snapshot(st_full.opt, dev),
+                         snapshot(st_full.ef_residual, dev)),
+                     "loss": [], "ms": []}
+             for label in ("full", "dots", "none")}
+    # two steps each, in turns (full, dots, none, none, dots, full); peak
+    # memory of each one's first step
+    for s_, label in ((0, "full"), (0, "dots"), (0, "none"), (1, "none"),
+                      (1, "dots"), (1, "full")):
+        r = remat[label]
+        step = make_train_step(r["cfg"], opt12, MIXED_TC)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, m = step(r["st"], pipe12(s_))
+        e1.record()
+        torch.cuda.synchronize()
+        r["loss"].append(float(m["loss"]))
+        r["ms"].append(e0.elapsed_time(e1))
+        if s_ == 0:
+            r["peak_bytes"] = torch.cuda.max_memory_allocated()
+            r["peak_over_base_bytes"] = r["peak_bytes"] - base
+    remat_diff = {}
+    for label in ("dots", "none"):
+        assert remat[label]["loss"] == remat["full"]["loss"], remat
+        remat_diff[label] = 0.0
+        for a, b in zip(tree_leaves([st_full.params, st_full.opt["master"]]),
+                        tree_leaves([remat[label]["st"].params,
+                                     remat[label]["st"].opt["master"]])):
+            remat_diff[label] = max(remat_diff[label], float(
+                (a.float() - b.float()).abs().max()))
+        assert remat_diff[label] <= 1e-5, remat_diff
+    for r in remat.values():
+        del r["cfg"], r["st"]
+    del st_full
+    phase(f"phase 12d remat dots and none vs full, two full-width MIXED_TC "
+          f"steps each from one state, in turns: losses equal "
+          f"({[round(v, 6) for v in remat['full']['loss']]}), updated "
+          f"params and master max |diff| dots {remat_diff['dots']:.2e}, none "
+          f"{remat_diff['none']:.2e} (atol 1e-5); steps full "
+          f"{[round(v, 1) for v in remat['full']['ms']]} / dots "
+          f"{[round(v, 1) for v in remat['dots']['ms']]} / none "
+          f"{[round(v, 1) for v in remat['none']['ms']]} ms (CUDA events); "
+          f"peak memory of the first step {remat['full']['peak_bytes']} / "
+          f"{remat['dots']['peak_bytes']} / {remat['none']['peak_bytes']} B, "
+          f"over the states' base {remat['full']['peak_over_base_bytes']} / "
+          f"{remat['dots']['peak_over_base_bytes']} / "
+          f"{remat['none']['peak_over_base_bytes']} B")
+    print(json.dumps({"training": {
+        "wire": {"format": wire_fmt, "values": n_grad, "wire_bytes": wire_b,
+                 "f32_bytes": n_params * 4, "launches": wire_launches,
+                 "ms_per_step_events": wire_ms,
+                 "device_busy_ms": wire_busy if wire_ops else None,
+                 "k2_wi_ms": k2_wi_ms, "k1_wi_ms": k1_wi_ms,
+                 "wi_bound_ms": wi_bound_ms},
+        "train_step": {"no_wire": no_wire, "wire": with_wire},
+        "trainer": {"losses_straight": losses1, "losses_restored": losses3,
+                    "step_dt_s": dts, "launches": train_launches,
+                    "checkpoint_bytes": ck_bytes, "save_ms": save_ms,
+                    "write_ms": write_ms, "restore_ms": restore_ms},
+        "remat": remat}}), flush=True)
+    for entry, name in ((out[0], "posit_decode"), (out[1], "posit_encode")):
+        entry["launches_train"] = {"per_step": train_launches[name] // 6,
+                                   "total": train_launches[name]}
+        entry["wire_wi"] = {
+            "ms": k1_wi_ms if name == "posit_decode" else k2_wi_ms,
+            "plain_ms": (k1_wi_plain_ms if name == "posit_decode"
+                         else k2_wi_plain_ms),
+            "bound_ms": wi_bound_ms, "bound_by": "bytes",
+            "shape": f"wi gradient, {n_wi} values, posit16_2 (K2 in wire "
+                     f"mode)"}
+    out[1]["launches"] = train_launches["posit_encode"]
+
     print(json.dumps({"kernels": out}), flush=True)
 
     # last line ---------------------------------------------------------

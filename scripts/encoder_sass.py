@@ -2,8 +2,9 @@
 """Static SASS instructions per element of the posit codec's device
 functions (``posit::encode`` and ``posit::decode`` in
 ``src/repro_torch/csrc/posit_codec.cuh``, and where the checkout has it
-the run-time-es form ``posit::decode_es<16>`` that K7's 16-bit paths call)
-for one checkout, so that two commits' codecs can be compared (the
+the run-time-es form ``posit::decode_es<16>`` that K7's 16-bit paths call,
+and the gradient wire's normalising ``posit::encode<N, ES, true>``, K2's
+wire mode) for one checkout, so that two commits' codecs can be compared (the
 parent's and the change's, unpacked side by side):
 
     python3 scripts/encoder_sass.py [--root DIR]
@@ -58,6 +59,19 @@ __global__ void decode_es_probe(const typename posit::Code<N>::type* c,
 template __global__ void decode_es_probe<16>(const uint16_t*, float*, int,
                                              int);
 #endif
+#ifdef HAS_ENCODE_WIRE
+template <int N, int ES>
+__global__ void encode_wire_probe(const float* x,
+                                  typename posit::Code<N>::type* c,
+                                  int bias) {
+  c[threadIdx.x] = (typename posit::Code<N>::type)
+      posit::encode<N, ES, true>(x[threadIdx.x], bias);
+}
+#define WIRE_PROBE(N, ES)                                                 \
+  template __global__ void encode_wire_probe<N, ES>(                      \
+      const float*, posit::Code<N>::type*, int);
+POSIT_FORMATS(WIRE_PROBE)
+#endif
 template <int N>
 __global__ void encode_skeleton(const float* x,
                                 typename posit::Code<N>::type* c, int bias) {
@@ -85,16 +99,19 @@ template __global__ void decode_skeleton<16>(const uint16_t*, float*, int);
 def sass_per_element(csrc: Path, out: Path, nvcc: str) -> dict:
     """Static SASS instructions (NOPs left out) of ``posit::encode`` and
     ``posit::decode`` per element for every built format, against the
-    codec header in ``csrc``, and of ``posit::decode_es<16>`` where the
-    header has it.  Returns {"encode": {fmt: n}, "decode": {fmt: n},
-    "decode_es": {"posit16": n} or {}}."""
+    codec header in ``csrc``, and of ``posit::decode_es<16>`` and the
+    wire mode ``posit::encode<N, ES, true>`` where the header has them.
+    Returns {"encode": {fmt: n}, "decode": {fmt: n}, "decode_es":
+    {"posit16": n} or {}, "encode_wire": {fmt: n} or {}}."""
     out.mkdir(parents=True, exist_ok=True)
     (out / "sass_probe.cu").write_text(SASS_PROBE)
     cubin = out / "sass_probe.cubin"
-    has_es = "decode_es" in (csrc / "posit_codec.cuh").read_text()
+    header = (csrc / "posit_codec.cuh").read_text()
+    flags = [f for f, has in (("-DHAS_DECODE_ES", "decode_es" in header),
+                              ("-DHAS_ENCODE_WIRE", "kNormalize" in header))
+             if has]
     subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-I", str(csrc),
-                    *(["-DHAS_DECODE_ES"] if has_es else []), "-o",
+                    "-std=c++17", "-O3", "-I", str(csrc), *flags, "-o",
                     str(cubin), str(out / "sass_probe.cu")], check=True,
                    capture_output=True, text=True)
     sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
@@ -114,15 +131,15 @@ def sass_per_element(csrc: Path, out: Path, nvcc: str) -> dict:
             counts[name] += 1
     by = {}
     for mangled, n in counts.items():
-        m = re.search(r"(encode|decode|decode_es)_(probe|skeleton)ILi(\d+)E"
-                      r"(?:Li(\d+)E)?", mangled)
+        m = re.search(r"(encode_wire|encode|decode_es|decode)_"
+                      r"(probe|skeleton)ILi(\d+)E(?:Li(\d+)E)?", mangled)
         if m:
             by[m.groups()] = n
-    res = {"encode": {}, "decode": {}, "decode_es": {}}
+    res = {"encode": {}, "decode": {}, "decode_es": {}, "encode_wire": {}}
     for (kind, role, bits, es), n in by.items():
         if role == "probe":
             code = "8" if int(bits) <= 8 else "16"
-            skeleton = by[(kind.removesuffix("_es"), "skeleton", code, None)]
+            skeleton = by[(kind.split("_")[0], "skeleton", code, None)]
             name = f"posit{bits}" + (f"_{es}" if es else "")
             res[kind][name] = n - skeleton
     return res

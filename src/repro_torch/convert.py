@@ -1,5 +1,5 @@
 """Weight bridge: a nested dict of numpy arrays -> the port's params (and
-a train state around them).
+a whole train state: params, AdamW state, the gradient wire's residual).
 
 The tree is the reference's params pytree after ``np.asarray`` on every
 leaf (tuples stay tuples, so ``blocks`` keeps its (dict,) form and every
@@ -56,12 +56,22 @@ def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     return conv(tree, None)
 
 
-def train_state_from_numpy(params_tree, device="cuda", dtype=torch.float32):
-    """The reference's ``TrainState.params`` (as a numpy tree, see module
-    docstring) -> a port ``TrainState`` whose AdamW state ``adamw_init``
-    rebuilds from the converted params (step 0, zero moments, f32
-    master)."""
+def train_state_from_numpy(params_tree, device="cuda", dtype=torch.float32,
+                           opt=None, ef_residual=None):
+    """The reference's ``TrainState`` (each part as a numpy tree, see the
+    module docstring) -> a port ``TrainState``.  ``opt`` is the AdamW state
+    ``{"step", "mu", "nu", "master"}`` (float32 moments and master, an
+    int32 step); None rebuilds it with ``adamw_init`` (step 0, zero
+    moments, an f32 master copy of the params).  ``ef_residual`` is the
+    gradient wire's float32 residual tree, or None."""
     from .optim import adamw_init
     from .train.step import TrainState
     params = params_from_numpy(params_tree, device, dtype)
-    return TrainState(params, adamw_init(params))
+    if opt is None:
+        opt = adamw_init(params)
+    else:
+        opt = params_from_numpy(opt, device, torch.float32)
+        opt["step"] = opt["step"].to(torch.int32)
+    if ef_residual is not None:
+        ef_residual = params_from_numpy(ef_residual, device, torch.float32)
+    return TrainState(params, opt, ef_residual)

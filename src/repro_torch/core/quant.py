@@ -70,10 +70,13 @@ def _pow2_scale(x, axis):
     return torch.exp2(torch.round(torch.log2(mean)))
 
 
-def quantize(x, fmt, axis=None, scaled: bool = True) -> QuantizedTensor:
+def quantize(x, fmt, axis=None, scaled: bool = True,
+             encode=posit.encode_f32) -> QuantizedTensor:
     """Quantize a float tensor into packed storage codes.
 
-    posit: optional power-of-two runtime scale (exact to apply/remove).
+    posit: optional power-of-two runtime scale (exact to apply/remove);
+           ``encode(x, fmt)`` is the codec (the gradient wire passes K2's
+           normalising mode, which computes ``encode_f32`` bit for bit).
     int:   symmetric per-tensor (axis=None) or per-channel absmax scale.
     float: native dtype cast (round to nearest even).
     """
@@ -82,8 +85,8 @@ def quantize(x, fmt, axis=None, scaled: bool = True) -> QuantizedTensor:
     if isinstance(fmt, PositFormat):
         if scaled:
             s = _pow2_scale(x, axis)
-            return QuantizedTensor(posit.encode_f32(x / s, fmt), s, fmt)
-        return QuantizedTensor(posit.encode_f32(x, fmt), None, fmt)
+            return QuantizedTensor(encode(x / s, fmt), s, fmt)
+        return QuantizedTensor(encode(x, fmt), None, fmt)
     if isinstance(fmt, IntFormat):
         absx = x.abs()
         amax = (absx.amax() if axis is None
@@ -96,10 +99,13 @@ def quantize(x, fmt, axis=None, scaled: bool = True) -> QuantizedTensor:
     raise TypeError(fmt)
 
 
-def dequantize(qt: QuantizedTensor, dtype=torch.float32):
+def dequantize(qt: QuantizedTensor, dtype=torch.float32,
+               decode=posit.decode_to_f32):
+    """``decode(codes, fmt)`` -> float32 is the posit codec (the gradient
+    wire passes K1)."""
     fmt = qt.fmt
     if isinstance(fmt, PositFormat):
-        v = torch.nan_to_num(posit.decode_to_f32(qt.data, fmt))  # NaR -> 0
+        v = torch.nan_to_num(decode(qt.data, fmt))  # NaR -> 0
     else:
         v = qt.data.to(torch.float32)
     if qt.scale is not None:

@@ -39,7 +39,11 @@
 // with an offset) is a scalar head of up to 3 elements, a length that is
 // not a multiple of 4 a scalar tail, both in the same kernel; where the
 // head leaves the codes misaligned for the vector store, the codes of each
-// load are stored one by one (kVecStore false).
+// load are stored one by one (kVecStore false).  K2 has two modes, two
+// instantiations of one kernel: subnormals flushed (kNormalize false, the
+// kernels' rule, as K3 and K5 encode) or encoded as core.posit.encode_f32
+// does (kNormalize true: the gradient wire, optim/compression.py, which
+// runs K2 then K1 on every gradient leaf of a train step).
 #include <cuda_bf16.h>
 
 #include "posit_codec.cuh"
@@ -176,7 +180,7 @@ struct StoreVec<8> {
   using type = uint2;
 };
 
-template <int N, int ES, bool kVecStore>
+template <int N, int ES, bool kVecStore, bool kNormalize>
 __global__ void __launch_bounds__(kThreads) posit_encode_kernel(
     const float* __restrict__ x,
     typename posit::Code<N>::type* __restrict__ codes, int count, int head,
@@ -200,10 +204,10 @@ __global__ void __launch_bounds__(kThreads) posit_encode_kernel(
         Vec vec;
         CodeT c[4];
       } w;
-      w.c[0] = (CodeT)posit::encode<N, ES>(v[u].x, bias);
-      w.c[1] = (CodeT)posit::encode<N, ES>(v[u].y, bias);
-      w.c[2] = (CodeT)posit::encode<N, ES>(v[u].z, bias);
-      w.c[3] = (CodeT)posit::encode<N, ES>(v[u].w, bias);
+      w.c[0] = (CodeT)posit::encode<N, ES, kNormalize>(v[u].x, bias);
+      w.c[1] = (CodeT)posit::encode<N, ES, kNormalize>(v[u].y, bias);
+      w.c[2] = (CodeT)posit::encode<N, ES, kNormalize>(v[u].z, bias);
+      w.c[3] = (CodeT)posit::encode<N, ES, kNormalize>(v[u].w, bias);
       const int gu = g + u * stride;
       if (gu < nvec) {
         if constexpr (kVecStore) {
@@ -216,9 +220,25 @@ __global__ void __launch_bounds__(kThreads) posit_encode_kernel(
     }
   }
   const int tail = head + 4 * nvec;             // first element of the tail
-  if (tid < head) codes[tid] = (CodeT)posit::encode<N, ES>(x[tid], bias);
+  if (tid < head)
+    codes[tid] = (CodeT)posit::encode<N, ES, kNormalize>(x[tid], bias);
   if (tid < count - tail)
-    codes[tail + tid] = (CodeT)posit::encode<N, ES>(x[tail + tid], bias);
+    codes[tail + tid] =
+        (CodeT)posit::encode<N, ES, kNormalize>(x[tail + tid], bias);
+}
+
+template <int N, int ES, bool kNormalize>
+void launch_encode(const void* x, void* codes, int count, int head, int bias,
+                   int grid, cudaStream_t st) {
+  using CodeT = typename posit::Code<N>::type;
+  const bool vec_store =
+      ((uintptr_t)((CodeT*)codes + head) & (4 * sizeof(CodeT) - 1)) == 0;
+  if (vec_store)
+    posit_encode_kernel<N, ES, true, kNormalize><<<grid, kThreads, 0, st>>>(
+        (const float*)x, (CodeT*)codes, count, head, bias);
+  else
+    posit_encode_kernel<N, ES, false, kNormalize><<<grid, kThreads, 0, st>>>(
+        (const float*)x, (CodeT*)codes, count, head, bias);
 }
 
 }  // namespace
@@ -238,9 +258,11 @@ extern "C" int posit_decode(const void* codes, void* out, int count, int nbits,
   return (int)cudaErrorInvalidValue;
 }
 
-// x: count f32 (4-B aligned, any 16-B offset); codes: count codes.
+// x: count f32 (4-B aligned, any 16-B offset); codes: count codes;
+// normalize: 0 flushes subnormals, 1 encodes them as encode_f32 does (the
+// caller guarantees that every subnormal's regime saturates at this bias).
 extern "C" int posit_encode(const void* x, void* codes, int count, int nbits,
-                            int es, int bias, void* stream) {
+                            int es, int bias, int normalize, void* stream) {
   if ((uintptr_t)x & 3) return (int)cudaErrorMisalignedAddress;
   if (count <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -252,15 +274,10 @@ extern "C" int posit_encode(const void* x, void* codes, int count, int nbits,
                                       : 1;
 #define ENCODE_CASE(N, ES)                                                    \
   if (nbits == N && es == ES) {                                               \
-    using CodeT = posit::Code<N>::type;                                       \
-    const bool vec_store =                                                    \
-        ((uintptr_t)((CodeT*)codes + head) & (4 * sizeof(CodeT) - 1)) == 0;   \
-    if (vec_store)                                                            \
-      posit_encode_kernel<N, ES, true><<<grid, kThreads, 0, st>>>(            \
-          (const float*)x, (CodeT*)codes, count, head, bias);                 \
+    if (normalize)                                                            \
+      launch_encode<N, ES, true>(x, codes, count, head, bias, grid, st);      \
     else                                                                      \
-      posit_encode_kernel<N, ES, false><<<grid, kThreads, 0, st>>>(           \
-          (const float*)x, (CodeT*)codes, count, head, bias);                 \
+      launch_encode<N, ES, false>(x, codes, count, head, bias, grid, st);     \
     return (int)cudaGetLastError();                                           \
   }
   POSIT_FORMATS(ENCODE_CASE)

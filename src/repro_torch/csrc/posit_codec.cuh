@@ -17,7 +17,8 @@
 // (chip_smoke.py holds K1 to the plain version on the card).  Encode is
 // bit-exact RNE with guard/sticky, saturating to maxpos/minpos; NaN/inf ->
 // NaR; float32 subnormals are flushed to zero: the write path of K2, K3
-// and K5.
+// and K5.  K2's wire mode (the gradient wire of optim/compression.py)
+// encodes them as core.posit.encode_f32 does.
 //
 // Static SASS per element (sm_90a, scripts/encoder_sass.py: a one-element
 // kernel less its skeleton, NVIDIA H100): decode 20 for posit8_2, 21 for
@@ -82,7 +83,9 @@ __device__ __forceinline__ float decode(uint32_t code, int bias) {
   return decode_es<N>(code, ES, bias);
 }
 
-// float32 -> posit code (low N bits), RNE; float32 subnormals flushed.
+// float32 -> posit code (low N bits), RNE; float32 subnormals flushed, or
+// with kNormalize (K2's wire mode alone) encoded as core.posit.encode_f32
+// encodes them.
 //
 // Branch-free: every input takes one straight-line path of integer ops and
 // selects.  The regime k = floor(t / 2^ES) of the total exponent t is
@@ -95,9 +98,15 @@ __device__ __forceinline__ float decode(uint32_t code, int bias) {
 // the cut (the guard and the sticky bits carry into the body exactly when
 // RNE rounds up) and one shift; one clamp to [1, 2^(N-1) - 1] keeps
 // minpos/maxpos (never 0 or NaR), then the sign is applied.  Zero,
-// subnormals and NaN/inf are selects at the end.
+// subnormals and NaN/inf are selects at the end.  A posit has no
+// underflow, so a normalised subnormal rounds to +-minpos whenever its
+// regime saturates, k = (-127 - bias) >> ES <= -(N - 1) at the largest
+// one: with kNormalize a nonzero subnormal gives +-minpos (body 1 with the
+// sign applied), which is encode_f32's code under that condition (the
+// wrapper refuses a bias that breaks it).  Without kNormalize the select
+// is the one the flush has always compiled to.
 // tests/test_torch_encoder.py models these integer steps in numpy.
-template <int N, int ES>
+template <int N, int ES, bool kNormalize = false>
 __device__ __forceinline__ uint32_t encode(float x, int bias) {
   static_assert(N >= 3 && N <= 16 && ES >= 0 && ES <= 7,
                 "the posit string fits 64 bits");
@@ -122,8 +131,11 @@ __device__ __forceinline__ uint32_t encode(float x, int bias) {
       (uint32_t)((word + ((1ull << (kCut - 1)) - 1u) + lsb) >> kCut);
   body = min(max(body, 1u), (1u << (N - 1)) - 1u);
   const uint32_t code = ((body ^ (0u - s)) + s) & ((1u << N) - 1u);
+  uint32_t tiny = 0u;                          // zero and flushed subnormals
+  if constexpr (kNormalize)                    // +-minpos for a subnormal
+    tiny = (bits << 1) == 0u ? 0u : ((1u ^ (0u - s)) + s) & ((1u << N) - 1u);
   return exp_raw == 255u ? 1u << (N - 1)       // inf/NaN -> NaR
-         : exp_raw == 0u ? 0u                  // zero and flushed subnormals
+         : exp_raw == 0u ? tiny
                          : code;
 }
 

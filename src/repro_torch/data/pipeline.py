@@ -4,8 +4,11 @@ Batch content is a pure function of (seed, step): the numpy builder is the
 reference's, so both packages draw identical tokens and labels for the same
 (seed, step).  The stream is affine orbits ``x[t+1] = (a * x[t] + b) %
 vocab`` with sampled (a, b), so a model can learn it and the loss falls.
+The sharding is elastic: ``host_batch(step, host, n_hosts)`` is host
+``host``'s contiguous slice of the same global batch for any world size,
+so resizing the fleet neither drops nor repeats data (``ElasticPlan``).
 This port carries the dense family, whose batches are tokens and labels
-only; per-host slicing of the global batch is a later slice.
+only.
 """
 from __future__ import annotations
 
@@ -47,11 +50,26 @@ class SyntheticLM:
         return {"tokens": toks.astype(np.int32),
                 "labels": labels.astype(np.int32)}
 
+    def host_batch(self, step: int, host: int, n_hosts: int
+                   ) -> Dict[str, torch.Tensor]:
+        """Host ``host``'s slice (of ``n_hosts`` equal ones) of the step's
+        global batch, as int64 tensors on the pipeline's device."""
+        bsz = self.cfg.global_batch
+        if bsz % n_hosts:
+            raise ValueError(f"global_batch {bsz} must divide over "
+                             f"{n_hosts} hosts")
+        per = bsz // n_hosts
+        return self._to_device({k: v[host * per:(host + 1) * per]
+                                for k, v in self.global_batch(step).items()})
+
     def __call__(self, step: int) -> Dict[str, torch.Tensor]:
         """The step's batch as int64 tensors on the pipeline's device."""
+        return self._to_device(self.global_batch(step))
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         dev = resolve_device(self.device)
         return {k: torch.from_numpy(v.astype(np.int64)).to(dev)
-                for k, v in self.global_batch(step).items()}
+                for k, v in batch.items()}
 
 
 def make_pipeline(model_cfg: ModelCfg, *, global_batch: int, seq_len: int,

@@ -35,8 +35,8 @@ SIGNATURES = {
     "posit_codec": {
         # codes, out, count, nbits, es, bias, out_bf16, stream
         "posit_decode": [_P, _P, _I, _I, _I, _I, _I, _P],
-        # x, codes, count, nbits, es, bias, stream
-        "posit_encode": [_P, _P, _I, _I, _I, _I, _P],
+        # x, codes, count, nbits, es, bias, normalize, stream
+        "posit_encode": [_P, _P, _I, _I, _I, _I, _I, _P],
     },
     "kv_cache": {
         # k_new, v_new, k_codes, k_scale, v_codes, v_scale, pos,

@@ -42,8 +42,8 @@ class ModelCfg:
     rope_theta: float = 10000.0
     qk_norm: bool = False
     dtype_name: str = "bfloat16"
-    remat: str = "full"        # none | full (save block inputs only); dots
-                               # is a later slice
+    remat: str = "full"        # none | full (save block inputs only) |
+                               # dots (recompute all but the weight products)
     q_block: int = 512
     kv_block: int = 1024
     attn_vjp: str = "flash"    # flash (custom bwd) | naive (autograd loop)
@@ -133,14 +133,27 @@ def _qw(policy: TCPolicy, role):
     return q
 
 
-def _mlp(p, x, cfg: ModelCfg, policy):
-    q = _qw(policy, "mlp_weights")
-    h = _einsum("bsd,df->bsf", x, q(p["wi"]))
+def _call(f, *args):
+    return f(*args)
+
+
+def _recompute(f, *args):
+    """One segment of remat "dots": its inputs are saved and it runs again
+    in the backward (nothing in it draws random numbers)."""
+    return checkpoint(f, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _mlp_act(h, cfg: ModelCfg):
     if cfg.mlp == "swiglu":
         gate, up = torch.chunk(h, 2, dim=-1)
-        h = torch.nn.functional.silu(gate) * up
-    else:
-        h = torch.nn.functional.gelu(h, approximate="tanh")
+        return torch.nn.functional.silu(gate) * up
+    return torch.nn.functional.gelu(h, approximate="tanh")
+
+
+def _mlp(p, x, cfg: ModelCfg, policy, seg=_call):
+    q = _qw(policy, "mlp_weights")
+    h = _einsum("bsd,df->bsf", x, q(p["wi"]))
+    h = seg(_mlp_act, h, cfg)
     return _einsum("bsf,fd->bsd", h, q(p["wo_mlp"]))
 
 
@@ -165,38 +178,51 @@ def _rope_cs(cfg: ModelCfg, positions):
     return rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
 
 
-def _attn_block(p, x, cfg: ModelCfg, policy):
-    """Training attention block (+MLP): dense, causal, RoPE, no
-    cross-attention."""
-    b, s, _ = x.shape
-    h = rms_norm(x, p["ln"])
-    qp, kp, vp = _qkv(p, h, cfg, policy)
-    cos, sin = _rope_cs(cfg, torch.arange(s, device=x.device))
+def _attn_core(qp, kp, vp, cfg: ModelCfg):
+    """RoPE and causal attention over the projected heads -> (B, S,
+    nh * hd)."""
+    b, s = qp.shape[:2]
+    cos, sin = _rope_cs(cfg, torch.arange(s, device=qp.device))
     qp = apply_rope(qp, cos, sin)
     kp = apply_rope(kp, cos, sin)
     ao = blockwise_attention(qp, kp, vp, causal=True, q_block=cfg.q_block,
                              kv_block=cfg.kv_block, vjp=cfg.attn_vjp)
-    ao = _einsum("bsk,kd->bsd", ao.reshape(b, s, -1),
-                 _qw(policy, "attn_weights")(p["wo"]))
+    return ao.reshape(b, s, -1)
+
+
+def _attn_block(p, x, cfg: ModelCfg, policy, seg=_call):
+    """Training attention block (+MLP): dense, causal, RoPE, no
+    cross-attention.  ``seg`` runs the parts between the weight products
+    (the norms, RoPE + attention, the MLP's activation): called directly,
+    or ``_recompute`` for remat "dots"."""
+    h = seg(rms_norm, x, p["ln"])
+    qp, kp, vp = _qkv(p, h, cfg, policy)
+    ao = seg(_attn_core, qp, kp, vp, cfg)
+    ao = _einsum("bsk,kd->bsd", ao, _qw(policy, "attn_weights")(p["wo"]))
     x = x + ao
-    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+    return x + _mlp(p, seg(rms_norm, x, p["ln2"]), cfg, policy, seg)
 
 
 def _run_stack(blocks, x, cfg: ModelCfg, policy):
-    """The layer stack: a Python loop over the stacked layer axis, each
-    layer under ``torch.utils.checkpoint`` for ``remat="full"`` (only the
-    block inputs are saved; the block recomputes in the backward)."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: only 'none' and 'full' are ported; "
-            "'dots' (save matmul outputs) is a later slice of the port")
+    """The layer stack: a Python loop over the stacked layer axis.  Under
+    ``remat="full"`` each layer runs in ``torch.utils.checkpoint`` (only
+    the block inputs are saved; the block recomputes in the backward).
+    Under ``"dots"`` the weights' fake-quant and the weight products
+    (``bsd,df``) run outside any checkpoint, so autograd keeps the
+    products and their operands, and the norms, RoPE + attention and the
+    MLP's activation recompute (the reference's
+    ``dots_with_no_batch_dims_saveable`` keeps the products alone and
+    recomputes the fake-quant too)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
     for i in range(cfg.n_layers):
         p_i = layer_params(blocks[0], i)
         if cfg.remat == "full":
             x = checkpoint(_attn_block, p_i, x, cfg, policy,
                            use_reentrant=False)
         else:
-            x = _attn_block(p_i, x, cfg, policy)
+            x = _attn_block(p_i, x, cfg, policy,
+                            _recompute if cfg.remat == "dots" else _call)
     return x
 
 

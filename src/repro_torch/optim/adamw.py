@@ -52,6 +52,21 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure filled from ``leaves``, taken in
+    ``tree_leaves`` order (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        if isinstance(node, (tuple, list)):
+            return type(node)(fill(v) for v in node)
+        return next(it)
+
+    return fill(tree)
+
+
 def make_schedule(cfg: AdamWConfig):
     """step (int or tensor) -> lr (f32 scalar tensor); warmup + decay."""
 

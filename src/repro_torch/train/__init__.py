@@ -1,3 +1,5 @@
 from .step import TrainState, init_train_state, make_train_step
+from .trainer import Trainer, TrainerConfig
 
-__all__ = ["TrainState", "init_train_state", "make_train_step"]
+__all__ = ["TrainState", "Trainer", "TrainerConfig", "init_train_state",
+           "make_train_step"]

@@ -14,10 +14,13 @@ for bit to the port's ``encode_tile`` and the reference's
 ``repro.kernels.posit_encode.encode_tile`` for every format the kernels
 are built for: every sign and biased exponent, the rounding ties of every
 regime length with one ulp either side and all-zero / all-one bits below
-the guard, the special values and 2^16 random bit patterns.
-``test_kernel_on_one_exponent_band`` needs the GPU (marker ``cuda``); the
-machine with the GPU has no JAX, so the JAX imports are optional and only
-the card test runs there.
+the guard, the special values and 2^16 random bit patterns.  K2's wire
+mode (``normalize``: a nonzero subnormal gives +-minpos) is held to
+``core.posit.encode_f32`` of both packages on the same inputs and on 2^16
+random subnormals.  ``test_kernel_on_one_exponent_band`` and
+``test_wire_mode_kernel_on_subnormals`` need the GPU (marker ``cuda``);
+the machine with the GPU has no JAX, so the JAX imports are optional and
+only the card tests run there.
 """
 import numpy as np
 import pytest
@@ -27,10 +30,12 @@ torch = pytest.importorskip("torch")
 try:
     import jax.numpy as jnp
     from repro.core import formats as jformats
+    from repro.core import posit as jposit
     from repro.kernels import posit_encode as jenc
 except ImportError:      # the GPU machine: only the card test runs there
     jnp = None
 from repro_torch.core import formats as tformats  # noqa: E402
+from repro_torch.core.posit import encode_f32  # noqa: E402
 from repro_torch.kernels.posit_encode import encode_tile  # noqa: E402
 
 FORMATS = ["posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",
@@ -39,8 +44,9 @@ U64 = np.uint64
 N_INPUTS = 1 << 17
 
 
-def encode_model(x, n: int, es: int, bias: int):
-    """float32 array -> posit codes (uint64), by the CUDA encoder's steps."""
+def encode_model(x, n: int, es: int, bias: int, normalize: bool = False):
+    """float32 array -> posit codes (uint64), by the CUDA encoder's steps;
+    ``normalize`` is K2's wire mode (``kNormalize``)."""
     bits = np.asarray(x, np.float32).view(np.uint32).astype(U64)
     s = bits >> U64(31)
     exp_raw = ((bits >> U64(23)) & U64(0xFF)).astype(np.int64)
@@ -57,8 +63,12 @@ def encode_model(x, n: int, es: int, bias: int):
     body = np.clip(body, U64(1), U64((1 << (n - 1)) - 1))
     neg_s = (U64(0) - s) & U64(0xFFFFFFFF)          # 0u - s
     code = ((body ^ neg_s) + s) & U64((1 << n) - 1)
+    tiny = U64(0)
+    if normalize:                                   # +-minpos
+        tiny = np.where((bits << U64(1)) & U64(0xFFFFFFFF) == 0, U64(0),
+                        ((U64(1) ^ neg_s) + s) & U64((1 << n) - 1))
     return np.where(exp_raw == 255, U64(1 << (n - 1)),
-                    np.where(exp_raw == 0, U64(0), code))
+                    np.where(exp_raw == 0, tiny, code))
 
 
 def _rounding_cases(n: int, es: int, bias: int, rng):
@@ -151,6 +161,81 @@ def test_model_saturates_and_flushes(name):
     np.testing.assert_array_equal(
         got, np.asarray([maxpos, (1 << n) - maxpos, 1, neg, 0, 0, 0, 0, nar,
                          nar, nar], U64))
+
+
+def _subnormals(count, seed):
+    rng = np.random.default_rng(seed)
+    mag = rng.integers(1, 1 << 23, count, dtype=np.uint64).astype(np.uint32)
+    sign = rng.integers(0, 2, count, dtype=np.uint64).astype(np.uint32)
+    return (mag | (sign << np.uint32(31))).view(np.float32)
+
+
+@pytest.mark.parametrize("name", FORMATS)
+def test_wire_mode_model_matches_encode_f32(name):
+    """``posit::encode<N, ES, true>``: the encoder's steps with +-minpos
+    for a nonzero subnormal are ``encode_f32`` (which normalises the
+    subnormal, then saturates its regime) on every input."""
+    ft, fj = tformats.get(name), jformats.get(name)
+    x = np.concatenate([_inputs(ft.bits, ft.es, ft.bias),
+                        _subnormals(1 << 16, ft.bits)])
+    got = encode_model(x, ft.bits, ft.es, ft.bias, normalize=True)
+    np.testing.assert_array_equal(
+        got, _codes(encode_f32(torch.from_numpy(x.copy()), ft).numpy()))
+    np.testing.assert_array_equal(
+        got, _codes(jposit.encode_f32(jnp.asarray(x), fj)))
+    sub = (x.view(np.uint32) & 0x7F800000) == 0
+    assert sub.sum() > 1 << 16
+    flush = encode_model(x, ft.bits, ft.es, ft.bias)
+    np.testing.assert_array_equal(got[~sub], flush[~sub])
+
+
+@pytest.mark.parametrize("bias", [-90, -93, 8])
+def test_wire_mode_refuses_a_bias_that_unsaturates_subnormals(bias):
+    """At posit16_2, k = (-127 - bias) >> 2 reaches -(n - 1) = -15 for
+    bias >= -70: -90 and -93 would make some subnormals representable
+    and raise; 8 is accepted and equals ``encode_f32``."""
+    import dataclasses
+    from repro_torch.kernels.posit_encode import posit_encode
+    ft = dataclasses.replace(tformats.get("posit16_2"), bias=bias)
+    x = torch.from_numpy(_subnormals(4096, 1))
+    if bias < -70:
+        with pytest.raises(ValueError, match="representable"):
+            posit_encode(x, ft, subnormals="normalize")
+    else:
+        np.testing.assert_array_equal(
+            encode_model(x.numpy(), 16, 2, bias, normalize=True),
+            _codes(posit_encode(x, ft, subnormals="normalize").numpy()))
+        assert torch.equal(posit_encode(x, ft, subnormals="normalize"),
+                           encode_f32(x, ft))
+
+
+@pytest.mark.cuda
+def test_wire_mode_kernel_on_subnormals():
+    """K2's wire mode against ``encode_f32`` on the card, for every built
+    format: every float32 subnormal of both signs (2^24 - 2 values and the
+    two zeros), then 2^20 random bit patterns, also as a view off a
+    16-byte boundary with a ragged tail.  One launch per call; the flush
+    mode still gives 0 for every subnormal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.posit_encode import posit_encode
+    dev = torch.device("cuda")
+    pats = torch.arange(1 << 24, dtype=torch.int64, device=dev)
+    pats = (pats & 0x7FFFFF) | ((pats >> 23) << 31)
+    sub = torch.where(pats >= 1 << 31, pats - (1 << 32), pats).to(
+        torch.int32).view(torch.float32)
+    rng = np.random.default_rng(7)
+    rnd = torch.from_numpy(rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64)
+                           .astype(np.uint32).view(np.float32)).to(dev)
+    for name in FORMATS:
+        ft = tformats.get(name)
+        for xin in (sub, rnd, rnd[1:], rnd[3:-2]):
+            before = LAUNCHES["posit_encode"]
+            got = posit_encode(xin, ft, subnormals="normalize")
+            assert LAUNCHES["posit_encode"] == before + 1
+            assert torch.equal(got, encode_f32(xin, ft)), name
+        assert not posit_encode(sub, ft).any(), name
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
 its entry points (ring and paged serving, the matmul kernel, training and
-the quickstart, speculative serving) default to the GPU and raise without
+the quickstart, speculative serving, the Trainer, the data shards and the
+train launcher) default to the GPU and raise without
 one, and the parts left to later slices raise ``NotImplementedError``."""
 import ast
 import os
@@ -29,7 +30,11 @@ SLICE3 = ("repro_torch.kernels.posit_matmul", "repro_torch.kernels.ops",
           "repro_torch.data.pipeline", "repro_torch.train.step")
 # ... and of speculative serving
 SPECULATIVE = ("repro_torch.serve.speculative",)
-REACHED = SLICE3 + SPECULATIVE
+# ... and of the rest of training
+TRAINING = ("repro_torch.optim.compression",
+            "repro_torch.checkpoint.manager", "repro_torch.train.trainer",
+            "repro_torch.train.fault_tolerance", "repro_torch.launch.train")
+REACHED = SLICE3 + SPECULATIVE + TRAINING
 
 
 def _imported(tree):
@@ -176,3 +181,22 @@ def test_speculative_engine_defaults_to_gpu():
             SpeculativeEngine(cfg, params, scfg)
         eng = SpeculativeEngine(cfg, params, scfg, device="cpu")
         assert eng.draft_cache["blocks"][0]["k"].device.type == "cpu"
+
+
+def test_trainer_checkpoint_shards_and_launcher_default_to_gpu():
+    """The rest of training runs on the card unless the caller asks for
+    the CPU, and raises without a GPU: the Trainer, a host's data shard
+    and the train launcher.  (A checkpoint restore has no device of its
+    own: it copies into the template's tensors.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config("paper-edge", smoke=True)
+    for call in (lambda: Trainer(cfg, TrainerConfig(steps=1)),
+                 lambda: make_pipeline(cfg, global_batch=2,
+                                       seq_len=8).host_batch(0, 1, 2),
+                 lambda: launch_train.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()

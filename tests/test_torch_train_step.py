@@ -38,7 +38,7 @@ from repro.train.step import init_train_state as jinit  # noqa: E402
 from repro.train.step import make_train_step as jmake_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import train_state_from_numpy  # noqa: E402
-from repro_torch.core.transprecision import MIXED_TC, PAPER_EDGE  # noqa: E402
+from repro_torch.core.transprecision import PAPER_EDGE  # noqa: E402
 from repro_torch.data.pipeline import make_pipeline  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
@@ -194,11 +194,13 @@ def test_loss_and_grads_vs_jax(ref32):
 
 
 @pytest.mark.parametrize("field,value", [("attn_vjp", "naive"),
-                                         ("remat", "none")])
+                                         ("remat", "none"),
+                                         ("remat", "dots")])
 def test_grads_equal_across_vjp_and_remat(ref32, field, value):
     """Flash vs naive attention gradients (rtol 1e-5 of each leaf's scale:
-    two summation orders of the same f32 math) and remat full vs none
-    (bit-identical: the checkpoint recomputes the same ops)."""
+    two summation orders of the same f32 math) and remat full vs none and
+    vs dots (bit-identical: the checkpoint recomputes the same ops, and
+    "dots" reuses the weight products it saved)."""
     _, tcfg = _cfgs("float32")
     batch = make_pipeline(tcfg, global_batch=BATCH, seq_len=SEQ,
                           device="cpu")(0)
@@ -313,14 +315,6 @@ def test_schedule_and_adamw_update_vs_jax(schedule):
 
 
 def test_later_slice_options_raise():
-    _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_train_step(tcfg, tadamw.AdamWConfig(), MIXED_TC)
-    params = lm.init_params(tcfg, torch.Generator().manual_seed(0),
-                            device="cpu")
-    batch = make_pipeline(tcfg, global_batch=1, seq_len=8, device="cpu")(0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.loss_fn(params, batch, dataclasses.replace(tcfg, remat="dots"))
     with pytest.raises(ValueError, match="vjp"):
         tattn.blockwise_attention(torch.zeros(1, 4, 2, 8),
                                   torch.zeros(1, 4, 2, 8),
