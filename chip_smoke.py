@@ -10,8 +10,10 @@ layouts, runs the quickstart path at full width (the codec, K7 through
 a train step card against CPU, trains full-width paper-edge through the
 ``Trainer`` under MIXED_TC (the posit16 gradient wire: K2 in its
 normalising mode, then K1, on every gradient leaf) with checkpoints, a
-crash and a restore, holds remat "dots" to "full", times every kernel and
-prints one JSON line per contract.  Needs one CUDA GPU; run from the
+crash and a restore, holds remat "dots" to "full", streams through the
+threaded ``Orchestrator`` under injected faults, retry and the numeric
+guard, runs the serve launcher, times every kernel and prints one JSON
+line per contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -35,8 +37,17 @@ card vs CPU; then K7's times.  Phases 11a-11c run after 7b (own generator):
 sequential decode steps, and K3/K5 at T = 5 from bf16 rows; 11b rollback,
 card vs CPU; 11c speculative serving (main path of K1) in both layouts at
 gamma 2 and 4, each beside a baseline engine, printed as a
-``{"speculative": ...}`` JSON line.  Phase 12 runs after 10b (own
-generators): 12a K2's wire mode (subnormals normalised, as
+``{"speculative": ...}`` JSON line.  Phase 13 runs after 11c (own
+generator): the paged posit8 engine of 6c (257 pages) with
+``page_overcommit``; 13a the ``Orchestrator`` against the same engine's
+``serve()`` at float32 and bf16 (TTFT, ITL, tokens/s); 13b a benign
+``FaultPlan.random`` with retry and the guard; 13c a ``poison_logits``
+fault fixed at ladder level 2, the rungs' re-decode times, and a
+guard-armed idle decode step's profile beside 6d's; 13d a persistent
+stage error and a stall under the watchdog; 13e
+``repro_torch.launch.serve --full --async`` with a fault plan, as a
+subprocess; an ``{"orchestrator": ...}`` JSON line.  Phase 12 runs
+after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
 on one full-width step's gradients, kernels against the plain versions on
@@ -92,6 +103,20 @@ Every phase asserts; nothing is caught.  Tolerances:
   remat (12d)    "dots" and "none" vs "full" from one state: losses
                  equal, updated params and master within atol 1e-5
                  (phase 10b's).
+  orchestrator   (13a) float32, TF32 off: streams equal to the same
+                 engine's serve() (admissions coalesced into one by a 50
+                 ms batch window); bf16: equal tokens counted, not
+                 asserted; every stream terminal and error-free, pool
+                 drained, K3, K5 and K6 launched.  (13b) every stream
+                 error-free, pool drained, un-poisoned streams equal to
+                 13a's float32 serve().  (13c) guard.fallbacks == 2, level
+                 2; the replaced row within 1e-3 of a decode_step at the
+                 rung's policy on the raw weights from the true pre-round
+                 state, and more than 1e-3 from one through the engine's
+                 posit8-hoisted weights; the other 7 streams equal to
+                 13a's.  (13d) all streams failed and the pool drained
+                 after a persistent error; the watchdog fails a 2 s stall
+                 in < 1.9 s.  (13e) exit 0, healthy, nothing in flight.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -267,6 +292,350 @@ def device_events(prof, launches=None):
         out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
         if launches is not None and not e.name.startswith("Mem"):
             launches[name] = launches.get(name, 0) + 1
+    return out
+
+
+def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
+            profile_steps, prof_busy, busy_6d) -> dict:
+    """13. The serving orchestrator and its robustness at full width on
+    the paged posit8 engine (phase 6c's pool of 257 pages, overcommitted):
+    13a the ``Orchestrator`` against the same engine's ``serve()`` (float32,
+    TF32 off: streams equal; bf16: equal tokens counted), TTFT / ITL
+    percentiles and tokens/s; 13b a benign ``FaultPlan.random`` with retry
+    and the guard; 13c a ``poison_logits`` fault fixed at ladder level 2:
+    the rung's row against a decode step at the rung's policy from the
+    pre-round state, the rungs' re-decode times, and a guard-armed but idle
+    decode step's profile against phase 6d's; 13d a persistent stage error
+    and a stalled stage under the watchdog; 13e the serve launcher as a
+    subprocess.  Returns the ``{"orchestrator": ...}`` line's object."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models import serve_model as sm
+    from repro_torch.serve import (Fault, FaultPlan, InjectedFault,
+                                   Orchestrator, OrchestratorConfig, Request,
+                                   RetryPolicy, ServeConfig, ServingEngine,
+                                   StreamingRequest)
+    from repro_torch.serve.guard import pre_round
+
+    rng13 = np.random.default_rng([seed, 13])
+    paged = dict(max_batch=8, max_len=W, kv_format="posit8",
+                 kv_layout="paged", page_size=PS, num_pages=ENGINE_PAGES)
+    scfg = ServeConfig(page_overcommit=True, **paged)
+    retry = RetryPolicy(backoff_s=0.001, max_backoff_s=0.01)
+    path = ("kv_append_rows", "paged_kv_append_rows",
+            "paged_decode_attention")
+    batched = OrchestratorConfig(batch_window_s=0.05)   # one admission
+    out = {}
+
+    def engine(c, p, **kw):
+        # the constructor loads the kernel libraries on this thread, before
+        # any orchestrator thread exists
+        return ServingEngine(c, p, kw.pop("scfg", scfg),
+                             policy="paper_edge_p8", device=dev, **kw)
+
+    def drained(e):
+        e.allocator.assert_consistent()
+        assert e.allocator.live_pages == 0, e.allocator.live_pages
+
+    def serve_sync(e, max_new=32):
+        reqs = [Request(uid=i, prompt=p, max_new=max_new)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert all(r.done and r.error is None
+                   and len(r.out_tokens) == max_new for r in reqs)
+        drained(e)
+        return [list(r.out_tokens) for r in reqs], wall
+
+    def orchestrate(e, ocfg, staggered=False, max_new=32):
+        """The 8 prompts through an orchestrator over ``e``, every kernel
+        count set to 0 just before and read just after.  ``staggered``
+        submits each prompt once the previous one has streamed its first
+        token, so each is admitted through a prefill of its own, as
+        ``serve()`` admits them."""
+        sreqs = [StreamingRequest(p.tolist(), max_new=max_new)
+                 for p in prompts]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with Orchestrator(e, ocfg) as orch:
+            for s in sreqs:
+                assert orch.submit(s, timeout=60.0)
+                while staggered and not s.token_t and not s.done:
+                    time.sleep(0.0005)
+            for s in sreqs:
+                assert s.wait(300.0), "stream never reached a terminal state"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in path}
+        assert all(s.error is None and len(s.out_tokens) == max_new
+                   for s in sreqs), [s.error for s in sreqs]
+        assert all(v > 0 for v in launches.values()), launches
+        drained(e)
+        h = orch.health()
+        assert h["in_flight"] == 0 and h["healthy"], h
+        return sreqs, wall, launches
+
+    def pct(xs):
+        return {"p50_ms": float(np.percentile(xs, 50)) * 1e3,
+                "p99_ms": float(np.percentile(xs, 99)) * 1e3}
+
+    # 13a. the orchestrator against the same engine's serve(): the 8
+    # prompts admitted together (one bucketed prefill: TTFT, ITL, tok/s)
+    # and, at float32, one by one (each its own prefill, as serve() admits
+    # them: the streams must be serve()'s) --------------------------------
+    def equal_tokens(sreqs, ref):
+        return sum(a == b for s, r in zip(sreqs, ref)
+                   for a, b in zip(s.out_tokens, r))
+
+    for dtype, c, p in (("float32", cfg32, params32),
+                        ("bfloat16", cfg, params)):
+        e = engine(c, p)
+        e.serve([Request(uid=-1, prompt=warm, max_new=3)])      # warm-up
+        ref, s_wall = serve_sync(e)
+        ev = e.stats["evictions"]
+        sreqs, o_wall, launches = orchestrate(e, batched)
+        cell = {"ttft": pct([s.ttft_s for s in sreqs]),
+                "itl": pct([g for s in sreqs for g in s.itl_s()]),
+                "tok_s": {"serve": 256 / s_wall, "orchestrator":
+                          256 / o_wall},
+                "wall_s": {"serve": s_wall, "orchestrator": o_wall},
+                "evictions": {"serve": ev, "orchestrator":
+                              e.stats["evictions"] - ev},
+                "launches": launches,
+                "tokens_equal_to_serve": equal_tokens(sreqs, ref)}
+        if dtype == "float32":
+            batched32 = [list(s.out_tokens) for s in sreqs]
+            one_by_one, _, launches_1 = orchestrate(e, OrchestratorConfig(),
+                                                    staggered=True)
+            cell["one_by_one"] = {
+                "tokens_equal_to_serve": equal_tokens(one_by_one, ref),
+                "launches": launches_1}
+        out[f"13a_{dtype}"] = cell
+        phase(f"phase 13a orchestrator vs serve() on one paged posit8 "
+              f"engine ({ENGINE_PAGES} pages, overcommit), {dtype}: TTFT "
+              f"p50/p99 {cell['ttft']['p50_ms']:.2f}/"
+              f"{cell['ttft']['p99_ms']:.2f} ms, ITL p50/p99 "
+              f"{cell['itl']['p50_ms']:.3f}/{cell['itl']['p99_ms']:.3f} ms; "
+              f"{cell['tok_s']['orchestrator']:.1f} tok/s against serve()'s "
+              f"{cell['tok_s']['serve']:.1f}; evictions {cell['evictions']}; "
+              f"launches {launches}; tokens equal to serve()'s "
+              f"{cell['tokens_equal_to_serve']} of 256 admitted together "
+              "(not asserted: one B = 8 prefill at bucket 1024 against "
+              "8 single ones)"
+              + (f", {cell['one_by_one']['tokens_equal_to_serve']} of 256 "
+                 "admitted one by one (asserted)" if dtype == "float32"
+                 else ""))
+        if dtype == "float32":
+            assert [s.out_tokens for s in one_by_one] == ref
+            ref32 = ref
+        del e
+
+    # 13b. a benign random fault plan with retry and the guard, float32;
+    # the fault-free run is 13a's with the same admission ---------------
+    plan = FaultPlan.random(6, n=6, rounds=25, slots=8)
+    e = engine(cfg32, params32, faults=plan, retry=retry, guard=True)
+    sreqs, wall_b, launches = orchestrate(e, batched)
+    poisoned = e.faults.uids_poisoned
+    clean = [i for i, s in enumerate(sreqs) if s._req.uid not in poisoned]
+    same = sum(sreqs[i].out_tokens == batched32[i] for i in clean)
+    c = e.metrics.snapshot()["counters"]
+    kinds = sorted({ev["kind"] for ev in e.faults.events})
+    out["13b"] = {"plan": "random:seed=6,n=6,rounds=25,slots=8",
+                  "fired": len(e.faults.events), "kinds": kinds,
+                  "retries": int(c.get("stage.retries", 0)),
+                  "evictions": e.stats["evictions"],
+                  "guard_fallbacks": int(c.get("guard.fallbacks", 0)),
+                  "poisoned": len(poisoned), "clean_equal": same,
+                  "clean": len(clean), "wall_s": wall_b,
+                  "launches": launches}
+    phase(f"phase 13b benign FaultPlan.random(6) with retry and the guard "
+          f"(float32): {len(e.faults.events)} faults fired {kinds}, "
+          f"{out['13b']['retries']} retries, {e.stats['evictions']} "
+          f"evictions, guard fallbacks {out['13b']['guard_fallbacks']}; "
+          f"every stream terminal and error-free, pool drained; "
+          f"un-poisoned streams equal to the fault-free run (13a's, "
+          f"admitted together) {same} of "
+          f"{len(clean)}; wall {wall_b:.3f} s")
+    assert clean and same == len(clean)
+    if poisoned:
+        assert c["guard.fallbacks"] > 0
+    del e
+
+    # 13c. a poisoned slot re-decoded up the ladder (fixed at level 2) --
+    e = engine(cfg32, params32, faults=FaultPlan((Fault(
+        "poison_logits", at=3, slot=0, fixed_by_level=2),)), guard=True)
+    kept, got, build_ms = {}, {}, {}
+    generate, check = e.engine.generate, e.guard.check_round
+    build = e.guard.rung
+
+    def build_timed(lvl):               # a rung's first use hoists
+        if lvl in e.guard._rungs:
+            return build(lvl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = build(lvl)
+        torch.cuda.synchronize()
+        build_ms[f"level{lvl}"] = 1e3 * (time.perf_counter() - t0)
+        return r
+
+    def generate_kept(p, state):        # the true pre-round state
+        kept["state"] = {**state, "pos": state["pos"].clone(),
+                         "tok": state["tok"].clone(),
+                         "page_table": state["page_table"].clone(),
+                         "blocks": tuple({k: v.clone() for k, v in b.items()}
+                                         for b in state["blocks"])}
+        return generate(p, state)
+
+    def check_timed(prev, logits, active, poisons=None):
+        if not poisons:
+            return check(prev, logits, active, poisons)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(prev, logits, active, poisons)
+        torch.cuda.synchronize()
+        (slot,) = poisons
+        got.update(first_ms=1e3 * (time.perf_counter() - t0), slot=slot,
+                   row=logits[slot].copy(), state=kept["state"])
+
+    e.engine.generate, e.guard.check_round = generate_kept, check_timed
+    e.guard.rung = build_timed
+    reqs = [Request(uid=i, prompt=p, max_new=32)
+            for i, p in enumerate(prompts)]
+    e.serve(reqs)
+    e.engine.generate, e.guard.rung = generate, build
+    drained(e)
+    c = e.metrics.snapshot()["counters"]
+    (uid,) = e.faults.uids_poisoned
+    top = e.guard.ladder[1]
+    st, slot = got["state"], got["slot"]
+    want = sm.decode_step(params32, pre_round(st), st["tok"], cfg32,
+                          top)[0][slot].float().cpu().numpy()
+    hoisted = sm.decode_step(e.params, pre_round(st), st["tok"], cfg32,
+                             lm.weights_free(top))[0][slot].float().cpu(
+                             ).numpy()
+    d_rung = float(np.abs(got["row"] - want).max())
+    d_p8 = float(np.abs(got["row"] - hoisted).max())
+    neighbours = [r.out_tokens == ref32[r.uid] for r in reqs if r.uid != uid]
+    rung_ms = {}
+    for lvl in (1, 2):
+        stages, rp = e.guard.rung(lvl)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stages.generate(rp, pre_round(st))[1][slot].float().cpu()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        rung_ms[f"level{lvl}"] = statistics.median(ts)
+    out["13c"] = {"fallbacks": int(c["guard.fallbacks"]),
+                  "level": e.guard.level(uid),
+                  "row_vs_decode_step_max_abs": d_rung,
+                  "row_vs_posit8_hoisted_max_abs": d_p8,
+                  "first_quarantine_ms": got["first_ms"],
+                  "rung_build_ms": build_ms, "redecode_ms": rung_ms,
+                  "neighbours_equal": sum(neighbours)}
+    phase(f"phase 13c poison_logits fixed at level 2 (float32): guard "
+          f"fallbacks {c['guard.fallbacks']}, level {e.guard.level(uid)}; "
+          f"the replaced row vs a decode_step at the rung's policy from the "
+          f"pre-round state max |diff| {d_rung:.3e} (1e-3), vs the engine's "
+          f"posit8-hoisted weights {d_p8:.3e}; first quarantine (both rungs "
+          f"hoisted, two re-decodes) {got['first_ms']:.1f} ms, of which "
+          f"building the rungs {build_ms['level1']:.1f} / "
+          f"{build_ms['level2']:.1f} ms; later "
+          f"re-decodes (clone + generate + row) {rung_ms['level1']:.2f} / "
+          f"{rung_ms['level2']:.2f} ms at levels 1 / 2; neighbours' streams "
+          f"equal to the fault-free run {sum(neighbours)} of 7")
+    assert c["guard.fallbacks"] == 2 and c["guard.nonfinite_rows"] == 1
+    assert c["guard.exhausted"] == 0 and e.guard.level(uid) == 2
+    assert d_rung <= 1e-3 < d_p8, (d_rung, d_p8)
+    assert all(neighbours)
+    del e, got, kept
+
+    # a guard-armed, idle decode step against phase 6d's (bf16, 6c's
+    # engine): one dict copy per step, no clone ------------------------
+    e = engine(cfg, params, scfg=ServeConfig(**paged), guard=True)
+    e.serve([Request(uid=-1, prompt=warm, max_new=3)])
+    e.add_requests([Request(uid=100 + i, prompt=p, max_new=32)
+                    for i, p in enumerate(prompts)])
+    wall_g, per_step_g, device_g = profile_steps(e.step)
+    busy_g = prof_busy[-1]
+    e.serve([])
+    drained(e)
+    assert e.metrics.snapshot()["counters"]["guard.nonfinite_rows"] == 0
+    out["guard_idle_step"] = {"wall_ms": wall_g, "busy_ms": busy_g,
+                              "busy_ms_6d": busy_6d,
+                              "launches_per_step": {
+                                  k: per_step_g[k] for k in path}}
+    phase(f"phase 13c' guard armed but idle, paged decode step (bf16): wall "
+          f"{wall_g:.3f} ms/step, {device_g}; phase 6d's busy "
+          + (f"{busy_6d:.3f} ms/step" if busy_6d is not None
+             else "not measured"))
+    del e
+
+    # 13d. lethal: a persistent stage error; a stall under the watchdog --
+    sub = [rng13.integers(0, cfg.vocab, int(n))
+           for n in rng13.integers(64, 513, 4)]
+    e = engine(cfg, params, faults=FaultPlan((Fault(
+        "stage_error", stage="generate", at=2, transient=False),)),
+        retry=retry)
+    orch = Orchestrator(e, OrchestratorConfig())
+    sreqs = [StreamingRequest(p.tolist(), max_new=32) for p in sub]
+    for s in sreqs:
+        assert orch.submit(s, timeout=60.0)
+    for s in sreqs:
+        assert s.wait(120.0)
+    assert all(s.error for s in sreqs) and not orch.healthy
+    assert isinstance(orch.worker_exc, InjectedFault)
+    orch.close()
+    drained(e)
+    del e
+    e = engine(cfg, params, faults=FaultPlan((Fault(
+        "stage_delay", stage="generate", at=2, delay_s=2.0),)))
+    orch = Orchestrator(e, OrchestratorConfig(watchdog_s=0.2))
+    s = StreamingRequest(sub[0].tolist(), max_new=300)
+    t0 = time.perf_counter()
+    assert orch.submit(s)
+    assert s.wait(60.0)
+    waited = time.perf_counter() - t0
+    assert waited < 1.9 and "watchdog" in s.error and not orch.healthy
+    orch.close()                    # joins the scheduler after the stall
+    drained(e)
+    out["13d"] = {"persistent_error": "contained",
+                  "watchdog_failed_after_s": waited}
+    phase(f"phase 13d lethal: a persistent generate error contained (4 "
+          f"streams failed, orchestrator unhealthy, pool drained); a 2 s "
+          f"stall against watchdog_s 0.2 failed its stream after "
+          f"{waited:.3f} s (< 1.9), pool drained after close")
+    del e
+
+    # 13e. the serve launcher at full width, as a subprocess ------------
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
+            "--async", "--kv-layout", "paged", "--kv-format", "posit8",
+            "--overcommit", "--fault-plan", "random:seed=3,n=6", "--health"]
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(ROOT / "src")))
+    took = time.perf_counter() - t0
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    health = json.loads(next(line for line in run.stdout.splitlines()
+                             if line.startswith("health: "))[8:])
+    assert health["healthy"] and health["in_flight"] == 0, health
+    assert health["engine"]["live_pages"] == 0, health
+    assert "terminal errors" not in run.stdout, run.stdout[-3000:]
+    lat = [line for line in run.stdout.splitlines()
+           if line.startswith(("TTFT", "ITL"))]
+    out["13e"] = {"argv": argv[3:], "seconds": took,
+                  "counters": health["counters"], "latency": lat}
+    fired = health["counters"].get("faults.injected", 0)
+    phase(f"phase 13e launcher `{' '.join(argv[2:])}`: exit 0 in "
+          f"{took:.1f} s, healthy, nothing in flight, pool drained; "
+          f"{'; '.join(lat)}; faults {fired} fired, guard fallbacks "
+          f"{health['counters'].get('guard.fallbacks', 0)}")
     return out
 
 
@@ -669,6 +1038,7 @@ def main() -> int:
     # 6b. where a decode step's time goes: one profiled window --------
     from torch.profiler import ProfilerActivity, profile
     n_prof = 5
+    prof_busy = []          # each profile's device busy ms/step (or None)
 
     def profile_steps(step):
         """Wall per call of ``step`` over ``n_prof`` calls, wrapper launches
@@ -688,6 +1058,7 @@ def main() -> int:
                       for k, v in device_events(prof, n_kernels).items()}
         copies = sum(n for k, n in n_kernels.items() if k.endswith("[copy]"))
         busy = sum(per_kernel.values())
+        prof_busy.append(busy if per_kernel else None)
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         # K4's or K6's two kernels (the step runs one of the two layouts)
         walk = sum(per_kernel.get(k, 0.0) for k in ("split_kernel",
@@ -763,6 +1134,7 @@ def main() -> int:
                         for i, p in enumerate(prompts)])
     n_active = sum(r is not None for r in eng_p.slot_req)
     wall_p, _, device_p = profile_steps(eng_p.step)
+    busy_6d = prof_busy[-1]
     eng_p.serve([])
     eng_p.allocator.assert_consistent()
     assert eng_p.allocator.live_pages == 0
@@ -1131,6 +1503,11 @@ def main() -> int:
             del e_
     print(json.dumps({"speculative": spec_cells}), flush=True)
     main_launches["posit_decode"] = spec_launches["posit_decode"]
+
+    # 13. the orchestrator and its robustness (own generator) ----------
+    print(json.dumps({"orchestrator": phase13(
+        dev, args.seed, cfg, params, cfg32, params32, prompts, warm,
+        profile_steps, prof_busy, busy_6d)}), flush=True)
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")

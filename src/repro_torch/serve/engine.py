@@ -18,6 +18,15 @@ reservation is waived and a dry pool evicts the newest sequence instead
 (recompute-on-readmit, ``stats["evictions"]``).  Admission scans the whole
 queue, so a blocked head never starves later entries.
 
+Chaos hardening, all off by default (single ``is not None`` checks on the
+hot path): ``faults`` (a ``FaultPlan`` or ``FaultInjector``,
+``serve/faults.py``) schedules stage errors and delays, dry pools and
+NaN-poisoned logits; ``retry`` (a ``RetryPolicy``) re-runs transient stage
+failures; ``guard`` (True or a ``GuardConfig``) arms the numeric
+quarantine with its precision-fallback re-decode (``serve/guard.py``).
+``abort`` terminally releases a request from outside the decode loop
+(the orchestrator's deadlines, cancellation and crash containment).
+
 Weight quantization is hoisted: the policy's weight hook is a pure function
 of each weight, so the engine applies it once at construction
 (``models.lm.hoist_weight_quant``) and serves through the policy with its
@@ -39,6 +48,8 @@ from ..kernels.kv_cache import append_geometry, code_channels, split_geometry
 from ..models import lm
 from ..obs import MetricsRegistry, StatsView, Tracer
 from .engine_api import TransprecisionEngine
+from .faults import FaultInjector, FaultPlan, RetryPolicy
+from .guard import GuardConfig, NumericGuard
 from .paged import PageAllocator, SlotPages, pages_for
 
 _KV_LEAF_NAMES = ("k", "v", "k_scale", "v_scale")
@@ -113,21 +124,38 @@ def check_kv_kernels(cfg: lm.ModelCfg, policy: TCPolicy,
                    cfg.n_heads // cfg.n_kv_heads, cfg.dtype, max_len)
 
 
+def load_kv_kernels(policy: TCPolicy) -> None:
+    """Build (at first use) and load the KV kernels' libraries on the
+    calling thread when ``policy`` keeps posit KV codes: K3/K4, K5/K6 and
+    K1 (the speculative verify's read).  An engine built for the card
+    calls this in its constructor, so a first build's ``nvcc`` (tens of
+    seconds) never runs inside a stage on an orchestrator's scheduler
+    thread, under its watchdog."""
+    spec = kv_storage(policy)
+    if spec is not None and spec.is_posit:
+        for name in ("kv_cache", "paged_kv", "posit_codec"):
+            _build.lib(name)
+
+
 class ServingEngine:
     def __init__(self, cfg: lm.ModelCfg, params, scfg: ServeConfig,
                  policy: TCPolicy = BF16, *, device="cuda",
-                 tracer: Optional[Tracer] = None, faults=None, retry=None,
-                 guard=None):
-        if faults is not None or retry is not None or guard:
-            raise NotImplementedError("fault injection, retry and the "
-                                      "numeric guard are a later slice of "
-                                      "the port")
+                 tracer: Optional[Tracer] = None, faults=None,
+                 retry: Optional[RetryPolicy] = None, guard=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
         self.policy = get_policy(policy)
         self.tracer = tracer if tracer is not None else Tracer()
         self.metrics = MetricsRegistry()
+        if isinstance(faults, FaultPlan):
+            faults = FaultInjector(faults, metrics=self.metrics)
+        self.faults: Optional[FaultInjector] = faults
+        if self.faults is not None and self.faults.metrics is None:
+            self.faults.metrics = self.metrics
+        self.retry = retry
+        guard_cfg = (guard if isinstance(guard, GuardConfig)
+                     else (GuardConfig() if guard else None))
         overrides = {}
         if scfg.kv_format is not None:
             overrides["kv_format"] = scfg.kv_format
@@ -141,7 +169,10 @@ class ServingEngine:
                 self.policy, name=f"{self.policy.name}+{tag}", **overrides)
         if self.device.type == "cuda":
             check_kv_kernels(cfg, self.policy, scfg.max_len)
+            load_kv_kernels(self.policy)
         params = _to_device(params, self.device)
+        # the guard's rungs hoist their own weights from the raw parameters
+        self.raw_params = params if guard_cfg is not None else None
         self.params = lm.hoist_weight_quant(params, self.policy)
         b, L = scfg.max_batch, scfg.max_len
         self.paged = self.policy.kv_layout == "paged"
@@ -153,7 +184,8 @@ class ServingEngine:
                               else 1 + b * self._pmax)
             self.allocator = PageAllocator(self.num_pages, ps,
                                            metrics=self.metrics,
-                                           tracer=self.tracer)
+                                           tracer=self.tracer,
+                                           faults=self.faults)
             self.slot_pages = [SlotPages(ps) for _ in range(b)]
             # worst-case page reservations (admission control): pages a
             # slot may still grow into are committed but not yet allocated
@@ -163,7 +195,10 @@ class ServingEngine:
         self.engine = TransprecisionEngine(
             cfg, lm.weights_free(self.policy), b, L,
             num_pages=self.num_pages if self.paged else None,
-            device=self.device, tracer=self.tracer, metrics=self.metrics)
+            device=self.device, tracer=self.tracer, metrics=self.metrics,
+            faults=self.faults, retry=self.retry)
+        self.guard: Optional[NumericGuard] = (
+            NumericGuard(self, guard_cfg) if guard_cfg is not None else None)
         # paged: cache["page_table"] is one device tensor, updated in place
         # from the host mirror self._table
         self.cache = self.engine.init_decode_state()
@@ -343,7 +378,8 @@ class ServingEngine:
             if "admit" not in req.timing:   # a readmit is no queue wait
                 req.timing["admit"] = now
                 if self.tracer.enabled and now > sub:
-                    self.tracer.record("queue.wait", sub, now, cat="queue")
+                    self.tracer.record("queue.wait", sub, now, cat="queue",
+                                       uid=req.uid)
         bucket = self.engine.bucket_for(max(len(toks[j])
                                             for _, _, _, j in admitted))
         pad = np.zeros((len(admitted), bucket), np.int64)
@@ -467,8 +503,29 @@ class ServingEngine:
             if not active:
                 return
         self.cache["tok"] = torch.from_numpy(self.last_tok).to(self.device)
+        # guard-armed: the pre-round pos and tok (generate rebinds both on
+        # the dict and writes K/V rows in place), for a fallback re-decode
+        prev = dict(self.cache) if self.guard is not None else None
         self.cache, logits = self.engine.generate(self.params, self.cache)
         logits = _host(logits)
+        if self.faults is not None or self.guard is not None:
+            logits = np.array(logits, copy=True)   # writable host copy
+            poisons = {}
+            if self.faults is not None:
+                poisons = self.faults.poison_round(
+                    {i: self.slot_req[i].uid for i in active})
+                for i in poisons:
+                    logits[i] = np.nan
+            if self.guard is not None:
+                self.guard.check_round(prev, logits, active, poisons)
+                # ladder-exhausted requests terminated inside the guard:
+                # reclaim their slot + pages, drop them from this round
+                for i in active:
+                    r = self.slot_req[i]
+                    if r is not None and r.done:
+                        self._free_request_slot(i)
+                active = [i for i in active
+                          if self.slot_req[i] is not None]
         temps = np.asarray([0.0 if r is None else self._req_temp(r)
                             for r in self.slot_req], np.float32)
         with self.tracer.span("host.sample"):
@@ -486,6 +543,23 @@ class ServingEngine:
                     or self.slot_pos[i] >= self.scfg.max_len - 1):
                 req.done = True
                 self._free_request_slot(i)
+
+    def abort(self, req: Request, error: Optional[str] = None) -> None:
+        """Terminally release ``req`` from outside the decode loop
+        (deadline expiry, cancellation, crash containment): free its slot
+        and pages if it is active, drop it from the eviction requeue, and
+        mark it done.  Idempotent; runs on the thread driving the engine
+        (the orchestrator's scheduler thread)."""
+        req.done = True
+        if error is not None and req.error is None:
+            req.error = error
+        for i, r in enumerate(self.slot_req):
+            if r is req:
+                self._free_request_slot(i)   # stamps finish (req.done)
+                return
+        if req in self._evicted:
+            self._evicted.remove(req)
+        req.timing.setdefault("finish", time.perf_counter())
 
     def _reject_reason(self, req: Request) -> Optional[str]:
         """Why ``req`` can never be admitted (None: admissible once a slot

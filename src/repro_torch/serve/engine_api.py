@@ -26,11 +26,18 @@ Observability: with an enabled tracer every stage call is wrapped in a
 ``<stage>.device`` span around ``torch.cuda.synchronize``, inside a
 ``torch.profiler.record_function`` so host spans line up with device
 traces.  With tracing disabled nothing is synchronized.
+
+Chaos hardening (``serve/faults.py``): with a ``faults`` injector every
+stage call first runs its ``on_stage`` hook, which may sleep (an injected
+straggler) or raise; a ``retry`` policy re-runs stages whose exception is
+flagged ``transient``.  The hook runs BEFORE the stage's function: the
+stages write the decode state in place, so a failed attempt must not have
+started writing K/V rows.
 """
 from __future__ import annotations
 
 import dataclasses
-from time import perf_counter
+from time import perf_counter, sleep
 from typing import Any, Dict, Optional
 
 import torch
@@ -102,7 +109,7 @@ class TransprecisionEngine:
                  *, num_pages: Optional[int] = None, device="cuda",
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 stage_prefix: str = ""):
+                 stage_prefix: str = "", faults=None, retry=None):
         self.cfg = cfg
         self.policy = get_policy(policy)
         self.paged = check_layout(self.policy)
@@ -117,6 +124,11 @@ class TransprecisionEngine:
         self.metrics = metrics
         self.stage_prefix = stage_prefix
         self.max_batch, self.max_len = max_batch, max_len
+        # chaos hardening (both None = a plain call): a FaultInjector whose
+        # on_stage hook runs before every stage, and a RetryPolicy for
+        # transient stage failures (serve/faults.py)
+        self.faults = faults
+        self.retry = retry
         self._call_counters: Dict[str, Any] = {}
 
     # ---- observability ----
@@ -132,11 +144,11 @@ class TransprecisionEngine:
             ctr.inc()
         tr = self.tracer
         if tr is None or not tr.enabled:
-            return fn(*args)
+            return self._invoke(name, fn, args)
         t0 = perf_counter()
         with torch.profiler.record_function(name):
             with tr.span(name + ".dispatch", cat="engine"):
-                out = fn(*args)
+                out = self._invoke(name, fn, args)
         t1 = perf_counter()
         with tr.span(name + ".device", cat="engine"):
             if self.device.type == "cuda":
@@ -148,6 +160,37 @@ class TransprecisionEngine:
             self.metrics.histogram(f"stage.{name}.device_s").observe(
                 t2 - t1)
         return out
+
+    def _invoke(self, name, fn, args):
+        """One stage call behind the fault-injection and retry hooks (a
+        plain call with neither armed).  Injection raises BEFORE ``fn``
+        runs, so a failed attempt writes nothing; only exceptions flagged
+        ``transient`` are retried, with bounded exponential backoff
+        (``stage.retries`` / ``stage.<name>.retries`` counters;
+        ``stage.retry_exhausted`` when the budget runs out and the failure
+        propagates)."""
+        faults, retry = self.faults, self.retry
+        if faults is None and retry is None:
+            return fn(*args)
+        tries = 0
+        while True:
+            try:
+                if faults is not None:
+                    faults.on_stage(name)
+                return fn(*args)
+            except Exception as e:
+                transient = bool(getattr(e, "transient", False))
+                tries += 1
+                if retry is None or not transient \
+                        or tries >= retry.max_attempts:
+                    if transient and retry is not None \
+                            and self.metrics is not None:
+                        self.metrics.counter("stage.retry_exhausted").inc()
+                    raise
+                if self.metrics is not None:
+                    self.metrics.counter("stage.retries").inc()
+                    self.metrics.counter(f"stage.{name}.retries").inc()
+                sleep(retry.delay(tries - 1))
 
     # ---- stage: decode-state construction ----
     def init_decode_state(self) -> Dict[str, Any]:

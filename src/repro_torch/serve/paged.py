@@ -40,14 +40,10 @@ class PageAllocator:
     ``metrics``/``tracer`` (:mod:`repro_torch.obs`) are optional: when
     given, alloc/free/fork maintain ``pages.*`` counters plus the
     ``pages.live`` gauge, and each mutation gets a span (cat ``alloc``)
-    while tracing is enabled.  Fault injection (``faults=``) is a later
-    slice of the port and raises."""
+    while tracing is enabled."""
 
     def __init__(self, num_pages: int, page_size: int, *,
                  metrics=None, tracer=None, faults=None):
-        if faults is not None:
-            raise NotImplementedError("fault injection is a later slice of "
-                                      "the port")
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the trash page)")
         if page_size < 1:
@@ -56,6 +52,10 @@ class PageAllocator:
         self.page_size = page_size
         self.metrics = metrics
         self.tracer = tracer
+        # optional FaultInjector (serve/faults.py): pool_dry faults force
+        # alloc to report a dry pool, fork_fail faults raise from fork
+        # before anything is mutated
+        self.faults = faults
         # LIFO free list keeps recently-freed (cache-warm) pages hot
         self._free: List[int] = list(range(num_pages - 1, TRASH_PAGE, -1))
         self._refs = np.zeros(num_pages, np.int32)
@@ -95,7 +95,8 @@ class PageAllocator:
         all-or-nothing, so a partially admissible request never strands
         pages."""
         with self._span("alloc"):
-            if n > len(self._free):
+            if n > len(self._free) or (
+                    self.faults is not None and self.faults.on_alloc(n)):
                 if self.metrics is not None:
                     self.metrics.counter("pages.alloc_failures").inc()
                 return None
@@ -144,6 +145,8 @@ class PageAllocator:
         All-or-nothing: forking a freed / trash / out-of-range page raises
         before any refcount moves."""
         with self._span("fork"):
+            if self.faults is not None:
+                self.faults.on_fork()
             self._check_pages(pages, "fork")
             for p in pages:
                 self._refs[p] += 1

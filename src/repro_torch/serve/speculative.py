@@ -46,7 +46,7 @@ from ..core.transprecision import BF16, TCPolicy, draft_policy
 from ..models import lm
 from ..models.serve_model import check_verifiable
 from .engine import (Request, ServeConfig, ServingEngine, _to_device,
-                     check_kv_kernels)
+                     check_kv_kernels, load_kv_kernels)
 from .engine_api import (TransprecisionEngine, rollback_paged_cache,
                          rollback_ring_cache)
 from .paged import pages_for
@@ -87,15 +87,18 @@ class SpeculativeEngine(ServingEngine):
                                   kv_format=draft_kv_format)
         if self.device.type == "cuda":
             check_kv_kernels(cfg, self.draft, scfg.max_len)
+            load_kv_kernels(self.draft)
         # the draft's own hoisted weights (self.params are the target's)
         self.draft_params = lm.hoist_weight_quant(
             _to_device(params, self.device), self.draft)
         b, L = scfg.max_batch, scfg.max_len
         # the draft runs its own engine over a dense ring; it shares the
-        # tracer and registry, so its stages show up as "draft.generate"
+        # tracer, registry, fault injector and retry policy, so its stages
+        # show up (and can fault) as "draft.generate" etc.
         self.draft_engine = TransprecisionEngine(
             cfg, lm.weights_free(self.draft), b, L, device=self.device,
-            tracer=self.tracer, metrics=self.metrics, stage_prefix="draft.")
+            tracer=self.tracer, metrics=self.metrics, stage_prefix="draft.",
+            faults=self.faults, retry=self.retry)
         self.draft_cache = self.draft_engine.init_decode_state()
         self.draft_pos = np.zeros(b, np.int64)  # committed draft rows/slot
         # the committed token the draft cache is missing (an all-accepted

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
 its entry points (ring and paged serving, the matmul kernel, training and
-the quickstart, speculative serving, the Trainer, the data shards and the
-train launcher) default to the GPU and raise without
-one, and the parts left to later slices raise ``NotImplementedError``."""
+the quickstart, speculative serving, the Trainer, the data shards, the
+train and serve launchers and the orchestrator) default to the GPU and
+raise without one, and the parts left to later slices raise
+``NotImplementedError``."""
 import ast
 import os
 import subprocess
@@ -34,7 +35,11 @@ SPECULATIVE = ("repro_torch.serve.speculative",)
 TRAINING = ("repro_torch.optim.compression",
             "repro_torch.checkpoint.manager", "repro_torch.train.trainer",
             "repro_torch.train.fault_tolerance", "repro_torch.launch.train")
-REACHED = SLICE3 + SPECULATIVE + TRAINING
+# ... and of the orchestrator and its robustness
+ROBUSTNESS = ("repro_torch.serve.faults", "repro_torch.serve.guard",
+              "repro_torch.serve.orchestrator", "repro_torch.obs.report",
+              "repro_torch.launch.serve")
+REACHED = SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS
 
 
 def _imported(tree):
@@ -117,9 +122,17 @@ def test_later_slices_raise_not_implemented():
         get_config("llama3-8b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32),
-                      device="cpu", guard=True)
+    # the numeric guard, fault injection and retry are ported (they were
+    # a later slice): the engine takes them
+    from repro_torch.serve import FaultPlan, RetryPolicy
+    eng = ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32),
+                        device="cpu", guard=True, faults=FaultPlan(),
+                        retry=RetryPolicy())
+    assert eng.guard is not None and eng.engine.retry is eng.retry
+    assert eng.engine.faults is eng.faults is not None
+    from repro_torch.launch import serve as launch_serve
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        launch_serve.main(["--device", "cpu", "--energy"])
 
 
 def test_paged_entry_points_default_to_gpu():
@@ -200,3 +213,23 @@ def test_trainer_checkpoint_shards_and_launcher_default_to_gpu():
                  lambda: launch_train.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
+
+
+def test_serve_launcher_and_orchestrator_default_to_gpu():
+    """The serve launcher runs on the card unless ``--device cpu`` is
+    given, and raises without a GPU; a guarded engine the orchestrator
+    drives does too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import FaultPlan
+    cfg = get_config("paper-edge", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    for argv in ([], ["--async", "--fault-plan", "random:seed=3,n=6"],
+                 ["--speculative", "--async"]):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            launch_serve.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32),
+                      guard=True, faults=FaultPlan.random(3))

@@ -89,8 +89,13 @@ def test_constructor_checks_slot_pages_and_pages_for():
         row = ts.table_row(5)
         assert row.dtype == np.int32
         np.testing.assert_array_equal(row, js.table_row(5))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpaged.PageAllocator(4, 4, faults=object())
+    # fault injection is ported (it was a later slice): the allocator
+    # takes an injector and consults it on alloc
+    from repro_torch.serve.faults import Fault, FaultInjector, FaultPlan
+    a = tpaged.PageAllocator(4, 4, faults=FaultInjector(FaultPlan((
+        Fault("pool_dry"),))))
+    assert a.alloc(1) is None and len(a.alloc(1)) == 1
+    a.assert_consistent()
 
 
 def test_metrics_and_spans():
