@@ -45,8 +45,15 @@ generator): the paged posit8 engine of 6c (257 pages) with
 fault fixed at ladder level 2, the rungs' re-decode times, and a
 guard-armed idle decode step's profile beside 6d's; 13d a persistent
 stage error and a stall under the watchdog; 13e
-``repro_torch.launch.serve --full --async`` with a fault plan, as a
-subprocess; an ``{"orchestrator": ...}`` JSON line.  Phase 12 runs
+``repro_torch.launch.serve --full --async --energy`` with a fault plan,
+as a subprocess; 13f (first, on the float32 engine) the float32 prefill
+of the 8 prompts together, one by one and at their own buckets, and the
+first layer and op where their rows differ; an ``{"orchestrator": ...}``
+JSON line.  Phase 14 runs after 13: the modeled energy per token (TALU
+Table IV per-MAC PDP, 20 pJ/B DRAM; not the card's energy) of phase 6's,
+6c's and 11c's (ring, gamma 2) served runs, priced from meta-tensor
+traces of each stage, and card vs CPU at smoke size; an
+``{"energy": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -103,10 +110,13 @@ Every phase asserts; nothing is caught.  Tolerances:
   remat (12d)    "dots" and "none" vs "full" from one state: losses
                  equal, updated params and master within atol 1e-5
                  (phase 10b's).
-  orchestrator   (13a) float32, TF32 off: streams equal to the same
-                 engine's serve() (admissions coalesced into one by a 50
-                 ms batch window); bf16: equal tokens counted, not
-                 asserted; every stream terminal and error-free, pool
+  orchestrator   (13a) float32, TF32 off: streams admitted one by one
+                 equal to the same engine's serve(); admitted together
+                 (one B = 8 prefill at bucket 1024, a 50 ms batch
+                 window) and bf16: equal tokens counted, not asserted
+                 (13f: the card's GEMMs round a row by the row count,
+                 from layer 0's QKV product); every stream terminal and
+                 error-free, pool
                  drained, K3, K5 and K6 launched.  (13b) every stream
                  error-free, pool drained, un-poisoned streams equal to
                  13a's float32 serve().  (13c) guard.fallbacks == 2, level
@@ -116,7 +126,16 @@ Every phase asserts; nothing is caught.  Tolerances:
                  posit8-hoisted weights; the other 7 streams equal to
                  13a's.  (13d) all streams failed and the pool drained
                  after a persistent error; the watchdog fails a 2 s stall
-                 in < 1.9 s.  (13e) exit 0, healthy, nothing in flight.
+                 in < 1.9 s.  (13e) exit 0, healthy, nothing in flight,
+                 the energy table's header printed.
+  prefill (13f)  reported, not asserted: where a float32 prefill's rows
+                 first differ between B = 8 and B = 1 at bucket 1024, and
+                 between bucket 1024 and the prompt's own bucket.
+  energy (14)    no kernel launch and no device allocation (peak
+                 included) while the table is built; every stage's MACs
+                 equal to the analytic count from the config; at smoke
+                 size the card's and the CPU's tables equal field for
+                 field and J/token equal.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -152,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -295,6 +315,125 @@ def device_events(prof, launches=None):
     return out
 
 
+PREFILL_OPS = ("ln", "qkv", "attention", "wo", "ln2", "mlp")
+
+
+def prefill_taps(api, params, prompts, width):
+    """Prefill ``prompts`` through ``api`` (a ``TransprecisionEngine``) at
+    bucket ``width`` in one call and return the prefix with the
+    intermediates of each op, in order: per layer ``PREFILL_OPS`` (the
+    QKV output before RoPE, the attention output after it), then the final
+    norm and one head product per row.  The serving model's module-level
+    functions are wrapped for the call and restored after it."""
+    import torch
+    from repro_torch.models import attention as att
+    from repro_torch.models import serve_model as sm
+    taps = []
+
+    def tapped(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            taps.append(out if isinstance(out, tuple) else (out,))
+            return out
+        return run
+
+    names = ("rms_norm", "_qkv", "_einsum", "_mlp")
+    saved = [getattr(sm, n) for n in names] + [att.blockwise_attention]
+    for n, fn in zip(names, saved):
+        setattr(sm, n, tapped(fn))
+    att.blockwise_attention = tapped(saved[-1])
+    toks = np.zeros((len(prompts), width), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    try:
+        prefix = api.prefill(params, torch.from_numpy(toks),
+                             torch.tensor([len(p) for p in prompts]))
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(sm, n, fn)
+        att.blockwise_attention = saved[-1]
+    n_layers = len(taps[:-1 - len(prompts)]) // len(PREFILL_OPS)
+    labels = [f"layer {i} {op}" for i in range(n_layers)
+              for op in PREFILL_OPS] + ["final norm"]
+    body = dict(zip(labels, taps))
+    body["head"] = (torch.cat([t[0] for t in taps[len(labels):]]),)
+    return prefix, body
+
+
+def first_difference(a, ia, b, ib, n):
+    """The first op, in the model's order, at which row ``ia`` of the taps
+    ``a`` differs from row ``ib`` of ``b`` over the first ``n`` positions,
+    with the largest |difference| there, and the differing K/V codes and
+    scales of the two prefixes' first ``n`` rows."""
+    first, worst = None, 0.0
+    for op in a[1]:
+        for x, y in zip(a[1][op], b[1][op]):
+            x, y = x[ia], y[ib]
+            if x.ndim and op != "head":
+                x, y = x[:n], y[:n]
+            d = float((x.float() - y.float()).abs().max())
+            if d > 0 and first is None:
+                first, worst = op, d
+    ka, kb = a[0]["cache"]["blocks"][0], b[0]["cache"]["blocks"][0]
+    kv = sum(int((ka[k][:, ia, :n] != kb[k][:, ib, :n]).sum()) for k in ka)
+    return first, worst, kv
+
+
+def phase13f(e, prompts) -> dict:
+    """13f. Is a prompt's float32 prefill independent of its batch on the
+    card?  Phase 13's paged posit8 engine (TF32 off) prefills the 8
+    prompts (i) together at bucket W, (ii) one at a time at W and (iii)
+    one at a time at each prompt's own bucket; reports, per comparison,
+    the first layer and op at which a row differs and the largest
+    difference there, the logits' largest difference and the differing
+    K/V codes and scales.  (i) against (ii) changes only the GEMMs' row
+    count; (ii) against (iii) that and the attention's padded width."""
+    import torch
+    assert not torch.backends.cuda.matmul.allow_tf32
+    api = e.engine
+    together = prefill_taps(api, e.params, prompts, W)
+    res = {"i_vs_ii": [], "ii_vs_iii": []}
+    for i, p in enumerate(prompts):
+        n = len(p)
+        alone = prefill_taps(api, e.params, [p], W)
+        own = prefill_taps(api, e.params, [p], api.bucket_for(n))
+        for key, (a, ia, b) in (("i_vs_ii", (together, i, alone)),
+                                ("ii_vs_iii", (alone, 0, own))):
+            first, worst, kv = first_difference(a, ia, b, 0, n)
+            logits = float((a[1]["head"][0][ia] - b[1]["head"][0][0]).abs()
+                           .max())
+            res[key].append({"prompt_tokens": n, "first": first,
+                             "first_max_abs": worst,
+                             "logits_max_abs": logits,
+                             "kv_differing": kv})
+        del alone, own
+    del together
+    torch.cuda.empty_cache()
+    out = {}
+    for key, rows in res.items():
+        firsts = [r["first"] for r in rows if r["first"] is not None]
+        out[key] = {
+            "rows_differing": len(firsts),
+            "first_ops": sorted(set(firsts)),
+            "logits_max_abs": max(r["logits_max_abs"] for r in rows),
+            "kv_differing": sum(r["kv_differing"] for r in rows),
+            "per_prompt": rows}
+    phase("phase 13f float32 prefill rows vs batch (TF32 off, bucket "
+          f"{W}): (i) together vs (ii) alone: "
+          f"{out['i_vs_ii']['rows_differing']} of 8 prompts differ, first at {out['i_vs_ii']['first_ops']}, "
+          f"logits max |diff| {out['i_vs_ii']['logits_max_abs']:.3e}, K/V "
+          f"codes/scales differing {out['i_vs_ii']['kv_differing']}; (ii) "
+          f"vs (iii) own bucket: {out['ii_vs_iii']['rows_differing']} differ,"
+          f" first at {out['ii_vs_iii']['first_ops']}, logits max |diff| "
+          f"{out['ii_vs_iii']['logits_max_abs']:.3e}, K/V differing "
+          f"{out['ii_vs_iii']['kv_differing']}; per prompt (tokens, first "
+          "op, its max |diff|): "
+          + "; ".join(f"{r['prompt_tokens']}: {r['first']} "
+                      f"{r['first_max_abs']:.3e}"
+                      for r in res["i_vs_ii"]))
+    return out
+
+
 def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
             profile_steps, prof_busy, busy_6d) -> dict:
     """13. The serving orchestrator and its robustness at full width on
@@ -307,7 +446,8 @@ def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
     pre-round state, the rungs' re-decode times, and a guard-armed but idle
     decode step's profile against phase 6d's; 13d a persistent stage error
     and a stalled stage under the watchdog; 13e the serve launcher as a
-    subprocess.  Returns the ``{"orchestrator": ...}`` line's object."""
+    subprocess, with ``--energy``; 13f (first) ``phase13f``.  Returns the
+    ``{"orchestrator": ...}`` line's object."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
@@ -395,6 +535,8 @@ def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
     for dtype, c, p in (("float32", cfg32, params32),
                         ("bfloat16", cfg, params)):
         e = engine(c, p)
+        if dtype == "float32":
+            out["13f"] = phase13f(e, prompts)
         e.serve([Request(uid=-1, prompt=warm, max_new=3)])      # warm-up
         ref, s_wall = serve_sync(e)
         ev = e.stats["evictions"]
@@ -426,7 +568,7 @@ def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
               f"launches {launches}; tokens equal to serve()'s "
               f"{cell['tokens_equal_to_serve']} of 256 admitted together "
               "(not asserted: one B = 8 prefill at bucket 1024 against "
-              "8 single ones)"
+              "8 single ones, whose GEMMs round by row count, 13f)"
               + (f", {cell['one_by_one']['tokens_equal_to_serve']} of 256 "
                  "admitted one by one (asserted)" if dtype == "float32"
                  else ""))
@@ -615,7 +757,8 @@ def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
     # 13e. the serve launcher at full width, as a subprocess ------------
     argv = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
             "--async", "--kv-layout", "paged", "--kv-format", "posit8",
-            "--overcommit", "--fault-plan", "random:seed=3,n=6", "--health"]
+            "--overcommit", "--fault-plan", "random:seed=3,n=6", "--health",
+            "--energy"]
     t0 = time.perf_counter()
     run = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
                          timeout=600, env=dict(os.environ,
@@ -629,13 +772,163 @@ def phase13(dev, seed, cfg, params, cfg32, params32, prompts, warm,
     assert "terminal errors" not in run.stdout, run.stdout[-3000:]
     lat = [line for line in run.stdout.splitlines()
            if line.startswith(("TTFT", "ITL"))]
+    energy_head = [line for line in run.stdout.splitlines()
+                   if line.startswith("energy (modeled: TALU Table IV")]
+    assert len(energy_head) == 1, run.stdout[-3000:]
+    assert "not priced" not in run.stdout, run.stdout[-3000:]
     out["13e"] = {"argv": argv[3:], "seconds": took,
-                  "counters": health["counters"], "latency": lat}
+                  "counters": health["counters"], "latency": lat,
+                  "energy": energy_head[0]}
     fired = health["counters"].get("faults.injected", 0)
     phase(f"phase 13e launcher `{' '.join(argv[2:])}`: exit 0 in "
           f"{took:.1f} s, healthy, nothing in flight, pool drained; "
           f"{'; '.join(lat)}; faults {fired} fired, guard fallbacks "
-          f"{health['counters'].get('guard.fallbacks', 0)}")
+          f"{health['counters'].get('guard.fallbacks', 0)}; {energy_head[0]}")
+    return out
+
+
+def analytic_mac_flops(cfg, stage: str, spec, page_size: int) -> int:
+    """A stage's product FLOPs from the config and its spec's shapes (2 per
+    MAC): every weight product at each token it runs on (the head at each
+    prefill row's last position only), plus QK and PV over the attention's
+    rows: the padded prompt for prefill (every q block against every kv
+    block, as the blockwise loop runs), the ring's width or the page
+    table's rows for generate and verify.  insert and rollback run no
+    product."""
+    d, nh, nkv, hd, ff, n_l = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.d_ff, cfg.n_layers)
+    wi = 2 * ff if cfg.mlp == "swiglu" else ff
+    per_token = n_l * (d * (nh + 2 * nkv) * hd + nh * hd * d + d * wi
+                       + ff * d)
+    head = d * cfg.vocab_pad
+    stage = stage.split(".")[-1]
+    if stage in ("insert", "rollback"):
+        return 0
+    if stage == "prefill":
+        b, s = spec[1].shape
+        qb, kb = min(cfg.q_block, s), min(cfg.kv_block, s)
+        sp, skp = -(-s // qb) * qb, -(-s // kb) * kb
+        return (2 * b * s * per_token + 2 * b * head
+                + 4 * b * n_l * nh * sp * skp * hd)
+    state = spec[1]
+    rows = (state["page_table"].shape[1] * page_size
+            if "page_table" in state else state["blocks"][0]["k"].shape[2])
+    b = state["tok"].shape[0]
+    t = spec[2].shape[1] if stage == "verify" else 1
+    return 2 * b * t * (per_token + head) + 4 * b * t * n_l * nh * rows * hd
+
+
+def phase14(dev, seed, runs) -> dict:
+    """14. Modeled energy per token (TALU Table IV per-MAC PDP, 20 pJ/B
+    DRAM: a model of the paper's edge device, not the card's energy).
+    14a prices the full-width engines of ``runs`` (label -> (driver, the
+    served run's stage calls, its tokens)): the table from meta-tensor
+    traces of each stage's recorded spec, with no kernel launched and no
+    device memory allocated while it is built, every stage's MACs equal to
+    ``analytic_mac_flops``, and the J/token of the run's window (draft
+    stages apart from the target's).  14b serves the same seeded requests
+    at smoke size on a card engine and a CPU engine, ring and paged: the
+    two tables equal field for field, and J/token equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.obs import EnergyAccountant, energy
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    out = {"model": "modeled (TALU Table IV, 20 pJ/B DRAM)",
+           "priced_at": "each stage's first call's shapes (a run's "
+                        "prefills at the warm-up's bucket), every call "
+                        "alike, as the reference prices",
+           "runs": {}}
+    for label, (driver, calls, tokens) in runs.items():
+        energy._COST_CACHE.clear()          # time the traces themselves
+        acct = EnergyAccountant(driver)
+        # no collection of older garbage (which may hold device tensors)
+        # while the table is built: any change is the trace's own
+        gc.collect()
+        torch.cuda.synchronize()
+        launches0, mem0 = dict(LAUNCHES), torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            table = acct.table()
+            secs = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        mem = (torch.cuda.memory_allocated(),
+               torch.cuda.max_memory_allocated())
+        assert dict(LAUNCHES) == launches0, label
+        assert mem == (mem0, mem0), (label, mem0, mem)
+        engines = [driver.engine] + ([driver.draft_engine] if hasattr(
+            driver, "draft_engine") else [])
+        prefill_shape = {}
+        for eng in engines:
+            for name, (_, spec) in eng.stage_specs.items():
+                if name.endswith("prefill"):        # (B, bucket) tokens
+                    prefill_shape[name] = list(spec[1].shape)
+                want = analytic_mac_flops(driver.cfg, name, spec,
+                                          eng.policy.kv_page_size)
+                assert table[name].mac_flops == want, (label, name,
+                                                        table[name].mac_flops,
+                                                        want)
+        bd = acct.breakdown(calls=calls, tokens=tokens)
+        assert "errors" not in bd, bd["errors"]
+        draft_j = sum(st["joules"] for name, st in bd["stages"].items()
+                      if name.startswith("draft."))
+        out["runs"][label] = {
+            "tokens": tokens, "joules": bd["joules_total"],
+            "joules_per_token": bd["joules_per_token"],
+            "joules_draft": draft_j,
+            "joules_target": bd["joules_total"] - draft_j,
+            "pricing_s": secs, "prefill_priced_at": prefill_shape,
+            "stages": {name: {
+                "calls": st["calls"], "pj_per_call": st["pj_per_call"],
+                "compute_share": st["pj_compute"] / st["pj_per_call"],
+                "mac_flops": st["mac_flops"],
+                "model_bytes": st["model_bytes"],
+                "mac_mix": st["mac_mix"]}
+                for name, st in bd["stages"].items()}}
+        phase(f"phase 14a {label}: modeled (TALU Table IV, 20 pJ/B DRAM) "
+              f"{bd['joules_per_token'] * 1e6:.3f} uJ/token over {tokens} "
+              f"tokens ({bd['joules_total'] * 1e3:.3f} mJ"
+              + (f", draft stages {draft_j * 1e3:.3f} mJ" if draft_j
+                 else "")
+              + f"); every prefill priced at its first call's (B, bucket) "
+              f"{prefill_shape}; priced in {secs:.3f} s with no launch and "
+              "no device allocation; MACs equal to the analytic count for "
+              + ", ".join(f"{name} ({st['calls']} calls, "
+                          f"{st['pj_per_call'] * 1e-6:.2f} uJ/call)"
+                          for name, st in bd["stages"].items()))
+
+    # 14b. card vs CPU at smoke size -----------------------------------
+    cfg_s = dataclasses.replace(get_config("paper-edge", smoke=True),
+                                dtype_name="float32")
+    params_s = lm.init_params(cfg_s, torch.Generator().manual_seed(seed),
+                              device="cpu")
+    rng14 = np.random.default_rng([seed, 14])
+    prompts_s = [rng14.integers(0, cfg_s.vocab, int(n))
+                 for n in rng14.integers(4, 40, 6)]
+    smoke = {}
+    for layout in ("ring", "paged"):
+        bds = []
+        for device in (dev, "cpu"):
+            e = ServingEngine(cfg_s, params_s, ServeConfig(
+                max_batch=4, max_len=64, kv_format="posit8",
+                kv_layout=layout), policy="paper_edge_p8", device=device)
+            e.serve([Request(uid=i, prompt=p, max_new=8)
+                     for i, p in enumerate(prompts_s)])
+            energy._COST_CACHE.clear()
+            bds.append(EnergyAccountant(e).breakdown())
+        card, cpu = bds
+        assert card["stages"] == cpu["stages"], layout
+        assert card["tokens"] == cpu["tokens"] == 48, layout
+        assert card["joules_per_token"] == cpu["joules_per_token"], layout
+        smoke[layout] = card["joules_per_token"]
+    out["smoke_card_vs_cpu"] = {"joules_per_token": smoke, "equal": True}
+    phase(f"phase 14b smoke card vs CPU (ring, paged): tables equal field "
+          f"for field, J/token equal: {smoke}")
     return out
 
 
@@ -657,6 +950,7 @@ def main() -> int:
     from repro_torch.kernels.posit_decode import decode_tile, posit_decode
     from repro_torch.kernels.posit_encode import encode_tile, posit_encode
     from repro_torch.models import lm
+    from repro_torch.obs import EnergyAccountant
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
     dev = torch.device("cuda")
@@ -995,11 +1289,14 @@ def main() -> int:
         steps0, tokens0 = eng.stats["decode_steps"], eng.stats["tokens"]
         calls = eng.metrics.counter("stage.prefill.calls")
         calls0 = calls.value
+        stage_calls0 = EnergyAccountant(eng).calls_snapshot()
         torch.cuda.synchronize()
         reset_launches()
         stats = eng.serve(reqs)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
+        stage_calls = EnergyAccountant.calls_delta(
+            EnergyAccountant(eng).calls_snapshot(), stage_calls0)
         eng.tracer.disable()
         st = eng.tracer.self_times()
 
@@ -1014,6 +1311,7 @@ def main() -> int:
         tokens = eng.stats["tokens"] - tokens0
         return {"eng": eng, "generate": generate_fn, "reqs": reqs,
                 "launches": launches, "prefill_calls": calls.value - calls0,
+                "energy_window": (stage_calls, tokens),
                 "steps": eng.stats["decode_steps"] - steps0,
                 "prefill_ms": stage_ms("prefill"),
                 "decode_ms": stage_ms("generate"),
@@ -1422,12 +1720,14 @@ def main() -> int:
     def serve_cell(scfg, gamma=None):
         """Serve the 8 prompts (max_new 32) through a fresh baseline
         (``gamma`` None) or speculative engine after a warm-up request, every
-        kernel count set to 0 just before the serve and read just after."""
+        kernel count set to 0 just before the serve and read just after;
+        also the serve's stage calls and tokens (the energy window)."""
         e_ = (ServingEngine(cfg, params, scfg) if gamma is None else
               SpeculativeEngine(cfg, params, scfg, gamma=gamma))
         e_.serve([Request(uid=-1, prompt=warm, max_new=3)])
         keys = [k for k in spec_counts if gamma or k in e_.stats]
         c0 = {k: e_.stats[k] for k in keys}
+        stage_calls0 = EnergyAccountant(e_).calls_snapshot()
         rq = [Request(uid=i, prompt=p, max_new=32)
               for i, p in enumerate(prompts)]
         torch.cuda.synchronize()
@@ -1437,13 +1737,16 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        window = (EnergyAccountant.calls_delta(
+            EnergyAccountant(e_).calls_snapshot(), stage_calls0),
+            e_.stats["tokens"] - c0["tokens"])
         assert all(len(r.out_tokens) == 32 for r in rq)
         assert all(0 <= t < cfg.vocab for r in rq for t in r.out_tokens)
         if e_.paged:
             e_.allocator.assert_consistent()
             assert e_.allocator.live_pages == 0
         counts = {k: e_.stats[k] - c0[k] for k in keys}
-        return e_, rq, launches, counts, wall
+        return e_, rq, launches, counts, wall, window
 
     spec_cells, spec_launches = {}, {k: 0 for k in path_kernels}
     for layout, extra in (("ring", {}),
@@ -1451,9 +1754,9 @@ def main() -> int:
                                      "num_pages": ENGINE_PAGES})):
         scfg = ServeConfig(max_batch=8, max_len=W, kv_format="posit8",
                            **extra)
-        _, b_rq, _, b_n, b_wall = serve_cell(scfg)
+        _, b_rq, _, b_n, b_wall, _ = serve_cell(scfg)
         for gamma in (2, 4):
-            e_, rq, lc, n, wall = serve_cell(scfg, gamma)
+            e_, rq, lc, n, wall, window = serve_cell(scfg, gamma)
             need = ["posit_decode", "kv_append_rows", "decode_attention"]
             need += ["paged_kv_append_rows"] if layout == "paged" else []
             for k in need:
@@ -1486,6 +1789,8 @@ def main() -> int:
                 "round_wall_ms_profiled": r_wall,
                 "tokens_equal_to_baseline": agree}
             spec_cells[f"{layout}_gamma{gamma}"] = cell
+            if layout == "ring" and gamma == 2:     # priced in phase 14
+                spec_ring = (e_,) + window
             phase(f"phase 11c speculative {layout} gamma {gamma}: acceptance "
                   f"{cell['acceptance']:.4f}, target steps/token "
                   f"{cell['target_steps_per_token']:.4f}, draft steps/token "
@@ -1508,6 +1813,14 @@ def main() -> int:
     print(json.dumps({"orchestrator": phase13(
         dev, args.seed, cfg, params, cfg32, params32, prompts, warm,
         profile_steps, prof_busy, busy_6d)}), flush=True)
+
+    # 14. modeled energy per token of the served runs (own generator) --
+    print(json.dumps({"energy": phase14(dev, args.seed, {
+        "6_ring": (eng,) + ring["energy_window"],
+        "6c_paged": (eng_p,) + paged["energy_window"],
+        "11c_ring_gamma2": spec_ring})}),
+        flush=True)
+    del spec_ring
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")

@@ -208,6 +208,16 @@ def get_policy(name) -> TCPolicy:
     return PRESETS[name]
 
 
+def hbm_bytes_per_param(policy: TCPolicy, role: str = "mlp_weights",
+                        default: float = 2.0) -> float:
+    """Storage bytes per parameter of ``role`` under ``policy``: its
+    format's bits / 8, or ``default`` for a full-precision role (bf16, as
+    the reference; the energy accountant passes the served tensor's own
+    item size)."""
+    f = getattr(policy, role)
+    return (get(f).bits / 8.0) if f else default
+
+
 # ---------------------------------------------------------------------------
 # Packed-parameter conversion (serving)
 # ---------------------------------------------------------------------------

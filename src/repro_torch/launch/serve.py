@@ -34,8 +34,10 @@ Observability: ``--trace-out run.trace.json`` enables the span tracer,
 prints a per-stage wall-clock breakdown and writes a Chrome trace;
 ``--metrics-json`` dumps the metrics registry; ``--request-log`` appends
 one JSON line per terminal request; ``--ttft-slo`` / ``--itl-slo`` (ms)
-arm SLO-violation counters.  ``--energy`` (the reference's modeled energy
-accounting) is not ported yet and raises.
+arm SLO-violation counters.  ``--energy`` prints the modeled energy
+breakdown on exit (``obs/energy.py``: each stage's work counted on meta
+tensors, priced with the TALU's Table IV per-MAC PDP and 20 pJ/B DRAM; a
+model of the paper's edge device, not the card's energy).
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ from .. import resolve_device
 from ..configs import get_config
 from ..core.transprecision import PRESETS
 from ..models import lm
-from ..obs import format_breakdown, stage_breakdown
+from ..obs import (EnergyAccountant, format_breakdown, format_energy,
+                   stage_breakdown)
 from ..serve.engine import Request, ServeConfig, ServingEngine
 from ..serve.faults import FaultPlan, RetryPolicy
 from ..serve.orchestrator import (Orchestrator, OrchestratorConfig,
@@ -115,8 +118,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the metrics-registry snapshot on exit")
     ap.add_argument("--energy", action="store_true",
-                    help="modeled energy breakdown (not ported yet: "
-                         "raises)")
+                    help="print the modeled energy breakdown on exit "
+                         "(TALU Table IV PDP + 20 pJ/B DRAM; per-stage pJ "
+                         "x live call counters)")
     ap.add_argument("--request-log", default=None, metavar="PATH",
                     help="append one JSON line per terminal request with "
                          "its lifecycle decomposition")
@@ -147,10 +151,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
     if args.speculative and args.temperature > 0:
         ap.error("--speculative is greedy-only (temperature 0)")
-    if args.energy:
-        raise NotImplementedError(
-            "--energy: modeled energy accounting (obs/energy.py) is not "
-            "ported yet (ROADMAP queue 1 item 4)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full)
     params = lm.init_params(
@@ -211,13 +211,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                   if k.startswith(("faults.", "guard."))
                   or k in ("stage.retries", "stage.retry_exhausted")}
         print("health:", json.dumps(health))
-    _write_obs(engine, wall, args)
+    energy = _write_obs(engine, wall, args)
     return {"engine": engine, "requests": reqs, "stats": stats,
-            "health": health}
+            "health": health, "energy": energy}
 
 
-def _write_obs(engine, wall_s, args) -> None:
-    """Dump trace / metrics files and print the stage breakdown."""
+def _write_obs(engine, wall_s, args) -> Optional[Dict[str, Any]]:
+    """Dump trace / metrics files, print the stage breakdown and, with
+    ``--energy``, the modeled energy breakdown (returned)."""
     if args.trace_out:
         print(format_breakdown(stage_breakdown(engine.tracer, wall_s)))
         engine.tracer.write_chrome_trace(args.trace_out)
@@ -226,6 +227,11 @@ def _write_obs(engine, wall_s, args) -> None:
         with open(args.metrics_json, "w") as f:
             json.dump(engine.metrics.snapshot(), f, indent=1)
         print(f"metrics snapshot -> {args.metrics_json}")
+    if not args.energy:
+        return None
+    bd = EnergyAccountant(engine).breakdown()
+    print(format_energy(bd))
+    return bd
 
 
 def _serve_async(engine, cfg, rng, args) -> Dict[str, Any]:
@@ -302,9 +308,10 @@ def _serve_async(engine, cfg, rng, args) -> Dict[str, Any]:
                                  "itl_violations", "itl_total")})
     if args.request_log:
         print(f"request log -> {args.request_log}")
-    _write_obs(engine, wall, args)
+    energy = _write_obs(engine, wall, args)
     return {"engine": engine, "orchestrator": orch, "streams": sreqs,
-            "submitted": submitted, "errors": errs, "health": health}
+            "submitted": submitted, "errors": errs, "health": health,
+            "energy": energy}
 
 
 if __name__ == "__main__":

@@ -407,7 +407,12 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     x = rms_norm(x, params["final_norm"])
     x_last = (x[:, -1] if true_len is None
               else x[torch.arange(b, device=dev), true_len.long() - 1])
-    logits = _einsum("bd,dv->bv", x_last, lm_head(params, cfg))
+    # the head one row at a time: a GEMM's reduction order may depend on
+    # its row count, and a prompt's logits must not depend on how many
+    # prompts share the prefill (the reference's do not)
+    head = lm_head(params, cfg)
+    logits = torch.cat([_einsum("bd,dv->bv", x_last[i:i + 1], head)
+                        for i in range(b)])
     if true_len is not None:
         cache["pos"] = true_len
     else:

@@ -196,7 +196,7 @@ class ServingEngine:
             cfg, lm.weights_free(self.policy), b, L,
             num_pages=self.num_pages if self.paged else None,
             device=self.device, tracer=self.tracer, metrics=self.metrics,
-            faults=self.faults, retry=self.retry)
+            faults=self.faults, retry=self.retry, weight_policy=self.policy)
         self.guard: Optional[NumericGuard] = (
             NumericGuard(self, guard_cfg) if guard_cfg is not None else None)
         # paged: cache["page_table"] is one device tensor, updated in place

@@ -21,6 +21,12 @@
   **rollback_ring** / **rollback_paged** rewind the rows a round rejected
   (the stages ``serve/speculative.py`` drives).
 
+Energy accounting: the first call of each stage name records
+``(fn, _abstract_args(args))`` in ``stage_specs``, the arguments as
+shape-and-dtype meta tensors; ``obs/energy.py`` re-runs the stage on them
+to count its work (``launch/op_cost.py``), as the reference re-lowers a
+stage from its recorded spec.
+
 Observability: with an enabled tracer every stage call is wrapped in a
 ``<stage>.dispatch`` span (the Python call, kernels queued) and a
 ``<stage>.device`` span around ``torch.cuda.synchronize``, inside a
@@ -40,6 +46,7 @@ import dataclasses
 from time import perf_counter, sleep
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -74,12 +81,16 @@ def rollback_ring_cache(cache, new_pos, window_end, scrub_from, t: int):
     end = torch.clamp(torch.as_tensor(window_end, device=dev).long(), min=t)
     frm = torch.as_tensor(scrub_from, device=dev).long()
     rows = end[:, None] - t + torch.arange(t, device=dev)[None, :]  # (B, t)
-    mask = rows >= frm[:, None]
+    keep = rows < frm[:, None]
     slot = torch.arange(rows.shape[0], device=dev)[:, None].expand_as(rows)
-    bi, ri = slot[mask], rows[mask]
+    # the reference's scatter form: every window row is rewritten, kept
+    # ones with their own value (no host sync, no data-dependent shape; a
+    # row appears once per slot)
     for blk in cache["blocks"]:              # K/V leaves (P, B, W, ...)
         for name, leaf in blk.items():
-            leaf[:, bi, ri] = 1.0 if name.endswith("_scale") else 0
+            m = keep.reshape(keep.shape + (1,) * (leaf.ndim - 3))
+            leaf[:, slot, rows] = torch.where(
+                m, leaf[:, slot, rows], 1.0 if name.endswith("_scale") else 0)
     cache["pos"] = torch.as_tensor(new_pos, device=dev).to(torch.int32,
                                                             copy=True)
     return cache
@@ -100,18 +111,40 @@ def rollback_paged_cache(cache, new_pos, scrub_rows):
     return cache
 
 
+def _abstract_args(args):
+    """``args`` with every tensor and numpy array (a host index vector)
+    replaced by a meta tensor of its shape and dtype; Python scalars pass
+    through.  Reads no data and syncs nothing: the energy accountant
+    (``obs/energy.py``) counts a stage's work from this spec without
+    holding a live buffer."""
+    if isinstance(args, (torch.Tensor, np.ndarray)):
+        return torch.empty_like(torch.as_tensor(args), device="meta")
+    if isinstance(args, dict):
+        return {k: _abstract_args(v) for k, v in args.items()}
+    if isinstance(args, (tuple, list)):
+        return type(args)(_abstract_args(v) for v in args)
+    return args
+
+
 class TransprecisionEngine:
     """The three-stage engine for one (model cfg, transprecision policy).
 
-    The engine owns no request/queue state — drivers do."""
+    The engine owns no request/queue state — drivers do.  ``weight_policy``
+    is the policy the served weights were quantized under (drivers hoist
+    it and serve through ``policy`` with its weight roles cleared); the
+    energy accountant prices weight storage and MACs by its roles.  It
+    defaults to ``policy``."""
 
     def __init__(self, cfg, policy: TCPolicy, max_batch: int, max_len: int,
                  *, num_pages: Optional[int] = None, device="cuda",
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 stage_prefix: str = "", faults=None, retry=None):
+                 stage_prefix: str = "", faults=None, retry=None,
+                 weight_policy: Optional[TCPolicy] = None):
         self.cfg = cfg
         self.policy = get_policy(policy)
+        self.weight_policy = (self.policy if weight_policy is None
+                              else get_policy(weight_policy))
         self.paged = check_layout(self.policy)
         self.num_pages = num_pages
         # paged: prompts prefill through the ring datapath at bucket width
@@ -129,7 +162,11 @@ class TransprecisionEngine:
         # transient stage failures (serve/faults.py)
         self.faults = faults
         self.retry = retry
+        # per stage name: the always-on call counter ("stage.<name>.calls",
+        # the energy model's live multiplier) and the first call's
+        # (fn, abstract args), from which the accountant counts the stage
         self._call_counters: Dict[str, Any] = {}
+        self.stage_specs: Dict[str, Any] = {}
 
     # ---- observability ----
     def _staged(self, stage: str, fn, *args):
@@ -142,6 +179,8 @@ class TransprecisionEngine:
                 ctr = self._call_counters[name] = self.metrics.counter(
                     f"stage.{name}.calls")
             ctr.inc()
+        if name not in self.stage_specs:
+            self.stage_specs[name] = (fn, _abstract_args(args))
         tr = self.tracer
         if tr is None or not tr.enabled:
             return self._invoke(name, fn, args)
@@ -228,7 +267,7 @@ class TransprecisionEngine:
                                     self._prefill_policy, true_len=l)
             length = (l if l is not None else
                       torch.full((b,), s, dtype=torch.int32,
-                                 device=self.device))
+                                 device=t.device))
             return {"logits": logits, "cache": cache, "length": length}
 
         if lengths is not None:

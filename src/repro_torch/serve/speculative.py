@@ -98,7 +98,7 @@ class SpeculativeEngine(ServingEngine):
         self.draft_engine = TransprecisionEngine(
             cfg, lm.weights_free(self.draft), b, L, device=self.device,
             tracer=self.tracer, metrics=self.metrics, stage_prefix="draft.",
-            faults=self.faults, retry=self.retry)
+            faults=self.faults, retry=self.retry, weight_policy=self.draft)
         self.draft_cache = self.draft_engine.init_decode_state()
         self.draft_pos = np.zeros(b, np.int64)  # committed draft rows/slot
         # the committed token the draft cache is missing (an all-accepted

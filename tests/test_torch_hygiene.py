@@ -39,7 +39,9 @@ TRAINING = ("repro_torch.optim.compression",
 ROBUSTNESS = ("repro_torch.serve.faults", "repro_torch.serve.guard",
               "repro_torch.serve.orchestrator", "repro_torch.obs.report",
               "repro_torch.launch.serve")
-REACHED = SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS
+# ... and of the modeled energy accounting
+ENERGY = ("repro_torch.obs.energy", "repro_torch.launch.op_cost")
+REACHED = SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY
 
 
 def _imported(tree):
@@ -130,9 +132,11 @@ def test_later_slices_raise_not_implemented():
                         retry=RetryPolicy())
     assert eng.guard is not None and eng.engine.retry is eng.retry
     assert eng.engine.faults is eng.faults is not None
+    # the energy accounting is ported (it was a later slice); another
+    # model family is not
     from repro_torch.launch import serve as launch_serve
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        launch_serve.main(["--device", "cpu", "--energy"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        launch_serve.main(["--device", "cpu", "--arch", "llama3-8b"])
 
 
 def test_paged_entry_points_default_to_gpu():

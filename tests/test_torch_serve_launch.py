@@ -1,7 +1,8 @@
 """The port's serving launcher (``repro_torch.launch.serve``) on the CPU at
 smoke size, synchronous and ``--async`` (through the orchestrator), with
 ``--fault-plan random:seed=3,n=6 --health`` on the paged-overcommit
-layout, the speculative engine, and the trace and metrics outputs; and
+layout, the speculative engine, the trace and metrics outputs and the
+modeled energy table (``--energy``, sync, async and paged speculative); and
 the stage breakdown, the tracer's events and its Chrome trace against the
 JAX package's from identical recorded spans."""
 import json
@@ -98,9 +99,20 @@ def test_trace_and_metrics_outputs(tmp_path, capsys):
     assert "attributed" in capsys.readouterr().out
 
 
-def test_energy_flag_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        launch.main(BASE + ["--energy"])
+@pytest.mark.parametrize("mode", [[], ["--async"],
+                                  ["--kv-layout", "paged", "--speculative",
+                                   "--gamma", "2"]])
+def test_energy_flag_prints_the_table(mode, capsys):
+    out = launch.main(BASE + ["--energy"] + mode)
+    bd = out["energy"]
+    assert "errors" not in bd and bd["tokens"] == 36
+    assert bd["joules_per_token"] > 0
+    stages = {"prefill", "insert"} | ({"verify", "draft.generate"} if mode
+                                      and mode[-1] == "2" else {"generate"})
+    assert stages <= set(bd["stages"])
+    printed = capsys.readouterr().out
+    assert "energy (modeled: TALU Table IV, 20 pJ/B DRAM):" in printed
+    assert all(f"  {name} " in printed for name in stages)
 
 
 def _record_spans(tracer):
