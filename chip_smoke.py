@@ -12,8 +12,9 @@ a train step card against CPU, trains full-width paper-edge through the
 normalising mode, then K1, on every gradient leaf) with checkpoints, a
 crash and a restore, holds remat "dots" to "full", streams through the
 threaded ``Orchestrator`` under injected faults, retry and the numeric
-guard, runs the serve launcher, times every kernel and prints one JSON
-line per contract.  Needs one CUDA GPU; run from the
+guard, runs the serve launcher, serves the full-width MoE model
+``granite-moe-1b-a400m`` in both layouts, times every kernel and prints
+one JSON line per contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -53,7 +54,15 @@ JSON line.  Phase 14 runs after 13: the modeled energy per token (TALU
 Table IV per-MAC PDP, 20 pJ/B DRAM; not the card's energy) of phase 6's,
 6c's and 11c's (ring, gamma 2) served runs, priced from meta-tensor
 traces of each stage, and card vs CPU at smoke size; an
-``{"energy": ...}`` JSON line.  Phase 12 runs
+``{"energy": ...}`` JSON line.  Phase 15 runs after 14 (own generators):
+15a ``granite-moe-1b-a400m`` at full width and depth (24 layers, 32
+experts top-8, bf16 seeded weights, ``paper_edge_p8``) serving phase 6's
+eight prompts, 32 tokens each, in the ring and then the paged layout (one
+exact-length prefill per prompt: MoE routing sees every row of a call),
+each with a profiled window of five engine steps, 8 slots live; 15b card
+vs CPU at float32 on the MoE smoke config, ring and paged; 15c
+``moe_ffn``'s einsum and scatter dispatch on the card at the longest
+prompt's shape; a ``{"moe": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -136,6 +145,20 @@ Every phase asserts; nothing is caught.  Tolerances:
                  equal to the analytic count from the config; at smoke
                  size the card's and the CPU's tables equal field for
                  field and J/token equal.
+  MoE (15a)      every request finishes with its 32 tokens, no error, no
+                 page leaked; K3 + K4 (ring) or K5 + K6 (paged) launched
+                 24 times per decode step (once per layer) and K3 24 times
+                 per prefill, by the wrappers' counts over the served run
+                 and the profiled window, and by the profiler's kernel
+                 names (append_kernel, split_kernel, combine_kernel) where
+                 its trace holds all three.
+  MoE (15b)      phase 7's rules (a) and (b) on the MoE smoke config, the
+                 CPU's steps taken from the card's pre-step states; the
+                 router's idx_k equal on both devices on every row whose
+                 top-k gap exceeds 1e-4, in the first two prefills and in
+                 (a)'s steps.
+  MoE (15c)      einsum vs scatter at float32, TF32 off: rtol 1e-4, atol
+                 1e-4 of the output's largest magnitude; aux equal.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -160,7 +183,9 @@ decodes posit codes, so ``library_ms`` is null), its tensor-core bound
 (``bound_ms``: 3 bf16 passes at the tensor cores' peak) beside the bound
 of the same product in f32 without tensor cores (``bound_f32_simt_ms``),
 and the crossover between its two paths with the times it was set from.
-K2's ``launches`` are the training path's (12c: the Trainer's 6 steps);
+K3-K6 also carry ``launches_moe`` (15a: per layout, the served run's
+count and the profiled window's per decode step); K2's ``launches`` are
+the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
 and ``wire_wi``, their time at the wire's largest leaf (wi's gradient,
 37,748,736 values, posit16_2) against its bytes bound.  The decode-step and
@@ -337,7 +362,7 @@ def prefill_taps(api, params, prompts, width):
             return out
         return run
 
-    names = ("rms_norm", "_qkv", "_einsum", "_mlp")
+    names = ("rms_norm", "_qkv", "_einsum", "_ffn")
     saved = [getattr(sm, n) for n in names] + [att.blockwise_attention]
     for n, fn in zip(names, saved):
         setattr(sm, n, tapped(fn))
@@ -930,6 +955,400 @@ def phase14(dev, seed, runs) -> dict:
     phase(f"phase 14b smoke card vs CPU (ring, paged): tables equal field "
           f"for field, J/token equal: {smoke}")
     return out
+
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# the KV kernels a MoE decode step runs: K3 + K4 (ring), K5 + K6 (paged)
+MOE_KERNELS = ("kv_append_rows", "decode_attention", "paged_kv_append_rows",
+               "paged_decode_attention")
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor leaf of ``tree``."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def op_device_ms(prof, n: int, top: int = 8):
+    """The ``top`` aten ops by self device ms per call over ``n`` calls in a
+    profiler trace taken with CPU and CUDA activity (an op's kernels
+    charged to the op that launched them)."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((e.key, us / n / 1e3))
+    return dict(sorted(rows, key=lambda r: -r[1])[:top])
+
+
+def route_gaps(params, tokens, top_k):
+    """Per row of ``tokens``: the smallest gap between neighbouring sorted
+    router gates over the top k + 1 (the order ``_route`` keeps and the
+    k-th / (k+1)-th boundary), from the router product in float64."""
+    import torch
+    g = torch.softmax(tokens.double() @ params["router"].double(), dim=-1)
+    top = torch.sort(g, dim=-1, descending=True).values[:, :top_k + 1]
+    return (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+
+
+def phase15a(dev, seed, prompts, warm, card: str) -> dict:
+    """15a. ``granite-moe-1b-a400m`` at full width and depth (bf16 seeded
+    weights, ``paper_edge_p8``: posit8 weights hoisted, posit8 KV), max
+    batch 8, max_len 1024, phase 6's eight prompts, 32 new tokens each,
+    ring then paged (full pool of 16-row pages).  Every request finishes
+    with 32 tokens and no error; K3 + K4 (ring) and K5 + K6 (paged) launch
+    once per layer of every decode step (and K3 once per layer of every
+    prefill), by the wrappers' counts over the served run and over a
+    profiled window of engine steps, and by the profiler's kernel names
+    (``append_kernel``, ``split_kernel``) where its trace holds them.
+    Prints the decode step's wall, device busy, idle share and launches,
+    prefill ms per prompt, peak memory and the weight-bytes bound, each
+    line with ``card`` (the card's name and power limit)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    cfg = get_config(MOE_ARCH)
+    n_l = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    params = lm.init_params(cfg, gen, device=dev)
+    # a decode step reads every weight once: the einsum dispatch runs all
+    # experts (C = 2 at T = 8), and the tied head reads the whole table
+    w_bytes = tensor_bytes(params)
+    bound_ms = 1e3 * w_bytes / H100_BYTES_PER_S
+    out = {"card": card, "arch": MOE_ARCH, "params": cfg.param_count(),
+           "weight_bytes_per_step": w_bytes, "bound_ms": bound_ms,
+           "bound_by": "bytes"}
+    n_prof = 5
+    for layout, kw in (("ring", {}),
+                       ("paged", {"kv_layout": "paged", "page_size": PS})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_batch=B, max_len=W, kv_format="posit8", **kw),
+            policy="paper_edge_p8", device=dev)
+        eng.serve([Request(uid=-1, prompt=warm, max_new=3)])   # warm-up
+        peak_build = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reqs = [Request(uid=i, prompt=p, max_new=32)
+                for i, p in enumerate(prompts)]
+        eng.tracer.reset()
+        eng.tracer.enable()
+        steps0, pre0 = eng.stats["decode_steps"], eng.stats["prefills"]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        eng.tracer.disable()
+        st = eng.tracer.self_times()
+        steps = eng.stats["decode_steps"] - steps0
+        prefills = eng.stats["prefills"] - pre0
+        assert all(r.done and r.error is None and len(r.out_tokens) == 32
+                   for r in reqs), layout
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+        assert prefills == len(prompts), prefills     # one per prompt
+        if layout == "ring":
+            want = {"kv_append_rows": n_l * (steps + prefills),
+                    "decode_attention": n_l * steps,
+                    "paged_kv_append_rows": 0, "paged_decode_attention": 0}
+        else:
+            want = {"kv_append_rows": n_l * prefills, "decode_attention": 0,
+                    "paged_kv_append_rows": n_l * steps,
+                    "paged_decode_attention": n_l * steps}
+            eng.allocator.assert_consistent()
+            assert eng.allocator.live_pages == 0
+        assert {k: launches[k] for k in want} == want, (layout, launches)
+
+        def stage_ms(stage):
+            n = st[f"{stage}.device"]["count"]
+            return 1e3 * (st[f"{stage}.dispatch"]["total_s"]
+                          + st[f"{stage}.device"]["total_s"]) / n
+
+        # a profiled window: the 8 prompts readmitted (one exact-length
+        # prefill each), then n_prof engine steps with 8 slots live
+        eng._admit([Request(uid=100 + i, prompt=p, max_new=32)
+                    for i, p in enumerate(prompts)])
+        assert all(r is not None for r in eng.slot_req), layout
+        torch.cuda.synchronize()
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                eng.step()
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+        per_step = {k: LAUNCHES[k] / n_prof for k in MOE_KERNELS}
+        kv = (("kv_append_rows", "decode_attention") if layout == "ring"
+              else ("paged_kv_append_rows", "paged_decode_attention"))
+        assert all(per_step[k] == n_l for k in kv), (layout, per_step)
+        n_kernels = {}
+        per_kernel = {k: v / n_prof / 1e3
+                      for k, v in device_events(prof, n_kernels).items()}
+        traced = {k: n_kernels.get(k, 0) / n_prof
+                  for k in ("append_kernel", "split_kernel",
+                            "combine_kernel")}
+        if per_kernel and all(traced.values()):
+            assert traced == {k: n_l for k in traced}, (layout, traced)
+        busy = sum(per_kernel.values()) if per_kernel else None
+        gemm = sum(v for k, v in per_kernel.items()
+                   if any(t in k.lower() for t in ("gemm", "nvjet", "xmma",
+                                                    "cutlass")))
+        top = sorted(per_kernel.items(), key=lambda kv_: -kv_[1])[:6]
+        # where the device time goes by op: two more steps traced with the
+        # host's ops too (a slower window: its wall is not reported)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_ops:
+            for _ in range(2):
+                eng.step()
+            torch.cuda.synchronize()
+        ops = op_device_ms(prof_ops, 2)
+        eng.serve([])                                   # drain
+        peak = torch.cuda.max_memory_allocated()
+        out[layout] = {
+            "steps": steps, "prefills": prefills, "serve_wall_s": wall,
+            "tok_s": 8 * 32 / wall, "prefill_ms": stage_ms("prefill"),
+            "decode_ms": stage_ms("generate"),
+            "launches": {k: launches[k] for k in MOE_KERNELS},
+            "profiled": {
+                "step_wall_ms": step_ms, "wrapper_launches_per_step":
+                    per_step,
+                "traced_kernels_per_step": traced,
+                "device_busy_ms": busy,
+                "idle_share": None if busy is None else 1 - busy / step_ms,
+                "gemm_ms": gemm if per_kernel else None,
+                "kernel_launches_per_step":
+                    sum(n_kernels.values()) / n_prof if per_kernel else None,
+                "top_kernels_ms": dict(top), "top_ops_ms": ops},
+            "peak_memory_bytes": peak, "peak_memory_build_bytes": peak_build}
+        device = (f"device busy {busy:.3f} ms/step (weight-bytes bound "
+                  f"{bound_ms:.3f} ms), of which GEMMs {gemm:.3f}, idle "
+                  f"share {1 - busy / step_ms:.3f}; kernel launches "
+                  f"{sum(n_kernels.values()) / n_prof:.1f}/step; traced "
+                  f"per step {traced}; top kernels (ms/step): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in top)
+                  + "; top ops by self device ms/step: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
+                  if per_kernel else "device busy and idle share not "
+                  "measured (the profiler trace held no device events)")
+        phase(f"phase 15a [{card}] {MOE_ARCH} {layout}: {n_l}L "
+              f"d{cfg.d_model} "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}h hd{cfg.head_dim} "
+              f"{cfg.moe_experts} experts top-{cfg.moe_topk} d_ff "
+              f"{cfg.d_ff} vocab {cfg.vocab} ({cfg.param_count()} params, "
+              f"bf16, posit8 weights and KV), 8 prompts of "
+              f"{sorted(len(p) for p in prompts)} tokens, 32 new each: "
+              f"{prefills} prefills {stage_ms('prefill'):.2f} ms/prompt, "
+              f"{steps} decode steps {stage_ms('generate'):.3f} ms/step, "
+              f"{8 * 32 / wall:.1f} tok/s; launches "
+              f"{ {k: launches[k] for k in MOE_KERNELS} }; profiled engine "
+              f"step (8 slots live): wall {step_ms:.3f} ms/step, wrapper "
+              f"launches/step {per_step}, {device}; peak memory {peak} B "
+              f"serving ({peak_build} B building the engine: hoisting)")
+        del eng
+    out["launches_per_decode_step"] = n_l
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase15b(dev, seed, snapshot, code_flips) -> dict:
+    """15b. Card vs CPU at float32 (TF32 off) on the MoE smoke config, by
+    phase 7/7b's rules, ring and paged: (a) the CPU's decode steps 1 and 2
+    from the card's pre-step states within rtol 1e-3, atol 1e-3 of the
+    card's logits; (b) the caches each device wrote from its own prefills:
+    scales equal, codes by ``code_flips`` on < 0.1 % of the written codes;
+    and the router's ``idx_k`` equal on the two devices, in those prefills
+    and in (a)'s steps, on every row whose top-k gap exceeds 1e-4 (the
+    smallest gap printed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_config(MOE_ARCH, smoke=True),
+                              dtype_name="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+    rng15 = np.random.default_rng([seed, 15])
+    prompts = [rng15.integers(0, cfg.vocab, n) for n in (19, 40, 27)]
+    routes, key = {}, [None]
+    route = moe_mod._route
+
+    def recorded(p, tokens, top_k, cf):
+        r = route(p, tokens, top_k, cf)
+        routes.setdefault(key[0], []).append(
+            (r[1].cpu(), route_gaps(p, tokens, top_k).cpu()))
+        return r
+
+    def keyed(fn, tag, dev_):
+        n = [0]
+
+        def run(*a):
+            key[0] = (dev_, tag, n[0])
+            n[0] += 1
+            return fn(*a)
+        return run
+
+    def agree(a, b):
+        """(rows compared, smallest gap) over two route records; idx_k
+        equal wherever the gap exceeds 1e-4."""
+        rows, smallest = 0, float("inf")
+        assert len(a) == len(b) == cfg.n_layers
+        for (ia, ga), (ib, _) in zip(a, b):
+            far = ga > 1e-4
+            assert torch.equal(ia[far], ib[far]), (ia, ib, ga)
+            rows += int(ga.numel())
+            smallest = min(smallest, float(ga.min()))
+        return rows, smallest
+
+    out = {}
+    moe_mod._route = recorded
+    try:
+        for layout, kw in (("ring", {}),
+                           ("paged", {"kv_layout": "paged",
+                                      "page_size": PS})):
+            runs = {}
+            for device in ("cuda", "cpu"):
+                e = ServingEngine(cfg, params, ServeConfig(
+                    max_batch=2, max_len=64, kv_format="posit8", **kw),
+                    policy="paper_edge_p8",
+                    device=dev if device == "cuda" else "cpu")
+                rec = {"logits": [], "tok": [], "states": []}
+                gen_fn = e.engine.generate
+
+                def generate_logged(params_, state, _g=gen_fn, _r=rec):
+                    if len(_r["tok"]) < 3:
+                        _r["states"].append(snapshot(state))
+                    _r["tok"].append(state["tok"].detach().cpu().clone())
+                    state, logits = _g(params_, state)
+                    _r["logits"].append(logits.detach().cpu())
+                    return state, logits
+
+                e.engine.generate = keyed(generate_logged, "gen", device)
+                e.engine.prefill = keyed(e.engine.prefill, "prefill",
+                                         device)
+                rq = [Request(uid=i, prompt=p, max_new=8)
+                      for i, p in enumerate(prompts)]
+                e.serve(rq)
+                assert all(len(r.out_tokens) == 8 for r in rq)
+                runs[device] = (rec, [r.out_tokens for r in rq], e, gen_fn)
+            card, cpu = runs["cuda"][0], runs["cpu"][0]
+            cut = PS if kw else 0
+            # the two prefills before the first step: independent runs
+            rows, smallest = 0, float("inf")
+            for n in range(2):
+                r, s = agree(routes[("cuda", "prefill", n)],
+                             routes[("cpu", "prefill", n)])
+                rows, smallest = rows + r, min(smallest, s)
+            # (a) the CPU's steps 1 and 2 from the card's pre-step states
+            e_cpu, cpu_generate = runs["cpu"][2], runs["cpu"][3]
+            dmax = 0.0
+            for i in range(2):
+                state = snapshot(card["states"][i])
+                state["tok"] = card["tok"][i].clone()
+                key[0] = ("replay", "gen", i)
+                _, logits = cpu_generate(e_cpu.params, state)
+                torch.testing.assert_close(logits, card["logits"][i],
+                                           rtol=1e-3, atol=1e-3)
+                dmax = max(dmax, float((logits - card["logits"][i]).abs()
+                                       .max()))
+                r, s = agree(routes[("cuda", "gen", i)],
+                             routes[("replay", "gen", i)])
+                rows, smallest = rows + r, min(smallest, s)
+            # (b) the caches each device wrote from its own prefills
+            c0 = card["states"][0]["blocks"][0]
+            p0 = cpu["states"][0]["blocks"][0]
+            for k in ("k_scale", "v_scale"):
+                assert torch.equal(c0[k][:, cut:], p0[k][:, cut:]), (
+                    layout, k)
+            flips = [code_flips(c0[k][:, cut:], p0[k][:, cut:])
+                     for k in ("k", "v")]
+            codes_diff = sum(f[0] for f in flips)
+            written = (int(card["states"][0]["pos"].sum()) * cfg.n_layers
+                       * cfg.n_kv_heads * cfg.head_dim * 2)
+            assert codes_diff < 1e-3 * written, (layout, codes_diff,
+                                                 written)
+            same = [sum(a == b for a, b in zip(x, y))
+                    for x, y in zip(runs["cuda"][1], runs["cpu"][1])]
+            out[layout] = {"logits_max_abs_diff": dmax,
+                           "codes_differ": codes_diff, "written": written,
+                           "routed_rows": rows, "smallest_gap": smallest,
+                           "tokens_equal": same}
+            phase(f"phase 15b {layout} card vs CPU, MoE smoke (float32, "
+                  f"TF32 off): (a) CPU steps from the card's states within "
+                  f"rtol 1e-3 atol 1e-3 (max |diff| {dmax:.3e}); (b) "
+                  f"scales equal, {codes_diff} of {written} written K/V "
+                  f"codes differ; idx_k equal on every routed row with a "
+                  f"top-k gap > 1e-4 ({rows} rows over the two prefills "
+                  f"and two steps; smallest gap {smallest:.3e}); greedy "
+                  f"tokens equal per request {same} of 8 (not asserted)")
+            routes.clear()
+    finally:
+        moe_mod._route = route
+    return out
+
+
+def phase15c(dev, seed, n_tok) -> dict:
+    """15c. ``moe_ffn``'s einsum and scatter dispatch on the card at a
+    full-width prefill's shape (one prompt of ``n_tok`` tokens, d 1024, 32
+    experts top-8; at 894 tokens cap 279, where ``auto`` picks scatter),
+    on one seeded
+    layer's experts: float32 (TF32 off) outputs within rtol 1e-4, atol
+    1e-4 of the output's largest magnitude, aux equal; both paths timed in
+    bf16 (CUDA events)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 151)
+    p32 = moe_mod.init_moe(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                           torch.float32, dev, gen)
+    x32 = torch.randn((1, n_tok, cfg.d_model), generator=gen, device=dev)
+    cap = moe_mod.capacity(n_tok, cfg.moe_topk, cfg.moe_experts,
+                           cfg.capacity_factor)
+    auto = moe_mod.dispatch_for(n_tok, cfg.moe_experts, cap)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {d: moe_mod.moe_ffn(p32, x32, top_k=cfg.moe_topk,
+                                  capacity_factor=cfg.capacity_factor,
+                                  dispatch=d)
+               for d in ("einsum", "scatter")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (a, aux_a), (b, aux_b) = res["einsum"], res["scatter"]
+    scale = float(a.abs().max())
+    torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4 * scale)
+    assert float(aux_a) == float(aux_b)
+    diff = float((a - b).abs().max())
+    pb = {k: v.to(torch.bfloat16) if k != "router" else v
+          for k, v in p32.items()}
+    xb = x32.to(torch.bfloat16)
+    ms = {d: time_ms(lambda i, _d=d: moe_mod.moe_ffn(
+        pb, xb, top_k=cfg.moe_topk, capacity_factor=cfg.capacity_factor,
+        dispatch=_d), 1, iters=5, reps=3) for d in ("einsum", "scatter")}
+    phase(f"phase 15c moe_ffn einsum vs scatter on the card at T = {n_tok}, "
+          f"cap {cap}, auto picks {auto} (float32, TF32 off): max |diff| "
+          f"{diff:.3e} on outputs "
+          f"up to {scale:.3e}, aux equal; bf16 ms per call einsum "
+          f"{ms['einsum']:.3f}, scatter {ms['scatter']:.3f}")
+    del p32, pb, x32, xb, res
+    return {"tokens": n_tok, "cap": cap, "auto": auto, "max_abs_diff": diff,
+            "scale": scale, "ms_bf16": ms}
 
 
 def main() -> int:
@@ -1822,6 +2241,13 @@ def main() -> int:
         flush=True)
     del spec_ring
 
+    # 15. the MoE family at full width, card vs CPU at smoke size, and
+    # the two dispatch paths (own generators) ---------------------------
+    moe = {"15a": phase15a(dev, args.seed, prompts, warm, smi),
+           "15b": phase15b(dev, args.seed, snapshot, code_flips),
+           "15c": phase15c(dev, args.seed, max(len(p) for p in prompts))}
+    print(json.dumps({"moe": moe}), flush=True)
+
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
     layers = cfg.n_layers
@@ -2010,6 +2436,12 @@ def main() -> int:
             "launches": main_launches[name],
             "launches_per_decode_step": per_step[name],
             "launches_speculative": spec_launches.get(name, 0),
+            "launches_moe": {
+                layout: {"served": moe["15a"][layout]["launches"][name],
+                         "per_decode_step": moe["15a"][layout]["profiled"][
+                             "wrapper_launches_per_step"][name]}
+                for layout in ("ring", "paged")} if name in MOE_KERNELS
+            else None,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

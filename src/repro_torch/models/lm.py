@@ -1,12 +1,14 @@
-"""Dense decoder-only language model: config, init, the training forward
-and loss, and the per-block pieces the serving path uses (port of
-``repro.models.lm``, dense family).
+"""Decoder-only language model: config, init, the training forward and
+loss, and the per-block pieces the serving path uses (port of
+``repro.models.lm``, dense and MoE families).
 
 Params are a plain dict with the reference's leaf names:
 ``{"embed", "final_norm", "lm_head", "blocks": ({"ln", "wq", "wk", "wv",
 "wo", "ln2", "wi", "wo_mlp"},)}`` where every ``blocks`` leaf is stacked
-over layers (leading axis P = n_layers).  The reference scans over that
-axis; this port loops over layers in Python (``layer_params``).  Every
+over layers (leading axis P = n_layers).  The MoE family holds a
+``"moe": {"router", "wi", "wo"}`` sub-dict (``models/moe.py``) in place
+of ``wi`` / ``wo_mlp``.  The reference scans over the layer axis; this
+port loops over layers in Python (``layer_params``).  Every
 weight matmul passes through the TC policy hook (``_qw``), which
 fake-quantizes each layer's slice on every call.
 """
@@ -17,10 +19,13 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import posit, quant
+from ..core.formats import PositFormat, get
 from ..core.transprecision import BF16, TCPolicy
 from .attention import blockwise_attention
 from .common import (_einsum, apply_rope, cross_entropy, dense_init,
                      embed_init, rms_norm, rope_freqs)
+from .moe import init_moe, moe_ffn
 
 
 def _round_up(x, m):
@@ -41,6 +46,10 @@ class ModelCfg:
     mlp: str = "swiglu"        # swiglu | gelu
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    # MoE
+    moe_experts: int = 0
+    moe_topk: int = 0
+    capacity_factor: float = 1.25
     dtype_name: str = "bfloat16"
     remat: str = "full"        # none | full (save block inputs only) |
                                # dots (recompute all but the weight products)
@@ -50,10 +59,10 @@ class ModelCfg:
     tie_embed: bool = False
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {self.family!r}: only the dense family is ported "
-                "(other families are a later slice of the port)")
+                f"family {self.family!r}: only the dense and moe families "
+                "are ported (other families are a later slice of the port)")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -71,9 +80,13 @@ class ModelCfg:
     def param_count(self) -> int:
         d, hd, nh, nkv = self.d_model, self.head_dim, self.n_heads, \
             self.n_kv_heads
-        wi = 2 * self.d_ff if self.mlp == "swiglu" else self.d_ff
-        block = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d + d * wi
-                 + self.d_ff * d + (2 * hd if self.qk_norm else 0))
+        if self.family == "moe":      # router + gated experts
+            ffn = self.moe_experts * (d + 3 * d * self.d_ff)
+        else:
+            wi = 2 * self.d_ff if self.mlp == "swiglu" else self.d_ff
+            ffn = d * wi + self.d_ff * d
+        block = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d + ffn
+                 + (2 * hd if self.qk_norm else 0))
         head = 0 if self.tie_embed else d * self.vocab_pad
         return self.vocab_pad * d + d + head + self.n_layers * block
 
@@ -96,14 +109,18 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    wi_cols = 2 * cfg.d_ff if cfg.mlp == "swiglu" else cfg.d_ff
     blk = {"ln": zeros(P, d), "wq": dense(P, d, nh * hd),
            "wk": dense(P, d, nkv * hd), "wv": dense(P, d, nkv * hd),
            "wo": dense(P, nh * hd, d)}
     if cfg.qk_norm:
         blk["q_norm"], blk["k_norm"] = zeros(P, hd), zeros(P, hd)
-    blk.update(ln2=zeros(P, d), wi=dense(P, d, wi_cols),
-               wo_mlp=dense(P, cfg.d_ff, d))
+    blk["ln2"] = zeros(P, d)
+    if cfg.family == "moe":
+        blk["moe"] = init_moe(d, cfg.d_ff, cfg.moe_experts, dt, device,
+                              generator, lead=(P,))
+    else:
+        wi_cols = 2 * cfg.d_ff if cfg.mlp == "swiglu" else cfg.d_ff
+        blk.update(wi=dense(P, d, wi_cols), wo_mlp=dense(P, cfg.d_ff, d))
     params = {"embed": embed_init((cfg.vocab_pad, d), dt, device, generator),
               "final_norm": zeros(d)}
     if not cfg.tie_embed:
@@ -113,9 +130,26 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
 
 
 def layer_params(blocks: dict, i: int) -> dict:
-    """Layer i's slice of the stacked block params (QuantizedTensor leaves
-    slice data and scale together)."""
-    return {k: v[i] for k, v in blocks.items()}
+    """Layer i's slice of the stacked block params, nested dicts (``moe``)
+    included (QuantizedTensor leaves slice data and scale together)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def embed_rows(embed, tokens, policy: TCPolicy):
+    """``policy.quantize_weight(embed, "embed_weights")[tokens]``.  Under a
+    posit format only the looked-up rows are encoded, with the whole
+    table's per-column pow2 scale: the same bits as quantizing the table
+    and then looking up, without encoding every row of it."""
+    f = (None if isinstance(embed, quant.QuantizedTensor)
+         else policy.fmt_for("embed_weights"))
+    if f is None or not isinstance(get(f), PositFormat):
+        return policy.quantize_weight(embed, "embed_weights")[tokens]
+    fmt = get(f)
+    scale = quant._pow2_scale(embed.to(torch.float32), (0,))
+    rows = embed[tokens].to(torch.float32)
+    return quant.dequantize(quant.QuantizedTensor(
+        posit.encode_f32(rows / scale, fmt), scale, fmt), embed.dtype)
 
 
 def lm_head(params, cfg: ModelCfg):
@@ -157,6 +191,18 @@ def _mlp(p, x, cfg: ModelCfg, policy, seg=_call):
     return _einsum("bsf,fd->bsd", h, q(p["wo_mlp"]))
 
 
+def ffn(p, x, cfg: ModelCfg, policy, seg=_call):
+    """The block's FFN after the second norm: (out, aux).  MoE routes the
+    call's B x S tokens together under ``cfg.capacity_factor`` and its
+    expert weights pass the ``mlp_weights`` hook, one layer's (E, ...)
+    slice at a time; the dense MLP has no aux loss (0)."""
+    if cfg.family == "moe":
+        return moe_ffn(p["moe"], x, top_k=cfg.moe_topk,
+                       capacity_factor=cfg.capacity_factor,
+                       quantize_w=_qw(policy, "mlp_weights"))
+    return _mlp(p, x, cfg, policy, seg), 0.0
+
+
 def _qkv(p, x, cfg: ModelCfg, policy):
     """Fused QKV projection: one matmul over concat(wq, wk, wv)."""
     q_ = _qw(policy, "attn_weights")
@@ -194,13 +240,15 @@ def _attn_block(p, x, cfg: ModelCfg, policy, seg=_call):
     """Training attention block (+MLP): dense, causal, RoPE, no
     cross-attention.  ``seg`` runs the parts between the weight products
     (the norms, RoPE + attention, the MLP's activation): called directly,
-    or ``_recompute`` for remat "dots"."""
+    or ``_recompute`` for remat "dots" (the MoE FFN runs outside any
+    segment).  Returns (x, aux)."""
     h = seg(rms_norm, x, p["ln"])
     qp, kp, vp = _qkv(p, h, cfg, policy)
     ao = seg(_attn_core, qp, kp, vp, cfg)
     ao = _einsum("bsk,kd->bsd", ao, _qw(policy, "attn_weights")(p["wo"]))
     x = x + ao
-    return x + _mlp(p, seg(rms_norm, x, p["ln2"]), cfg, policy, seg)
+    mo, aux = ffn(p, seg(rms_norm, x, p["ln2"]), cfg, policy, seg)
+    return x + mo, aux
 
 
 def _run_stack(blocks, x, cfg: ModelCfg, policy):
@@ -215,28 +263,32 @@ def _run_stack(blocks, x, cfg: ModelCfg, policy):
     recomputes the fake-quant too)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
+    aux = 0.0
     for i in range(cfg.n_layers):
         p_i = layer_params(blocks[0], i)
         if cfg.remat == "full":
-            x = checkpoint(_attn_block, p_i, x, cfg, policy,
-                           use_reentrant=False)
+            x, a = checkpoint(_attn_block, p_i, x, cfg, policy,
+                              use_reentrant=False)
         else:
-            x = _attn_block(p_i, x, cfg, policy,
-                            _recompute if cfg.remat == "dots" else _call)
-    return x
+            x, a = _attn_block(p_i, x, cfg, policy,
+                               _recompute if cfg.remat == "dots" else _call)
+        aux = aux + a
+    return x, aux
 
 
 def forward(params, batch, cfg: ModelCfg, policy: TCPolicy = BF16):
     """Training / scoring forward: returns (logits (B, S, vocab_pad),
-    aux_loss); the dense family has no auxiliary loss (0)."""
+    aux_loss): the MoE layers' summed load-balancing loss, 0 for the dense
+    family."""
     emb_q = policy.quantize_weight(params["embed"], "embed_weights")
     x = emb_q[batch["tokens"]].to(cfg.dtype)
-    x = _run_stack(params["blocks"], x, cfg, policy)
+    x, aux = _run_stack(params["blocks"], x, cfg, policy)
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
     head = policy.quantize_weight(head, "embed_weights", node="lm_head")
     logits = _einsum("bsd,dv->bsv", x, head.to(cfg.dtype))
-    return logits, torch.zeros((), device=logits.device)
+    return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                   device=logits.device)
 
 
 def loss_fn(params, batch, cfg: ModelCfg, policy: TCPolicy = BF16):
@@ -253,25 +305,45 @@ def hoist_weight_quant(params, policy: TCPolicy):
     here and serving with ``weights_free(policy)`` gives the same logits as
     running it at every call.  Each layer's slice is quantized on its own
     (per output channel over that layer's input axis), as the reference's
-    layer scan does."""
+    layer scan does.  MoE expert weights are quantized a layer's whole
+    (E, ...) slice at a time (one scale per output column over the expert
+    and input axes, as the reference's per-call hook sees them); the
+    router passes no hook and stays as it is."""
     q_attn, q_mlp = _qw(policy, "attn_weights"), _qw(policy, "mlp_weights")
+
+    def per_layer(q, w):
+        return torch.stack([q(w[i]) for i in range(w.shape[0])])
+
     out = dict(params)
-    out["embed"] = policy.quantize_weight(params["embed"], "embed_weights")
+    if "lm_head" in params:
+        out["embed"] = policy.quantize_weight(params["embed"],
+                                              "embed_weights")
+    # else tied: the serving head reads the raw table (the reference's
+    # does), so it stays raw here and the lookup quantizes its rows
+    # (``embed_rows`` under ``weights_free(policy, tied=True)``)
     blocks = []
     for blk in params["blocks"]:
         nb = dict(blk)
-        for name in ("wq", "wk", "wv", "wo", "wi", "wo_mlp"):
-            q = q_attn if name in ("wq", "wk", "wv", "wo") else q_mlp
-            w = blk[name]
-            nb[name] = torch.stack([q(w[i]) for i in range(w.shape[0])])
+        for name in ("wq", "wk", "wv", "wo"):
+            nb[name] = per_layer(q_attn, blk[name])
+        if "moe" in blk:
+            nb["moe"] = dict(blk["moe"], **{
+                name: per_layer(q_mlp, blk["moe"][name])
+                for name in ("wi", "wo")})
+        else:
+            for name in ("wi", "wo_mlp"):
+                nb[name] = per_layer(q_mlp, blk[name])
         blocks.append(nb)
     out["blocks"] = tuple(blocks)
     return out
 
 
-def weights_free(policy: TCPolicy) -> TCPolicy:
+def weights_free(policy: TCPolicy, tied: bool = False) -> TCPolicy:
     """The policy with its weight roles cleared: serving hoisted weights
-    through it skips the per-call weight hook and keeps the KV format."""
-    return dataclasses.replace(policy, attn_weights=None, mlp_weights=None,
-                               embed_weights=None, layer_overrides=(),
-                               node_overrides=())
+    through it skips the per-call weight hook and keeps the KV format.  A
+    tied model (``tied``: ``cfg.tie_embed``) keeps its embedding role, for
+    the lookup of the table ``hoist_weight_quant`` left raw."""
+    return dataclasses.replace(
+        policy, attn_weights=None, mlp_weights=None,
+        embed_weights=policy.embed_weights if tied else None,
+        layer_overrides=(), node_overrides=())

@@ -1,6 +1,6 @@
-"""Serving path of the dense attention stack: cache init, bucketed prefill
-and single-token decode (port of ``repro.models.serve_model``, ring and
-paged layouts).
+"""Serving path of the attention stack (dense and MoE FFNs): cache init,
+bucketed prefill and single-token decode (port of
+``repro.models.serve_model``, ring and paged layouts).
 
 Caches keep the reference's layout: ``{"pos", "blocks": ({...},)}`` where a
 posit cache block holds ``k``/``v`` codes (P, B, W, nkv, Dc) and
@@ -33,7 +33,17 @@ from ..kernels import kv_cache as kv_kernels
 from ..kernels import paged_kv as paged_kernels
 from . import attention
 from .common import _einsum, apply_rope, rms_norm
-from .lm import ModelCfg, _mlp, _qkv, _qw, _rope_cs, layer_params, lm_head
+from .lm import (ModelCfg, _qkv, _qw, _rope_cs, embed_rows, ffn,
+                 layer_params, lm_head)
+
+
+def _ffn(p, x, cfg: ModelCfg, policy):
+    """The FFN after attention.  MoE routes every row of ``x`` together
+    under ``cfg.capacity_factor``, as the reference's serving paths do: in
+    decode that is every slot of the batch, live or idle, so a live slot's
+    routing depends on what the others hold."""
+    return ffn(p, rms_norm(x, p["ln2"]), cfg, policy)[0]
+
 
 def check_layout(policy: TCPolicy) -> bool:
     """True for the paged KV layout, False for the ring; raises on any
@@ -160,7 +170,7 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     # K/V); the residual stream keeps the model dtype
     x = x + _einsum("bsk,kd->bsd", ao.reshape(b, 1, -1),
                     _qw(policy, "attn_weights")(p["wo"])).to(x.dtype)
-    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+    return x + _ffn(p, x, cfg, policy)
 
 
 def decode_step(params, cache, tokens, cfg: ModelCfg,
@@ -172,8 +182,7 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
-    emb = policy.quantize_weight(params["embed"], "embed_weights")
-    x = emb[tokens].to(cfg.dtype)
+    x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
     table, paged, pos_l = cache.get("page_table"), None, pos
     if table is not None:
         pos_l = pos.expand(x.shape[0]) if pos.ndim == 0 else pos
@@ -254,7 +263,7 @@ def _attn_verify(p, c, x, cfg: ModelCfg, policy, pos,
     ao = attention.chunk_decode_attention(qp, k_read, v_read, posv)
     x = x + _einsum("bsk,kd->bsd", ao.reshape(b, t, -1),
                     _qw(policy, "attn_weights")(p["wo"])).to(x.dtype)
-    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+    return x + _ffn(p, x, cfg, policy)
 
 
 def check_verifiable(cfg) -> None:
@@ -290,8 +299,7 @@ def verify_step(params, cache, tokens, cfg: ModelCfg,
     b, t = tokens.shape
     pos = cache["pos"]
     pos_l = (pos.expand(b) if pos.ndim == 0 else pos).to(torch.int32)
-    emb = policy.quantize_weight(params["embed"], "embed_weights")
-    x = emb[tokens].to(cfg.dtype)
+    x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
     table, paged = cache.get("page_table"), None
     if table is not None:
         ps = policy.kv_page_size
@@ -320,7 +328,10 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     ``true_len[b]`` tokens of each row are real.  Padding rows are causally
     masked out of every real row, logits come from position
     ``true_len - 1`` and ``cache["pos"]`` is the per-slot ``true_len``
-    vector.  Ring: padding K/V rows hold cache-init values (codes 0,
+    vector.  Bucketed prefill needs a stack whose rows do not see each
+    other outside attention: MoE routing does, and is refused
+    (``ValueError``, as the reference).  Ring: padding K/V rows hold
+    cache-init values (codes 0,
     scale 1).  Paged (full pool, identity table; S <= max_len): prompt row
     t of slot b lands at ``page_table[b, t//ps]*ps + t%ps`` and padding
     rows land on trash row 0.
@@ -336,10 +347,14 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     if paged and s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len} "
                          "for the paged KV layout")
-    emb = policy.quantize_weight(params["embed"], "embed_weights")
-    x = emb[tokens].to(cfg.dtype)
+    x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
     valid = None
     if true_len is not None:
+        if cfg.family == "moe":
+            raise ValueError(
+                "bucketed prefill (true_len) needs a decoder-only "
+                "attention stack without MoE, sliding windows or "
+                f"cross/vision inputs; {cfg.name} is not one")
         true_len = torch.as_tensor(true_len, device=dev).to(
             torch.int32).reshape(-1).expand(b)
         valid = torch.arange(s, device=dev)[None, :] < true_len[:, None]
@@ -403,7 +418,7 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
         else:
             fill(c, "k", kp)
             fill(c, "v", vp)
-        x = x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+        x = x + _ffn(p, x, cfg, policy)
     x = rms_norm(x, params["final_norm"])
     x_last = (x[:, -1] if true_len is None
               else x[torch.arange(b, device=dev), true_len.long() - 1])

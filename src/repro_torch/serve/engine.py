@@ -193,7 +193,7 @@ class ServingEngine:
             self._slot_commit = [0] * b
             self._table = np.zeros((b, self._pmax), np.int32)
         self.engine = TransprecisionEngine(
-            cfg, lm.weights_free(self.policy), b, L,
+            cfg, lm.weights_free(self.policy, cfg.tie_embed), b, L,
             num_pages=self.num_pages if self.paged else None,
             device=self.device, tracer=self.tracer, metrics=self.metrics,
             faults=self.faults, retry=self.retry, weight_policy=self.policy)
@@ -328,8 +328,8 @@ class ServingEngine:
         requests."""
         dst = None
         if dst_rows is not None:
-            # pad to the prefix bucket width; padding rows land on trash
-            # row 0
+            # pad to the prefix width (the bucket, or max_len where the
+            # engine is not bucketed); padding rows land on trash row 0
             dst = np.zeros(prefix["cache"]["blocks"][0]["k"].shape[2],
                            np.int64)
             dst[:len(dst_rows)] = dst_rows
@@ -360,11 +360,14 @@ class ServingEngine:
     def add_requests(self, reqs: Sequence[Request]) -> List[bool]:
         """Batched admission: reserve a slot per request (FIFO, stopping at
         the first that does not fit), run ONE bucketed prefill over every
-        admitted prompt and insert per row."""
+        admitted prompt and insert per row.  A non-bucketed engine (MoE)
+        admits one prompt per call, prefilled at its exact length."""
         toks = [self._admission_tokens(r) for r in reqs]
         admitted = []
         ok = [False] * len(reqs)
         for j, req in enumerate(reqs):
+            if not self.engine.bucketed and admitted:
+                break       # exact-length prefill: one prompt per call
             r = self._reserve(req)
             if r is None:
                 break
@@ -380,15 +383,21 @@ class ServingEngine:
                 if self.tracer.enabled and now > sub:
                     self.tracer.record("queue.wait", sub, now, cat="queue",
                                        uid=req.uid)
-        bucket = self.engine.bucket_for(max(len(toks[j])
-                                            for _, _, _, j in admitted))
-        pad = np.zeros((len(admitted), bucket), np.int64)
-        lens = np.zeros(len(admitted), np.int32)
-        for row, (_, _, _, j) in enumerate(admitted):
-            pad[row, :len(toks[j])] = toks[j]
-            lens[row] = len(toks[j])
-        prefix = self.engine.prefill(self.params, torch.from_numpy(pad),
-                                     torch.from_numpy(lens))
+        if self.engine.bucketed:
+            bucket = self.engine.bucket_for(max(len(toks[j])
+                                                for _, _, _, j in admitted))
+            pad = np.zeros((len(admitted), bucket), np.int64)
+            lens = np.zeros(len(admitted), np.int32)
+            for row, (_, _, _, j) in enumerate(admitted):
+                pad[row, :len(toks[j])] = toks[j]
+                lens[row] = len(toks[j])
+            prefix = self.engine.prefill(self.params, torch.from_numpy(pad),
+                                         torch.from_numpy(lens))
+        else:
+            j0 = admitted[0][3]
+            prefix = self.engine.prefill(
+                self.params, torch.from_numpy(
+                    np.asarray(toks[j0], np.int64)[None]))
         done = time.perf_counter()
         for row, (req, slot, dst_rows, _) in enumerate(admitted):
             req.timing.setdefault("prefill_done", done)

@@ -7,7 +7,10 @@
 
 * **Bucketed prefill.**  Prompts are right-padded to a power-of-two bucket
   and prefilled at bucket width with per-row true lengths; padded keys are
-  causally masked to exact-zero contributions.
+  causally masked to exact-zero contributions.  Only where rows meet in
+  attention alone: the MoE family (its routing sees every row of the call)
+  prefills one prompt at its exact length into a ``max_len``-wide prefix,
+  as the reference does.
 * **Prefix = bucket-width cache.**  ``prefill`` returns a ``Prefix`` whose
   cache leaves are (B, bucket, ...) ring rows; ``insert`` copies one row's
   prefix into rows [0, bucket) of a slot's ring IN PLACE.  Paged engines
@@ -157,6 +160,9 @@ class TransprecisionEngine:
         self.metrics = metrics
         self.stage_prefix = stage_prefix
         self.max_batch, self.max_len = max_batch, max_len
+        # bucketed (right-padded) prefill is exact only where rows meet in
+        # attention alone; the MoE family keeps exact-length prefill
+        self.bucketed = cfg.family != "moe"
         # chaos hardening (both None = a plain call): a FaultInjector whose
         # on_stage hook runs before every stage, and a RetryPolicy for
         # transient stage failures (serve/faults.py)
@@ -249,7 +255,10 @@ class TransprecisionEngine:
     # ---- stage: prefill ----
     def bucket_for(self, s: int) -> int:
         """Prefill width for an ``s``-token prompt: the smallest power-of-
-        two bucket (>= 16, <= max_len) that holds it."""
+        two bucket (>= 16, <= max_len) that holds it; ``s`` itself where
+        the engine is not bucketed."""
+        if not self.bucketed:
+            return s
         b = _MIN_BUCKET
         while b < s:
             b <<= 1
@@ -258,12 +267,22 @@ class TransprecisionEngine:
     def prefill(self, params, tokens, lengths=None) -> Prefix:
         """Run a prompt batch: ``tokens`` (B, S) int, right-padded;
         ``lengths`` (B,) true prompt lengths (None = every row is exactly S
-        tokens).  Returns a :data:`Prefix` with a bucket-width cache."""
+        tokens).  Returns a :data:`Prefix` with a bucket-width cache, or
+        with a ``max_len``-wide one where the engine is not bucketed (the
+        reference's prefix for those families: inserting it resets the
+        slot's other rows, and paged, trash row 0, to their init
+        values)."""
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         b, s = tokens.shape
+        if lengths is not None and not self.bucketed:
+            raise ValueError(
+                f"{self.cfg.name} prefills at exact length only "
+                "(bucketed/padded prefill needs a decoder-only attention "
+                "stack); pass lengths=None")
+        plen = s if self.bucketed else self.max_len
 
         def impl(p, t, l):
-            logits, cache = prefill(p, {"tokens": t}, self.cfg, s,
+            logits, cache = prefill(p, {"tokens": t}, self.cfg, plen,
                                     self._prefill_policy, true_len=l)
             length = (l if l is not None else
                       torch.full((b,), s, dtype=torch.int32,

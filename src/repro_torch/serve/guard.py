@@ -147,8 +147,8 @@ class NumericGuard:
             eng, base = self.engine, self.engine.engine
             policy = self.ladder[lvl - 1]
             stages = TransprecisionEngine(
-                eng.cfg, lm.weights_free(policy), base.max_batch,
-                base.max_len, num_pages=base.num_pages, device=eng.device,
+                eng.cfg, lm.weights_free(policy, eng.cfg.tie_embed),
+                base.max_batch, base.max_len, num_pages=base.num_pages, device=eng.device,
                 tracer=eng.tracer, metrics=eng.metrics,
                 stage_prefix=f"guard{lvl}.")
             r = (stages, lm.hoist_weight_quant(eng.raw_params, policy))

@@ -96,8 +96,8 @@ class SpeculativeEngine(ServingEngine):
         # tracer, registry, fault injector and retry policy, so its stages
         # show up (and can fault) as "draft.generate" etc.
         self.draft_engine = TransprecisionEngine(
-            cfg, lm.weights_free(self.draft), b, L, device=self.device,
-            tracer=self.tracer, metrics=self.metrics, stage_prefix="draft.",
+            cfg, lm.weights_free(self.draft, cfg.tie_embed), b, L,
+            device=self.device, tracer=self.tracer, metrics=self.metrics, stage_prefix="draft.",
             faults=self.faults, retry=self.retry, weight_policy=self.draft)
         self.draft_cache = self.draft_engine.init_decode_state()
         self.draft_pos = np.zeros(b, np.int64)  # committed draft rows/slot

@@ -7,7 +7,7 @@ and windows, the draft step cheaper than a target step), the accountant
 against ``repro.obs.energy``'s on the same weights (ring posit8 and
 posit16, paged posit8, speculative gamma 2: per-stage MACs exactly equal,
 modeled bytes within 0.1 %, pJ per call and J/token within rel 1e-3, equal
-calls), pricing that leaves the engine's state and weights as they
+calls; and the MoE family, granite-moe smoke, ring and paged), pricing that leaves the engine's state and weights as they
 were, and full-width paper-edge priced on the meta device (no weights, no
 card) to fixed joules per token."""
 import numpy as np
@@ -217,6 +217,41 @@ def test_accountant_matches_reference(pair, case):
                                                  rel=1e-3), name
         assert t["mac_mix"] == j["mac_mix"], name
     assert tb["tokens"] == jb["tokens"]
+    assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
+                                                   rel=1e-3)
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_accountant_matches_reference_moe(layout):
+    """The MoE family (granite-moe-1b-a400m smoke, float32): one
+    exact-length prefill per prompt into a max_len-wide prefix, the
+    router and the expert products priced; the same rules as the dense
+    cases."""
+    from test_torch_moe_serve import moe_pair
+    jc, tc, jp, tp = moe_pair("float32")
+    kw = dict(max_batch=2, max_len=MAX_LEN, kv_format="posit8",
+              **({"kv_layout": "paged", "page_size": 8}
+                 if layout == "paged" else {}))
+    je = JServingEngine(jc, jp, JServeConfig(**kw), policy=POLICY)
+    te = ServingEngine(tc, tp, ServeConfig(**kw), policy=POLICY,
+                       device="cpu")
+    jr, tr = _requests(JRequest, tc.vocab), _requests(Request, tc.vocab)
+    je.serve(jr)
+    te.serve(tr)
+    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
+    jb, tb = JAccountant(je).breakdown(), EnergyAccountant(te).breakdown()
+    assert "errors" not in tb and "errors" not in jb
+    assert set(tb["stages"]) == set(jb["stages"]) == {"prefill", "insert",
+                                                      "generate"}
+    for name, j in jb["stages"].items():
+        t = tb["stages"][name]
+        assert t["calls"] == j["calls"], name
+        assert t["mac_flops"] == j["mac_flops"], name
+        assert t["model_bytes"] == pytest.approx(j["model_bytes"],
+                                                 rel=1e-3), name
+        assert t["pj_per_call"] == pytest.approx(j["pj_per_call"],
+                                                 rel=1e-3), name
+        assert t["mac_mix"] == j["mac_mix"], name
     assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
                                                    rel=1e-3)
 

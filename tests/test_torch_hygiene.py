@@ -41,7 +41,12 @@ ROBUSTNESS = ("repro_torch.serve.faults", "repro_torch.serve.guard",
               "repro_torch.launch.serve")
 # ... and of the modeled energy accounting
 ENERGY = ("repro_torch.obs.energy", "repro_torch.launch.op_cost")
-REACHED = SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY
+# ... and of the MoE family and the registered configs
+MOE = ("repro_torch.models.moe", "repro_torch.configs.granite_moe_1b",
+       "repro_torch.configs.phi35_moe", "repro_torch.configs.llama3_8b",
+       "repro_torch.configs.granite_3_8b", "repro_torch.configs.qwen3_4b",
+       "repro_torch.configs.starcoder2_15b")
+REACHED = SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY + MOE
 
 
 def _imported(tree):
@@ -119,9 +124,9 @@ def test_kernel_build_raises_without_nvcc():
 def test_later_slices_raise_not_implemented():
     cfg = get_config("paper-edge", smoke=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        ModelCfg(family="moe")
+        ModelCfg(family="ssm")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("llama3-8b")
+        get_config("mamba2-2.7b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     # the numeric guard, fault injection and retry are ported (they were
@@ -132,11 +137,11 @@ def test_later_slices_raise_not_implemented():
                         retry=RetryPolicy())
     assert eng.guard is not None and eng.engine.retry is eng.retry
     assert eng.engine.faults is eng.faults is not None
-    # the energy accounting is ported (it was a later slice); another
-    # model family is not
+    # the energy accounting and the MoE family are ported (they were a
+    # later slice); the ssm family is not
     from repro_torch.launch import serve as launch_serve
     with pytest.raises(NotImplementedError, match="not ported"):
-        launch_serve.main(["--device", "cpu", "--arch", "llama3-8b"])
+        launch_serve.main(["--device", "cpu", "--arch", "mamba2-2.7b"])
 
 
 def test_paged_entry_points_default_to_gpu():
