@@ -13,8 +13,9 @@ normalising mode, then K1, on every gradient leaf) with checkpoints, a
 crash and a restore, holds remat "dots" to "full", streams through the
 threaded ``Orchestrator`` under injected faults, retry and the numeric
 guard, runs the serve launcher, serves the full-width MoE model
-``granite-moe-1b-a400m`` in both layouts, times every kernel and prints
-one JSON line per contract.  Needs one CUDA GPU; run from the
+``granite-moe-1b-a400m`` in both layouts and the full-width SSM model
+``mamba2-2.7b`` in the ring, times every kernel and prints one JSON line
+per contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -62,7 +63,15 @@ exact-length prefill per prompt: MoE routing sees every row of a call),
 each with a profiled window of five engine steps, 8 slots live; 15b card
 vs CPU at float32 on the MoE smoke config, ring and paged; 15c
 ``moe_ffn``'s einsum and scatter dispatch on the card at the longest
-prompt's shape; a ``{"moe": ...}`` JSON line.  Phase 12 runs
+prompt's shape; a ``{"moe": ...}`` JSON line.  Phase 16 runs after 15
+(own generators): 16a ``mamba2-2.7b`` at full width and depth (64
+layers, d 2560, bf16 seeded weights, ``paper_edge_p8``, ring) serving
+eight prompts of 96-768 tokens (each at most the 256-token chunk or a
+multiple of it), 32 tokens each, one exact-length prefill per prompt,
+with a profiled window of five engine steps, 8 slots live; 16b card vs
+CPU at float32 on the mamba2 smoke config (a two-chunk prefill, then two
+decode steps from the card's state); 16c the refusals on the card; an
+``{"ssm": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -159,6 +168,19 @@ Every phase asserts; nothing is caught.  Tolerances:
                  (a)'s steps.
   MoE (15c)      einsum vs scatter at float32, TF32 off: rtol 1e-4, atol
                  1e-4 of the output's largest magnitude; aux equal.
+  SSM (16a)      every request finishes with its 32 tokens, no error;
+                 every prefill and decode logit finite; the recurrent
+                 state 1,358,692,352 B, the KV-cache bytes 0; none of
+                 K1-K7 launched, by the wrappers' counts over the served
+                 run and the profiled window and by the profiler's kernel
+                 names.
+  SSM (16b)      card vs CPU at float32, TF32 off: the prefill's logits,
+                 final SSD state and conv state, then two decode steps'
+                 logits and states (each from the card's state), within
+                 rtol 1e-3, atol 1e-3.
+  SSM (16c)      a CUDA SSM engine builds under posit8 KV; the paged
+                 layout and SpeculativeEngine raise ValueError, a 40-token
+                 smoke prompt AssertionError.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -184,7 +206,9 @@ decodes posit codes, so ``library_ms`` is null), its tensor-core bound
 of the same product in f32 without tensor cores (``bound_f32_simt_ms``),
 and the crossover between its two paths with the times it was set from.
 K3-K6 also carry ``launches_moe`` (15a: per layout, the served run's
-count and the profiled window's per decode step); K2's ``launches`` are
+count and the profiled window's per decode step); every entry carries
+``launches_ssm``, its count over 16a's served run (0: a mamba2 step runs
+no kernel of the port); K2's ``launches`` are
 the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
 and ``wire_wi``, their time at the wire's largest leaf (wi's gradient,
@@ -1351,6 +1375,301 @@ def phase15c(dev, seed, n_tok) -> dict:
             "scale": scale, "ms_bf16": ms}
 
 
+SSM_ARCH = "mamba2-2.7b"
+# every kernel of the port, by the profiler's short name (K1, K2, K3/K5,
+# K4/K6 and K7's two paths with their combine)
+PORT_KERNEL_NAMES = ("posit_decode_kernel", "posit_encode_kernel",
+                     "append_kernel", "split_kernel", "combine_kernel",
+                     "tc_kernel", "skinny_kernel")
+SSM_PROMPT_LENS = (96, 182, 200, 256, 256, 512, 512, 768)
+
+
+def phase16a(dev, seed, card: str) -> dict:
+    """16a. ``mamba2-2.7b`` at full width and depth (64 layers, d 2560,
+    bf16 seeded weights, the published config uncut), ``paper_edge_p8``
+    (posit8 in_proj / out_proj hoisted; the posit8 KV format has no K/V
+    to hold), ring layout, max batch 8, max_len 1024: eight prompts of
+    ``SSM_PROMPT_LENS`` tokens (each at most ``ssm_chunk`` or a multiple
+    of it, as the chunked scan requires), 32 new tokens each, one
+    exact-length prefill per prompt.  Asserts every request finishes with
+    its 32 tokens and no error, every prefill and decode logit is finite,
+    the recurrent state is 8 slots x (80 x 64 x 128 f32 + 3 x 5376 bf16)
+    x 64 layers = 1,358,692,352 B, and none of K1-K7 launches (the
+    wrappers' counts over the served run and the profiled window, and the
+    profiler's kernel names).  Prints the decode step's wall, device
+    busy, idle share and launches per step over a profiled window of 5
+    engine steps with 8 slots live, the top ops by device ms, prefill ms
+    per prompt, tok/s, weight and state bytes, and peak memory, each line
+    with ``card``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    cfg = get_config(SSM_ARCH)
+    n_l = cfg.n_layers
+    rng16 = np.random.default_rng([seed, 16])
+    prompts = [rng16.integers(0, cfg.vocab, n) for n in SSM_PROMPT_LENS]
+    warm = rng16.integers(0, cfg.vocab, 64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    params = lm.init_params(cfg, gen, device=dev)
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_batch=B, max_len=W, kv_format="posit8"),
+        policy="paper_edge_p8", device=dev)
+    del params
+    nonfinite = []
+    generate, prefill = eng.engine.generate, eng.engine.prefill
+
+    def generate_checked(params_, state):
+        state, logits = generate(params_, state)
+        if not bool(torch.isfinite(logits).all()):
+            nonfinite.append("generate")
+        return state, logits
+
+    def prefill_checked(params_, tokens, lengths=None):
+        prefix = prefill(params_, tokens, lengths)
+        if not bool(torch.isfinite(prefix["logits"]).all()):
+            nonfinite.append("prefill")
+        return prefix
+
+    eng.engine.generate, eng.engine.prefill = generate_checked, \
+        prefill_checked
+    eng.serve([Request(uid=-1, prompt=warm, max_new=3)])     # warm-up
+    torch.cuda.synchronize()
+    peak_build = torch.cuda.max_memory_allocated()
+    w_bytes = tensor_bytes(eng.params)
+    state_bytes = tensor_bytes(eng.cache["blocks"])
+    assert state_bytes == 1_358_692_352, state_bytes
+    assert eng.kv_cache_bytes() == 0
+    # a decode step reads every weight once (the tied head the whole
+    # table) and reads and writes the whole recurrent state
+    bound_ms = 1e3 * (w_bytes + 2 * state_bytes) / H100_BYTES_PER_S
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [Request(uid=i, prompt=p, max_new=32)
+            for i, p in enumerate(prompts)]
+    eng.tracer.reset()
+    eng.tracer.enable()
+    steps0, pre0 = eng.stats["decode_steps"], eng.stats["prefills"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    eng.tracer.disable()
+    st = eng.tracer.self_times()
+    steps = eng.stats["decode_steps"] - steps0
+    prefills = eng.stats["prefills"] - pre0
+    assert not nonfinite, nonfinite
+    assert all(r.done and r.error is None and len(r.out_tokens) == 32
+               for r in reqs)
+    assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+    assert prefills == len(prompts), prefills      # one per prompt
+    assert not any(launches.values()), launches    # no K1-K7
+
+    def stage_ms(stage):
+        n = st[f"{stage}.device"]["count"]
+        return 1e3 * (st[f"{stage}.dispatch"]["total_s"]
+                      + st[f"{stage}.device"]["total_s"]) / n
+
+    # a profiled window: the 8 prompts readmitted (one exact-length
+    # prefill each), then n_prof engine steps with 8 slots live
+    n_prof = 5
+    eng._admit([Request(uid=100 + i, prompt=p, max_new=32)
+                for i, p in enumerate(prompts)])
+    assert all(r is not None for r in eng.slot_req)
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    assert not nonfinite, nonfinite
+    n_kernels = {}
+    per_kernel = {k: v / n_prof / 1e3
+                  for k, v in device_events(prof, n_kernels).items()}
+    ported = {k: n for k, n in n_kernels.items()
+              if k.split("[")[0] in PORT_KERNEL_NAMES}
+    assert not ported, ported
+    busy = sum(per_kernel.values()) if per_kernel else None
+    top = sorted(per_kernel.items(), key=lambda kv_: -kv_[1])[:6]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_ops:
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+    ops = op_device_ms(prof_ops, 2)
+    eng.serve([])                                       # drain
+    peak = torch.cuda.max_memory_allocated()
+    out = {
+        "card": card, "arch": SSM_ARCH, "params": cfg.param_count(),
+        "prompt_lens": list(SSM_PROMPT_LENS), "steps": steps,
+        "prefills": prefills, "serve_wall_s": wall, "tok_s": 8 * 32 / wall,
+        "prefill_ms": stage_ms("prefill"), "decode_ms": stage_ms("generate"),
+        "launches": launches,
+        "weight_bytes": w_bytes, "state_bytes": state_bytes,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "profiled": {
+            "step_wall_ms": step_ms, "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / step_ms,
+            "kernel_launches_per_step":
+                sum(n_kernels.values()) / n_prof if per_kernel else None,
+            "port_kernels_traced": ported,
+            "top_kernels_ms": dict(top), "top_ops_ms": ops},
+        "peak_memory_bytes": peak, "peak_memory_build_bytes": peak_build}
+    device = (f"device busy {busy:.3f} ms/step (bytes bound {bound_ms:.3f} "
+              f"ms: weights + state read and written), idle share "
+              f"{1 - busy / step_ms:.3f}; kernel launches "
+              f"{sum(n_kernels.values()) / n_prof:.1f}/step, none of "
+              f"K1-K7; top kernels (ms/step): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in top)
+              + "; top ops by self device ms/step: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
+              if per_kernel else "device busy and idle share not measured "
+              "(the profiler trace held no device events)")
+    phase(f"phase 16a [{card}] {SSM_ARCH}: {n_l}L d{cfg.d_model} "
+          f"ssm state {cfg.ssm_state} headdim {cfg.ssm_headdim} chunk "
+          f"{cfg.ssm_chunk} vocab {cfg.vocab} ({cfg.param_count()} params, "
+          f"bf16, posit8 in/out projections), ring, 8 prompts of "
+          f"{list(SSM_PROMPT_LENS)} tokens, 32 new each: {prefills} "
+          f"exact-length prefills {stage_ms('prefill'):.2f} ms/prompt, "
+          f"{steps} decode steps {stage_ms('generate'):.3f} ms/step, "
+          f"{8 * 32 / wall:.1f} tok/s; every logit finite; K1-K7 launches "
+          f"0; profiled engine step (8 slots live): wall {step_ms:.3f} "
+          f"ms/step, {device}; weights {w_bytes} B, recurrent state "
+          f"{state_bytes} B; peak memory {peak} B serving ({peak_build} B "
+          f"building the engine: hoisting)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16b(dev, seed) -> dict:
+    """16b. Card vs CPU at float32 (TF32 off) on the mamba2 smoke config,
+    ``paper_edge_p8`` per-call weight hook: a 64-token prompt (two chunks
+    of 32, so the inter-chunk scan runs) prefilled on both devices, its
+    logits, final SSD state and conv state within rtol 1e-3, atol 1e-3;
+    then two decode steps, each from the card's state on both devices
+    (logits and new states within the same tolerance)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models import lm, serve_model
+    cfg = dataclasses.replace(get_config(SSM_ARCH, smoke=True),
+                              dtype_name="float32")
+    policy = get_policy("paper_edge_p8")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(seed + 16),
+                            device="cpu")
+    params_d = tree_to(params, dev)
+    tokens = torch.as_tensor(np.random.default_rng([seed, 161]).integers(
+        0, cfg.vocab, (1, 64)))
+    tol = dict(rtol=1e-3, atol=1e-3)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dmax = {}
+
+    def close(name, card_t, cpu_t):
+        card_t = card_t.cpu()
+        torch.testing.assert_close(card_t, cpu_t, **tol)
+        dmax[name] = max(dmax.get(name, 0.0),
+                         float((card_t - cpu_t).abs().max()))
+
+    try:
+        lc, cc = serve_model.prefill(params_d, {"tokens": tokens.to(dev)},
+                                     cfg, 128, policy)
+        lp, cp = serve_model.prefill(params, {"tokens": tokens}, cfg, 128,
+                                     policy)
+        close("prefill_logits", lc, lp)
+        for k in ("state", "conv"):
+            close(f"prefill_{k}", cc["blocks"][0][k], cp["blocks"][0][k])
+        tok = lc[:, :cfg.vocab].argmax(-1)[:, None]
+        for _ in range(2):
+            cpu_cache = tree_to(cc, "cpu")
+            lc, cc = serve_model.decode_step(params_d, cc, tok, cfg, policy)
+            lp, cp = serve_model.decode_step(params, cpu_cache, tok.cpu(),
+                                             cfg, policy)
+            close("decode_logits", lc, lp)
+            for k in ("state", "conv"):
+                close(f"decode_{k}", cc["blocks"][0][k], cp["blocks"][0][k])
+            tok = lc[:, :cfg.vocab].argmax(-1)[:, None]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    phase(f"phase 16b mamba2 smoke card vs CPU (float32, TF32 off, "
+          f"paper_edge_p8): a 64-token prompt in two chunks, then two "
+          f"decode steps from the card's state: logits, SSD state and conv "
+          f"state within rtol 1e-3 atol 1e-3 (max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dmax.items()) + ")")
+    return {"max_abs_diff": dmax, "prompt_tokens": 64,
+            "chunk": cfg.ssm_chunk}
+
+
+def tree_to(tree, device):
+    """A copy of every tensor leaf of ``tree`` on ``device``."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree
+
+
+def phase16c(dev, seed) -> dict:
+    """16c. What the port refuses on the card, as the reference cannot do
+    it: a CUDA SSM engine builds under a posit8 KV policy (the KV kernels'
+    contracts do not apply to a stack with no attention block), the paged
+    layout is refused at construction (``ValueError``), so is a
+    ``SpeculativeEngine`` (``ValueError``: verify needs an attention-only
+    stack), and a 40-token smoke prompt (not a multiple of the 32-token
+    chunk) raises the chunked scan's ``AssertionError``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.speculative import SpeculativeEngine
+    cfg = get_config(SSM_ARCH, smoke=True)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 162), device=dev)
+    scfg = ServeConfig(max_batch=2, max_len=64, kv_format="posit8")
+    eng = ServingEngine(cfg, params, scfg, policy="paper_edge_p8",
+                        device=dev)
+    refused = {}
+    for name, build in (
+            ("paged", lambda: ServingEngine(
+                cfg, params, dataclasses.replace(scfg, kv_layout="paged",
+                                                 page_size=8),
+                policy="paper_edge_p8", device=dev)),
+            ("speculative", lambda: SpeculativeEngine(
+                cfg, params, scfg, policy="paper_edge_p8", device=dev))):
+        try:
+            build()
+        except ValueError as e:
+            refused[name] = str(e)[:120]
+        else:
+            raise AssertionError(f"{name}: a {SSM_ARCH} engine was built")
+    prompt = np.random.default_rng([seed, 162]).integers(0, cfg.vocab, 40)
+    try:
+        eng.serve([Request(uid=0, prompt=prompt, max_new=2)])
+    except AssertionError as e:
+        refused["prompt_40"] = f"AssertionError {e}"
+    else:
+        raise AssertionError("a 40-token prompt was prefilled")
+    phase(f"phase 16c refusals on the card: a CUDA {SSM_ARCH} smoke engine "
+          f"builds under posit8 KV; refused: "
+          + "; ".join(f"{k}: {v}" for k, v in refused.items()))
+    return {"cuda_engine_builds": True, "refused": refused}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2248,6 +2567,13 @@ def main() -> int:
            "15c": phase15c(dev, args.seed, max(len(p) for p in prompts))}
     print(json.dumps({"moe": moe}), flush=True)
 
+    # 16. the SSM family: mamba2-2.7b served at full width, card vs CPU
+    # at smoke size, and the refusals (own generators) ------------------
+    ssm = {"16a": phase16a(dev, args.seed, smi),
+           "16b": phase16b(dev, args.seed),
+           "16c": phase16c(dev, args.seed)}
+    print(json.dumps({"ssm": ssm}), flush=True)
+
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
     layers = cfg.n_layers
@@ -3134,6 +3460,8 @@ def main() -> int:
                      f"mode)"}
     out[1]["launches"] = train_launches["posit_encode"]
 
+    for entry in out:       # a mamba2 step runs none of them (16a)
+        entry["launches_ssm"] = ssm["16a"]["launches"][entry["name"]]
     print(json.dumps({"kernels": out}), flush=True)
 
     # last line ---------------------------------------------------------

@@ -225,6 +225,7 @@ def hbm_bytes_per_param(policy: TCPolicy, role: str = "mlp_weights",
 _ROLE_BY_NAME = {
     "wq": "attn_weights", "wk": "attn_weights", "wv": "attn_weights",
     "wo": "attn_weights", "wi": "mlp_weights", "wo_mlp": "mlp_weights",
+    "in_proj": "mlp_weights", "out_proj": "mlp_weights",
 }
 
 
@@ -242,8 +243,8 @@ def pack_params(params, policy: TCPolicy):
     policy's role formats (embeddings, norms and vectors stay unpacked).
 
     Stacked ``blocks`` leaves keep their leading stack axis in the scale;
-    output projections (``wo``, ``wo_mlp``) scale per input row, the rest
-    per output column, as in the reference."""
+    output projections (``wo``, ``wo_mlp``, ``out_proj``) scale per input
+    row, the rest per output column, as in the reference."""
 
     def pack(path, w):
         name = next((k for k in reversed(path) if isinstance(k, str)), None)
@@ -254,7 +255,8 @@ def pack_params(params, policy: TCPolicy):
         if f is None or not isinstance(get(f), PositFormat):
             return w
         stacked = path[0] == "blocks" and w.ndim >= 3
-        ch = w.ndim - 2 if name in ("wo", "wo_mlp") else w.ndim - 1
+        ch = w.ndim - 2 if name in ("wo", "wo_mlp", "out_proj") \
+            else w.ndim - 1
         keep = {ch} | ({0} if stacked else set())
         axis = tuple(i for i in range(w.ndim) if i not in keep)
         return quant.quantize(w, get(f), axis=axis)

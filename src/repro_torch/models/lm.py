@@ -1,20 +1,24 @@
 """Decoder-only language model: config, init, the training forward and
 loss, and the per-block pieces the serving path uses (port of
-``repro.models.lm``, dense and MoE families).
+``repro.models.lm``, dense, MoE and SSM families).
 
 Params are a plain dict with the reference's leaf names:
 ``{"embed", "final_norm", "lm_head", "blocks": ({"ln", "wq", "wk", "wv",
 "wo", "ln2", "wi", "wo_mlp"},)}`` where every ``blocks`` leaf is stacked
 over layers (leading axis P = n_layers).  The MoE family holds a
 ``"moe": {"router", "wi", "wo"}`` sub-dict (``models/moe.py``) in place
-of ``wi`` / ``wo_mlp``.  The reference scans over the layer axis; this
-port loops over layers in Python (``layer_params``).  Every
-weight matmul passes through the TC policy hook (``_qw``), which
-fake-quantizes each layer's slice on every call.
+of ``wi`` / ``wo_mlp``.  The SSM family (Mamba-2) has one block type, so
+its period is one layer too: ``{"in_proj", "conv_w", "A_log", "D",
+"dt_bias", "norm_scale", "out_proj", "ln"}`` (``models/ssm.py``).  The
+reference scans over the layer axis; this port loops over layers in
+Python (``layer_params``).  Every weight matmul passes through the TC
+policy hook (``_qw``), which fake-quantizes each layer's slice on every
+call.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -26,6 +30,8 @@ from .attention import blockwise_attention
 from .common import (_einsum, apply_rope, cross_entropy, dense_init,
                      embed_init, rms_norm, rope_freqs)
 from .moe import init_moe, moe_ffn
+from .ssm import dims as ssm_dims
+from .ssm import init_mamba2, mamba2_layer
 
 
 def _round_up(x, m):
@@ -50,19 +56,28 @@ class ModelCfg:
     moe_experts: int = 0
     moe_topk: int = 0
     capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_groups: int = 1
+    conv_kernel: int = 4
     dtype_name: str = "bfloat16"
     remat: str = "full"        # none | full (save block inputs only) |
-                               # dots (recompute all but the weight products)
+                               # dots (recompute all but the weight
+                               # products; dense and MoE only)
     q_block: int = 512
     kv_block: int = 1024
     attn_vjp: str = "flash"    # flash (custom bwd) | naive (autograd loop)
     tie_embed: bool = False
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe"):
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
-                f"family {self.family!r}: only the dense and moe families "
-                "are ported (other families are a later slice of the port)")
+                f"family {self.family!r}: only the dense, moe and ssm "
+                "families are ported (other families are a later slice of "
+                "the port)")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -77,9 +92,36 @@ class ModelCfg:
     def vocab_pad(self) -> int:
         return _round_up(self.vocab, 256)
 
+    @functools.cached_property
+    def block_types(self) -> tuple:
+        # a plain attribute once read (a non-data descriptor), so a test
+        # can force another stack's block types onto a copy
+        base = ("ssm",) if self.family == "ssm" else ("attn",)
+        return base * self.n_layers
+
+    @property
+    def period(self) -> tuple:
+        return (self.block_types[0],)
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.period)
+
+    @property
+    def n_tail(self) -> int:
+        return self.n_layers - self.n_periods * len(self.period)
+
     def param_count(self) -> int:
         d, hd, nh, nkv = self.d_model, self.head_dim, self.n_heads, \
             self.n_kv_heads
+        head = 0 if self.tie_embed else d * self.vocab_pad
+        if self.family == "ssm":
+            d_in, nh_ssm, conv_ch = ssm_dims(self)
+            ng, ds = self.ssm_groups, self.ssm_state
+            block = (d * (2 * d_in + 2 * ng * ds + nh_ssm)   # in_proj
+                     + self.conv_kernel * conv_ch + 3 * nh_ssm + d_in
+                     + d_in * d + d)                        # out_proj, ln
+            return self.vocab_pad * d + d + head + self.n_layers * block
         if self.family == "moe":      # router + gated experts
             ffn = self.moe_experts * (d + 3 * d * self.d_ff)
         else:
@@ -87,7 +129,6 @@ class ModelCfg:
             ffn = d * wi + self.d_ff * d
         block = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d + ffn
                  + (2 * hd if self.qk_norm else 0))
-        head = 0 if self.tie_embed else d * self.vocab_pad
         return self.vocab_pad * d + d + head + self.n_layers * block
 
 
@@ -99,9 +140,7 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
     differ from the reference's for the same seed."""
     from .. import resolve_device
     device = resolve_device(device)
-    d, hd, nh, nkv, P = (cfg.d_model, cfg.head_dim, cfg.n_heads,
-                         cfg.n_kv_heads, cfg.n_layers)
-    dt = cfg.dtype
+    d, P, dt = cfg.d_model, cfg.n_layers, cfg.dtype
 
     def dense(*shape):
         return dense_init(shape, dt, device, generator)
@@ -109,6 +148,24 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
+    if cfg.family == "ssm":
+        blk = init_mamba2(cfg, (P,), dt, device, generator)
+        blk["ln"] = zeros(P, d)
+    else:
+        blk = _init_attn_block(cfg, dense, zeros, device, generator)
+    params = {"embed": embed_init((cfg.vocab_pad, d), dt, device, generator),
+              "final_norm": zeros(d)}
+    if not cfg.tie_embed:
+        params["lm_head"] = dense(d, cfg.vocab_pad)
+    params["blocks"] = (blk,)
+    return params
+
+
+def _init_attn_block(cfg: ModelCfg, dense, zeros, device, generator):
+    """The attention block's leaves, stacked over the layers: attention,
+    norms and the dense MLP or the MoE experts."""
+    d, hd, nh, nkv, P = (cfg.d_model, cfg.head_dim, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.n_layers)
     blk = {"ln": zeros(P, d), "wq": dense(P, d, nh * hd),
            "wk": dense(P, d, nkv * hd), "wv": dense(P, d, nkv * hd),
            "wo": dense(P, nh * hd, d)}
@@ -116,17 +173,12 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
         blk["q_norm"], blk["k_norm"] = zeros(P, hd), zeros(P, hd)
     blk["ln2"] = zeros(P, d)
     if cfg.family == "moe":
-        blk["moe"] = init_moe(d, cfg.d_ff, cfg.moe_experts, dt, device,
-                              generator, lead=(P,))
+        blk["moe"] = init_moe(d, cfg.d_ff, cfg.moe_experts, cfg.dtype,
+                              device, generator, lead=(P,))
     else:
         wi_cols = 2 * cfg.d_ff if cfg.mlp == "swiglu" else cfg.d_ff
         blk.update(wi=dense(P, d, wi_cols), wo_mlp=dense(P, cfg.d_ff, d))
-    params = {"embed": embed_init((cfg.vocab_pad, d), dt, device, generator),
-              "final_norm": zeros(d)}
-    if not cfg.tie_embed:
-        params["lm_head"] = dense(d, cfg.vocab_pad)
-    params["blocks"] = (blk,)
-    return params
+    return blk
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -251,27 +303,42 @@ def _attn_block(p, x, cfg: ModelCfg, policy, seg=_call):
     return x + mo, aux
 
 
+def _ssm_block(p, x, cfg: ModelCfg, policy, seg=_call):
+    """Training Mamba-2 block (no FFN): norm, the SSD layer with its two
+    projections through the ``mlp_weights`` hook, residual.  Returns (x,
+    aux = 0)."""
+    h = rms_norm(x, p["ln"])
+    y, _ = mamba2_layer(p, h, cfg, quantize_w=_qw(policy, "mlp_weights"))
+    return x + y.to(x.dtype), 0.0
+
+
 def _run_stack(blocks, x, cfg: ModelCfg, policy):
-    """The layer stack: a Python loop over the stacked layer axis.  Under
-    ``remat="full"`` each layer runs in ``torch.utils.checkpoint`` (only
-    the block inputs are saved; the block recomputes in the backward).
-    Under ``"dots"`` the weights' fake-quant and the weight products
-    (``bsd,df``) run outside any checkpoint, so autograd keeps the
-    products and their operands, and the norms, RoPE + attention and the
-    MLP's activation recompute (the reference's
-    ``dots_with_no_batch_dims_saveable`` keeps the products alone and
-    recomputes the fake-quant too)."""
+    """The layer stack: a Python loop over the stacked layer axis, each
+    layer the block of its type.  Under ``remat="full"`` each layer runs
+    in ``torch.utils.checkpoint`` (only the block inputs are saved; the
+    block recomputes in the backward).  Under ``"dots"`` (attention
+    blocks) the weights' fake-quant and the weight products (``bsd,df``)
+    run outside any checkpoint, so autograd keeps the products and their
+    operands, and the norms, RoPE + attention and the MLP's activation
+    recompute (the reference's ``dots_with_no_batch_dims_saveable`` keeps
+    the products alone and recomputes the fake-quant too).  The SSM block
+    has no "dots" segmentation yet."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
+    block = {"attn": _attn_block, "ssm": _ssm_block}[cfg.period[0]]
+    if cfg.remat == "dots" and block is _ssm_block:
+        raise NotImplementedError(
+            "remat='dots' is not ported for the ssm family (use 'full' or "
+            "'none')")
     aux = 0.0
     for i in range(cfg.n_layers):
         p_i = layer_params(blocks[0], i)
         if cfg.remat == "full":
-            x, a = checkpoint(_attn_block, p_i, x, cfg, policy,
+            x, a = checkpoint(block, p_i, x, cfg, policy,
                               use_reentrant=False)
         else:
-            x, a = _attn_block(p_i, x, cfg, policy,
-                               _recompute if cfg.remat == "dots" else _call)
+            x, a = block(p_i, x, cfg, policy,
+                         _recompute if cfg.remat == "dots" else _call)
         aux = aux + a
     return x, aux
 
@@ -308,7 +375,9 @@ def hoist_weight_quant(params, policy: TCPolicy):
     layer scan does.  MoE expert weights are quantized a layer's whole
     (E, ...) slice at a time (one scale per output column over the expert
     and input axes, as the reference's per-call hook sees them); the
-    router passes no hook and stays as it is."""
+    router passes no hook and stays as it is.  An SSM block's two
+    projections (``in_proj``, ``out_proj``) pass the ``mlp_weights`` hook;
+    its conv taps and f32 leaves pass none and stay raw."""
     q_attn, q_mlp = _qw(policy, "attn_weights"), _qw(policy, "mlp_weights")
 
     def per_layer(q, w):
@@ -324,6 +393,11 @@ def hoist_weight_quant(params, policy: TCPolicy):
     blocks = []
     for blk in params["blocks"]:
         nb = dict(blk)
+        if "in_proj" in blk:
+            for name in ("in_proj", "out_proj"):
+                nb[name] = per_layer(q_mlp, blk[name])
+            blocks.append(nb)
+            continue
         for name in ("wq", "wk", "wv", "wo"):
             nb[name] = per_layer(q_attn, blk[name])
         if "moe" in blk:

@@ -1,6 +1,6 @@
-"""Serving path of the attention stack (dense and MoE FFNs): cache init,
-bucketed prefill and single-token decode (port of
-``repro.models.serve_model``, ring and paged layouts).
+"""Serving path of the attention stack (dense and MoE FFNs) and of the
+Mamba-2 stack: cache init, bucketed prefill and single-token decode (port
+of ``repro.models.serve_model``, ring and paged layouts).
 
 Caches keep the reference's layout: ``{"pos", "blocks": ({...},)}`` where a
 posit cache block holds ``k``/``v`` codes (P, B, W, nkv, Dc) and
@@ -12,6 +12,15 @@ With ``policy.kv_layout == "paged"`` the per-slot rings become one flat
 page pool per layer, (P, R, nkv, Dc|hd) with R = num_pages * page_size
 rows and no batch axis, plus a top-level ``page_table`` (B, Pmax) int32
 and a (B,) ``pos`` (``kernels/paged_kv.py`` has the layout).
+
+An SSM stack (``cfg.family == "ssm"``) holds no K/V: its cache block is
+``{"state": (P, B, nh, hd, ds) f32, "conv": (P, B, K-1, conv_ch)}`` in the
+model's dtype, the recurrent state each step rewrites whole.  Its decode
+step writes the new states into fresh buffers and rebinds them on the
+dict (as ``pos``), so the tensors given are the pre-step state still;
+its prefill runs at the prompt's exact length (``ssd_chunked``'s chunk
+rule: S <= ``ssm_chunk`` or a multiple of it) and keeps the last K-1 rows
+of the raw ``xBC`` stream and the final SSD state.
 
 In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
 chunk pass of speculative decoding) write K/V rows into the cache tensors
@@ -35,6 +44,7 @@ from . import attention
 from .common import _einsum, apply_rope, rms_norm
 from .lm import (ModelCfg, _qkv, _qw, _rope_cs, embed_rows, ffn,
                  layer_params, lm_head)
+from .ssm import _split_streams, in_proj, init_mamba2_state, mamba2_layer
 
 
 def _ffn(p, x, cfg: ModelCfg, policy):
@@ -69,13 +79,16 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
     device = resolve_device(device)
     spec = kv_storage(policy)
     hd, nkv, P = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    if cfg.family == "ssm":
+        conv, state = init_mamba2_state(cfg, (P, batch), cfg.dtype, device)
+        return _cache({"state": state, "conv": conv}, batch, max_len, policy,
+                      paged, num_pages, device)
     if paged:
         ps = policy.kv_page_size
         pmax = -(-max_len // ps)            # logical pages per slot
-        full_pool = num_pages is None
-        if full_pool:
-            num_pages = 1 + batch * pmax    # page 0 is the trash page
-        rows = (P, num_pages * ps, nkv)
+        pool = (1 + batch * pmax            # page 0 is the trash page
+                if num_pages is None else num_pages)
+        rows = (P, pool * ps, nkv)
     else:
         rows = (P, batch, max_len, nkv)
     if spec is not None and spec.is_posit:
@@ -90,12 +103,21 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
         dt = dtype or (spec.dtype if spec is not None else cfg.dtype)
         blk = {"k": torch.zeros(rows + (hd,), dtype=dt, device=device),
                "v": torch.zeros(rows + (hd,), dtype=dt, device=device)}
+    return _cache(blk, batch, max_len, policy, paged, num_pages, device)
+
+
+def _cache(blk, batch: int, max_len: int, policy: TCPolicy, paged: bool,
+           num_pages: Optional[int], device) -> Dict[str, Any]:
+    """The cache dict around one stacked block: ``pos`` and, paged, the
+    page table (the identity table of a full pool where ``num_pages`` is
+    None, else all-trash)."""
     cache = {"pos": torch.zeros((batch,) if paged else (), dtype=torch.int32,
                                 device=device),
              "blocks": (blk,)}
     if paged:
+        pmax = -(-max_len // policy.kv_page_size)
         table = (1 + torch.arange(batch * pmax, device=device).reshape(
-            batch, pmax) if full_pool
+            batch, pmax) if num_pages is None
             else torch.zeros((batch, pmax), device=device))
         cache["page_table"] = table.to(torch.int32)
     return cache
@@ -173,16 +195,37 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     return x + _ffn(p, x, cfg, policy)
 
 
+def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out):
+    """One Mamba-2 layer's step: reads the layer's ``c["conv"]`` /
+    ``c["state"]`` and writes the new ones into ``out`` (a (conv, state)
+    pair of buffers)."""
+    h = rms_norm(x, p["ln"])
+    y, _ = mamba2_layer(p, h, cfg, conv_state=c["conv"],
+                        ssm_state=c["state"],
+                        quantize_w=_qw(policy, "mlp_weights"), out=out)
+    return x + y
+
+
 def decode_step(params, cache, tokens, cfg: ModelCfg,
                 policy: TCPolicy = BF16):
     """One serving step. tokens: (B, 1) int.  Returns (logits (B,
     vocab_pad), cache) with K/V rows written in place and ``pos`` + 1.
     Paged caches (``cache["page_table"]``) take per-slot positions; a
-    scalar ``pos`` is broadcast to every slot."""
+    scalar ``pos`` is broadcast to every slot.  An SSM stack's new states
+    land in new buffers, rebound on the dict as ``cache["blocks"]``."""
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
     x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
+    if cfg.family == "ssm":
+        old = cache["blocks"][0]
+        new = {k: torch.empty_like(v) for k, v in old.items()}
+        for i in range(cfg.n_layers):
+            x = _ssm_decode(layer_params(params["blocks"][0], i),
+                            _layer_cache(cache, i), x, cfg, policy,
+                            (new["conv"][i], new["state"][i]))
+        cache["blocks"] = (new,)
+        return _readout(params, cache, x, cfg, pos)
     table, paged, pos_l = cache.get("page_table"), None, pos
     if table is not None:
         pos_l = pos.expand(x.shape[0]) if pos.ndim == 0 else pos
@@ -193,6 +236,11 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
         x = _attn_decode(layer_params(params["blocks"][0], i),
                          _layer_cache(cache, i), x, cfg, policy, pos_l, spec,
                          paged)
+    return _readout(params, cache, x, cfg, pos)
+
+
+def _readout(params, cache, x, cfg: ModelCfg, pos):
+    """The decode step's head: final norm, logits (B, vocab_pad), pos + 1."""
     x = rms_norm(x, params["final_norm"])
     logits = _einsum("bsd,dv->bsv", x, lm_head(params, cfg))[:, 0]
     cache["pos"] = pos + 1
@@ -350,7 +398,7 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
     valid = None
     if true_len is not None:
-        if cfg.family == "moe":
+        if cfg.family != "dense":
             raise ValueError(
                 "bucketed prefill (true_len) needs a decoder-only "
                 "attention stack without MoE, sliding windows or "
@@ -359,6 +407,9 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
             torch.int32).reshape(-1).expand(b)
         valid = torch.arange(s, device=dev)[None, :] < true_len[:, None]
     cache = init_cache(cfg, b, max_len, policy=policy, device=dev)
+    if cfg.family == "ssm":
+        x = _ssm_prefill(params, x, cache, cfg, policy)
+        return _prefill_logits(params, cache, x, cfg, None, paged)
     spec = kv_storage(policy)
     posit_kv = spec is not None and spec.is_posit
     w = max_len
@@ -419,6 +470,35 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
             fill(c, "k", kp)
             fill(c, "v", vp)
         x = x + _ffn(p, x, cfg, policy)
+    return _prefill_logits(params, cache, x, cfg, true_len, paged)
+
+
+def _ssm_prefill(params, x, cache, cfg: ModelCfg, policy):
+    """The Mamba-2 layers of a prefill: each layer's final SSD state and
+    the last K-1 rows of its raw (pre-conv) ``xBC`` stream, zero-padded
+    in front for a prompt shorter than that, land in the cache.  Returns
+    the residual stream."""
+    blk = cache["blocks"][0]
+    k = cfg.conv_kernel
+    q = _qw(policy, "mlp_weights")
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"][0], i)
+        h = rms_norm(x, p["ln"])
+        zxbcdt = in_proj(p, h, q)
+        _, xbc, _ = _split_streams(zxbcdt, cfg)
+        y, (_, state) = mamba2_layer(p, h, cfg, quantize_w=q, zxbcdt=zxbcdt)
+        x = x + y.to(x.dtype)
+        blk["state"][i] = state
+        blk["conv"][i] = torch.nn.functional.pad(
+            xbc, (0, 0, k - 1, 0))[:, -(k - 1):]
+    return x
+
+
+def _prefill_logits(params, cache, x, cfg: ModelCfg, true_len, paged):
+    """The prefill's head: logits (B, vocab_pad) at each row's last real
+    position, and ``cache["pos"]``."""
+    b, s = x.shape[:2]
+    dev = x.device
     x = rms_norm(x, params["final_norm"])
     x_last = (x[:, -1] if true_len is None
               else x[torch.arange(b, device=dev), true_len.long() - 1])

@@ -8,6 +8,10 @@ queued request is prefilled into it while other slots keep decoding.
 prefill in power-of-two buckets; sampling is greedy or temperature (per
 request) from the engine's own numpy RNG; ``on_emit`` streams tokens.
 
+An SSM stack (Mamba-2) holds a recurrent state per slot instead of K/V
+rows: it prefills each prompt at its exact length, serves the ring layout
+only (paged is refused at construction) and counts 0 KV-cache bytes.
+
 Two KV layouts (``kv_layout``): ``ring`` reserves a dense max_len ring per
 slot; ``paged`` runs a shared posit page pool + per-sequence page tables
 (``serve/paged.py`` allocator, ``kernels/paged_kv.py`` device path), with
@@ -111,9 +115,10 @@ def check_kv_kernels(cfg: lm.ModelCfg, policy: TCPolicy,
     its dtype) and K4's and K6's split walk (``split_geometry``: rows of
     codes, query heads per KV head, q in the model's dtype).  Raises
     ``ValueError`` naming the contract (``TypeError`` for a dtype the
-    kernels do not read).  A float KV cache runs no kernel."""
+    kernels do not read).  A float KV cache, and a stack with no attention
+    block (Mamba-2), run no KV kernel."""
     spec = kv_storage(policy)
-    if spec is None or not spec.is_posit:
+    if spec is None or not spec.is_posit or "attn" not in cfg.block_types:
         return
     name, hd = "ServingEngine", cfg.head_dim
     _build.check_fmt(name, spec.fmt)
@@ -167,9 +172,18 @@ class ServingEngine:
             tag = "+".join(f"{k[3:]}_{v}" for k, v in overrides.items())
             self.policy = dataclasses.replace(
                 self.policy, name=f"{self.policy.name}+{tag}", **overrides)
+        if (self.policy.kv_layout == "paged"
+                and "attn" not in cfg.block_types):
+            raise ValueError(
+                f"{cfg.name}: the paged KV layout pages attention K/V rows "
+                "and this stack has no attention block; serve it with "
+                "kv_layout='ring' (the reference's ServingEngine builds "
+                "such an engine and fails at its first admission, reading "
+                "its recurrent state's width as the page bucket)")
         if self.device.type == "cuda":
             check_kv_kernels(cfg, self.policy, scfg.max_len)
-            load_kv_kernels(self.policy)
+            if "attn" in cfg.block_types:
+                load_kv_kernels(self.policy)
         params = _to_device(params, self.device)
         # the guard's rungs hoist their own weights from the raw parameters
         self.raw_params = params if guard_cfg is not None else None
@@ -512,8 +526,9 @@ class ServingEngine:
             if not active:
                 return
         self.cache["tok"] = torch.from_numpy(self.last_tok).to(self.device)
-        # guard-armed: the pre-round pos and tok (generate rebinds both on
-        # the dict and writes K/V rows in place), for a fallback re-decode
+        # guard-armed: the pre-round pos and tok (generate rebinds both,
+        # and an SSM stack's blocks, on the dict and writes K/V rows in
+        # place), for a fallback re-decode
         prev = dict(self.cache) if self.guard is not None else None
         self.cache, logits = self.engine.generate(self.params, self.cache)
         logits = _host(logits)

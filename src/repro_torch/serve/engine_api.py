@@ -9,11 +9,13 @@
   and prefilled at bucket width with per-row true lengths; padded keys are
   causally masked to exact-zero contributions.  Only where rows meet in
   attention alone: the MoE family (its routing sees every row of the call)
-  prefills one prompt at its exact length into a ``max_len``-wide prefix,
-  as the reference does.
+  and the SSM family (its recurrence would carry the padding) prefill one
+  prompt at its exact length, into a ``max_len``-wide prefix, as the
+  reference does.
 * **Prefix = bucket-width cache.**  ``prefill`` returns a ``Prefix`` whose
   cache leaves are (B, bucket, ...) ring rows; ``insert`` copies one row's
-  prefix into rows [0, bucket) of a slot's ring IN PLACE.  Paged engines
+  prefix into rows [0, bucket) of a slot's ring IN PLACE (an SSM prefix
+  row's ``state`` and ``conv`` whole).  Paged engines
   prefill through a ring copy of the policy at bucket width (the same
   codec as the pool) and ``insert`` scatters the prefix rows straight to
   the flat pool rows ``dst_rows``; no max_len ring is ever built.
@@ -160,9 +162,12 @@ class TransprecisionEngine:
         self.metrics = metrics
         self.stage_prefix = stage_prefix
         self.max_batch, self.max_len = max_batch, max_len
-        # bucketed (right-padded) prefill is exact only where rows meet in
-        # attention alone; the MoE family keeps exact-length prefill
-        self.bucketed = cfg.family != "moe"
+        # bucketed (right-padded) prefill is exact only for decoder-only
+        # attention stacks (the reference's rule; the port carries no
+        # sliding window, vision or audio stack); MoE and SSM stacks keep
+        # exact-length prefill
+        self.bucketed = (all(bt == "attn" for bt in cfg.block_types)
+                         and cfg.family != "moe")
         # chaos hardening (both None = a plain call): a FaultInjector whose
         # on_stage hook runs before every stage, and a RetryPolicy for
         # transient stage failures (serve/faults.py)
@@ -299,7 +304,8 @@ class TransprecisionEngine:
                dst_rows=None):
         """Copy prefix row ``row`` into decode-state slot ``slot``, in
         place, and set ``pos[slot]`` to the prompt length.  Ring: its
-        bucket-width K/V rows land at ring rows [0, bucket).  Paged: they
+        bucket-width K/V rows land at ring rows [0, bucket); an SSM row's
+        ``state`` and ``conv`` replace the slot's.  Paged: they
         scatter to the ``dst_rows`` flat pool rows ((N,) int, N <= bucket,
         padded with trash row 0)."""
         if dst_rows is not None:

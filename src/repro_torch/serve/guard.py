@@ -22,11 +22,15 @@ Mechanics per quarantined round:
   its policy (posit8-rounded for ``paper_edge_p8``), so each rung hoists
   the engine's raw device parameters under the rung's policy on its first
   quarantine and runs ``lm.weights_free(rung)``;
-* a rung re-runs the SAME round from ``prev`` with its K/V leaves cloned
-  (one pool copy per rung tried, never per step).  In a decoder-only
-  stack the round left every row below ``pos`` untouched and the rung
-  rewrites the row at ``pos`` (append, then attend) before reading it, so
-  the clone is, for everything the rung reads, the pre-round state.  Only
+* a rung re-runs the SAME round from ``prev`` with its cache leaves
+  cloned (one pool copy per rung tried, never per step).  In a
+  decoder-only stack the round left every row below ``pos`` untouched and
+  the rung rewrites the row at ``pos`` (append, then attend) before
+  reading it, so the clone is, for everything the rung reads, the
+  pre-round state.  An SSM stack rewrites its whole recurrent state each
+  round, so its decode step writes the new ``state`` / ``conv`` into new
+  tensors and rebinds ``blocks`` on the dict: ``prev`` holds the
+  pre-round state itself.  Only
   the quarantined slot's logits row is taken; the rung's cache writes are
   discarded and the main cache keeps the original round's K/V (poison is
   a logits-level event), so neighbours' streams and rows are untouched;
@@ -103,9 +107,10 @@ class GuardConfig:
 
 def pre_round(prev: Dict[str, Any]) -> Dict[str, Any]:
     """A decode state that re-runs a round: ``prev`` (the dict copy taken
-    before ``generate``, holding the pre-round ``pos`` and ``tok``) with
-    its K/V leaves cloned, so the re-run's in-place writes land in the
-    copy.  See the module docstring for why the post-round rows serve."""
+    before ``generate``, holding the pre-round ``pos``, ``tok`` and, for
+    an SSM stack, ``blocks``) with its cache leaves cloned, so the
+    re-run's in-place writes land in the copy.  See the module docstring
+    for why the post-round K/V rows serve."""
     state = dict(prev)
     state["blocks"] = tuple({k: v.clone() for k, v in blk.items()}
                             for blk in prev["blocks"])

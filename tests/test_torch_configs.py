@@ -4,7 +4,8 @@ reference's (``repro.configs``).
 * Every registered arch's ``full()`` and ``smoke()`` equal the
   reference's field for field (the reference's fields the port does not
   carry, those of the unported families, sit at their defaults).
-* ``param_count()`` equals the reference's at full width.
+* ``param_count()`` equals the reference's at full width (mamba2-2.7b:
+  2,702,624,256).
 * Greedy ``ServingEngine`` streams token-identical to the reference's at
   float32 (posit8 KV ring, ``paper_edge_p8``) for the four dense smoke
   configs: qk_norm with d_head != d_model / n_heads (qwen3), a gelu MLP
@@ -33,12 +34,13 @@ from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
 
 PORTED = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b",
-          "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "paper-edge")
+          "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "mamba2-2.7b",
+          "paper-edge")
 DENSE = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b")
-UNPORTED = ("mamba2-2.7b", "recurrentgemma-9b", "qwen2-vl-2b",
-            "whisper-large-v3")
+UNPORTED = ("recurrentgemma-9b", "qwen2-vl-2b", "whisper-large-v3")
 PARAM_COUNTS = {"granite-moe-1b-a400m": 1_334_887_424,
-                "phi3.5-moe-42b-a6.6b": 41_874_100_224}
+                "phi3.5-moe-42b-a6.6b": 41_874_100_224,
+                "mamba2-2.7b": 2_702_624_256}
 
 
 def test_registry_covers_the_reference():

@@ -124,9 +124,9 @@ def test_kernel_build_raises_without_nvcc():
 def test_later_slices_raise_not_implemented():
     cfg = get_config("paper-edge", smoke=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        ModelCfg(family="ssm")
+        ModelCfg(family="hybrid")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mamba2-2.7b")
+        get_config("recurrentgemma-9b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     # the numeric guard, fault injection and retry are ported (they were
@@ -137,11 +137,12 @@ def test_later_slices_raise_not_implemented():
                         retry=RetryPolicy())
     assert eng.guard is not None and eng.engine.retry is eng.retry
     assert eng.engine.faults is eng.faults is not None
-    # the energy accounting and the MoE family are ported (they were a
-    # later slice); the ssm family is not
+    # the energy accounting and the MoE and SSM families are ported (they
+    # were a later slice); the hybrid family is not
     from repro_torch.launch import serve as launch_serve
     with pytest.raises(NotImplementedError, match="not ported"):
-        launch_serve.main(["--device", "cpu", "--arch", "mamba2-2.7b"])
+        launch_serve.main(["--device", "cpu", "--arch",
+                           "recurrentgemma-9b"])
 
 
 def test_paged_entry_points_default_to_gpu():
