@@ -13,9 +13,9 @@ normalising mode, then K1, on every gradient leaf) with checkpoints, a
 crash and a restore, holds remat "dots" to "full", streams through the
 threaded ``Orchestrator`` under injected faults, retry and the numeric
 guard, runs the serve launcher, serves the full-width MoE model
-``granite-moe-1b-a400m`` in both layouts and the full-width SSM model
-``mamba2-2.7b`` in the ring, times every kernel and prints one JSON line
-per contract.  Needs one CUDA GPU; run from the
+``granite-moe-1b-a400m`` in both layouts, the full-width SSM model
+``mamba2-2.7b`` and the full-width hybrid model ``recurrentgemma-9b`` in
+the ring, times every kernel and prints one JSON line per contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -71,7 +71,18 @@ multiple of it), 32 tokens each, one exact-length prefill per prompt,
 with a profiled window of five engine steps, 8 slots live; 16b card vs
 CPU at float32 on the mamba2 smoke config (a two-chunk prefill, then two
 decode steps from the card's state); 16c the refusals on the card; an
-``{"ssm": ...}`` JSON line.  Phase 12 runs
+``{"ssm": ...}`` JSON line.  Phase 17 runs after 16 (own generators):
+17a ``recurrentgemma-9b`` at full width and depth (38 layers, d 4096, 16
+query heads of 256 over 1 KV head, window 2048, bf16 seeded weights,
+``paper_edge_p8``, ring, max_len 4096) serving eight prompts of
+182-3,500 tokens (four past the window: their prefills wrap the ring),
+32 tokens each, one exact-length prefill per prompt, with a profiled
+window of five engine steps, 8 slots live; 17b K3 and K4 alone at its
+shapes (hd 256, 16 query heads per KV head, 2048-row rings) in three
+formats, with times; 17c card vs CPU at float32 on the recurrentgemma
+smoke config (prompts that wrap its 16-row ring, then decode steps from
+the card's state); 17d the refusals on the card; a ``{"hybrid": ...}``
+JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -181,6 +192,23 @@ Every phase asserts; nothing is caught.  Tolerances:
   SSM (16c)      a CUDA SSM engine builds under posit8 KV; the paged
                  layout and SpeculativeEngine raise ValueError, a 40-token
                  smoke prompt AssertionError.
+  hybrid (17a)   every request finishes with its 32 tokens, no error;
+                 every prefill and decode logit finite; KV cache
+                 102,236,160 B, recurrent state 8,519,680 B; K3 12 per
+                 decode step and per prefill, K4 12 per decode step, K1,
+                 K2, K5-K7 0, by the wrappers' counts over the served run
+                 and the profiled window and by the profiler's kernel
+                 names where its trace holds K3's and K4's.
+  hybrid (17b)   K3 bit-exact against kv_append_rows_ref from f32 and
+                 bf16 rows (rows not written unchanged at T = 1); K4
+                 rtol 1e-5, atol 1e-5 (bf16 q 2^-7) against
+                 decode_attention_ref, at hd 256 and 16 query heads.
+  hybrid (17c)   card vs CPU at float32, TF32 off: logits, h and conv
+                 within rtol 1e-3, atol 1e-3; ring scales equal, codes
+                 differing on < 0.1 %, each one posit step or near zero.
+  hybrid (17d)   a CUDA hybrid engine builds and serves under posit8 KV;
+                 paged, SpeculativeEngine and a true_len prefill raise
+                 ValueError.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -208,7 +236,10 @@ and the crossover between its two paths with the times it was set from.
 K3-K6 also carry ``launches_moe`` (15a: per layout, the served run's
 count and the profiled window's per decode step); every entry carries
 ``launches_ssm``, its count over 16a's served run (0: a mamba2 step runs
-no kernel of the port); K2's ``launches`` are
+no kernel of the port), and ``launches_hybrid``, its count over 17a's
+served run and per decode step (K3 and K4 12, the rest 0); K3's and
+K4's entries carry ``hd256``, 17b's times at the hybrid's shapes beside
+their bounds; K2's ``launches`` are
 the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
 and ``wire_wi``, their time at the wire's largest leaf (wi's gradient,
@@ -1670,6 +1701,553 @@ def phase16c(dev, seed) -> dict:
     return {"cuda_engine_builds": True, "refused": refused}
 
 
+HYBRID_ARCH = "recurrentgemma-9b"
+# eight prompts, four longer than the 2048-row window: their prefills wrap
+# the ring (K3 from row S - W) and their decode steps read full rings
+HYBRID_PROMPT_LENS = (182, 640, 1200, 1900, 2300, 2800, 3200, 3500)
+HYBRID_MAX_LEN = 4096
+HYBRID_KERNELS = ("kv_append_rows", "decode_attention")
+# 12 layers x 8 slots x 2048 rows x 2 x (256 codes + 4 scale bytes), half
+# of a 4096-row ring; 26 layers x 8 x (4096 x 4 + 3 x 4096 x 2)
+HYBRID_KV_BYTES = 102_236_160
+HYBRID_STATE_BYTES = 8_519_680
+
+
+def rec_state_bytes(cache, cfg) -> int:
+    """Bytes of a hybrid cache's recurrent blocks (``h`` and ``conv``)."""
+    blocks = [b for t, b in zip(cfg.period, cache["blocks"]) if t == "rec"]
+    blocks += [b for t, b in zip(cfg.tail_types, cache.get("tail", ()))
+               if t == "rec"]
+    return tensor_bytes(blocks)
+
+
+def phase17a(dev, seed, card: str) -> dict:
+    """17a. ``recurrentgemma-9b`` at full width and depth (38 layers: 12
+    periods of (rec, rec, local attn) and 2 recurrent tail blocks, d 4096,
+    16 heads of 256 over 1 KV head, bf16 seeded weights, the published
+    config uncut), ``paper_edge_p8`` (posit8 attention and MLP weights
+    hoisted; the recurrent projections unhooked, as the reference serves
+    them; posit8 KV), ring, max batch 8, max_len 4096 (2048-row rings):
+    eight prompts of ``HYBRID_PROMPT_LENS`` tokens, 32 new tokens each,
+    one exact-length prefill per prompt.  Asserts every request finishes
+    with its 32 tokens and no error, every prefill and decode logit is
+    finite, the KV cache is 12 layers x 8 slots x 2048 rows x 2 x (256
+    codes + 4 scale bytes) = 102,236,160 B, the recurrent state 26 layers
+    x 8 x (4096 x 4 + 3 x 4096 x 2) = 8,519,680 B, and K3 launches 12
+    times per decode step and per prefill, K4 12 times per decode step,
+    K1, K2, K5, K6 and K7 never (the wrappers' counts over the served run
+    and over a profiled window of 5 engine steps with 8 slots live, and
+    the profiler's kernel names).  Prints the decode step's wall, device
+    busy, idle share and launches, device ms by op, prefill ms per
+    prompt, tok/s and peak memory building and serving, each line with
+    ``card``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    cfg = get_config(HYBRID_ARCH)
+    n_attn = cfg.block_types.count("attn")
+    w = min(cfg.window, HYBRID_MAX_LEN)
+    rng17 = np.random.default_rng([seed, 17])
+    prompts = [rng17.integers(0, cfg.vocab, n) for n in HYBRID_PROMPT_LENS]
+    warm = rng17.integers(0, cfg.vocab, 64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    params = lm.init_params(cfg, gen, device=dev)
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_batch=B, max_len=HYBRID_MAX_LEN, kv_format="posit8"),
+        policy="paper_edge_p8", device=dev)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    nonfinite, prefill_ms = [], []
+    generate, prefill = eng.engine.generate, eng.engine.prefill
+
+    def generate_checked(params_, state):
+        state, logits = generate(params_, state)
+        if not bool(torch.isfinite(logits).all()):
+            nonfinite.append("generate")
+        return state, logits
+
+    def prefill_checked(params_, tokens, lengths=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefix = prefill(params_, tokens, lengths)
+        if not bool(torch.isfinite(prefix["logits"]).all()):
+            nonfinite.append("prefill")
+        prefill_ms.append((int(tokens.shape[1]),
+                           1e3 * (time.perf_counter() - t0)))
+        return prefix
+
+    eng.engine.generate, eng.engine.prefill = generate_checked, \
+        prefill_checked
+    eng.serve([Request(uid=-1, prompt=warm, max_new=3)])     # warm-up
+    torch.cuda.synchronize()
+    peak_build = torch.cuda.max_memory_allocated()
+    w_bytes = tensor_bytes(eng.params)
+    kv_bytes = eng.kv_cache_bytes()
+    state_bytes = rec_state_bytes(eng.cache, cfg)
+    assert kv_bytes == HYBRID_KV_BYTES == n_attn * B * w * 2 * (
+        cfg.n_kv_heads * (cfg.head_dim + 4)), kv_bytes
+    assert state_bytes == HYBRID_STATE_BYTES == (
+        cfg.block_types.count("rec") * B * cfg.d_model
+        * (4 + (cfg.conv_kernel - 1) * 2)), state_bytes
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [Request(uid=i, prompt=p, max_new=32)
+            for i, p in enumerate(prompts)]
+    prefill_ms.clear()
+    eng.tracer.reset()
+    eng.tracer.enable()
+    steps0, pre0 = eng.stats["decode_steps"], eng.stats["prefills"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    eng.tracer.disable()
+    st = eng.tracer.self_times()
+    steps = eng.stats["decode_steps"] - steps0
+    prefills = eng.stats["prefills"] - pre0
+    assert not nonfinite, nonfinite
+    assert all(r.done and r.error is None and len(r.out_tokens) == 32
+               for r in reqs)
+    assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+    assert prefills == len(prompts), prefills      # one per prompt
+    want = {k: 0 for k in launches}
+    want.update(kv_append_rows=n_attn * (steps + prefills),
+                decode_attention=n_attn * steps)
+    assert launches == want, launches
+    served_prefill_ms = list(prefill_ms)
+
+    def stage_ms(stage):
+        n = st[f"{stage}.device"]["count"]
+        return 1e3 * (st[f"{stage}.dispatch"]["total_s"]
+                      + st[f"{stage}.device"]["total_s"]) / n
+
+    # a profiled window: the 8 prompts readmitted (one exact-length
+    # prefill each), then n_prof engine steps with 8 slots live
+    n_prof = 5
+    eng._admit([Request(uid=100 + i, prompt=p, max_new=32)
+                for i, p in enumerate(prompts)])
+    assert all(r is not None for r in eng.slot_req)
+    # the window's least bytes: every weight once, the rows each slot's
+    # K4 reads (min(pos + 1, W) per slot and layer, codes + scales, K and
+    # V), the row K3 writes, the recurrent state read and written
+    pos = eng.cache["pos"].long()
+    rows_read = int(torch.clamp(pos + 1 + n_prof // 2, max=w).sum())
+    kv_row = 2 * cfg.n_kv_heads * (cfg.head_dim + 4)
+    bound_ms = 1e3 * (w_bytes + n_attn * (rows_read + B) * kv_row
+                      + 2 * state_bytes) / H100_BYTES_PER_S
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+    per_step = {k: v / n_prof for k, v in LAUNCHES.items()}
+    assert per_step == {k: (n_attn if k in HYBRID_KERNELS else 0)
+                        for k in per_step}, per_step
+    assert not nonfinite, nonfinite
+    n_kernels = {}
+    per_kernel = {k: v / n_prof / 1e3
+                  for k, v in device_events(prof, n_kernels).items()}
+    traced = {k: n_kernels.get(k, 0) / n_prof for k in PORT_KERNEL_NAMES}
+    if per_kernel and all(traced[k] for k in ("append_kernel",
+                                              "split_kernel",
+                                              "combine_kernel")):
+        assert traced == {k: (n_attn if k in ("append_kernel",
+                                              "split_kernel",
+                                              "combine_kernel") else 0)
+                          for k in traced}, traced
+    busy = sum(per_kernel.values()) if per_kernel else None
+    top = sorted(per_kernel.items(), key=lambda kv_: -kv_[1])[:6]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_ops:
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+    ops = op_device_ms(prof_ops, 2)
+    peak = torch.cuda.max_memory_allocated()
+    # what one decode step and one prefill of the longest prompt hold
+    # above the engine's resident bytes (weights, caches)
+    transient = {}
+    for label, fn in (("decode_step", eng.step), ("prefill_3500", lambda: (
+            eng.engine.prefill(eng.params, torch.from_numpy(
+                prompts[-1][None]).to(dev)), None)[1])):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        transient[label] = torch.cuda.max_memory_allocated() - base
+    eng.serve([])                                       # drain
+    out = {
+        "card": card, "arch": HYBRID_ARCH, "params": cfg.param_count(),
+        "prompt_lens": list(HYBRID_PROMPT_LENS), "window": w,
+        "max_len": HYBRID_MAX_LEN, "steps": steps, "prefills": prefills,
+        "serve_wall_s": wall, "tok_s": 8 * 32 / wall,
+        "build_s": build_s, "prefill_ms": stage_ms("prefill"),
+        "prefill_ms_by_len": served_prefill_ms,
+        "decode_ms": stage_ms("generate"), "launches": launches,
+        "launches_per_decode_step": {k: per_step[k] for k in
+                                     HYBRID_KERNELS},
+        "weight_bytes": w_bytes, "kv_cache_bytes": kv_bytes,
+        "rec_state_bytes": state_bytes,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "profiled": {
+            "step_wall_ms": step_ms, "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / step_ms,
+            "kernel_launches_per_step":
+                sum(n_kernels.values()) / n_prof if per_kernel else None,
+            "traced_port_kernels_per_step": traced,
+            "top_kernels_ms": dict(top), "top_ops_ms": ops},
+        "peak_memory_bytes": peak, "peak_memory_build_bytes": peak_build,
+        "transient_bytes": transient}
+    device = (f"device busy {busy:.3f} ms/step (bytes bound {bound_ms:.3f} "
+              f"ms: weights, the K/V rows read and written, the recurrent "
+              f"state), idle share {1 - busy / step_ms:.3f}; kernel launches "
+              f"{sum(n_kernels.values()) / n_prof:.1f}/step; traced port "
+              f"kernels per step { {k: v for k, v in traced.items() if v} }; "
+              f"top kernels (ms/step): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in top)
+              + "; top ops by self device ms/step: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
+              if per_kernel else "device busy and idle share not measured "
+              "(the profiler trace held no device events)")
+    phase(f"phase 17a [{card}] {HYBRID_ARCH}: {cfg.n_layers}L "
+          f"d{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads}h hd{cfg.head_dim} "
+          f"window {cfg.window} pattern {cfg.period} + {cfg.n_tail} tail, "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab} ({cfg.param_count()} params, "
+          f"bf16, posit8 attn/MLP weights and KV), ring W {w}, 8 prompts "
+          f"of {list(HYBRID_PROMPT_LENS)} tokens, 32 new each: {prefills} "
+          f"exact-length prefills {stage_ms('prefill'):.2f} ms/prompt "
+          f"(by length: "
+          + ", ".join(f"{n}: {ms:.1f}" for n, ms in served_prefill_ms)
+          + f" ms), {steps} decode steps {stage_ms('generate'):.3f} "
+          f"ms/step, {8 * 32 / wall:.1f} tok/s; every logit finite; "
+          f"launches {launches}; profiled engine step (8 slots live): wall "
+          f"{step_ms:.3f} ms/step, wrapper launches/step "
+          f"{ {k: per_step[k] for k in HYBRID_KERNELS} }, {device}; "
+          f"weights {w_bytes} B, KV cache {kv_bytes} B, recurrent state "
+          f"{state_bytes} B; built in {build_s:.1f} s; peak memory {peak} B "
+          f"serving ({peak_build} B building the engine: init + hoisting, "
+          f"then a warm-up); above the resident bytes, one decode step "
+          f"holds {transient['decode_step']} B, a 3,500-token prefill "
+          f"{transient['prefill_3500']} B")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase17b(dev, seed) -> dict:
+    """17b. K3 and K4 alone at the hybrid's shapes (B 8, W 2048, 1 KV
+    head of 256, 16 query heads), each against its plain version:
+    posit16 (512-B code rows), posit8 and packed posit4.  K3 bit-exact
+    from f32 and from bf16 rows (on the same values as f32), at T = 1 on
+    positions that cross the ring's end (rows not written unchanged) and
+    at T = W from ``S - W`` for prompts longer than the window (a prefill's
+    call, wrapping inside it); K4 within rtol 1e-5, atol 1e-5 at
+    ``cache_len`` = W and below it, and with a bf16 q within 2^-7 of the
+    plain version on the same q.  Times both (posit8 and posit16, CUDA
+    graph replays over 12 layers' rings, past the L2) beside their bytes
+    bounds."""
+    import torch
+    from repro_torch.core.formats import get as get_fmt
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import kv_cache as kvk
+    hb, hw, hkv, hhd, hnh = B, 2048, 1, 256, 16
+    rng17 = np.random.default_rng([seed, 171])
+
+    def ring(fmt, packed):
+        dc = kvk.code_channels(hhd, fmt, packed)
+        hi = 1 << (8 if fmt.bits <= 8 else 16)
+        codes = torch.from_numpy(rng17.integers(0, hi, (hb, hw, hkv, dc))
+                                 ).to(dev)
+        if fmt.bits > 8:
+            codes = torch.where(codes >= 1 << 15, codes - (1 << 16), codes)
+        scales = torch.from_numpy(np.exp2(rng17.integers(
+            -8, 8, (hb, hw, hkv))).astype(np.float32)).to(dev)
+        return codes.to(_build.code_dtype(fmt)), scales
+
+    def rows(t, spread=6):
+        mag = np.exp2(rng17.uniform(-spread, spread, (hb, t, hkv, 1)))
+        return torch.from_numpy((rng17.normal(0, 1, (hb, t, hkv, hhd)) * mag)
+                                .astype(np.float32)).to(dev)
+
+    # T = 1 across the ring's end; T = W from S - W (S = 2049 .. 3500)
+    pos_end = torch.tensor([2047, 2048, 4095, 4096, 0, 1, 6143, 2046],
+                           dtype=torch.int32, device=dev)
+    lens = torch.tensor([2049, 2100, 2500, 3000, 3500, 2048 + 1023,
+                         2048 + 2047, 4096], dtype=torch.int32, device=dev)
+    pos_pf = lens - hw
+    for name, packed in KV_FORMATS:
+        fmt = get_fmt(name)
+        for t, pos in ((1, pos_end), (hw, pos_pf)):
+            kc, ks = ring(fmt, packed)
+            vc, vs = ring(fmt, packed)
+            kn, vn = rows(t), rows(t)
+            kv = torch.cat([kn, vn], dim=-1).to(torch.bfloat16)
+            for k_in, v_in in ((kn, vn), (kv[..., :hhd].contiguous(),
+                                          kv[..., hhd:])):
+                before = LAUNCHES["kv_append_rows"]
+                got = kvk.kv_append_rows(kc.clone(), ks.clone(), vc.clone(),
+                                         vs.clone(), k_in, v_in, pos, fmt,
+                                         packed=packed)
+                assert LAUNCHES["kv_append_rows"] == before + 1
+                want = kvk.kv_append_rows_ref(
+                    kc.clone(), ks.clone(), vc.clone(), vs.clone(),
+                    k_in.float(), v_in.float(), pos, fmt, packed)
+                for g, w_ in zip(got, want):
+                    assert bits_equal(g, w_), (name, t, k_in.dtype)
+                if t == 1:
+                    keep = torch.ones((hb, hw), dtype=torch.bool,
+                                      device=dev)
+                    keep[torch.arange(hb, device=dev),
+                         pos_end.long() % hw] = False
+                    for g, orig in zip(got, (kc, ks, vc, vs)):
+                        assert torch.equal(g[keep], orig[keep]), name
+    errs = {}
+    cls = (torch.full((hb,), hw, dtype=torch.int32, device=dev),
+           torch.tensor([hw, 1, 127, 128, 129, 1000, 2047, hw],
+                        dtype=torch.int32, device=dev))
+    for name, packed in KV_FORMATS:
+        fmt = get_fmt(name)
+        kc, ks = ring(fmt, packed)
+        vc, vs = ring(fmt, packed)
+        kvk.kv_append_rows_ref(kc, ks, vc, vs, rows(hw, 2), rows(hw, 2),
+                               torch.zeros(hb, dtype=torch.int32, device=dev),
+                               fmt, packed)
+        q = torch.from_numpy(rng17.normal(0, 1, (hb, 1, hnh, hhd)).astype(
+            np.float32)).to(dev)
+        e, eb = 0.0, 0.0
+        for cl in cls:
+            got = kvk.decode_attention(q, kc, ks, vc, vs, cl, fmt,
+                                       packed=packed)
+            want = kvk.decode_attention_ref(q, kc, ks, vc, vs, cl, fmt,
+                                            packed)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            e = max(e, float((got - want).abs().max()))
+            qb = q.to(torch.bfloat16)
+            got = kvk.decode_attention(qb, kc, ks, vc, vs, cl, fmt,
+                                       packed=packed)
+            want = kvk.decode_attention_ref(qb, kc, ks, vc, vs, cl, fmt,
+                                            packed)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=2 ** -7)
+            eb = max(eb, float((got.float() - want.float()).abs().max()))
+        errs[name] = {"f32_q": e, "bf16_q": eb}
+    # times at the decode step's shapes: 12 layers' rings (posit8: 8 MB of
+    # K + V codes each, past the 50 MB L2 together), bf16 rows and q
+    n_l = 12
+    times = {}
+    for name in ("posit8_2", "posit16_2"):
+        fmt = get_fmt(name)
+        code_b = 1 if fmt.bits <= 8 else 2
+        rings = [ring(fmt, False) + ring(fmt, False) for _ in range(n_l)]
+        k1 = rows(1).to(torch.bfloat16)
+        v1 = rows(1).to(torch.bfloat16)
+        qb = torch.from_numpy(rng17.normal(0, 1, (hb, 1, hnh, hhd)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        k3_us = 1e3 * graph_ms(lambda i: kvk.kv_append_rows(
+            rings[i][0], rings[i][1], rings[i][2], rings[i][3], k1, v1,
+            pos_end, fmt), n_l)
+        k4_us = 1e3 * graph_ms(lambda i: kvk.decode_attention(
+            qb, rings[i][0], rings[i][1], rings[i][2], rings[i][3], cls[0],
+            fmt), n_l)
+        # K3: bf16 rows read, codes + scales written, pos read; K4: every
+        # live row's codes and scales (K and V) read, q read, out written
+        k3_bound = 1e6 * (2 * hb * hkv * (hhd * 2 + hhd * code_b + 4)
+                          + hb * 4) / H100_BYTES_PER_S
+        live = int(cls[0].sum())
+        k4_bound = 1e6 * (2 * live * hkv * (hhd * code_b + 4)
+                          + 2 * hb * hnh * hhd * 2 + hb * 4) \
+            / H100_BYTES_PER_S
+        times[name] = {"k3_us": k3_us, "k3_bound_us": k3_bound,
+                       "k4_us": k4_us, "k4_bound_us": k4_bound}
+        del rings
+    phase(f"phase 17b K3 and K4 at the hybrid's shapes (B {hb}, W {hw}, "
+          f"{hkv} KV head of {hhd}, {hnh} query heads; posit16 512-B rows, "
+          f"posit8, packed posit4): K3 bit-exact from f32 and bf16 rows at "
+          f"T=1 across the ring's end {pos_end.tolist()} and at T={hw} "
+          f"from S - W for S {lens.tolist()}; K4 at cache_len {hw} and "
+          f"{cls[1].tolist()} max |err| "
+          + ", ".join(f"{k} {v['f32_q']:.2e} (bf16 q {v['bf16_q']:.2e})"
+                      for k, v in errs.items())
+          + " (rtol/atol 1e-5; bf16 q 2^-7); device µs per call: "
+          + "; ".join(f"{k}: K3 {v['k3_us']:.2f} (bound "
+                      f"{v['k3_bound_us']:.3f}), K4 {v['k4_us']:.2f} (bound "
+                      f"{v['k4_bound_us']:.3f})" for k, v in times.items()))
+    return {"max_abs_err": errs, "times": times,
+            "k4_split_smem_bytes": 4 * (256 + hnh * hhd
+                                        + hnh * kvk.SPLIT_ROWS
+                                        + kvk.SPLIT_ROWS * (hhd + 4))}
+
+
+def posit8_flips(a, b) -> tuple:
+    """Posit8 codes two devices wrote for one set of K/V values: each code
+    that differs is its counterpart's neighbour in posit order or, near
+    zero, decodes within 2^-12 (of the row's scale) of it.  Returns
+    (differ, near zero)."""
+    import torch
+    from repro_torch.core.formats import get as get_fmt
+    from repro_torch.kernels.posit_decode import decode_tile
+
+    def signed(c):
+        c = c.to(torch.int16)
+        return torch.where(c >= 128, c - 256, c)
+
+    sa, sb = signed(a), signed(b)
+    far = (sa - sb).abs() > 1
+    fmt = get_fmt("posit8_2")
+    gap = (decode_tile(a[far], fmt) - decode_tile(b[far], fmt)).abs()
+    assert bool((gap <= 2.0 ** -12).all()), float(gap.max())
+    return int((sa != sb).sum()), int(far.sum())
+
+
+def phase17c(dev, seed) -> dict:
+    """17c. Card vs CPU at float32 (TF32 off) on the recurrentgemma smoke
+    config (a 16-token window), ``paper_edge_p8`` per-call weight hook,
+    posit8 KV ring: a 40-token prompt and a 12-token one (the first wraps
+    the ring) prefilled on both devices: logits, ``h`` and ``conv``
+    within rtol 1e-3, atol 1e-3, ring scales equal and codes by
+    ``posit8_flips`` on < 0.1 % of them; then 6 decode steps (the second
+    prompt's ring wraps), each from the card's state on both devices, held
+    the same way."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models import lm, serve_model
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH, smoke=True),
+                              dtype_name="float32")
+    policy = get_policy("paper_edge_p8")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(seed + 17),
+                            device="cpu")
+    params_d = tree_to(params, dev)
+    rng = np.random.default_rng([seed, 172])
+    tol = dict(rtol=1e-3, atol=1e-3)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dmax, flips = {}, [0, 0, 0]
+
+    def parts(cache):
+        out = {}
+        for part in ("blocks", "tail"):
+            for i, blk in enumerate(cache.get(part, ())):
+                out.update({f"{part}{i}.{k}": v for k, v in blk.items()})
+        return out
+
+    def close(label, card_c, cpu_c, card_l, cpu_l):
+        card_l = card_l.cpu()
+        torch.testing.assert_close(card_l, cpu_l, **tol)
+        dmax[label + "_logits"] = max(dmax.get(label + "_logits", 0.0),
+                                      float((card_l - cpu_l).abs().max()))
+        cc, cp = parts(card_c), parts(cpu_c)
+        for k, v in cc.items():
+            v, p = v.cpu(), cp[k]
+            if k.endswith(("scale",)):
+                assert torch.equal(v, p), (label, k)
+            elif k.endswith((".k", ".v")):
+                n, far = posit8_flips(v, p)
+                flips[0] += n
+                flips[1] += far
+                flips[2] += v.numel()
+            else:
+                torch.testing.assert_close(v, p, **tol)
+                key = f"{label}_{k.split('.')[-1]}"
+                dmax[key] = max(dmax.get(key, 0.0),
+                                float((v - p).abs().max()))
+
+    try:
+        for s in (40, 12):
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, s)))
+            lc, cc = serve_model.prefill(params_d, {"tokens": tokens.to(
+                dev)}, cfg, 64, policy)
+            lp, cp = serve_model.prefill(params, {"tokens": tokens}, cfg, 64,
+                                         policy)
+            close("prefill", cc, cp, lc, lp)
+            tok = lc[:, :cfg.vocab].argmax(-1)[:, None]
+            for _ in range(6):
+                cpu_cache = tree_to(cc, "cpu")
+                lc, cc = serve_model.decode_step(params_d, cc, tok, cfg,
+                                                 policy)
+                lp, cp = serve_model.decode_step(params, cpu_cache,
+                                                 tok.cpu(), cfg, policy)
+                close("decode", cc, cp, lc, lp)
+                tok = lc[:, :cfg.vocab].argmax(-1)[:, None]
+            assert int(cc["pos"]) > cfg.window
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert flips[0] < 1e-3 * flips[2], flips
+    phase(f"phase 17c recurrentgemma smoke card vs CPU (float32, TF32 off, "
+          f"paper_edge_p8, posit8 KV, window {cfg.window}): prompts of 40 "
+          f"and 12 tokens, then 6 decode steps each from the card's state "
+          f"(both rings wrap): logits, h and conv within rtol 1e-3 atol "
+          f"1e-3 (max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dmax.items())
+          + f"); ring scales equal, {flips[0]} of {flips[2]} codes differ "
+          f"({flips[1]} near zero, the rest one posit step)")
+    return {"max_abs_diff": dmax, "codes_differ": flips[0],
+            "codes_near_zero": flips[1], "codes_compared": flips[2]}
+
+
+def phase17d(dev, seed) -> dict:
+    """17d. What the port refuses on the card, as the reference does: a
+    CUDA recurrentgemma smoke engine builds under posit8 KV and serves;
+    the paged layout is refused at construction (``ValueError``: a sliding
+    window), so is a ``SpeculativeEngine`` (``ValueError``: verify needs
+    an attention-only stack), and a bucketed (``true_len``) prefill
+    (``ValueError``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models import lm, serve_model
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.speculative import SpeculativeEngine
+    cfg = get_config(HYBRID_ARCH, smoke=True)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 173), device=dev)
+    scfg = ServeConfig(max_batch=2, max_len=64, kv_format="posit8")
+    eng = ServingEngine(cfg, params, scfg, policy="paper_edge_p8",
+                        device=dev)
+    prompt = np.random.default_rng([seed, 173]).integers(0, cfg.vocab, 30)
+    req = Request(uid=0, prompt=prompt, max_new=4)
+    eng.serve([req])
+    assert req.done and req.error is None and len(req.out_tokens) == 4
+    refused = {}
+    tokens = torch.as_tensor(np.stack([prompt[:16], prompt[:16]])).to(dev)
+    for name, build in (
+            ("paged", lambda: ServingEngine(
+                cfg, params, dataclasses.replace(scfg, kv_layout="paged",
+                                                 page_size=8),
+                policy="paper_edge_p8", device=dev)),
+            ("speculative", lambda: SpeculativeEngine(
+                cfg, params, scfg, policy="paper_edge_p8", device=dev)),
+            ("true_len", lambda: serve_model.prefill(
+                params, {"tokens": tokens}, cfg, 64,
+                get_policy("paper_edge_p8"), true_len=[9, 16]))):
+        try:
+            build()
+        except ValueError as e:
+            refused[name] = str(e)[:120]
+        else:
+            raise AssertionError(f"{name}: {HYBRID_ARCH} was not refused")
+    phase(f"phase 17d refusals on the card: a CUDA {HYBRID_ARCH} smoke "
+          f"engine builds under posit8 KV and serves; refused: "
+          + "; ".join(f"{k}: {v}" for k, v in refused.items()))
+    return {"cuda_engine_serves": True, "refused": refused}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2574,6 +3152,15 @@ def main() -> int:
            "16c": phase16c(dev, args.seed)}
     print(json.dumps({"ssm": ssm}), flush=True)
 
+    # 17. the hybrid family: recurrentgemma-9b served at full width over
+    # K3/K4 at hd 256, K3/K4 alone at its shapes, card vs CPU at smoke
+    # size, and the refusals (own generators) ---------------------------
+    hybrid = {"17a": phase17a(dev, args.seed, smi),
+              "17b": phase17b(dev, args.seed),
+              "17c": phase17c(dev, args.seed),
+              "17d": phase17d(dev, args.seed)}
+    print(json.dumps({"hybrid": hybrid}), flush=True)
+
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
     layers = cfg.n_layers
@@ -3462,6 +4049,17 @@ def main() -> int:
 
     for entry in out:       # a mamba2 step runs none of them (16a)
         entry["launches_ssm"] = ssm["16a"]["launches"][entry["name"]]
+        # a recurrentgemma step runs K3 and K4 once per attention layer
+        # (17a: the served run's count, and per step of the profiled window)
+        entry["launches_hybrid"] = {
+            "total": hybrid["17a"]["launches"][entry["name"]],
+            "per_decode_step": hybrid["17a"]["launches_per_decode_step"].get(
+                entry["name"], 0)}
+        if entry["name"] in HYBRID_KERNELS:     # 17b: at hd 256, grp 16
+            key = "k3" if entry["name"] == "kv_append_rows" else "k4"
+            entry["hd256"] = {
+                fmt: {"us": t[key + "_us"], "bound_us": t[key + "_bound_us"]}
+                for fmt, t in hybrid["17b"]["times"].items()}
     print(json.dumps({"kernels": out}), flush=True)
 
     # last line ---------------------------------------------------------

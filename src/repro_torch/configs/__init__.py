@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config(arch, smoke=...)`` under the
 reference's arch ids.  Each module defines ``full()`` (the published
 config) and ``smoke()`` (a reduced same-family config for CPU tests).
-The dense, MoE and SSM families are ported; the archs of the other
-families (hybrid, vlm, audio) are registered by name and raise
+The dense, MoE, SSM and hybrid families are ported; the archs of the
+other families (vlm, audio) are registered by name and raise
 ``NotImplementedError``."""
 from __future__ import annotations
 
@@ -16,13 +16,13 @@ _MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     # the paper's own deployment target
     "paper-edge": "paper_edge",
 }
 
 # archs of families this port does not carry yet, by family
 UNPORTED = {
-    "recurrentgemma-9b": "hybrid",
     "qwen2-vl-2b": "vlm",
     "whisper-large-v3": "audio",
 }

@@ -9,9 +9,11 @@ unsigned 16/32-bit codes keep their bit patterns as int16/int32.
 
 bf16 leaves cannot cross ``torch.from_numpy``: hand them over as float32
 (exact) and pass ``dtype=torch.bfloat16``; every weight leaf is cast back
-to it (exact) while the norm gains, the MoE router and the SSM's
-``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` stay float32, as the
-reference keeps them.
+to it (exact) while the norm gains, the MoE router, the SSM's
+``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` and the RG-LRU's
+``b_a``, ``b_x`` and ``Lambda`` stay float32, as the reference keeps them
+(the hybrid's conv taps are weights).  A hybrid's ``tail`` (a tuple of
+unstacked block dicts) crosses as ``blocks`` does.
 """
 from __future__ import annotations
 
@@ -23,10 +25,10 @@ from .core.formats import get
 from .core.quant import QuantizedTensor
 
 # leaves the reference keeps float32 in a bf16 model: the norm gains, the
-# MoE router (rounding it would move the routing) and the SSM's decay,
-# skip, step bias and gated-norm gain
+# MoE router (rounding it would move the routing), the SSM's decay, skip,
+# step bias and gated-norm gain, and the RG-LRU's gate biases and decay
 _F32_LEAVES = ("ln", "ln2", "final_norm", "q_norm", "k_norm", "router",
-               "A_log", "D", "dt_bias", "norm_scale")
+               "A_log", "D", "dt_bias", "norm_scale", "b_a", "b_x", "Lambda")
 _BITS_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 
 

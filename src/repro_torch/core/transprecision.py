@@ -225,6 +225,8 @@ def hbm_bytes_per_param(policy: TCPolicy, role: str = "mlp_weights",
 _ROLE_BY_NAME = {
     "wq": "attn_weights", "wk": "attn_weights", "wv": "attn_weights",
     "wo": "attn_weights", "wi": "mlp_weights", "wo_mlp": "mlp_weights",
+    "wx": "mlp_weights", "wy": "mlp_weights", "w_out": "mlp_weights",
+    "w_a": "mlp_weights", "w_x": "mlp_weights",
     "in_proj": "mlp_weights", "out_proj": "mlp_weights",
 }
 
@@ -243,8 +245,11 @@ def pack_params(params, policy: TCPolicy):
     policy's role formats (embeddings, norms and vectors stay unpacked).
 
     Stacked ``blocks`` leaves keep their leading stack axis in the scale;
-    output projections (``wo``, ``wo_mlp``, ``out_proj``) scale per input
-    row, the rest per output column, as in the reference."""
+    output projections (``wo``, ``wo_mlp``, ``w_out``, ``out_proj``) scale
+    per input row, the rest per output column, as in the reference.  The
+    recurrent block's ``wx``, ``wy``, ``w_out`` and the RG-LRU's ``w_a`` /
+    ``w_x`` are packed under ``mlp_weights`` as the reference packs them,
+    though its fake-quant serving path computes them unhooked."""
 
     def pack(path, w):
         name = next((k for k in reversed(path) if isinstance(k, str)), None)
@@ -255,7 +260,7 @@ def pack_params(params, policy: TCPolicy):
         if f is None or not isinstance(get(f), PositFormat):
             return w
         stacked = path[0] == "blocks" and w.ndim >= 3
-        ch = w.ndim - 2 if name in ("wo", "wo_mlp", "out_proj") \
+        ch = w.ndim - 2 if name in ("wo", "wo_mlp", "w_out", "out_proj") \
             else w.ndim - 1
         keep = {ch} | ({0} if stacked else set())
         axis = tuple(i for i in range(w.ndim) if i not in keep)

@@ -9,9 +9,10 @@ requests through the three-stage engine.
 Runs on one device: the GPU by default (raises without one), the CPU with
 ``--device cpu``.  Smoke-scale by default; ``--full`` selects the full
 config (124.7 M params for paper-edge).  ``--arch`` takes any registered
-arch of the dense, MoE and SSM families; an SSM stack (``mamba2-2.7b``)
-serves the ring layout only (``--kv-layout paged`` is refused) and not
-``--speculative``.  Weights are random, drawn from a
+arch of the dense, MoE, SSM and hybrid families; an SSM stack
+(``mamba2-2.7b``) and a hybrid stack (``recurrentgemma-9b``, its
+attention rings min(window, max_len) rows) serve the ring layout only
+(``--kv-layout paged`` is refused) and not ``--speculative``.  Weights are random, drawn from a
 generator seeded with 0.
 
 The synchronous path serves ``--requests`` prompts through

@@ -8,7 +8,9 @@ in f32), so CPU parity with the JAX package holds; it is plain tensor code,
 not a kernel.  Its gradient is the reference's flash backward
 (``_Flash``, a ``torch.autograd.Function``): the forward saves only the
 output and the per-row logsumexp, the backward recomputes each score tile
-once.  ``vjp="naive"`` differentiates the forward loop instead.
+once.  ``vjp="naive"`` differentiates the forward loop instead.  A
+``window`` makes the attention local (the hybrid family's): query q sees
+key k where ``q - k < window``, in the forward and the backward alike.
 """
 from __future__ import annotations
 
@@ -20,18 +22,20 @@ from .common import _einsum
 NEG_INF = -1e30
 
 
-def _bias_block(qpos, kpos, causal: bool, skv):
+def _bias_block(qpos, kpos, causal: bool, window, skv):
     """(qb, kvb) additive mask for one (q_block, kv_block) tile."""
     b = torch.zeros((qpos.shape[0], kpos.shape[0]), dtype=torch.float32,
                     device=qpos.device)
     if causal:
         b = torch.where(qpos[:, None] >= kpos[None, :], b, NEG_INF)
+    if window is not None:
+        b = torch.where(qpos[:, None] - kpos[None, :] < window, b, NEG_INF)
     if skv is not None:
         b = torch.where(kpos[None, :] < skv, b, NEG_INF)
     return b
 
 
-def dense_attention(q, k, v, *, causal=True, positions=None):
+def dense_attention(q, k, v, *, causal=True, window=None, positions=None):
     """Reference attention.  q: (B, S, nh, hd), k/v: (B, S, nkv, hd)."""
     b, sq, nh, hd = q.shape
     nkv = k.shape[2]
@@ -40,7 +44,7 @@ def dense_attention(q, k, v, *, causal=True, positions=None):
     qpos = (positions if positions is not None
             else torch.arange(sq, device=q.device))
     kpos = torch.arange(k.shape[1], device=q.device)
-    scores = scores + _bias_block(qpos, kpos, causal, None)
+    scores = scores + _bias_block(qpos, kpos, causal, window, None)
     p = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     out = _einsum("bkgqs,bskh->bqkgh", p, v)
     return out.reshape(b, sq, nh, hd)
@@ -50,7 +54,7 @@ def _rep(x, grp):
     return x.repeat_interleave(grp, dim=2) if grp > 1 else x
 
 
-def _flash_fwd(q, k, v, causal, q_block, kv_block, skv):
+def _flash_fwd(q, k, v, causal, window, q_block, kv_block, skv):
     """q pre-scaled (B, Sp, nh, hd); k/v (B, Skp, nkv, hd); Sp/Skp padded.
     Returns (out (B, Sp, nh, hd) in q's dtype, lse (B, nh, Sp) f32)."""
     b, sp, nh, hd = q.shape
@@ -70,7 +74,7 @@ def _flash_fwd(q, k, v, causal, q_block, kv_block, skv):
             kpos = k0 + torch.arange(kv_block, device=dev)
             s_blk = torch.einsum("bqhd,bshd->bhqs", qblk, kblk).to(
                 torch.float32)
-            s_blk = s_blk + _bias_block(qpos, kpos, causal, skv)
+            s_blk = s_blk + _bias_block(qpos, kpos, causal, window, skv)
             m_new = torch.maximum(m, s_blk.amax(dim=-1))
             p = torch.exp(s_blk - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -96,16 +100,17 @@ class _Flash(torch.autograd.Function):
     the KV heads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_block, kv_block, skv):
-        out, lse = _flash_fwd(q, k, v, causal, q_block, kv_block, skv)
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block, skv):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_block, kv_block,
+                              skv)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (causal, q_block, kv_block, skv)
+        ctx.cfg = (causal, window, q_block, kv_block, skv)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, q_block, kv_block, skv = ctx.cfg
+        causal, window, q_block, kv_block, skv = ctx.cfg
         b, sp, nh, hd = q.shape
         skp, nkv = k.shape[1], k.shape[2]
         grp = nh // nkv
@@ -125,7 +130,8 @@ class _Flash(torch.autograd.Function):
                 qblk, gblk = q[:, q0:q0 + q_block], g[:, q0:q0 + q_block]
                 qpos = q0 + torch.arange(q_block, device=dev)
                 s_blk = torch.einsum("bqhd,bshd->bhqs", qblk, kblk).to(f32)
-                s_blk = s_blk + _bias_block(qpos, kpos, causal, skv)
+                s_blk = s_blk + _bias_block(qpos, kpos, causal, window,
+                                            skv)
                 p = torch.exp(s_blk - lse[:, :, q0:q0 + q_block, None])
                 dp = torch.einsum("bqhd,bshd->bhqs", gblk, vblk).to(f32)
                 ds = p * (dp - d_rows[:, :, q0:q0 + q_block, None])
@@ -141,11 +147,11 @@ class _Flash(torch.autograd.Function):
             dks.append(dk)
             dvs.append(dv)
         return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
-                torch.cat(dvs, 1).to(v.dtype), None, None, None, None)
+                torch.cat(dvs, 1).to(v.dtype), None, None, None, None, None)
 
 
-def blockwise_attention(q, k, v, *, causal=True, q_block=512, kv_block=1024,
-                        vjp="flash"):
+def blockwise_attention(q, k, v, *, causal=True, window=None, q_block=512,
+                        kv_block=1024, vjp="flash"):
     """Flash-style online-softmax attention.
 
     q: (B, S, nh, hd); k/v: (B, S, nkv, hd).  GQA repeats the KV heads per
@@ -167,9 +173,11 @@ def blockwise_attention(q, k, v, *, causal=True, q_block=512, kv_block=1024,
     qs = (q * (hd ** -0.5)).to(q.dtype)
     skv_mask = skv if pk else None
     if vjp == "naive":
-        out = _flash_fwd(qs, k, v, causal, q_block, kv_block, skv_mask)[0]
+        out = _flash_fwd(qs, k, v, causal, window, q_block, kv_block,
+                         skv_mask)[0]
     else:
-        out = _Flash.apply(qs, k, v, causal, q_block, kv_block, skv_mask)
+        out = _Flash.apply(qs, k, v, causal, window, q_block, kv_block,
+                           skv_mask)
     return out[:, :s]
 
 

@@ -1,5 +1,6 @@
-"""Shared model components: init, RMSNorm, RoPE, the training loss (port
-of ``repro.models.common``, dense family)."""
+"""Shared model components: init, RMSNorm, the causal depthwise conv
+(Mamba-2's and the recurrent block's), RoPE, the training loss (port of
+``repro.models.common``)."""
 from __future__ import annotations
 
 import math
@@ -46,6 +47,14 @@ def rms_norm(x, scale, eps: float = 1e-6):
     x32 = x.to(torch.float32)
     inv = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
     return (x32 * inv * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def causal_conv(u, conv_w):
+    """Depthwise causal conv along S, summed tap by tap as the reference
+    sums it: u (B, S, C), conv_w (K, C) -> (B, S, C)."""
+    k, s = conv_w.shape[0], u.shape[1]
+    pad = torch.nn.functional.pad(u, (0, 0, k - 1, 0))
+    return sum(pad[:, i:i + s] * conv_w[i] for i in range(k))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Decoder-only language model: config, init, the training forward and
 loss, and the per-block pieces the serving path uses (port of
-``repro.models.lm``, dense, MoE and SSM families).
+``repro.models.lm``, dense, MoE, SSM and hybrid families).
 
 Params are a plain dict with the reference's leaf names:
 ``{"embed", "final_norm", "lm_head", "blocks": ({"ln", "wq", "wk", "wv",
@@ -9,16 +9,30 @@ over layers (leading axis P = n_layers).  The MoE family holds a
 ``"moe": {"router", "wi", "wo"}`` sub-dict (``models/moe.py``) in place
 of ``wi`` / ``wo_mlp``.  The SSM family (Mamba-2) has one block type, so
 its period is one layer too: ``{"in_proj", "conv_w", "A_log", "D",
-"dt_bias", "norm_scale", "out_proj", "ln"}`` (``models/ssm.py``).  The
-reference scans over the layer axis; this port loops over layers in
-Python (``layer_params``).  Every weight matmul passes through the TC
-policy hook (``_qw``), which fake-quantizes each layer's slice on every
-call.
+"dt_bias", "norm_scale", "out_proj", "ln"}`` (``models/ssm.py``).
+
+The hybrid family (Griffin / RecurrentGemma) cycles a pattern of block
+types, ``("rec", "rec", "attn")``: ``blocks`` holds one dict per pattern
+position, each stacked over the ``n_periods`` whole periods, and the
+``n_tail`` layers past the last whole period sit unstacked in ``tail``
+(a tuple of dicts), as the reference lays them out.  A recurrent block
+is ``{"ln", "wx", "wy", "conv_w", "rglru": {"w_a", "b_a", "w_x", "b_x",
+"Lambda"}, "w_out", "ln2", "wi", "wo_mlp"}`` (``models/rglru.py``); its
+attention blocks are local (``cfg.window``).
+
+The reference scans over the period axis; this port loops over layers in
+Python (``layer_block`` finds layer l's dict).  Every weight matmul of
+the attention and MLP paths passes through the TC policy hook (``_qw``),
+which fake-quantizes each layer's slice on every call; the recurrent
+block's ``wx`` / ``wy`` / ``w_out`` and the RG-LRU's gates pass none (the
+reference's ``maybe_dequant`` only), though ``pack_params`` and the energy
+model give them the ``mlp_weights`` role, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -27,9 +41,10 @@ from ..core import posit, quant
 from ..core.formats import PositFormat, get
 from ..core.transprecision import BF16, TCPolicy
 from .attention import blockwise_attention
-from .common import (_einsum, apply_rope, cross_entropy, dense_init,
-                     embed_init, rms_norm, rope_freqs)
+from .common import (_einsum, apply_rope, causal_conv, cross_entropy,
+                     dense_init, embed_init, rms_norm, rope_freqs)
 from .moe import init_moe, moe_ffn
+from .rglru import init_rglru, rglru
 from .ssm import dims as ssm_dims
 from .ssm import init_mamba2, mamba2_layer
 
@@ -52,6 +67,8 @@ class ModelCfg:
     mlp: str = "swiglu"        # swiglu | gelu
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    window: Optional[int] = None          # sliding window of local attention
+    pattern: tuple = ("attn",)            # cycled block types (hybrid)
     # MoE
     moe_experts: int = 0
     moe_topk: int = 0
@@ -73,11 +90,11 @@ class ModelCfg:
     tie_embed: bool = False
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe", "ssm"):
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"family {self.family!r}: only the dense, moe and ssm "
-                "families are ported (other families are a later slice of "
-                "the port)")
+                f"family {self.family!r}: only the dense, moe, ssm and "
+                "hybrid families are ported (other families are a later "
+                "slice of the port)")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -96,12 +113,19 @@ class ModelCfg:
     def block_types(self) -> tuple:
         # a plain attribute once read (a non-data descriptor), so a test
         # can force another stack's block types onto a copy
-        base = ("ssm",) if self.family == "ssm" else ("attn",)
-        return base * self.n_layers
+        if self.family == "ssm":
+            base = ("ssm",)
+        elif self.family == "hybrid":
+            base = tuple(self.pattern)
+        else:
+            base = ("attn",)
+        reps = -(-self.n_layers // len(base))
+        return (base * reps)[: self.n_layers]
 
     @property
     def period(self) -> tuple:
-        return (self.block_types[0],)
+        return (tuple(self.pattern) if self.family == "hybrid"
+                else (self.block_types[0],))
 
     @property
     def n_periods(self) -> int:
@@ -111,10 +135,23 @@ class ModelCfg:
     def n_tail(self) -> int:
         return self.n_layers - self.n_periods * len(self.period)
 
+    @property
+    def tail_types(self) -> tuple:
+        return self.block_types[self.n_periods * len(self.period):]
+
     def param_count(self) -> int:
         d, hd, nh, nkv = self.d_model, self.head_dim, self.n_heads, \
             self.n_kv_heads
         head = 0 if self.tie_embed else d * self.vocab_pad
+        wi = 2 * self.d_ff if self.mlp == "swiglu" else self.d_ff
+        if self.family == "hybrid":
+            rec = (2 * d + 3 * d * d + self.conv_kernel * d   # ln, ln2, wx,
+                   + 2 * d * d + 3 * d                        # wy, w_out,
+                   + d * wi + self.d_ff * d)                  # conv, rglru
+            attn = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d
+                    + d * wi + self.d_ff * d)
+            return self.vocab_pad * d + d + head + sum(
+                rec if t == "rec" else attn for t in self.block_types)
         if self.family == "ssm":
             d_in, nh_ssm, conv_ch = ssm_dims(self)
             ng, ds = self.ssm_groups, self.ssm_state
@@ -125,7 +162,6 @@ class ModelCfg:
         if self.family == "moe":      # router + gated experts
             ffn = self.moe_experts * (d + 3 * d * self.d_ff)
         else:
-            wi = 2 * self.d_ff if self.mlp == "swiglu" else self.d_ff
             ffn = d * wi + self.d_ff * d
         block = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d + ffn
                  + (2 * hd if self.qk_norm else 0))
@@ -140,52 +176,78 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
     differ from the reference's for the same seed."""
     from .. import resolve_device
     device = resolve_device(device)
-    d, P, dt = cfg.d_model, cfg.n_layers, cfg.dtype
-
-    def dense(*shape):
-        return dense_init(shape, dt, device, generator)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-
-    if cfg.family == "ssm":
-        blk = init_mamba2(cfg, (P,), dt, device, generator)
-        blk["ln"] = zeros(P, d)
-    else:
-        blk = _init_attn_block(cfg, dense, zeros, device, generator)
+    d, dt = cfg.d_model, cfg.dtype
+    blocks = tuple(_init_block(cfg, t, (cfg.n_periods,), device, generator)
+                   for t in cfg.period)
     params = {"embed": embed_init((cfg.vocab_pad, d), dt, device, generator),
-              "final_norm": zeros(d)}
+              "final_norm": torch.zeros((d,), dtype=torch.float32,
+                                        device=device)}
     if not cfg.tie_embed:
-        params["lm_head"] = dense(d, cfg.vocab_pad)
-    params["blocks"] = (blk,)
+        params["lm_head"] = dense_init((d, cfg.vocab_pad), dt, device,
+                                       generator)
+    params["blocks"] = blocks
+    if cfg.n_tail:
+        params["tail"] = tuple(_init_block(cfg, t, (), device, generator)
+                               for t in cfg.tail_types)
     return params
 
 
-def _init_attn_block(cfg: ModelCfg, dense, zeros, device, generator):
-    """The attention block's leaves, stacked over the layers: attention,
-    norms and the dense MLP or the MoE experts."""
-    d, hd, nh, nkv, P = (cfg.d_model, cfg.head_dim, cfg.n_heads,
-                         cfg.n_kv_heads, cfg.n_layers)
-    blk = {"ln": zeros(P, d), "wq": dense(P, d, nh * hd),
-           "wk": dense(P, d, nkv * hd), "wv": dense(P, d, nkv * hd),
-           "wo": dense(P, nh * hd, d)}
+def _init_block(cfg: ModelCfg, btype: str, lead: tuple, device, generator):
+    """One block type's leaves with a leading ``lead`` shape (the period
+    axis, or () for a tail block): attention (norms, the dense MLP or the
+    MoE experts), Mamba-2 or the recurrent block."""
+    d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def dense(*shape):
+        return dense_init(lead + shape, cfg.dtype, device, generator)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=torch.float32, device=device)
+
+    wi_cols = 2 * cfg.d_ff if cfg.mlp == "swiglu" else cfg.d_ff
+    if btype == "ssm":
+        blk = init_mamba2(cfg, lead, cfg.dtype, device, generator)
+        blk["ln"] = zeros(d)
+        return blk
+    if btype == "rec":
+        blk = {"ln": zeros(d), "wx": dense(d, d), "wy": dense(d, d),
+               "conv_w": dense(cfg.conv_kernel, d),
+               "rglru": init_rglru(d, lead, cfg.dtype, device, generator),
+               "w_out": dense(d, d), "ln2": zeros(d)}
+        blk.update(wi=dense(d, wi_cols), wo_mlp=dense(cfg.d_ff, d))
+        return blk
+    blk = {"ln": zeros(d), "wq": dense(d, nh * hd),
+           "wk": dense(d, nkv * hd), "wv": dense(d, nkv * hd),
+           "wo": dense(nh * hd, d)}
     if cfg.qk_norm:
-        blk["q_norm"], blk["k_norm"] = zeros(P, hd), zeros(P, hd)
-    blk["ln2"] = zeros(P, d)
+        blk["q_norm"], blk["k_norm"] = zeros(hd), zeros(hd)
+    blk["ln2"] = zeros(d)
     if cfg.family == "moe":
         blk["moe"] = init_moe(d, cfg.d_ff, cfg.moe_experts, cfg.dtype,
-                              device, generator, lead=(P,))
+                              device, generator, lead=lead)
     else:
-        wi_cols = 2 * cfg.d_ff if cfg.mlp == "swiglu" else cfg.d_ff
-        blk.update(wi=dense(P, d, wi_cols), wo_mlp=dense(P, cfg.d_ff, d))
+        blk.update(wi=dense(d, wi_cols), wo_mlp=dense(cfg.d_ff, d))
     return blk
 
 
 def layer_params(blocks: dict, i: int) -> dict:
-    """Layer i's slice of the stacked block params, nested dicts (``moe``)
-    included (QuantizedTensor leaves slice data and scale together)."""
+    """Layer i's slice of the stacked block params, nested dicts (``moe``,
+    ``rglru``) included (QuantizedTensor leaves slice data and scale
+    together)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def layer_block(tree, cfg: ModelCfg, l: int):
+    """(block type, layer l's dict) of a params or cache tree laid out as
+    ``init_params`` lays it out: layer l of a whole period is period
+    l // len(period)'s slice of ``tree["blocks"][l % len(period)]`` (views:
+    writes land in the stacked buffers), a tail layer is its unstacked
+    ``tree["tail"]`` dict."""
+    n = len(cfg.period)
+    if l < cfg.n_periods * n:
+        return cfg.period[l % n], layer_params(tree["blocks"][l % n], l // n)
+    return cfg.block_types[l], tree["tail"][l - cfg.n_periods * n]
 
 
 def embed_rows(embed, tokens, policy: TCPolicy):
@@ -277,14 +339,15 @@ def _rope_cs(cfg: ModelCfg, positions):
 
 
 def _attn_core(qp, kp, vp, cfg: ModelCfg):
-    """RoPE and causal attention over the projected heads -> (B, S,
-    nh * hd)."""
+    """RoPE and causal attention (local where ``cfg.window`` is set) over
+    the projected heads -> (B, S, nh * hd)."""
     b, s = qp.shape[:2]
     cos, sin = _rope_cs(cfg, torch.arange(s, device=qp.device))
     qp = apply_rope(qp, cos, sin)
     kp = apply_rope(kp, cos, sin)
-    ao = blockwise_attention(qp, kp, vp, causal=True, q_block=cfg.q_block,
-                             kv_block=cfg.kv_block, vjp=cfg.attn_vjp)
+    ao = blockwise_attention(qp, kp, vp, causal=True, window=cfg.window,
+                             q_block=cfg.q_block, kv_block=cfg.kv_block,
+                             vjp=cfg.attn_vjp)
     return ao.reshape(b, s, -1)
 
 
@@ -312,27 +375,52 @@ def _ssm_block(p, x, cfg: ModelCfg, policy, seg=_call):
     return x + y.to(x.dtype), 0.0
 
 
-def _run_stack(blocks, x, cfg: ModelCfg, policy):
-    """The layer stack: a Python loop over the stacked layer axis, each
-    layer the block of its type.  Under ``remat="full"`` each layer runs
+def _rec_block(p, x, cfg: ModelCfg, policy, seg=_call):
+    """Training Griffin recurrent block (+MLP): norm, the fused ``[wy |
+    wx]`` product, the GELU gate, the causal conv, the RG-LRU scan, the
+    gated ``w_out`` product, then the MLP through the ``mlp_weights`` hook.
+    ``wx`` / ``wy`` / ``w_out`` and the gates pass no hook (the
+    reference's ``maybe_dequant`` only).  Returns (x, aux = 0)."""
+    x, _ = rec_mix(p, x, cfg)
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy), 0.0
+
+
+def rec_mix(p, x, cfg: ModelCfg, h0=None):
+    """The recurrent block's temporal mix and residual, before its MLP:
+    (x + w_out(rglru(conv(u)) * gelu(gate)), the scan's last state (B, d)
+    f32)."""
+    h = rms_norm(x, p["ln"])
+    wyx = torch.cat([quant.maybe_dequant(p["wy"]),
+                     quant.maybe_dequant(p["wx"])], dim=-1)
+    gate_in, u = torch.chunk(_einsum("bsd,dk->bsk", h, wyx), 2, dim=-1)
+    gate = torch.nn.functional.gelu(gate_in, approximate="tanh")
+    y, h_last = rglru(p["rglru"], causal_conv(u, p["conv_w"]), h0=h0)
+    out = _einsum("bsk,kd->bsd", y * gate, quant.maybe_dequant(p["w_out"]))
+    return x + out, h_last
+
+
+def _run_stack(params, x, cfg: ModelCfg, policy):
+    """The layer stack: a Python loop over the layers (``layer_block``),
+    each layer the block of its type.  Under ``remat="full"`` each layer runs
     in ``torch.utils.checkpoint`` (only the block inputs are saved; the
     block recomputes in the backward).  Under ``"dots"`` (attention
     blocks) the weights' fake-quant and the weight products (``bsd,df``)
     run outside any checkpoint, so autograd keeps the products and their
     operands, and the norms, RoPE + attention and the MLP's activation
     recompute (the reference's ``dots_with_no_batch_dims_saveable`` keeps
-    the products alone and recomputes the fake-quant too).  The SSM block
-    has no "dots" segmentation yet."""
+    the products alone and recomputes the fake-quant too).  The SSM and
+    recurrent blocks have no "dots" segmentation yet."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
-    block = {"attn": _attn_block, "ssm": _ssm_block}[cfg.period[0]]
-    if cfg.remat == "dots" and block is _ssm_block:
+    if cfg.remat == "dots" and set(cfg.block_types) - {"attn"}:
         raise NotImplementedError(
-            "remat='dots' is not ported for the ssm family (use 'full' or "
-            "'none')")
+            f"remat='dots' is not ported for the {cfg.family} family (use "
+            "'full' or 'none')")
+    blocks = {"attn": _attn_block, "ssm": _ssm_block, "rec": _rec_block}
     aux = 0.0
-    for i in range(cfg.n_layers):
-        p_i = layer_params(blocks[0], i)
+    for l in range(cfg.n_layers):
+        btype, p_i = layer_block(params, cfg, l)
+        block = blocks[btype]
         if cfg.remat == "full":
             x, a = checkpoint(block, p_i, x, cfg, policy,
                               use_reentrant=False)
@@ -349,7 +437,7 @@ def forward(params, batch, cfg: ModelCfg, policy: TCPolicy = BF16):
     family."""
     emb_q = policy.quantize_weight(params["embed"], "embed_weights")
     x = emb_q[batch["tokens"]].to(cfg.dtype)
-    x, aux = _run_stack(params["blocks"], x, cfg, policy)
+    x, aux = _run_stack(params, x, cfg, policy)
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
     head = policy.quantize_weight(head, "embed_weights", node="lm_head")
@@ -372,16 +460,51 @@ def hoist_weight_quant(params, policy: TCPolicy):
     here and serving with ``weights_free(policy)`` gives the same logits as
     running it at every call.  Each layer's slice is quantized on its own
     (per output channel over that layer's input axis), as the reference's
-    layer scan does.  MoE expert weights are quantized a layer's whole
-    (E, ...) slice at a time (one scale per output column over the expert
-    and input axes, as the reference's per-call hook sees them); the
-    router passes no hook and stays as it is.  An SSM block's two
-    projections (``in_proj``, ``out_proj``) pass the ``mlp_weights`` hook;
-    its conv taps and f32 leaves pass none and stay raw."""
+    layer scan does, and written into one tensor allocated for the whole
+    stacked leaf (a tail block's leaves, unstacked, are quantized whole);
+    a leaf the policy leaves as it is stays the same tensor.  MoE expert
+    weights are quantized a layer's whole (E, ...) slice at a time (one
+    scale per output column over the expert and input axes, as the
+    reference's per-call hook sees them); the router passes no hook and
+    stays as it is.  An SSM block's two projections (``in_proj``,
+    ``out_proj``) pass the ``mlp_weights`` hook; its conv taps and f32
+    leaves pass none and stay raw.  A recurrent block's MLP (``wi``,
+    ``wo_mlp``) passes the ``mlp_weights`` hook; ``wx``, ``wy``,
+    ``w_out``, the conv taps and the RG-LRU's leaves pass none on the
+    reference's serving path and stay raw."""
     q_attn, q_mlp = _qw(policy, "attn_weights"), _qw(policy, "mlp_weights")
 
     def per_layer(q, w):
-        return torch.stack([q(w[i]) for i in range(w.shape[0])])
+        first = w[0]
+        q0 = q(first)
+        if q0 is first:             # no format for the role: no copy
+            return w
+        out = torch.empty((w.shape[0],) + tuple(q0.shape), dtype=q0.dtype,
+                          device=q0.device)
+        out[0] = q0
+        del q0
+        for i in range(1, w.shape[0]):
+            out[i] = q(w[i])
+        return out
+
+    def hoist(blk, each):
+        nb = dict(blk)
+        if "in_proj" in blk:
+            names, q = ("in_proj", "out_proj"), q_mlp
+        elif "rglru" in blk:
+            names, q = ("wi", "wo_mlp"), q_mlp
+        else:
+            for name in ("wq", "wk", "wv", "wo"):
+                nb[name] = each(q_attn, blk[name])
+            if "moe" in blk:
+                nb["moe"] = dict(blk["moe"], **{
+                    name: each(q_mlp, blk["moe"][name])
+                    for name in ("wi", "wo")})
+                return nb
+            names, q = ("wi", "wo_mlp"), q_mlp
+        for name in names:
+            nb[name] = each(q, blk[name])
+        return nb
 
     out = dict(params)
     if "lm_head" in params:
@@ -390,25 +513,9 @@ def hoist_weight_quant(params, policy: TCPolicy):
     # else tied: the serving head reads the raw table (the reference's
     # does), so it stays raw here and the lookup quantizes its rows
     # (``embed_rows`` under ``weights_free(policy, tied=True)``)
-    blocks = []
-    for blk in params["blocks"]:
-        nb = dict(blk)
-        if "in_proj" in blk:
-            for name in ("in_proj", "out_proj"):
-                nb[name] = per_layer(q_mlp, blk[name])
-            blocks.append(nb)
-            continue
-        for name in ("wq", "wk", "wv", "wo"):
-            nb[name] = per_layer(q_attn, blk[name])
-        if "moe" in blk:
-            nb["moe"] = dict(blk["moe"], **{
-                name: per_layer(q_mlp, blk["moe"][name])
-                for name in ("wi", "wo")})
-        else:
-            for name in ("wi", "wo_mlp"):
-                nb[name] = per_layer(q_mlp, blk[name])
-        blocks.append(nb)
-    out["blocks"] = tuple(blocks)
+    out["blocks"] = tuple(hoist(blk, per_layer) for blk in params["blocks"])
+    if "tail" in params:
+        out["tail"] = tuple(hoist(blk, _call) for blk in params["tail"])
     return out
 
 

@@ -1,6 +1,7 @@
-"""Serving path of the attention stack (dense and MoE FFNs) and of the
-Mamba-2 stack: cache init, bucketed prefill and single-token decode (port
-of ``repro.models.serve_model``, ring and paged layouts).
+"""Serving path of the attention stack (dense and MoE FFNs), of the
+Mamba-2 stack and of the hybrid (Griffin) stack: cache init, bucketed
+prefill and single-token decode (port of ``repro.models.serve_model``,
+ring and paged layouts).
 
 Caches keep the reference's layout: ``{"pos", "blocks": ({...},)}`` where a
 posit cache block holds ``k``/``v`` codes (P, B, W, nkv, Dc) and
@@ -22,6 +23,19 @@ its prefill runs at the prompt's exact length (``ssd_chunked``'s chunk
 rule: S <= ``ssm_chunk`` or a multiple of it) and keeps the last K-1 rows
 of the raw ``xBC`` stream and the final SSD state.
 
+A hybrid stack (``cfg.family == "hybrid"``) lays its cache out as its
+params: ``blocks`` holds one dict per pattern position stacked over the
+periods, ``tail`` one unstacked dict per tail layer.  Its attention
+rings are W = min(window, max_len) rows wide (``_attn_w``), so decode
+memory stays O(window) at any context length: row pos mod W is written,
+``min(pos + 1, W)`` rows are read.  A recurrent cache block is ``{"h":
+(P, B, d) f32, "conv": (P, B, K-1, d)}`` in the model's dtype; its
+decode step writes new tensors and rebinds ``blocks`` and ``tail``, as
+the SSM step does, while the K/V rows are written in place.  Its prefill
+runs at the prompt's exact length with the window mask and fills each
+ring from ``max(S - W, 0)``.  The paged layout with a window is refused
+(the reference's ``ValueError``).
+
 In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
 chunk pass of speculative decoding) write K/V rows into the cache tensors
 they are given (per-layer views of the stacked buffers) and return the
@@ -37,13 +51,15 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import resolve_device
+from ..core.quant import QuantizedTensor, maybe_dequant
 from ..core.transprecision import BF16, KVStorage, TCPolicy, kv_storage
 from ..kernels import kv_cache as kv_kernels
 from ..kernels import paged_kv as paged_kernels
 from . import attention
 from .common import _einsum, apply_rope, rms_norm
-from .lm import (ModelCfg, _qkv, _qw, _rope_cs, embed_rows, ffn,
-                 layer_params, lm_head)
+from .lm import (ModelCfg, _mlp, _qkv, _qw, _rope_cs, embed_rows, ffn,
+                 layer_block, lm_head, rec_mix)
+from .rglru import rglru_step
 from .ssm import _split_streams, in_proj, init_mamba2_state, mamba2_layer
 
 
@@ -64,6 +80,12 @@ def check_layout(policy: TCPolicy) -> bool:
     return policy.kv_layout == "paged"
 
 
+def _attn_w(cfg: ModelCfg, max_len: int) -> int:
+    """Rows of an attention ring: the window where one is set, else
+    max_len."""
+    return min(cfg.window, max_len) if cfg.window else max_len
+
+
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
                policy: TCPolicy = BF16, *, num_pages: Optional[int] = None,
                device="cuda") -> Dict[str, Any]:
@@ -76,44 +98,59 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
     standalone prefill/decode needs no allocator; an explicit
     ``num_pages`` gives a zero (all-trash) table that the caller owns."""
     paged = check_layout(policy)
+    if paged and cfg.window:
+        raise ValueError("paged KV layout does not support sliding-window "
+                         "attention; use kv_layout='ring'")
     device = resolve_device(device)
     spec = kv_storage(policy)
     hd, nkv, P = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
     if cfg.family == "ssm":
         conv, state = init_mamba2_state(cfg, (P, batch), cfg.dtype, device)
-        return _cache({"state": state, "conv": conv}, batch, max_len, policy,
-                      paged, num_pages, device)
+        return _cache(({"state": state, "conv": conv},), batch, max_len,
+                      policy, paged, num_pages, device)
     if paged:
         ps = policy.kv_page_size
         pmax = -(-max_len // ps)            # logical pages per slot
         pool = (1 + batch * pmax            # page 0 is the trash page
                 if num_pages is None else num_pages)
-        rows = (P, pool * ps, nkv)
+        rows = (pool * ps, nkv)
     else:
-        rows = (P, batch, max_len, nkv)
-    if spec is not None and spec.is_posit:
-        dc = kv_kernels.code_channels(hd, spec.fmt, spec.packed)
-        blk = {"k": torch.zeros(rows + (dc,), dtype=spec.fmt.storage_dtype,
-                                device=device),
-               "v": torch.zeros(rows + (dc,), dtype=spec.fmt.storage_dtype,
-                                device=device),
-               "k_scale": torch.ones(rows, device=device),
-               "v_scale": torch.ones(rows, device=device)}
-    else:
+        rows = (batch, _attn_w(cfg, max_len), nkv)
+
+    def block(btype, lead):
+        if btype == "rec":
+            return {"h": torch.zeros(lead + (batch, cfg.d_model),
+                                     dtype=torch.float32, device=device),
+                    "conv": torch.zeros(lead + (batch, cfg.conv_kernel - 1,
+                                                cfg.d_model),
+                                        dtype=cfg.dtype, device=device)}
+        r = lead + rows
+        if spec is not None and spec.is_posit:
+            dc = kv_kernels.code_channels(hd, spec.fmt, spec.packed)
+            code = dict(dtype=spec.fmt.storage_dtype, device=device)
+            return {"k": torch.zeros(r + (dc,), **code),
+                    "v": torch.zeros(r + (dc,), **code),
+                    "k_scale": torch.ones(r, device=device),
+                    "v_scale": torch.ones(r, device=device)}
         dt = dtype or (spec.dtype if spec is not None else cfg.dtype)
-        blk = {"k": torch.zeros(rows + (hd,), dtype=dt, device=device),
-               "v": torch.zeros(rows + (hd,), dtype=dt, device=device)}
-    return _cache(blk, batch, max_len, policy, paged, num_pages, device)
+        return {"k": torch.zeros(r + (hd,), dtype=dt, device=device),
+                "v": torch.zeros(r + (hd,), dtype=dt, device=device)}
+
+    cache = _cache(tuple(block(t, (cfg.n_periods,)) for t in cfg.period),
+                   batch, max_len, policy, paged, num_pages, device)
+    if cfg.n_tail:
+        cache["tail"] = tuple(block(t, ()) for t in cfg.tail_types)
+    return cache
 
 
-def _cache(blk, batch: int, max_len: int, policy: TCPolicy, paged: bool,
+def _cache(blocks, batch: int, max_len: int, policy: TCPolicy, paged: bool,
            num_pages: Optional[int], device) -> Dict[str, Any]:
-    """The cache dict around one stacked block: ``pos`` and, paged, the
+    """The cache dict around the stacked blocks: ``pos`` and, paged, the
     page table (the identity table of a full pool where ``num_pages`` is
     None, else all-trash)."""
     cache = {"pos": torch.zeros((batch,) if paged else (), dtype=torch.int32,
                                 device=device),
-             "blocks": (blk,)}
+             "blocks": blocks}
     if paged:
         pmax = -(-max_len // policy.kv_page_size)
         table = (1 + torch.arange(batch * pmax, device=device).reshape(
@@ -121,11 +158,6 @@ def _cache(blk, batch: int, max_len: int, policy: TCPolicy, paged: bool,
             else torch.zeros((batch, pmax), device=device))
         cache["page_table"] = table.to(torch.int32)
     return cache
-
-
-def _layer_cache(cache, i: int) -> Dict[str, torch.Tensor]:
-    """Views of layer i's cache rows (writes land in the stacked buffers)."""
-    return {k: v[i] for k, v in cache["blocks"][0].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +227,43 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     return x + _ffn(p, x, cfg, policy)
 
 
+def _rec_decode(p, c, x, cfg: ModelCfg, policy, out):
+    """One recurrent layer's step: separate ``wy`` / ``wx`` products (the
+    reference's decode does not fuse them), the K-tap conv over the
+    layer's ``c["conv"]`` rows and the new one, the RG-LRU update from
+    ``c["h"]``, ``w_out`` and the MLP.  The new state lands in ``out`` (a
+    dict of buffers that do not alias ``c``); ``c`` is only read."""
+    h = rms_norm(x, p["ln"])
+    gate = torch.nn.functional.gelu(
+        _einsum("bsd,dk->bsk", h, maybe_dequant(p["wy"])),
+        approximate="tanh")
+    u = _einsum("bsd,dk->bsk", h, maybe_dequant(p["wx"]))
+    window = torch.cat([c["conv"], u.to(c["conv"].dtype)], dim=1)
+    u = sum(window[:, i:i + 1] * p["conv_w"][i]
+            for i in range(cfg.conv_kernel))
+    y, h_new = rglru_step(p["rglru"], u, c["h"])
+    out["h"].copy_(h_new)
+    out["conv"].copy_(window[:, 1:])
+    x = x + _einsum("bsk,kd->bsd", y * gate, maybe_dequant(p["w_out"]))
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+
+
+def _fresh_rec_state(cache, cfg: ModelCfg):
+    """The cache's ``blocks`` and ``tail`` with every recurrent block's
+    leaves replaced by new (empty) tensors of their shapes; attention
+    blocks stay the same dicts (their K/V rows are written in place)."""
+    def fresh(btype, blk):
+        return ({k: torch.empty_like(v) for k, v in blk.items()}
+                if btype == "rec" else blk)
+
+    new = {"blocks": tuple(fresh(t, b) for t, b in zip(cfg.period,
+                                                       cache["blocks"]))}
+    if cfg.n_tail:
+        new["tail"] = tuple(fresh(t, b) for t, b in zip(cfg.tail_types,
+                                                        cache["tail"]))
+    return new
+
+
 def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out):
     """One Mamba-2 layer's step: reads the layer's ``c["conv"]`` /
     ``c["state"]`` and writes the new ones into ``out`` (a (conv, state)
@@ -212,7 +281,8 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
     vocab_pad), cache) with K/V rows written in place and ``pos`` + 1.
     Paged caches (``cache["page_table"]``) take per-slot positions; a
     scalar ``pos`` is broadcast to every slot.  An SSM stack's new states
-    land in new buffers, rebound on the dict as ``cache["blocks"]``."""
+    land in new buffers, rebound on the dict as ``cache["blocks"]``; so do
+    a hybrid stack's recurrent states (``blocks`` and ``tail``)."""
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
@@ -221,8 +291,8 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
         old = cache["blocks"][0]
         new = {k: torch.empty_like(v) for k, v in old.items()}
         for i in range(cfg.n_layers):
-            x = _ssm_decode(layer_params(params["blocks"][0], i),
-                            _layer_cache(cache, i), x, cfg, policy,
+            x = _ssm_decode(layer_block(params, cfg, i)[1],
+                            layer_block(cache, cfg, i)[1], x, cfg, policy,
                             (new["conv"][i], new["state"][i]))
         cache["blocks"] = (new,)
         return _readout(params, cache, x, cfg, pos)
@@ -232,10 +302,17 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
         ps = policy.kv_page_size
         paged = (paged_kernels.flat_dst_rows(table, pos_l, ps), pos_l + 1,
                  table, ps)
+    new = _fresh_rec_state(cache, cfg) if "rec" in cfg.block_types else None
     for i in range(cfg.n_layers):
-        x = _attn_decode(layer_params(params["blocks"][0], i),
-                         _layer_cache(cache, i), x, cfg, policy, pos_l, spec,
-                         paged)
+        btype, p = layer_block(params, cfg, i)
+        c = layer_block(cache, cfg, i)[1]     # views of the stacked rows
+        if btype == "rec":
+            x = _rec_decode(p, c, x, cfg, policy,
+                            layer_block(new, cfg, i)[1])
+        else:
+            x = _attn_decode(p, c, x, cfg, policy, pos_l, spec, paged)
+    if new is not None:
+        cache.update(new)
     return _readout(params, cache, x, cfg, pos)
 
 
@@ -354,9 +431,9 @@ def verify_step(params, cache, tokens, cfg: ModelCfg,
         paged = (paged_kernels.flat_dst_rows_chunk(table, pos_l, t, ps),
                  table, ps)
     for i in range(cfg.n_layers):
-        x = _attn_verify(layer_params(params["blocks"][0], i),
-                         _layer_cache(cache, i), x, cfg, policy, pos_l, spec,
-                         paged)
+        x = _attn_verify(layer_block(params, cfg, i)[1],
+                         layer_block(cache, cfg, i)[1], x, cfg, policy, pos_l,
+                         spec, paged)
     x = rms_norm(x, params["final_norm"])
     logits = _einsum("bsd,dv->bsv", x, lm_head(params, cfg))
     cache["pos"] = pos + t
@@ -387,7 +464,14 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     Posit caches are written by the K3 path (``kv_append_rows`` from
     position ``max(S - W, 0)``) into the fresh ring, then the padding rows
     are reset: the same bits as the reference's bulk encode.  Paged posit
-    pools are written by the K5 path at T = S with those flat rows."""
+    pools are written by the K5 path at T = S with those flat rows.
+
+    A hybrid stack prefills at the prompt's exact length: its attention
+    layers are local (``cfg.window``) and fill W = min(window, max_len)
+    ring rows from ``max(S - W, 0)``; each recurrent layer keeps the
+    scan's last state and the last K-1 rows of its raw ``h @ wx`` stream.
+    Packed (``QuantizedTensor``) recurrent weights raise ``TypeError``:
+    the reference's prefill reads ``wx`` raw and fails on them."""
     paged = check_layout(policy)
     tokens = batch["tokens"]
     dev = tokens.device
@@ -412,7 +496,7 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
         return _prefill_logits(params, cache, x, cfg, None, paged)
     spec = kv_storage(policy)
     posit_kv = spec is not None and spec.is_posit
-    w = max_len
+    w = _attn_w(cfg, max_len)
     start, length = max(s - w, 0), min(s, w)
     ring_idx = (start + torch.arange(length, device=dev)) % w
     vm = None if valid is None else valid[:, start:start + length]
@@ -443,13 +527,17 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
             buf[:, ring_idx] = torch.where(m, buf[:, ring_idx], init)
 
     for i in range(cfg.n_layers):
-        p = layer_params(params["blocks"][0], i)
-        c = _layer_cache(cache, i)
+        btype, p = layer_block(params, cfg, i)
+        c = layer_block(cache, cfg, i)[1]
+        if btype == "rec":
+            x = _rec_prefill(p, c, x, cfg, policy)
+            continue
         h = rms_norm(x, p["ln"])
         qp, kp, vp = _qkv(p, h, cfg, policy)
         qp = apply_rope(qp, cos, sin)
         kp = apply_rope(kp, cos, sin)
         ao = attention.blockwise_attention(qp, kp, vp, causal=True,
+                                           window=cfg.window,
                                            q_block=cfg.q_block,
                                            kv_block=cfg.kv_block)
         x = x + _einsum("bsk,kd->bsd", ao.reshape(b, s, -1),
@@ -473,6 +561,27 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     return _prefill_logits(params, cache, x, cfg, true_len, paged)
 
 
+def _rec_prefill(p, c, x, cfg: ModelCfg, policy):
+    """One recurrent layer of a prefill: the block (``rec_mix`` and the
+    MLP) on the whole prompt, its scan's last state (f32) into ``c["h"]``
+    and the last K-1 rows of its raw ``u = h @ wx``, zero-padded in front
+    for a prompt shorter than that, into ``c["conv"]`` (``u`` from its own
+    product, as the reference computes it, not a slice of the fused
+    ``[wy | wx]`` one).  Returns the residual stream."""
+    if isinstance(p["wx"], QuantizedTensor):
+        raise TypeError(
+            "prefill: a recurrent block's wx is a packed QuantizedTensor; "
+            "the reference's prefill reads wx raw and fails on it (its "
+            "einsum refuses a QuantizedTensor), so it is refused here too: "
+            "serve unpacked recurrent weights")
+    k = cfg.conv_kernel
+    u = _einsum("bsd,dk->bsk", rms_norm(x, p["ln"]), p["wx"])
+    x, h_last = rec_mix(p, x, cfg)
+    c["h"].copy_(h_last)
+    c["conv"].copy_(torch.nn.functional.pad(u, (0, 0, k - 1, 0))[:, -(k - 1):])
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
+
+
 def _ssm_prefill(params, x, cache, cfg: ModelCfg, policy):
     """The Mamba-2 layers of a prefill: each layer's final SSD state and
     the last K-1 rows of its raw (pre-conv) ``xBC`` stream, zero-padded
@@ -482,7 +591,7 @@ def _ssm_prefill(params, x, cache, cfg: ModelCfg, policy):
     k = cfg.conv_kernel
     q = _qw(policy, "mlp_weights")
     for i in range(cfg.n_layers):
-        p = layer_params(params["blocks"][0], i)
+        p = layer_block(params, cfg, i)[1]
         h = rms_norm(x, p["ln"])
         zxbcdt = in_proj(p, h, q)
         _, xbc, _ = _split_streams(zxbcdt, cfg)

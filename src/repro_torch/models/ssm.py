@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import _einsum, dense_init, rms_norm
+from .common import _einsum, causal_conv, dense_init, rms_norm
 
 
 def dims(cfg):
@@ -67,13 +67,10 @@ def _causal_conv(xBC, conv_w, conv_state=None):
     """Depthwise causal conv along S.  xBC: (B, S, C); conv_w: (K, C).
     With ``conv_state`` ((B, K-1, C)) performs the streaming update instead
     and returns (out, new_state)."""
-    k = conv_w.shape[0]
     if conv_state is None:
-        pad = F.pad(xBC, (0, 0, k - 1, 0))
-        out = sum(pad[:, i:i + xBC.shape[1]] * conv_w[i] for i in range(k))
-        return F.silu(out)
+        return F.silu(causal_conv(xBC, conv_w))
     window = torch.cat([conv_state, xBC], dim=1)   # (B, K, C), S == 1
-    out = sum(window[:, i:i + 1] * conv_w[i] for i in range(k))
+    out = sum(window[:, i:i + 1] * conv_w[i] for i in range(conv_w.shape[0]))
     return F.silu(out), window[:, 1:]
 
 

@@ -10,7 +10,11 @@ request) from the engine's own numpy RNG; ``on_emit`` streams tokens.
 
 An SSM stack (Mamba-2) holds a recurrent state per slot instead of K/V
 rows: it prefills each prompt at its exact length, serves the ring layout
-only (paged is refused at construction) and counts 0 KV-cache bytes.
+only (paged is refused at construction) and counts 0 KV-cache bytes.  A
+hybrid stack (Griffin) holds both: recurrent states and W = min(window,
+max_len)-row attention rings, prefills each prompt at its exact length and
+serves the ring layout only (paged is refused at construction, as the
+reference refuses a sliding window in a page pool).
 
 Two KV layouts (``kv_layout``): ``ring`` reserves a dense max_len ring per
 slot; ``paged`` runs a shared posit page pool + per-sequence page tables
@@ -116,7 +120,8 @@ def check_kv_kernels(cfg: lm.ModelCfg, policy: TCPolicy,
     codes, query heads per KV head, q in the model's dtype).  Raises
     ``ValueError`` naming the contract (``TypeError`` for a dtype the
     kernels do not read).  A float KV cache, and a stack with no attention
-    block (Mamba-2), run no KV kernel."""
+    block (Mamba-2), run no KV kernel.  A sliding-window stack's rings are
+    min(window, max_len) rows."""
     spec = kv_storage(policy)
     if spec is None or not spec.is_posit or "attn" not in cfg.block_types:
         return
@@ -126,7 +131,8 @@ def check_kv_kernels(cfg: lm.ModelCfg, policy: TCPolicy,
     append_geometry(name, hd, cfg.dtype)
     split_geometry(name, hd,
                    code_channels(hd, spec.fmt, spec.packed) * code_bytes,
-                   cfg.n_heads // cfg.n_kv_heads, cfg.dtype, max_len)
+                   cfg.n_heads // cfg.n_kv_heads, cfg.dtype,
+                   min(cfg.window, max_len) if cfg.window else max_len)
 
 
 def load_kv_kernels(policy: TCPolicy) -> None:
@@ -180,6 +186,9 @@ class ServingEngine:
                 "kv_layout='ring' (the reference's ServingEngine builds "
                 "such an engine and fails at its first admission, reading "
                 "its recurrent state's width as the page bucket)")
+        if self.policy.kv_layout == "paged" and cfg.window:
+            raise ValueError("paged KV layout does not support sliding-"
+                             "window attention; use kv_layout='ring'")
         if self.device.type == "cuda":
             check_kv_kernels(cfg, self.policy, scfg.max_len)
             if "attn" in cfg.block_types:
@@ -240,8 +249,9 @@ class ServingEngine:
         summed in the reference's order (sorted names), scaled one by one,
         so the float result truncates alike."""
         paged = self.paged and cache is None
+        cache = self.cache if cache is None else cache
         total = 0.0
-        for blk in (self.cache if cache is None else cache)["blocks"]:
+        for blk in cache["blocks"] + cache.get("tail", ()):
             for name in sorted(blk):
                 if name in _KV_LEAF_NAMES:
                     t = blk[name]
@@ -527,8 +537,8 @@ class ServingEngine:
                 return
         self.cache["tok"] = torch.from_numpy(self.last_tok).to(self.device)
         # guard-armed: the pre-round pos and tok (generate rebinds both,
-        # and an SSM stack's blocks, on the dict and writes K/V rows in
-        # place), for a fallback re-decode
+        # and an SSM or hybrid stack's blocks and tail, on the dict and
+        # writes K/V rows in place), for a fallback re-decode
         prev = dict(self.cache) if self.guard is not None else None
         self.cache, logits = self.engine.generate(self.params, self.cache)
         logits = _host(logits)

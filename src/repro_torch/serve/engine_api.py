@@ -8,14 +8,17 @@
 * **Bucketed prefill.**  Prompts are right-padded to a power-of-two bucket
   and prefilled at bucket width with per-row true lengths; padded keys are
   causally masked to exact-zero contributions.  Only where rows meet in
-  attention alone: the MoE family (its routing sees every row of the call)
-  and the SSM family (its recurrence would carry the padding) prefill one
-  prompt at its exact length, into a ``max_len``-wide prefix, as the
-  reference does.
+  attention alone: the MoE family (its routing sees every row of the
+  call), the SSM family (its recurrence would carry the padding) and the
+  hybrid family (its recurrence too, and its sliding window) prefill one
+  prompt at its exact length, into a ``max_len``-wide prefix (a hybrid's
+  attention rings are W = min(window, max_len) wide), as the reference
+  does.
 * **Prefix = bucket-width cache.**  ``prefill`` returns a ``Prefix`` whose
   cache leaves are (B, bucket, ...) ring rows; ``insert`` copies one row's
-  prefix into rows [0, bucket) of a slot's ring IN PLACE (an SSM prefix
-  row's ``state`` and ``conv`` whole).  Paged engines
+  prefix into rows [0, bucket) of a slot's ring IN PLACE (an SSM or
+  recurrent prefix row's state and ``conv`` whole; a hybrid's ``tail``
+  blocks as its ``blocks``).  Paged engines
   prefill through a ring copy of the policy at bucket width (the same
   codec as the pool) and ``insert`` scatters the prefix rows straight to
   the flat pool rows ``dst_rows``; no max_len ring is ever built.
@@ -163,11 +166,11 @@ class TransprecisionEngine:
         self.stage_prefix = stage_prefix
         self.max_batch, self.max_len = max_batch, max_len
         # bucketed (right-padded) prefill is exact only for decoder-only
-        # attention stacks (the reference's rule; the port carries no
-        # sliding window, vision or audio stack); MoE and SSM stacks keep
-        # exact-length prefill
+        # attention stacks without a sliding window (the reference's rule;
+        # the port carries no vision or audio stack); MoE, SSM and hybrid
+        # stacks keep exact-length prefill
         self.bucketed = (all(bt == "attn" for bt in cfg.block_types)
-                         and cfg.family != "moe")
+                         and not cfg.window and cfg.family != "moe")
         # chaos hardening (both None = a plain call): a FaultInjector whose
         # on_stage hook runs before every stage, and a RetryPolicy for
         # transient stage failures (serve/faults.py)
@@ -322,6 +325,9 @@ class TransprecisionEngine:
                     d[:, slot, :src[name].shape[2]] = src[name][:, row]
                 else:       # (P, R, ...) <- (P, w, ...)
                     d[:, dst_rows] = src[name][:, row, :len(dst_rows)]
+        for dst, src in zip(state.get("tail", ()), pcache.get("tail", ())):
+            for name, d in dst.items():     # unstacked (B, ...) leaves
+                d[slot, :src[name].shape[1]] = src[name][row]
         state["pos"][slot] = length[row]
         return state
 

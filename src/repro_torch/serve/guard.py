@@ -108,12 +108,15 @@ class GuardConfig:
 def pre_round(prev: Dict[str, Any]) -> Dict[str, Any]:
     """A decode state that re-runs a round: ``prev`` (the dict copy taken
     before ``generate``, holding the pre-round ``pos``, ``tok`` and, for
-    an SSM stack, ``blocks``) with its cache leaves cloned, so the
-    re-run's in-place writes land in the copy.  See the module docstring
-    for why the post-round K/V rows serve."""
+    an SSM or hybrid stack, ``blocks`` and ``tail`` with their recurrent
+    states) with its cache leaves cloned, so the re-run's in-place writes
+    land in the copy.  See the module docstring for why the post-round
+    K/V rows serve."""
     state = dict(prev)
-    state["blocks"] = tuple({k: v.clone() for k, v in blk.items()}
-                            for blk in prev["blocks"])
+    for part in ("blocks", "tail"):
+        if part in prev:
+            state[part] = tuple({k: v.clone() for k, v in blk.items()}
+                                for blk in prev[part])
     return state
 
 

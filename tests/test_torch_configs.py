@@ -5,7 +5,7 @@ reference's (``repro.configs``).
   reference's field for field (the reference's fields the port does not
   carry, those of the unported families, sit at their defaults).
 * ``param_count()`` equals the reference's at full width (mamba2-2.7b:
-  2,702,624,256).
+  2,702,624,256; recurrentgemma-9b: 7,483,699,200).
 * Greedy ``ServingEngine`` streams token-identical to the reference's at
   float32 (posit8 KV ring, ``paper_edge_p8``) for the four dense smoke
   configs: qk_norm with d_head != d_model / n_heads (qwen3), a gelu MLP
@@ -35,12 +35,13 @@ from test_torch_serve import jax_params_to_numpy  # noqa: E402
 
 PORTED = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b",
           "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "mamba2-2.7b",
-          "paper-edge")
+          "recurrentgemma-9b", "paper-edge")
 DENSE = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b")
-UNPORTED = ("recurrentgemma-9b", "qwen2-vl-2b", "whisper-large-v3")
+UNPORTED = ("qwen2-vl-2b", "whisper-large-v3")
 PARAM_COUNTS = {"granite-moe-1b-a400m": 1_334_887_424,
                 "phi3.5-moe-42b-a6.6b": 41_874_100_224,
-                "mamba2-2.7b": 2_702_624_256}
+                "mamba2-2.7b": 2_702_624_256,
+                "recurrentgemma-9b": 7_483_699_200}
 
 
 def test_registry_covers_the_reference():

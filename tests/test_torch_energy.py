@@ -7,9 +7,10 @@ and windows, the draft step cheaper than a target step), the accountant
 against ``repro.obs.energy``'s on the same weights (ring posit8 and
 posit16, paged posit8, speculative gamma 2: per-stage MACs exactly equal,
 modeled bytes within 0.1 %, pJ per call and J/token within rel 1e-3, equal
-calls; and the MoE family, granite-moe smoke, ring and paged; and the SSM
-family, mamba2 smoke, ring), pricing that leaves the engine's state and
-weights as they were, and full-width paper-edge and mamba2-2.7b priced on
+calls; and the MoE family, granite-moe smoke, ring and paged; the SSM
+family, mamba2 smoke, ring; and the hybrid family, recurrentgemma smoke,
+ring), pricing that leaves the engine's state and weights as they were,
+and full-width paper-edge, mamba2-2.7b and recurrentgemma-9b priced on
 the meta device (no weights, no card) to fixed joules per token."""
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from test_torch_serve import smoke_pair  # noqa: E402
 MAX_LEN = 64
 POLICY = "paper_edge_p8"
 JPT_MAMBA2 = 0.9748887059832102   # full-width mamba2-2.7b, meta device
+JPT_RGEMMA = 22.49776909331556    # full-width recurrentgemma-9b, meta device
 
 
 @pytest.fixture(scope="module")
@@ -411,3 +413,92 @@ def test_full_width_ssm_prices_on_the_meta_device():
                + 2 * nh * hd * ds * s) + d * v)
     assert st["insert"]["mac_flops"] == 0
     assert bd["joules_per_token"] == pytest.approx(JPT_MAMBA2, rel=1e-12)
+
+
+# ---- the hybrid family ----
+
+def test_accountant_matches_reference_hybrid():
+    """recurrentgemma smoke (float32, ring, posit8 KV format, max_batch
+    2): prompts of 5, 12 and 30 tokens (the last wraps the 16-row
+    window), 4 tokens each.  The stages' calls and MACs equal the
+    reference's exactly (the RG-LRU scan and the conv are elementwise:
+    no MACs; the prefill's separate ``h @ wx`` product counts beside the
+    fused ``[wy | wx]`` one, as XLA keeps both), with the recurrent
+    projections priced at ``mlp_weights``' format in both; modeled bytes
+    and J/token within 1e-3."""
+    from test_torch_rglru import hybrid_pair
+    jc, tc, jp, tp = hybrid_pair("float32")
+    kw = dict(max_batch=2, max_len=MAX_LEN, kv_format="posit8")
+    je = JServingEngine(jc, jp, JServeConfig(**kw), policy=POLICY)
+    te = ServingEngine(tc, tp, ServeConfig(**kw), policy=POLICY,
+                       device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tc.vocab, n) for n in (5, 12, 30)]
+    jr = [JRequest(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
+    tr = [Request(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
+    je.serve(jr)
+    te.serve(tr)
+    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
+    jb, tb = JAccountant(je).breakdown(), EnergyAccountant(te).breakdown()
+    assert "errors" not in tb and "errors" not in jb
+    assert set(tb["stages"]) == set(jb["stages"]) == {"prefill", "insert",
+                                                      "generate"}
+    for name, j in jb["stages"].items():
+        t = tb["stages"][name]
+        assert (t["calls"], t["mac_flops"]) == (j["calls"],
+                                                j["mac_flops"]), name
+        assert t["model_bytes"] == pytest.approx(j["model_bytes"],
+                                                 rel=1e-3), name
+        assert t["pj_per_call"] == pytest.approx(j["pj_per_call"],
+                                                 rel=1e-3), name
+        assert t["mac_mix"] == j["mac_mix"], name
+    assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
+                                                   rel=1e-3)
+
+
+def test_full_width_hybrid_prices_on_the_meta_device():
+    """Full-width recurrentgemma-9b (bf16, 38 layers, max_batch 8,
+    max_len 4096, 2048-row rings) priced with no weight, state or
+    activation allocated: one 2500-token prefill (past the window), an
+    insert and a decode step on meta tensors, then the calls of an
+    8-prompt run (8 prefills, 8 inserts, 31 decode steps, 256 tokens).
+    MACs are the analytic count: per recurrent layer ``wy``, ``wx``, the
+    fused RG-LRU gates, ``w_out`` and the MLP (the prefill's fused ``[wy |
+    wx]`` product and its own ``h @ wx``), per attention layer QKV, ``wo``,
+    the MLP and QK + PV (decode over the 2048-row ring, prefill over every
+    padded tile of the blockwise loop), and the tied head."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models import lm
+    from repro_torch.serve.engine_api import TransprecisionEngine
+    cfg = get_config("recurrentgemma-9b")
+    policy = dataclasses.replace(get_policy(POLICY), kv_format="posit8")
+    meta = torch.device("meta")
+    eng = TransprecisionEngine(cfg, lm.weights_free(policy, cfg.tie_embed),
+                               8, 4096, weight_policy=policy, device=meta)
+    params = lm.init_params(cfg, device=meta)
+    state = eng.init_decode_state()
+    s = 2500
+    prefix = eng.prefill(params, torch.empty((1, s), dtype=torch.int64,
+                                             device=meta))
+    eng.generate(params, eng.insert(prefix, state, 0))
+    bd = EnergyAccountant(eng).breakdown(
+        calls={"prefill": 8, "insert": 8, "generate": 31}, tokens=256)
+    assert "errors" not in bd
+    d, f, v, hd, nh = (cfg.d_model, cfg.d_ff, cfg.vocab_pad, cfg.head_dim,
+                       cfg.n_heads)
+    n_rec, n_attn = cfg.block_types.count("rec"), cfg.block_types.count(
+        "attn")
+    qkv_o = d * (nh + 2 * cfg.n_kv_heads) * hd + nh * hd * d
+    mlp, w = 2 * d * f, cfg.window
+    st = bd["stages"]
+    assert st["generate"]["mac_flops"] == 2 * 8 * (
+        n_rec * (5 * d * d + mlp) + n_attn * (qkv_o + mlp + 2 * nh * w * hd)
+        + d * v)
+    sp, skp = -(-s // 512) * 512, -(-s // 1024) * 1024     # padded tiles
+    assert st["prefill"]["mac_flops"] == 2 * (
+        s * n_rec * (6 * d * d + mlp)
+        + n_attn * (s * (qkv_o + mlp) + 2 * nh * sp * skp * hd) + d * v)
+    assert st["insert"]["mac_flops"] == 0
+    assert bd["joules_per_token"] == pytest.approx(JPT_RGEMMA, rel=1e-12)

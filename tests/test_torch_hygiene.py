@@ -46,7 +46,10 @@ MOE = ("repro_torch.models.moe", "repro_torch.configs.granite_moe_1b",
        "repro_torch.configs.phi35_moe", "repro_torch.configs.llama3_8b",
        "repro_torch.configs.granite_3_8b", "repro_torch.configs.qwen3_4b",
        "repro_torch.configs.starcoder2_15b")
-REACHED = SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY + MOE
+# ... and of the hybrid family
+HYBRID = ("repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b")
+REACHED = (SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY + MOE
+           + HYBRID)
 
 
 def _imported(tree):
@@ -124,9 +127,9 @@ def test_kernel_build_raises_without_nvcc():
 def test_later_slices_raise_not_implemented():
     cfg = get_config("paper-edge", smoke=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        ModelCfg(family="hybrid")
+        ModelCfg(family="vlm")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("recurrentgemma-9b")
+        get_config("qwen2-vl-2b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     # the numeric guard, fault injection and retry are ported (they were
@@ -137,12 +140,11 @@ def test_later_slices_raise_not_implemented():
                         retry=RetryPolicy())
     assert eng.guard is not None and eng.engine.retry is eng.retry
     assert eng.engine.faults is eng.faults is not None
-    # the energy accounting and the MoE and SSM families are ported (they
-    # were a later slice); the hybrid family is not
+    # the energy accounting and the MoE, SSM and hybrid families are
+    # ported (they were a later slice); the vlm family is not
     from repro_torch.launch import serve as launch_serve
     with pytest.raises(NotImplementedError, match="not ported"):
-        launch_serve.main(["--device", "cpu", "--arch",
-                           "recurrentgemma-9b"])
+        launch_serve.main(["--device", "cpu", "--arch", "qwen2-vl-2b"])
 
 
 def test_paged_entry_points_default_to_gpu():
