@@ -15,7 +15,10 @@ threaded ``Orchestrator`` under injected faults, retry and the numeric
 guard, runs the serve launcher, serves the full-width MoE model
 ``granite-moe-1b-a400m`` in both layouts, the full-width SSM model
 ``mamba2-2.7b`` and the full-width hybrid model ``recurrentgemma-9b`` in
-the ring, times every kernel and prints one JSON line per contract.  Needs one CUDA GPU; run from the
+the ring, the full-width vision-language model ``qwen2-vl-2b`` in both
+layouts and speculatively and the full-width speech encoder-decoder
+``whisper-large-v3``, times every kernel and prints one JSON line per
+contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -82,7 +85,24 @@ shapes (hd 256, 16 query heads per KV head, 2048-row rings) in three
 formats, with times; 17c card vs CPU at float32 on the recurrentgemma
 smoke config (prompts that wrap its 16-row ring, then decode steps from
 the card's state); 17d the refusals on the card; a ``{"hybrid": ...}``
-JSON line.  Phase 12 runs
+JSON line.  Phase 18 runs after 17 (own generators): 18a ``qwen2-vl-2b``
+at full width and depth (28 layers, d 1536, 12 query heads of 128 over 2
+KV heads, M-RoPE, tied 151,936-row table, bf16 seeded weights,
+``paper_edge_p8``, max_len 1024) serving phase 6's eight prompts, 32
+tokens each, one exact-length prefill per prompt, in the ring and the
+paged layout, each with a profiled window of five engine steps, then the
+``SpeculativeEngine`` (ring, gamma 2) over four of them, then a prefill
+over seeded (8, 256, 1536) patch embeddings and 16 decode steps; 18b
+``whisper-large-v3`` at full width and depth (32 encoder and 32 decoder
+layers, d 1280, 20 heads of 64, bf16 seeded weights, ``paper_edge_p8``,
+max_len 448): 8 clips of seeded (1500, 1280) frame embeddings with the
+4-token start-of-transcript prompt, one ``prefill`` and 64 greedy
+``decode_step`` calls, a profiled window of five, the plain
+cross-attention timed alone, then the paged layout for a prefill and 8
+steps; 18c K3/K4 and K5/K6 alone at hd 128 with 6 query heads per KV head
+and at hd 64 over 20 KV heads, in three formats, with times; 18d both
+smoke configs card vs CPU at float32; 18e the refusals on the card; a
+``{"vlm_audio": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -209,6 +229,33 @@ Every phase asserts; nothing is caught.  Tolerances:
   hybrid (17d)   a CUDA hybrid engine builds and serves under posit8 KV;
                  paged, SpeculativeEngine and a true_len prefill raise
                  ValueError.
+  vlm (18a)      every request finishes with its 32 tokens, no error;
+                 every prefill and decode logit finite (the engines' and
+                 the embeddings prefill's and steps'); ring KV
+                 121,110,528 B; K3 + K4 28 per ring decode step and K3
+                 28 per prefill, K5 + K6 28 per paged decode step, K1 56
+                 per speculative round, K2 and K7 0, by the wrappers'
+                 counts over the served runs and the profiled windows,
+                 and by the profiler's kernel names where its trace holds
+                 K3's and K4's.
+  audio (18b)    every logit finite; self K/V 311,951,360 B, cross K/V
+                 1,966,080,000 B, memory 30,720,000 B; K3 32 in the
+                 prefill and 32 per decode step, K4 32 per step; paged:
+                 K5 32 per prefill and step, K6 32 per step; K1, K2, K7
+                 0; the timed cross-attention call equal to the decode
+                 step's bit for bit.
+  KV (18c)       K3 and K5 bit-exact against their plain versions from f32
+                 and bf16 rows (rows not written unchanged at T = 1); K4
+                 and K6 rtol 1e-5, atol 1e-5 (bf16 q 2^-7), at hd 128 with
+                 6 query heads per KV head and at hd 64 over 20 KV heads.
+  vlm, audio (18d) card vs CPU at float32, TF32 off: logits, memory, xk
+                 and xv within rtol 1e-3, atol 1e-3; ring scales equal,
+                 codes differing on < 0.1 %, each one posit step or near
+                 zero.
+  refusals (18e) a CUDA vlm engine serves; a CUDA audio engine builds and
+                 its first admission, SpeculativeEngine for it, a
+                 true_len prefill of vlm embeddings and of audio, and an
+                 audio prefill over packed weights raise ValueError.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -239,7 +286,12 @@ count and the profiled window's per decode step); every entry carries
 no kernel of the port), and ``launches_hybrid``, its count over 17a's
 served run and per decode step (K3 and K4 12, the rest 0); K3's and
 K4's entries carry ``hd256``, 17b's times at the hybrid's shapes beside
-their bounds; K2's ``launches`` are
+their bounds; every entry carries ``launches_vlm`` (18a: the ring,
+paged, speculative and embeddings runs' counts and per decode step) and
+``launches_audio`` (18b: the prefill's, 64 ring steps', per step and the
+paged prefill and 8 steps'), and K3-K6's ``hd128_grp6`` and
+``hd64_grp1``, 18c's posit8 times at those shapes beside their bounds;
+K2's ``launches`` are
 the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
 and ``wire_wi``, their time at the wire's largest leaf (wi's gradient,
@@ -2248,6 +2300,849 @@ def phase17d(dev, seed) -> dict:
     return {"cuda_engine_serves": True, "refused": refused}
 
 
+VLM_ARCH = "qwen2-vl-2b"
+AUDIO_ARCH = "whisper-large-v3"
+KV_KERNELS = ("kv_append_rows", "decode_attention", "paged_kv_append_rows",
+              "paged_decode_attention")
+# 28 layers x 8 slots x 1024 rows x 2 KV heads x 2 x (128 codes + 4 scale
+# bytes)
+VLM_KV_BYTES = 121_110_528
+# Whisper's decoder context, and its start-of-transcript prompt in
+# large-v3's vocabulary (<|startoftranscript|> <|en|> <|transcribe|>
+# <|notimestamps|>)
+AUDIO_MAX_LEN = 448
+AUDIO_PROMPT = (50258, 50259, 50360, 50364)
+# self K/V: 32 layers x 8 x 448 rows x 20 heads x 2 x (64 codes + 4 scale
+# bytes); cross K/V: 32 x 8 x 1500 x 20 x 64 bf16, xk and xv; memory: 8 x
+# 1500 x 1280 bf16
+AUDIO_KV_BYTES = 311_951_360
+AUDIO_CROSS_BYTES = 1_966_080_000
+AUDIO_MEMORY_BYTES = 30_720_000
+
+
+def checked_stages(eng, nonfinite: list) -> None:
+    """Wrap an engine's ``generate`` and ``prefill`` stages so every
+    logit they return is checked finite (a failure is listed in
+    ``nonfinite``)."""
+    import torch
+    generate, prefill = eng.engine.generate, eng.engine.prefill
+
+    def generate_checked(params_, state):
+        state, logits = generate(params_, state)
+        if not bool(torch.isfinite(logits).all()):
+            nonfinite.append("generate")
+        return state, logits
+
+    def prefill_checked(params_, tokens, lengths=None):
+        prefix = prefill(params_, tokens, lengths)
+        if not bool(torch.isfinite(prefix["logits"]).all()):
+            nonfinite.append("prefill")
+        return prefix
+
+    eng.engine.generate, eng.engine.prefill = generate_checked, \
+        prefill_checked
+
+
+def profiled_steps(step, n: int, n_l: int, kernels) -> dict:
+    """``n`` calls of ``step`` (engine steps or decode steps, 8 slots
+    live) under the profiler: the wall per step, the wrappers' launches
+    per step (each of ``kernels`` asserted at ``n_l``, the rest of K1-K7
+    at 0), the traced port kernels per step (asserted too where the trace
+    holds all three KV kernel names), device busy and idle share, and two
+    more steps traced with the host's ops for device ms by op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n
+    per_step = {k: v / n for k, v in LAUNCHES.items()}
+    assert per_step == {k: (n_l if k in kernels else 0)
+                        for k in per_step}, per_step
+    n_kernels = {}
+    per_kernel = {k: v / n / 1e3
+                  for k, v in device_events(prof, n_kernels).items()}
+    traced = {k: n_kernels.get(k, 0) / n for k in PORT_KERNEL_NAMES}
+    kv_names = ("append_kernel", "split_kernel", "combine_kernel")
+    if per_kernel and all(traced[k] for k in kv_names):
+        assert traced == {k: (n_l if k in kv_names else 0)
+                          for k in traced}, traced
+    busy = sum(per_kernel.values()) if per_kernel else None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_ops:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    return {"step_wall_ms": step_ms,
+            "wrapper_launches_per_step": {k: per_step[k] for k in kernels},
+            "traced_port_kernels_per_step": traced,
+            "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / step_ms,
+            "kernel_launches_per_step":
+                sum(n_kernels.values()) / n if per_kernel else None,
+            "top_kernels_ms": dict(sorted(per_kernel.items(),
+                                          key=lambda kv_: -kv_[1])[:6]),
+            "top_ops_ms": op_device_ms(prof_ops, 2)}
+
+
+def device_line(p: dict, bound_ms: float) -> str:
+    """A profiled window's device numbers, for a phase line."""
+    if p["device_busy_ms"] is None:
+        return ("device busy and idle share not measured (the profiler "
+                "trace held no device events)")
+    return (f"device busy {p['device_busy_ms']:.3f} ms/step (bytes bound "
+            f"{bound_ms:.3f} ms), idle share {p['idle_share']:.3f}; kernel "
+            f"launches {p['kernel_launches_per_step']:.1f}/step; traced port "
+            f"kernels per step "
+            f"{ {k: v for k, v in p['traced_port_kernels_per_step'].items() if v} }"
+            f"; top kernels (ms/step): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in p["top_kernels_ms"].items())
+            + "; top ops by self device ms/step: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in p["top_ops_ms"].items()))
+
+
+def phase18a(dev, seed, prompts, warm, card: str) -> dict:
+    """18a. ``qwen2-vl-2b`` at full width and depth (28 layers, d 1536, 12
+    query heads of 128 over 2 KV heads, M-RoPE, tied 151,936-row table,
+    1,543,853,568 params, bf16 seeded weights, the published config
+    uncut), ``paper_edge_p8`` (posit8 attention and MLP weights hoisted,
+    posit8 KV), max batch 8, max_len 1024: phase 6's eight prompts, 32 new
+    tokens each, one exact-length prefill per prompt (the reference does
+    not bucket vlm), through ``ServingEngine.serve`` in the ring and then
+    the paged layout, each with a profiled window of 5 engine steps with 8
+    slots live; then the ``SpeculativeEngine`` (ring, gamma 2) over four of
+    the prompts; then one ``prefill`` over seeded patch embeddings (8, 256,
+    1536), the stub frontend's, and 16 greedy ``decode_step`` calls.
+    Asserts every request finishes with its 32 tokens and no error, every
+    logit finite, ring KV bytes 121,110,528, and by the wrappers' counts
+    (and the profiler's names where its trace holds them) K3 + K4 28 per
+    ring decode step and K3 28 per prefill, K5 + K6 28 per paged decode
+    step, K1 56 per speculative round, K2 and K7 never."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm, serve_model
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.speculative import SpeculativeEngine
+    cfg = get_config(VLM_ARCH)
+    n_l = cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 18), device=dev)
+    torch.cuda.synchronize()
+    out = {"card": card, "arch": VLM_ARCH, "params": cfg.param_count(),
+           "init_s": time.perf_counter() - t_build}
+    nonfinite = []
+    kv_row = 2 * cfg.n_kv_heads * (cfg.head_dim + 4)   # K and V, one row
+    for layout, kw in (("ring", {}),
+                       ("paged", {"kv_layout": "paged", "page_size": PS})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_batch=B, max_len=W, kv_format="posit8", **kw),
+            policy="paper_edge_p8", device=dev)
+        assert not eng.engine.bucketed
+        checked_stages(eng, nonfinite)
+        eng.serve([Request(uid=-1, prompt=warm, max_new=3)])   # warm-up
+        peak_build = torch.cuda.max_memory_allocated()
+        w_bytes = tensor_bytes(eng.params)
+        if layout == "ring":
+            assert eng.kv_cache_bytes() == VLM_KV_BYTES == n_l * B * W \
+                * kv_row, eng.kv_cache_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        reqs = [Request(uid=i, prompt=p, max_new=32)
+                for i, p in enumerate(prompts)]
+        eng.tracer.reset()
+        eng.tracer.enable()
+        steps0, pre0 = eng.stats["decode_steps"], eng.stats["prefills"]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        eng.tracer.disable()
+        st = eng.tracer.self_times()
+        steps = eng.stats["decode_steps"] - steps0
+        prefills = eng.stats["prefills"] - pre0
+        assert not nonfinite, nonfinite
+        assert all(r.done and r.error is None and len(r.out_tokens) == 32
+                   for r in reqs), layout
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+        assert prefills == len(prompts), prefills     # one per prompt
+        want = {k: 0 for k in launches}
+        if layout == "ring":
+            want.update(kv_append_rows=n_l * (steps + prefills),
+                        decode_attention=n_l * steps)
+            kernels = ("kv_append_rows", "decode_attention")
+        else:
+            want.update(kv_append_rows=n_l * prefills,
+                        paged_kv_append_rows=n_l * steps,
+                        paged_decode_attention=n_l * steps)
+            kernels = ("paged_kv_append_rows", "paged_decode_attention")
+            eng.allocator.assert_consistent()
+            assert eng.allocator.live_pages == 0
+        assert launches == want, (layout, launches)
+
+        def stage_ms(stage):
+            n = st[f"{stage}.device"]["count"]
+            return 1e3 * (st[f"{stage}.dispatch"]["total_s"]
+                          + st[f"{stage}.device"]["total_s"]) / n
+
+        # a profiled window: the 8 prompts readmitted, then 5 engine steps
+        # with 8 slots live; its least bytes: every weight once (the tied
+        # table included: the head reads it whole), the rows each slot's
+        # K4 / K6 reads and the row K3 / K5 writes
+        eng._admit([Request(uid=100 + i, prompt=p, max_new=32)
+                    for i, p in enumerate(prompts)])
+        assert all(r is not None for r in eng.slot_req), layout
+        rows_read = int(sum(min(len(p) + 3, W) for p in prompts))
+        bound_ms = 1e3 * (w_bytes + n_l * (rows_read + B) * kv_row) \
+            / H100_BYTES_PER_S
+        prof = profiled_steps(eng.step, 5, n_l, kernels)
+        assert not nonfinite, nonfinite
+        eng.serve([])                                   # drain
+        peak = torch.cuda.max_memory_allocated()
+        out[layout] = {
+            "steps": steps, "prefills": prefills, "serve_wall_s": wall,
+            "tok_s": 8 * 32 / wall, "prefill_ms": stage_ms("prefill"),
+            "decode_ms": stage_ms("generate"), "launches": launches,
+            "kv_cache_bytes": eng.kv_cache_bytes(), "weight_bytes": w_bytes,
+            "bound_ms": bound_ms, "bound_by": "bytes", "profiled": prof,
+            "peak_memory_bytes": peak, "peak_memory_build_bytes": peak_build}
+        phase(f"phase 18a [{card}] {VLM_ARCH} {layout}: {n_l}L "
+              f"d{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads}h "
+              f"hd{cfg.head_dim} M-RoPE d_ff {cfg.d_ff} vocab {cfg.vocab} "
+              f"tied ({cfg.param_count()} params, bf16, posit8 attn/MLP "
+              f"weights and KV), 8 prompts of "
+              f"{sorted(len(p) for p in prompts)} tokens, 32 new each: "
+              f"{prefills} exact-length prefills {stage_ms('prefill'):.2f} "
+              f"ms/prompt, {steps} decode steps {stage_ms('generate'):.3f} "
+              f"ms/step, {8 * 32 / wall:.1f} tok/s; every logit finite; "
+              f"launches { {k: v for k, v in launches.items() if v} }; KV "
+              f"cache {eng.kv_cache_bytes()} B; profiled engine step (8 "
+              f"slots live): wall {prof['step_wall_ms']:.3f} ms/step, "
+              f"wrapper launches/step {prof['wrapper_launches_per_step']}, "
+              f"{device_line(prof, bound_ms)}; weights {w_bytes} B; peak "
+              f"memory {peak} B serving ({peak_build} B building the "
+              f"engine: hoisting, then a warm-up)")
+        del eng
+
+    # the speculative engine, ring, gamma 2, over four prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = SpeculativeEngine(cfg, params, ServeConfig(
+        max_batch=B, max_len=W, kv_format="posit8"), policy="paper_edge_p8",
+        gamma=2, device=dev)
+    checked_stages(spec, nonfinite)
+    spec.serve([Request(uid=-1, prompt=warm, max_new=3)])
+    counts = ("spec_rounds", "drafts_proposed", "drafts_accepted", "tokens",
+              "prefills", "decode_steps")
+    c0 = {k: spec.stats[k] for k in counts}
+    reqs = [Request(uid=i, prompt=p, max_new=32)
+            for i, p in enumerate(prompts[:4])]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    spec.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    n = {k: spec.stats[k] - c0[k] for k in counts}
+    assert not nonfinite, nonfinite
+    assert all(r.done and r.error is None and len(r.out_tokens) == 32
+               for r in reqs)
+    assert launches["posit_decode"] == 2 * n_l * n["spec_rounds"], launches
+    assert launches["kv_append_rows"] > 0 and launches["decode_attention"] > 0
+    assert all(launches[k] == 0 for k in ("posit_encode", "posit_matmul",
+                                          "paged_kv_append_rows",
+                                          "paged_decode_attention")), launches
+    out["speculative_ring_gamma2"] = {
+        "prompts": 4, "wall_s": wall, "tok_s": n["tokens"] / wall,
+        "acceptance": n["drafts_accepted"] / max(n["drafts_proposed"], 1),
+        "counts": n, "launches": launches,
+        "posit_decode_per_round": launches["posit_decode"] / n["spec_rounds"]}
+    phase(f"phase 18a [{card}] {VLM_ARCH} speculative ring gamma 2, 4 "
+          f"prompts x 32: {n['spec_rounds']} rounds, acceptance "
+          f"{out['speculative_ring_gamma2']['acceptance']:.4f}, "
+          f"{n['tokens'] / wall:.1f} tok/s, K1 "
+          f"{launches['posit_decode'] / n['spec_rounds']:.0f} per round; "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    del spec
+
+    # a patch-embedding prompt: prefill over (8, 256, d) embeds, then 16
+    # greedy decode steps, on the hoisted weights and the ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    policy = dataclasses.replace(get_policy("paper_edge_p8"),
+                                 kv_format="posit8")
+    hoisted = lm.hoist_weight_quant(params, policy)
+    free = lm.weights_free(policy, cfg.tie_embed)
+    rng = np.random.default_rng([seed, 18])
+    emb = torch.from_numpy(rng.standard_normal((B, 256, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    serve_model.prefill(hoisted, {"embeds": emb[:, :16]}, cfg, W, free)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = serve_model.prefill(hoisted, {"embeds": emb}, cfg, W,
+                                        free)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    finite = [bool(torch.isfinite(logits).all())]
+    t0 = time.perf_counter()
+    for _ in range(16):
+        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        logits, cache = serve_model.decode_step(hoisted, cache, tok, cfg,
+                                                free)
+        finite.append(bool(torch.isfinite(logits).all()))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 16
+    launches = dict(LAUNCHES)
+    assert all(finite), finite
+    want = {k: 0 for k in launches}
+    want.update(kv_append_rows=n_l * 17, decode_attention=n_l * 16)
+    assert launches == want, launches
+    assert int(cache["pos"]) == 256 + 16
+    out["embeds"] = {"shape": list(emb.shape), "prefill_ms": prefill_ms,
+                     "decode_step_ms": step_ms, "launches": launches}
+    phase(f"phase 18a [{card}] {VLM_ARCH} patch-embedding prompt: prefill "
+          f"over seeded embeds {tuple(emb.shape)} {prefill_ms:.2f} ms, 16 "
+          f"greedy decode steps {step_ms:.3f} ms/step (host clock), every "
+          f"logit finite; launches { {k: v for k, v in launches.items() if v} }")
+    del params, hoisted, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase18b(dev, seed, card: str) -> dict:
+    """18b. ``whisper-large-v3`` at full width and depth (32 encoder and
+    32 decoder layers, d 1280, 20 heads of 64, MHA, 1,601,251,840 params,
+    bf16 seeded weights, the published config uncut), ``paper_edge_p8``
+    (posit8 attention and MLP weights hoisted, the encoder's included; the
+    cross weights unhooked, as the reference serves them), posit8 KV
+    ring, 8 clips of seeded (1500, 1280) frame embeddings (the stub conv
+    frontend's output), each with Whisper's 4-token start-of-transcript
+    prompt, max_len 448: one ``prefill``, then 64 greedy ``decode_step``
+    calls; then the paged layout for a prefill and 8 steps.  Asserts
+    every logit finite; self K/V 311,951,360 B, cross K/V 1,966,080,000
+    B, ``memory`` 30,720,000 B; K3 + K4 32 per decode step and K3 32 per
+    prefill (K5 + K6 and K5 paged), K1, K2 and K7 never.  Prints the
+    encoder's ms, the prefill's, the decode step's wall, device busy and
+    idle share, the cross-attention's device ms per step (CUDA graph of
+    its 32 layers' calls) beside its bytes bound, tok/s and peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import attention, lm, serve_model
+    cfg = get_config(AUDIO_ARCH)
+    n_l = cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 181), device=dev)
+    policy = dataclasses.replace(get_policy("paper_edge_p8"),
+                                 kv_format="posit8")
+    hoisted = lm.hoist_weight_quant(params, policy)
+    del params
+    free = lm.weights_free(policy, cfg.tie_embed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    rng = np.random.default_rng([seed, 181])
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    batch = {"tokens": torch.tensor([AUDIO_PROMPT] * B, device=dev),
+             "frames": frames}
+    serve_model.prefill(hoisted, batch, cfg, AUDIO_MAX_LEN, free)  # warm-up
+    torch.cuda.synchronize()
+    peak_build = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    lm.encode_audio(hoisted, frames, cfg, free)
+    torch.cuda.synchronize()
+    encoder_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = serve_model.prefill(hoisted, batch, cfg, AUDIO_MAX_LEN,
+                                        free)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    pre_launches = dict(LAUNCHES)
+    assert pre_launches == {k: (n_l if k == "kv_append_rows" else 0)
+                            for k in pre_launches}, pre_launches
+    blk = cache["blocks"][0]
+    self_kv = tensor_bytes([blk[k] for k in ("k", "v", "k_scale",
+                                             "v_scale")])
+    cross = tensor_bytes([blk["xk"], blk["xv"]])
+    memory = tensor_bytes(cache["memory"])
+    assert (self_kv, cross, memory) == (AUDIO_KV_BYTES, AUDIO_CROSS_BYTES,
+                                        AUDIO_MEMORY_BYTES), (self_kv, cross,
+                                                              memory)
+    finite = [bool(torch.isfinite(logits).all())]
+    toks = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(64):
+        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        toks.append(tok)
+        logits, cache = serve_model.decode_step(hoisted, cache, tok, cfg,
+                                                free)
+        finite.append(bool(torch.isfinite(logits).all()))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    assert all(finite), finite.index(False)
+    want = {k: 0 for k in launches}
+    want.update(kv_append_rows=n_l * 64, decode_attention=n_l * 64)
+    assert launches == want, launches
+    tokens = torch.cat(toks, dim=1).cpu()
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+    state = {"logits": logits, "cache": cache}
+
+    def step():
+        tok = state["logits"][:, :cfg.vocab].argmax(-1)[:, None]
+        state["logits"], state["cache"] = serve_model.decode_step(
+            hoisted, state["cache"], tok, cfg, free)
+
+    w_bytes = tensor_bytes([hoisted[k] for k in hoisted if k not in (
+        "enc_blocks", "enc_norm", "embed")])
+    pos = int(cache["pos"])
+    # a step's least bytes: the decoder's weights and the untied head
+    # once, the self K/V rows K4 reads (pos + 3 in the window's middle
+    # step) and K3 writes, the cross K/V whole
+    bound_ms = 1e3 * (w_bytes + n_l * B * (pos + 3 + 1) * 2 * cfg.n_kv_heads
+                      * (cfg.head_dim + 4) + AUDIO_CROSS_BYTES) \
+        / H100_BYTES_PER_S
+    prof = profiled_steps(step, 5, n_l, ("kv_append_rows",
+                                         "decode_attention"))
+    assert bool(torch.isfinite(state["logits"]).all())
+    # the cross-attention alone: the plain decode attention over each
+    # layer's xk / xv (``decode_attention`` at cache_len enc_seq is this
+    # call, its query position made here, outside the graph), per step
+    qx = torch.from_numpy(rng.standard_normal(
+        (B, 1, cfg.n_heads, cfg.head_dim)).astype(np.float32)).to(dev).to(
+        cfg.dtype)
+    xk, xv = state["cache"]["blocks"][0]["xk"], \
+        state["cache"]["blocks"][0]["xv"]
+    qpos = torch.full((B, 1), cfg.enc_seq - 1, device=dev)
+    torch.testing.assert_close(
+        attention.chunk_decode_attention(qx, xk[0], xv[0], qpos),
+        attention.decode_attention(qx, xk[0], xv[0], cfg.enc_seq),
+        rtol=0, atol=0)
+    cross_ms = n_l * graph_ms(lambda i: attention.chunk_decode_attention(
+        qx, xk[i], xv[i], qpos), n_l)
+    cross_bound_ms = 1e3 * AUDIO_CROSS_BYTES / H100_BYTES_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    del state, cache, logits
+    # the paged layout: a prefill (K5 at T = 4) and 8 decode steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    pfree = dataclasses.replace(free, kv_layout="paged", kv_page_size=PS)
+    reset_launches()
+    logits, cache = serve_model.prefill(hoisted, batch, cfg, AUDIO_MAX_LEN,
+                                        pfree)
+    for _ in range(8):
+        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        logits, cache = serve_model.decode_step(hoisted, cache, tok, cfg,
+                                                pfree)
+        assert bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    paged_launches = dict(LAUNCHES)
+    want = {k: 0 for k in paged_launches}
+    want.update(paged_kv_append_rows=n_l * 9,
+                paged_decode_attention=n_l * 8)
+    assert paged_launches == want, paged_launches
+    del cache, logits, hoisted
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": AUDIO_ARCH, "params": cfg.param_count(),
+           "build_s": build_s, "encoder_ms": encoder_ms,
+           "prefill_ms": prefill_ms, "decode_step_ms": 1e3 * decode_s / 64,
+           "tok_s": B * 64 / decode_s, "prefill_launches": pre_launches,
+           "launches": launches, "paged_launches": paged_launches,
+           "self_kv_bytes": self_kv, "cross_kv_bytes": cross,
+           "memory_bytes": memory, "weight_bytes_decoder": w_bytes,
+           "bound_ms": bound_ms, "bound_by": "bytes", "profiled": prof,
+           "cross_attention_ms_per_step": cross_ms,
+           "cross_attention_bound_ms": cross_bound_ms,
+           "peak_memory_bytes": peak, "peak_memory_build_bytes": peak_build}
+    phase(f"phase 18b [{card}] {AUDIO_ARCH}: {cfg.enc_layers} encoder + "
+          f"{n_l} decoder layers, d{cfg.d_model} {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}h hd{cfg.head_dim} d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab} ({cfg.param_count()} params, bf16, posit8 "
+          f"attn/MLP weights and KV), 8 clips of ({cfg.enc_seq}, "
+          f"{cfg.d_model}) frames, prompt {list(AUDIO_PROMPT)}, max_len "
+          f"{AUDIO_MAX_LEN}: encoder {encoder_ms:.2f} ms, prefill "
+          f"{prefill_ms:.2f} ms, 64 greedy decode steps "
+          f"{1e3 * decode_s / 64:.3f} ms/step (host clock), "
+          f"{B * 64 / decode_s:.1f} tok/s; every logit finite; launches "
+          f"prefill { {k: v for k, v in pre_launches.items() if v} }, "
+          f"decode { {k: v for k, v in launches.items() if v} }, paged "
+          f"prefill + 8 steps "
+          f"{ {k: v for k, v in paged_launches.items() if v} }; self K/V "
+          f"{self_kv} B, cross K/V {cross} B, memory {memory} B; profiled "
+          f"decode step: wall {prof['step_wall_ms']:.3f} ms/step, "
+          f"{device_line(prof, bound_ms)}; cross-attention (plain, {n_l} "
+          f"layers) {cross_ms:.3f} ms/step device against its bytes bound "
+          f"{cross_bound_ms:.3f} ms; peak memory {peak} B decoding "
+          f"({peak_build} B building: init, hoisting, a warm-up prefill)")
+    return out
+
+
+def phase18c(dev, seed) -> dict:
+    """18c. K3 + K4 and K5 + K6 alone at the two new shapes, each against
+    its plain version: hd 128 with 6 query heads per KV head over 2 KV
+    heads and 1024 rows (qwen2-vl; K4's split CTA takes 74,752 B of
+    shared memory), and hd 64 with 1 query head per KV head over 20 KV
+    heads and 448 rows (whisper); posit16, posit8 and packed posit4,
+    from f32 and from bf16 rows, B 8.  Appends bit-exact at T = 1 (ring
+    positions across the ring's end; rows not written unchanged) and at
+    T = W from 0 (a full prefill); K5 into a pool through a shuffled page
+    table.  Attention within rtol 1e-5, atol 1e-5 at full and partial
+    ``cache_len`` (f32 q; bf16 q within 2^-7).  Times K3, K4, K5, K6 in
+    posit8 (CUDA graph replays over the model's layers' buffers) beside
+    their bytes bounds."""
+    import torch
+    from repro_torch.core.formats import get as get_fmt
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import kv_cache as kvk
+    from repro_torch.kernels import paged_kv as pkv
+    rng = np.random.default_rng([seed, 183])
+    shapes = {"hd128_grp6": (1024, 2, 128, 12, 28),
+              "hd64_grp1": (AUDIO_MAX_LEN, 20, 64, 20, 32)}
+    out = {}
+    for label, (w, nkv, hd, nh, n_l) in shapes.items():
+        pmax = -(-w // PS)
+        n_pages = 1 + B * pmax
+        perm = rng.permutation(np.arange(1, n_pages))
+        table = torch.from_numpy(perm.reshape(B, pmax).astype(np.int32)).to(
+            dev)
+
+        def codes(rows_, fmt, packed):
+            dc = kvk.code_channels(hd, fmt, packed)
+            hi = 1 << (8 if fmt.bits <= 8 else 16)
+            c = torch.from_numpy(rng.integers(0, hi, rows_ + (nkv, dc))).to(
+                dev)
+            if fmt.bits > 8:
+                c = torch.where(c >= 1 << 15, c - (1 << 16), c)
+            s = torch.from_numpy(np.exp2(rng.integers(
+                -8, 8, rows_ + (nkv,))).astype(np.float32)).to(dev)
+            return c.to(_build.code_dtype(fmt)), s
+
+        def rows(t, spread=6):
+            mag = np.exp2(rng.uniform(-spread, spread, (B, t, nkv, 1)))
+            return torch.from_numpy((rng.normal(0, 1, (B, t, nkv, hd)) * mag)
+                                    .astype(np.float32)).to(dev)
+
+        pos1 = torch.tensor([0, 1, w - 1, w, 2 * w - 1, 5, 100, w // 2],
+                            dtype=torch.int32, device=dev)
+        zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        dst1 = pkv.flat_dst_rows_chunk(table, pos1 % w, 1, PS)
+        dst_w = pkv.flat_dst_rows_chunk(table, zero, w, PS)
+        for name, packed in KV_FORMATS:
+            fmt = get_fmt(name)
+            for t, pos, dst in ((1, pos1, dst1), (w, zero, dst_w)):
+                kn, vn = rows(t), rows(t)
+                kv = torch.cat([kn, vn], dim=-1).to(torch.bfloat16)
+                for k_in, v_in in ((kn, vn), (kv[..., :hd].contiguous(),
+                                              kv[..., hd:])):
+                    ring = codes((B, w), fmt, packed) + codes((B, w), fmt,
+                                                              packed)
+                    before = LAUNCHES["kv_append_rows"]
+                    got = kvk.kv_append_rows(
+                        *(x.clone() for x in ring), k_in, v_in, pos, fmt,
+                        packed=packed)
+                    assert LAUNCHES["kv_append_rows"] == before + 1
+                    want = kvk.kv_append_rows_ref(
+                        *(x.clone() for x in ring), k_in.float(),
+                        v_in.float(), pos, fmt, packed)
+                    for g, w_ in zip(got, want):
+                        assert bits_equal(g, w_), (label, name, t, "K3")
+                    if t == 1:
+                        keep = torch.ones((B, w), dtype=torch.bool,
+                                          device=dev)
+                        keep[torch.arange(B, device=dev),
+                             pos.long() % w] = False
+                        for g, orig in zip(got, ring):
+                            assert torch.equal(g[keep], orig[keep]), name
+                    pool = codes((n_pages * PS,), fmt, packed) + codes(
+                        (n_pages * PS,), fmt, packed)
+                    before = LAUNCHES["paged_kv_append_rows"]
+                    got = pkv.paged_kv_append_rows(
+                        *(x.clone() for x in pool), k_in, v_in, dst, fmt,
+                        packed=packed)
+                    assert LAUNCHES["paged_kv_append_rows"] == before + 1
+                    want = pkv.paged_kv_append_rows_ref(
+                        *(x.clone() for x in pool), k_in.float(),
+                        v_in.float(), dst, fmt, packed)
+                    for g, w_ in zip(got, want):
+                        assert bits_equal(g, w_), (label, name, t, "K5")
+        errs = {}
+        cls = (torch.full((B,), w, dtype=torch.int32, device=dev),
+               torch.tensor([w, 1, 63, 64, 65, w // 2, w - 1, 129],
+                            dtype=torch.int32, device=dev))
+        for name, packed in KV_FORMATS:
+            fmt = get_fmt(name)
+            ring = codes((B, w), fmt, packed) + codes((B, w), fmt, packed)
+            kvk.kv_append_rows_ref(*ring, rows(w, 2), rows(w, 2), zero, fmt,
+                                   packed)
+            pool = codes((n_pages * PS,), fmt, packed) + codes(
+                (n_pages * PS,), fmt, packed)
+            pkv.paged_kv_append_rows_ref(*pool, rows(w, 2), rows(w, 2),
+                                         dst_w, fmt, packed)
+            q = torch.from_numpy(rng.normal(0, 1, (B, 1, nh, hd)).astype(
+                np.float32)).to(dev)
+            # a bf16 q is scaled in bf16 by the kernels (the model's own
+            # rounding) and in f32 by the plain versions (ROADMAP fault
+            # 5), which differ where hd^-0.5 is no power of two (hd 128):
+            # the plain versions take the f32 q whose f32 scaling gives
+            # the kernels' bf16-scaled values
+            qb, sc = q.to(torch.bfloat16), hd ** -0.5
+            q_same = (qb.float() * sc).to(torch.bfloat16).float() / sc
+            e = {"K4": 0.0, "K4_bf16_q": 0.0, "K6": 0.0, "K6_bf16_q": 0.0}
+            for cl in cls:
+                for qq, qr, tag, tol in ((q, q, "", 1e-5),
+                                         (qb, q_same, "_bf16_q", 2 ** -7)):
+                    pairs = {
+                        "K4": (kvk.decode_attention(qq, *ring, cl, fmt,
+                                                    packed=packed),
+                               kvk.decode_attention_ref(qr, *ring, cl, fmt,
+                                                        packed)),
+                        "K6": (pkv.paged_decode_attention(
+                            qq, *pool, table, cl, fmt, page_size=PS,
+                            packed=packed),
+                            pkv.paged_decode_attention_ref(
+                                qr, *pool, table, cl, fmt, page_size=PS,
+                                packed=packed))}
+                    for kname, (got, want) in pairs.items():
+                        got, want = got.float(), want.float()
+                        torch.testing.assert_close(got, want, rtol=tol,
+                                                   atol=tol)
+                        e[kname + tag] = max(e[kname + tag], float(
+                            (got - want).abs().max()))
+            errs[name] = e
+        # times at the decode step's shapes: the model's layers' rings and
+        # pools (posit8), bf16 rows and q, every slot's rows live
+        fmt = get_fmt("posit8_2")
+        rings = [codes((B, w), fmt, False) + codes((B, w), fmt, False)
+                 for _ in range(n_l)]
+        pools = [codes((n_pages * PS,), fmt, False) + codes(
+            (n_pages * PS,), fmt, False) for _ in range(n_l)]
+        k1, v1 = rows(1).to(torch.bfloat16), rows(1).to(torch.bfloat16)
+        qb = torch.from_numpy(rng.normal(0, 1, (B, 1, nh, hd)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        full = cls[0]
+        dst_step = pkv.flat_dst_rows(table, pos1 % w, PS)
+        us = {
+            "k3": 1e3 * graph_ms(lambda i: kvk.kv_append_rows(
+                *rings[i], k1, v1, pos1, fmt), n_l),
+            "k4": 1e3 * graph_ms(lambda i: kvk.decode_attention(
+                qb, *rings[i], full, fmt), n_l),
+            "k5": 1e3 * graph_ms(lambda i: pkv.paged_kv_append(
+                *pools[i], k1, v1, dst_step, fmt), n_l),
+            "k6": 1e3 * graph_ms(lambda i: pkv.paged_decode_attention(
+                qb, *pools[i], table, full, fmt, page_size=PS), n_l)}
+        # K3/K5: bf16 rows read, codes + scales written, an index read;
+        # K4/K6: every live row's codes and scales (K and V), q read, out
+        # written (K6 also its table)
+        append_b = 2 * B * nkv * (hd * 2 + hd + 4) + B * 4
+        attn_b = 2 * B * w * nkv * (hd + 4) + 2 * B * nh * hd * 2 + B * 4
+        bound = {"k3": append_b, "k4": attn_b, "k5": append_b + B * 4,
+                 "k6": attn_b + B * pmax * 4}
+        out[label] = {
+            "shape": {"B": B, "rows": w, "kv_heads": nkv, "hd": hd,
+                      "q_heads": nh, "layers_timed": n_l},
+            "max_abs_err": errs,
+            "times_posit8": {k: {"us": v, "bound_us":
+                                 1e6 * bound[k] / H100_BYTES_PER_S}
+                             for k, v in us.items()},
+            "k4_split_smem_bytes": 4 * (256 + (nh // nkv) * hd
+                                        + (nh // nkv) * kvk.SPLIT_ROWS
+                                        + kvk.SPLIT_ROWS * (hd + 4))}
+        del rings, pools
+        phase(f"phase 18c K3/K4 and K5/K6 at {label} (B {B}, {w} rows, "
+              f"{nkv} KV heads of {hd}, {nh} query heads; posit16, posit8, "
+              f"packed posit4; K4 split CTA "
+              f"{out[label]['k4_split_smem_bytes']} B of shared memory): "
+              f"K3 and K5 bit-exact from f32 and bf16 rows at T=1 (ring "
+              f"positions {pos1.tolist()}) and T={w}; K4 and K6 at "
+              f"cache_len {w} and {cls[1].tolist()} max |err| "
+              + ", ".join(f"{k}: " + " ".join(f"{n_} {v:.2e}"
+                                               for n_, v in e_.items())
+                          for k, e_ in errs.items())
+              + " (rtol/atol 1e-5; bf16 q 2^-7); posit8 device µs per call "
+              + ", ".join(f"{k.upper()} {v['us']:.2f} (bound "
+                          f"{v['bound_us']:.3f})"
+                          for k, v in out[label]["times_posit8"].items()))
+    return out
+
+
+def phase18d(dev, seed) -> dict:
+    """18d. Card vs CPU at float32 (TF32 off) on the two smoke configs,
+    ``paper_edge_p8`` per-call weight hook, posit8 KV ring: qwen2-vl from
+    a 20-token prompt and from 12 rows of patch embeddings, whisper from
+    two clips with 4-token prompts.  The prefill's logits, ``memory`` and
+    ``xk``/``xv`` within rtol 1e-3, atol 1e-3, ring scales equal and codes
+    by ``posit8_flips`` on < 0.1 % of them; then 4 decode steps, each from
+    the card's state on both devices, held the same way."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models import lm, serve_model
+    policy = dataclasses.replace(get_policy("paper_edge_p8"),
+                                 kv_format="posit8")
+    rng = np.random.default_rng([seed, 184])
+    tol = dict(rtol=1e-3, atol=1e-3)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dmax, flips = {}, [0, 0, 0]
+
+    def close(label, card_c, cpu_c, card_l, cpu_l):
+        torch.testing.assert_close(card_l.cpu(), cpu_l, **tol)
+        key = label + "_logits"
+        dmax[key] = max(dmax.get(key, 0.0),
+                        float((card_l.cpu() - cpu_l).abs().max()))
+        leaves = {f"b.{k}": v for k, v in card_c["blocks"][0].items()}
+        cpu = {f"b.{k}": v for k, v in cpu_c["blocks"][0].items()}
+        if "memory" in card_c:
+            leaves["memory"], cpu["memory"] = card_c["memory"], \
+                cpu_c["memory"]
+        for k, v in leaves.items():
+            v, p = v.cpu(), cpu[k]
+            if k.endswith("scale"):
+                assert torch.equal(v, p), (label, k)
+            elif k in ("b.k", "b.v"):
+                n, far = posit8_flips(v, p)
+                flips[0] += n
+                flips[1] += far
+                flips[2] += v.numel()
+            else:
+                torch.testing.assert_close(v, p, **tol)
+                key = f"{label}_{k.split('.')[-1]}"
+                dmax[key] = max(dmax.get(key, 0.0),
+                                float((v - p).abs().max()))
+
+    try:
+        for arch in (VLM_ARCH, AUDIO_ARCH):
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      dtype_name="float32")
+            params = lm.init_params(cfg, torch.Generator().manual_seed(
+                seed + 184), device="cpu")
+            params_d = tree_to(params, dev)
+            if arch == VLM_ARCH:
+                inputs = [{"tokens": torch.as_tensor(
+                    rng.integers(0, cfg.vocab, (1, 20)))},
+                    {"embeds": torch.from_numpy(rng.standard_normal(
+                        (1, 12, cfg.d_model)).astype(np.float32))}]
+            else:
+                inputs = [{"tokens": torch.as_tensor(
+                    rng.integers(0, cfg.vocab, (2, 4))),
+                    "frames": torch.from_numpy(rng.standard_normal(
+                        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))}]
+            for batch in inputs:
+                label = f"{cfg.family}_{'/'.join(batch)}"
+                lc, cc = serve_model.prefill(params_d, tree_to(batch, dev),
+                                             cfg, 64, policy)
+                lp, cp = serve_model.prefill(params, batch, cfg, 64, policy)
+                close(label + "_prefill", cc, cp, lc, lp)
+                tok = lc[:, :cfg.vocab].argmax(-1)[:, None]
+                for _ in range(4):
+                    cpu_cache = tree_to(cc, "cpu")
+                    lc, cc = serve_model.decode_step(params_d, cc, tok, cfg,
+                                                     policy)
+                    lp, cp = serve_model.decode_step(params, cpu_cache,
+                                                     tok.cpu(), cfg, policy)
+                    close(label + "_decode", cc, cp, lc, lp)
+                    tok = lc[:, :cfg.vocab].argmax(-1)[:, None]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert flips[0] < 1e-3 * flips[2], flips
+    phase(f"phase 18d qwen2-vl and whisper smoke card vs CPU (float32, "
+          f"TF32 off, paper_edge_p8, posit8 KV ring): prefills from tokens, "
+          f"from patch embeddings and from frames, then 4 decode steps each "
+          f"from the card's state: logits, memory, xk and xv within rtol "
+          f"1e-3 atol 1e-3 (max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dmax.items())
+          + f"); ring scales equal, {flips[0]} of {flips[2]} codes differ "
+          f"({flips[1]} near zero, the rest one posit step)")
+    return {"max_abs_diff": dmax, "codes_differ": flips[0],
+            "codes_near_zero": flips[1], "codes_compared": flips[2]}
+
+
+def phase18e(dev, seed) -> dict:
+    """18e. What the port refuses on the card, where the reference fails:
+    a CUDA whisper smoke engine builds under posit8 KV and its first
+    admission raises ``ValueError`` (no frames); so do a
+    ``SpeculativeEngine`` for it, a bucketed (``true_len``) prefill of
+    vlm embeds and of audio, and an audio prefill over ``pack_params``
+    weights.  A CUDA qwen2-vl smoke engine serves."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy, pack_params
+    from repro_torch.models import lm, serve_model
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.speculative import SpeculativeEngine
+    scfg = ServeConfig(max_batch=2, max_len=64, kv_format="posit8")
+    pol = get_policy("paper_edge_p8")
+    rng = np.random.default_rng([seed, 185])
+    vcfg = get_config(VLM_ARCH, smoke=True)
+    vparams = lm.init_params(vcfg, torch.Generator(device=dev).manual_seed(
+        seed + 185), device=dev)
+    req = Request(uid=0, prompt=rng.integers(0, vcfg.vocab, 9), max_new=4)
+    ServingEngine(vcfg, vparams, scfg, policy=pol, device=dev).serve([req])
+    assert req.done and req.error is None and len(req.out_tokens) == 4
+    acfg = get_config(AUDIO_ARCH, smoke=True)
+    aparams = lm.init_params(acfg, torch.Generator(device=dev).manual_seed(
+        seed + 186), device=dev)
+    eng = ServingEngine(acfg, aparams, scfg, policy=pol, device=dev)
+    toks = torch.as_tensor(rng.integers(0, acfg.vocab, (2, 4))).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, acfg.enc_seq, acfg.d_model)).astype(np.float32)).to(dev)
+    emb = torch.zeros((2, 8, vcfg.d_model), device=dev)
+    refused = {}
+    for name, call in (
+            ("audio_admission", lambda: eng.serve([Request(
+                uid=1, prompt=np.arange(4), max_new=2)])),
+            ("audio_speculative", lambda: SpeculativeEngine(
+                acfg, aparams, scfg, policy=pol, device=dev)),
+            ("vlm_embeds_true_len", lambda: serve_model.prefill(
+                vparams, {"embeds": emb}, vcfg, 64, pol, true_len=[5, 8])),
+            ("audio_true_len", lambda: serve_model.prefill(
+                aparams, {"tokens": toks, "frames": frames}, acfg, 64, pol,
+                true_len=[3, 4])),
+            ("audio_packed_prefill", lambda: serve_model.prefill(
+                pack_params(aparams, pol), {"tokens": toks,
+                                            "frames": frames}, acfg, 64,
+                pol))):
+        try:
+            call()
+        except ValueError as e:
+            refused[name] = str(e)[:120]
+        else:
+            raise AssertionError(f"{name} was not refused")
+    phase(f"phase 18e refusals on the card: a CUDA {VLM_ARCH} smoke engine "
+          f"serves; a CUDA {AUDIO_ARCH} smoke engine builds; refused: "
+          + "; ".join(f"{k}: {v}" for k, v in refused.items()))
+    return {"vlm_engine_serves": True, "audio_engine_builds": True,
+            "refused": refused}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3161,6 +4056,17 @@ def main() -> int:
               "17d": phase17d(dev, args.seed)}
     print(json.dumps({"hybrid": hybrid}), flush=True)
 
+    # 18. the vlm and audio families: qwen2-vl-2b and whisper-large-v3
+    # served at full width over K3/K4 (K5/K6 paged), the KV kernels alone
+    # at their shapes, card vs CPU at smoke size, and the refusals (own
+    # generators) -----------------------------------------------------------
+    vlm_audio = {"18a": phase18a(dev, args.seed, prompts, warm, smi),
+                 "18b": phase18b(dev, args.seed, smi),
+                 "18c": phase18c(dev, args.seed),
+                 "18d": phase18d(dev, args.seed),
+                 "18e": phase18e(dev, args.seed)}
+    print(json.dumps({"vlm_audio": vlm_audio}), flush=True)
+
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
     layers = cfg.n_layers
@@ -4060,6 +4966,31 @@ def main() -> int:
             entry["hd256"] = {
                 fmt: {"us": t[key + "_us"], "bound_us": t[key + "_bound_us"]}
                 for fmt, t in hybrid["17b"]["times"].items()}
+        # qwen2-vl (18a: ring, paged and speculative runs, per decode step
+        # of the profiled windows) and whisper (18b: the prefill, 64 ring
+        # decode steps, a paged prefill and 8 steps)
+        name, va, vb = entry["name"], vlm_audio["18a"], vlm_audio["18b"]
+        entry["launches_vlm"] = {
+            "ring": va["ring"]["launches"][name],
+            "paged": va["paged"]["launches"][name],
+            "speculative_ring_gamma2":
+                va["speculative_ring_gamma2"]["launches"][name],
+            "embeds_prefill_and_16_steps": va["embeds"]["launches"][name],
+            "per_decode_step_ring": va["ring"]["profiled"][
+                "wrapper_launches_per_step"].get(name, 0),
+            "per_decode_step_paged": va["paged"]["profiled"][
+                "wrapper_launches_per_step"].get(name, 0)}
+        entry["launches_audio"] = {
+            "prefill": vb["prefill_launches"][name],
+            "ring_64_steps": vb["launches"][name],
+            "per_decode_step": vb["launches"][name] / 64,
+            "paged_prefill_and_8_steps": vb["paged_launches"][name]}
+        key = {"kv_append_rows": "k3", "decode_attention": "k4",
+               "paged_kv_append_rows": "k5",
+               "paged_decode_attention": "k6"}.get(name)
+        if key is not None:                     # 18c: posit8 at their shapes
+            for label, c in vlm_audio["18c"].items():
+                entry[label] = c["times_posit8"][key]
     print(json.dumps({"kernels": out}), flush=True)
 
     # last line ---------------------------------------------------------

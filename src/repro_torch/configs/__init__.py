@@ -1,9 +1,8 @@
 """Architecture registry: ``get_config(arch, smoke=...)`` under the
 reference's arch ids.  Each module defines ``full()`` (the published
 config) and ``smoke()`` (a reduced same-family config for CPU tests).
-The dense, MoE, SSM and hybrid families are ported; the archs of the
-other families (vlm, audio) are registered by name and raise
-``NotImplementedError``."""
+Every family of the reference is ported: dense, MoE, SSM, hybrid, vlm
+and audio."""
 from __future__ import annotations
 
 import importlib
@@ -17,27 +16,21 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b",
     "mamba2-2.7b": "mamba2_2p7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-large-v3": "whisper_large_v3",
     # the paper's own deployment target
     "paper-edge": "paper_edge",
 }
 
-# archs of families this port does not carry yet, by family
-UNPORTED = {
-    "qwen2-vl-2b": "vlm",
-    "whisper-large-v3": "audio",
-}
+# archs of families this port does not carry yet, by family: none left
+# (the name stays for the callers that list the registry)
+UNPORTED: dict = {}
 
 ARCHS = tuple(_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False):
-    if arch in UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} ({UNPORTED[arch]} family) is not ported yet "
-            f"(this port carries {sorted(_MODULES)}; the other families "
-            "are a later slice)")
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(_MODULES) + sorted(UNPORTED)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
     return mod.smoke() if smoke else mod.full()

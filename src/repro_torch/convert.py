@@ -13,7 +13,8 @@ to it (exact) while the norm gains, the MoE router, the SSM's
 ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` and the RG-LRU's
 ``b_a``, ``b_x`` and ``Lambda`` stay float32, as the reference keeps them
 (the hybrid's conv taps are weights).  A hybrid's ``tail`` (a tuple of
-unstacked block dicts) crosses as ``blocks`` does.
+unstacked block dicts) and an audio model's ``enc_blocks`` cross as
+``blocks`` does, with its cross-attention leaves.
 """
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ from . import resolve_device
 from .core.formats import get
 from .core.quant import QuantizedTensor
 
-# leaves the reference keeps float32 in a bf16 model: the norm gains, the
-# MoE router (rounding it would move the routing), the SSM's decay, skip,
-# step bias and gated-norm gain, and the RG-LRU's gate biases and decay
-_F32_LEAVES = ("ln", "ln2", "final_norm", "q_norm", "k_norm", "router",
-               "A_log", "D", "dt_bias", "norm_scale", "b_a", "b_x", "Lambda")
+# leaves the reference keeps float32 in a bf16 model: the norm gains (the
+# cross-attention's and the encoder's too), the MoE router (rounding it
+# would move the routing), the SSM's decay, skip, step bias and gated-norm
+# gain, and the RG-LRU's gate biases and decay
+_F32_LEAVES = ("ln", "ln2", "ln_x", "final_norm", "enc_norm", "q_norm",
+               "k_norm", "router", "A_log", "D", "dt_bias", "norm_scale",
+               "b_a", "b_x", "Lambda")
 _BITS_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 
 

@@ -224,7 +224,9 @@ def hbm_bytes_per_param(policy: TCPolicy, role: str = "mlp_weights",
 
 _ROLE_BY_NAME = {
     "wq": "attn_weights", "wk": "attn_weights", "wv": "attn_weights",
-    "wo": "attn_weights", "wi": "mlp_weights", "wo_mlp": "mlp_weights",
+    "wo": "attn_weights", "wq_x": "attn_weights", "wk_x": "attn_weights",
+    "wv_x": "attn_weights", "wo_x": "attn_weights",
+    "wi": "mlp_weights", "wo_mlp": "mlp_weights",
     "wx": "mlp_weights", "wy": "mlp_weights", "w_out": "mlp_weights",
     "w_a": "mlp_weights", "w_x": "mlp_weights",
     "in_proj": "mlp_weights", "out_proj": "mlp_weights",
@@ -244,12 +246,18 @@ def pack_params(params, policy: TCPolicy):
     """Convert matrix weight leaves to packed posit QuantizedTensors per the
     policy's role formats (embeddings, norms and vectors stay unpacked).
 
-    Stacked ``blocks`` leaves keep their leading stack axis in the scale;
-    output projections (``wo``, ``wo_mlp``, ``w_out``, ``out_proj``) scale
-    per input row, the rest per output column, as in the reference.  The
-    recurrent block's ``wx``, ``wy``, ``w_out`` and the RG-LRU's ``w_a`` /
-    ``w_x`` are packed under ``mlp_weights`` as the reference packs them,
-    though its fake-quant serving path computes them unhooked."""
+    The reference's channel rule: an output projection (``wo``,
+    ``wo_mlp``, ``w_out``, ``out_proj``, ``wo_x``) not under ``moe``
+    keeps axis ``ndim - 2`` (a scale per input row), every other leaf
+    ``ndim - 1`` (per output column): an MoE expert's ``wo`` (E, f, d) is
+    scaled per output column over its expert and input axes.  Leaves
+    under ``blocks`` (rank >= 3) also keep their leading stack axis; the
+    reference keys "stacked" on ``blocks`` alone, so an audio model's
+    ``enc_blocks`` leaves share one scale across their layers, as there.
+    The recurrent block's ``wx``, ``wy``, ``w_out``, the RG-LRU's ``w_a``
+    / ``w_x`` and the cross-attention's ``*_x`` are packed under their
+    roles as the reference packs them, though its fake-quant serving path
+    computes them unhooked."""
 
     def pack(path, w):
         name = next((k for k in reversed(path) if isinstance(k, str)), None)
@@ -260,8 +268,9 @@ def pack_params(params, policy: TCPolicy):
         if f is None or not isinstance(get(f), PositFormat):
             return w
         stacked = path[0] == "blocks" and w.ndim >= 3
-        ch = w.ndim - 2 if name in ("wo", "wo_mlp", "w_out", "out_proj") \
-            else w.ndim - 1
+        out_in = (name in ("wo", "wo_mlp", "w_out", "out_proj", "wo_x")
+                  and "moe" not in path)
+        ch = w.ndim - 2 if out_in else w.ndim - 1
         keep = {ch} | ({0} if stacked else set())
         axis = tuple(i for i in range(w.ndim) if i not in keep)
         return quant.quantize(w, get(f), axis=axis)

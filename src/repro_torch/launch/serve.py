@@ -9,11 +9,14 @@ requests through the three-stage engine.
 Runs on one device: the GPU by default (raises without one), the CPU with
 ``--device cpu``.  Smoke-scale by default; ``--full`` selects the full
 config (124.7 M params for paper-edge).  ``--arch`` takes any registered
-arch of the dense, MoE, SSM and hybrid families; an SSM stack
-(``mamba2-2.7b``) and a hybrid stack (``recurrentgemma-9b``, its
-attention rings min(window, max_len) rows) serve the ring layout only
-(``--kv-layout paged`` is refused) and not ``--speculative``.  Weights are random, drawn from a
-generator seeded with 0.
+arch; an SSM stack (``mamba2-2.7b``) and a hybrid stack
+(``recurrentgemma-9b``, its attention rings min(window, max_len) rows)
+serve the ring layout only (``--kv-layout paged`` is refused) and not
+``--speculative``; a vlm stack (``qwen2-vl-2b``) serves text prompts in
+every mode; an audio stack (``whisper-large-v3``) exits with the engine's
+``ValueError`` at its first admission (a prompt carries no frames: serve
+it through ``models.serve_model.prefill`` and ``decode_step``).  Weights
+are random, drawn from a generator seeded with 0.
 
 The synchronous path serves ``--requests`` prompts through
 ``ServingEngine.serve`` (``SpeculativeEngine`` with ``--speculative``).

@@ -1,11 +1,12 @@
 """Shared model components: init, RMSNorm, the causal depthwise conv
-(Mamba-2's and the recurrent block's), RoPE, the training loss (port of
-``repro.models.common``)."""
+(Mamba-2's and the recurrent block's), RoPE and M-RoPE, Whisper's
+sinusoid positions, the training loss (port of ``repro.models.common``)."""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -80,6 +81,37 @@ def apply_rope(x, cos, sin):
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def mrope_freqs(d_head: int, theta: float, positions_3d,
+                sections=(16, 24, 24)):
+    """Qwen2-VL M-RoPE: the rotary half splits into (temporal, height,
+    width) sections, each rotated by its own position stream.
+    positions_3d: (3, B, S) int -> cos/sin (B, S, d_head/2) f32.  With the
+    frontend stubbed all three streams carry the text position, which
+    gives 1-D RoPE's values exactly."""
+    half = d_head // 2
+    assert sum(sections) == half, (sections, half)
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=positions_3d.device) / half))
+    coss, sins = [], []
+    off = 0
+    for i, sec in enumerate(sections):
+        ang = positions_3d[i].to(torch.float32)[..., None] * inv[off:off + sec]
+        coss.append(torch.cos(ang))
+        sins.append(torch.sin(ang))
+        off += sec
+    return torch.cat(coss, -1), torch.cat(sins, -1)
+
+
+def sinusoid_positions(seq: int, dim: int, device=None):
+    """Whisper's fixed sinusoid embeddings (S, d) f32, computed in numpy
+    float64 as the reference computes them."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Decoder-only language model: config, init, the training forward and
-loss, and the per-block pieces the serving path uses (port of
-``repro.models.lm``, dense, MoE, SSM and hybrid families).
+"""The language model: config, init, the training forward and loss, and
+the per-block pieces the serving path uses (port of ``repro.models.lm``,
+every family: dense, MoE, SSM, hybrid, vlm and audio).
 
 Params are a plain dict with the reference's leaf names:
 ``{"embed", "final_norm", "lm_head", "blocks": ({"ln", "wq", "wk", "wv",
@@ -19,6 +19,20 @@ position, each stacked over the ``n_periods`` whole periods, and the
 is ``{"ln", "wx", "wy", "conv_w", "rglru": {"w_a", "b_a", "w_x", "b_x",
 "Lambda"}, "w_out", "ln2", "wi", "wo_mlp"}`` (``models/rglru.py``); its
 attention blocks are local (``cfg.window``).
+
+The vlm family (Qwen2-VL) is the dense stack with M-RoPE (``cfg.mrope``:
+the rotary half split into temporal, height and width sections, each with
+its own position stream; the stub frontend gives all three the text
+position) and takes a batch of patch embeddings (``batch["embeds"]``, (B,
+S, d)) in place of tokens.  The audio family (Whisper) is an encoder-
+decoder: ``enc_blocks`` (one attention-block dict stacked over
+``enc_layers``) and ``enc_norm`` encode ``batch["frames"]`` (B, enc_seq,
+d) plus sinusoid positions, non-causal and without RoPE, and each decoder
+block adds cross-attention over that memory after its self-attention
+(``ln_x``, ``wq_x``, ``wk_x``, ``wv_x``, ``wo_x``).  The cross weights
+pass no hook (the reference's ``maybe_dequant`` only), though
+``pack_params`` and the energy model give them the ``attn_weights`` role;
+the encoder's blocks pass the hook as the decoder's do.
 
 The reference scans over the period axis; this port loops over layers in
 Python (``layer_block`` finds layer l's dict).  Every weight matmul of
@@ -42,11 +56,15 @@ from ..core.formats import PositFormat, get
 from ..core.transprecision import BF16, TCPolicy
 from .attention import blockwise_attention
 from .common import (_einsum, apply_rope, causal_conv, cross_entropy,
-                     dense_init, embed_init, rms_norm, rope_freqs)
+                     dense_init, embed_init, mrope_freqs, rms_norm,
+                     rope_freqs, sinusoid_positions)
 from .moe import init_moe, moe_ffn
 from .rglru import init_rglru, rglru
 from .ssm import dims as ssm_dims
 from .ssm import init_mamba2, mamba2_layer
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _round_up(x, m):
@@ -67,6 +85,7 @@ class ModelCfg:
     mlp: str = "swiglu"        # swiglu | gelu
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    mrope: bool = False                   # M-RoPE sections (vlm)
     window: Optional[int] = None          # sliding window of local attention
     pattern: tuple = ("attn",)            # cycled block types (hybrid)
     # MoE
@@ -80,21 +99,23 @@ class ModelCfg:
     ssm_chunk: int = 256
     ssm_groups: int = 1
     conv_kernel: int = 4
+    # audio (Whisper-style encoder-decoder)
+    enc_layers: int = 0
+    enc_seq: int = 1500
     dtype_name: str = "bfloat16"
     remat: str = "full"        # none | full (save block inputs only) |
                                # dots (recompute all but the weight
-                               # products; dense and MoE only)
+                               # products; attention-only decoder
+                               # stacks: dense, MoE, vlm)
     q_block: int = 512
     kv_block: int = 1024
     attn_vjp: str = "flash"    # flash (custom bwd) | naive (autograd loop)
     tie_embed: bool = False
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {self.family!r}: only the dense, moe, ssm and "
-                "hybrid families are ported (other families are a later "
-                "slice of the port)")
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}; known: "
+                             f"{FAMILIES}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -165,7 +186,11 @@ class ModelCfg:
             ffn = d * wi + self.d_ff * d
         block = (2 * d + d * (nh + 2 * nkv) * hd + nh * hd * d + ffn
                  + (2 * hd if self.qk_norm else 0))
-        return self.vocab_pad * d + d + head + self.n_layers * block
+        total = self.vocab_pad * d + d + head + self.n_layers * block
+        if self.family == "audio":    # cross-attention, encoder, enc_norm
+            cross = d + 2 * d * nh * hd + 2 * d * nkv * hd
+            total += self.n_layers * cross + self.enc_layers * block + d
+        return total
 
 
 def init_params(cfg: ModelCfg, generator: torch.Generator = None,
@@ -189,13 +214,20 @@ def init_params(cfg: ModelCfg, generator: torch.Generator = None,
     if cfg.n_tail:
         params["tail"] = tuple(_init_block(cfg, t, (), device, generator)
                                for t in cfg.tail_types)
+    if cfg.family == "audio":
+        params["enc_blocks"] = (_init_block(cfg, "attn", (cfg.enc_layers,),
+                                            device, generator, cross=False),)
+        params["enc_norm"] = torch.zeros((d,), dtype=torch.float32,
+                                         device=device)
     return params
 
 
-def _init_block(cfg: ModelCfg, btype: str, lead: tuple, device, generator):
+def _init_block(cfg: ModelCfg, btype: str, lead: tuple, device, generator,
+                cross: Optional[bool] = None):
     """One block type's leaves with a leading ``lead`` shape (the period
     axis, or () for a tail block): attention (norms, the dense MLP or the
-    MoE experts), Mamba-2 or the recurrent block."""
+    MoE experts; an audio decoder block's cross-attention unless ``cross``
+    is False), Mamba-2 or the recurrent block."""
     d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     def dense(*shape):
@@ -221,6 +253,10 @@ def _init_block(cfg: ModelCfg, btype: str, lead: tuple, device, generator):
            "wo": dense(nh * hd, d)}
     if cfg.qk_norm:
         blk["q_norm"], blk["k_norm"] = zeros(hd), zeros(hd)
+    if (cfg.family == "audio") if cross is None else cross:
+        blk.update(ln_x=zeros(d), wq_x=dense(d, nh * hd),
+                   wk_x=dense(d, nkv * hd), wv_x=dense(d, nkv * hd),
+                   wo_x=dense(nh * hd, d))
     blk["ln2"] = zeros(d)
     if cfg.family == "moe":
         blk["moe"] = init_moe(d, cfg.d_ff, cfg.moe_experts, cfg.dtype,
@@ -335,33 +371,84 @@ def _qkv(p, x, cfg: ModelCfg, policy):
 
 
 def _rope_cs(cfg: ModelCfg, positions):
+    """cos/sin of the rotary embedding at ``positions``.  Under M-RoPE
+    (``cfg.mrope``) positions are (B, S), broadcast to the three streams
+    (or (3, B, S) given), and the rotary half splits into sections
+    (half - 2 * 3 * (half // 8), 3 * (half // 8), 3 * (half // 8)): cos/sin
+    (B, S, half).  Else cos/sin (..., S, half) of 1-D RoPE."""
+    if cfg.mrope:
+        pos3 = (positions.expand((3,) + tuple(positions.shape))
+                if positions.ndim == 2 else positions)
+        half = cfg.head_dim // 2
+        sec = (half - 2 * ((half // 8) * 3), (half // 8) * 3,
+               (half // 8) * 3)
+        return mrope_freqs(cfg.head_dim, cfg.rope_theta, pos3, sections=sec)
     return rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
 
 
-def _attn_core(qp, kp, vp, cfg: ModelCfg):
-    """RoPE and causal attention (local where ``cfg.window`` is set) over
-    the projected heads -> (B, S, nh * hd)."""
+def seq_positions(cfg: ModelCfg, b: int, s: int, device):
+    """Positions 0..s-1 for ``_rope_cs``: (s,), or (b, s) under M-RoPE."""
+    pos = torch.arange(s, device=device)
+    return pos[None].expand(b, s) if cfg.mrope else pos
+
+
+def _attn_core(qp, kp, vp, cfg: ModelCfg, causal: bool = True):
+    """Attention over the projected heads -> (B, S, nh * hd): RoPE (or
+    M-RoPE) and causal attention, local where ``cfg.window`` is set; or,
+    for an encoder block (``causal`` False), no rotary embedding and no
+    mask."""
     b, s = qp.shape[:2]
-    cos, sin = _rope_cs(cfg, torch.arange(s, device=qp.device))
-    qp = apply_rope(qp, cos, sin)
-    kp = apply_rope(kp, cos, sin)
-    ao = blockwise_attention(qp, kp, vp, causal=True, window=cfg.window,
+    if causal:
+        cos, sin = _rope_cs(cfg, seq_positions(cfg, b, s, qp.device))
+        qp = apply_rope(qp, cos, sin)
+        kp = apply_rope(kp, cos, sin)
+    ao = blockwise_attention(qp, kp, vp, causal=causal,
+                             window=cfg.window if causal else None,
                              q_block=cfg.q_block, kv_block=cfg.kv_block,
                              vjp=cfg.attn_vjp)
     return ao.reshape(b, s, -1)
 
 
-def _attn_block(p, x, cfg: ModelCfg, policy, seg=_call):
-    """Training attention block (+MLP): dense, causal, RoPE, no
-    cross-attention.  ``seg`` runs the parts between the weight products
-    (the norms, RoPE + attention, the MLP's activation): called directly,
-    or ``_recompute`` for remat "dots" (the MoE FFN runs outside any
-    segment).  Returns (x, aux)."""
+def cross_kv(p, memory, cfg: ModelCfg):
+    """An audio decoder block's cross K/V over the encoder's ``memory``
+    (B, M, d): two (B, M, nkv, hd) projections through ``maybe_dequant``
+    only (the reference hooks no cross weight)."""
+    b, m = memory.shape[:2]
+    shape = (b, m, cfg.n_kv_heads, cfg.head_dim)
+    return tuple(_einsum("bsd,dk->bsk", memory,
+                         quant.maybe_dequant(p[name])).reshape(shape)
+                 for name in ("wk_x", "wv_x"))
+
+
+def cross_attend(p, x, cfg: ModelCfg, kx, vx):
+    """x + the cross-attention of the block's stream ``x`` over cross K/V
+    (``ln_x``, ``wq_x``, non-causal blockwise attention, ``wo_x``)."""
+    b, s = x.shape[:2]
+    qx = _einsum("bsd,dk->bsk", rms_norm(x, p["ln_x"]),
+                 quant.maybe_dequant(p["wq_x"])).reshape(
+        b, s, cfg.n_heads, cfg.head_dim)
+    xo = blockwise_attention(qx, kx, vx, causal=False, q_block=cfg.q_block,
+                             kv_block=cfg.kv_block, vjp=cfg.attn_vjp)
+    return x + _einsum("bsk,kd->bsd", xo.reshape(b, s, -1),
+                       quant.maybe_dequant(p["wo_x"]))
+
+
+def _attn_block(p, x, cfg: ModelCfg, policy, seg=_call, memory=None,
+                causal=True):
+    """Training attention block (+MLP): causal with RoPE (M-RoPE under
+    ``cfg.mrope``), or an encoder block (``causal`` False: no rotary
+    embedding, no mask); an audio decoder block attends over the encoder's
+    ``memory`` after its self-attention.  ``seg`` runs the parts between
+    the weight products (the norms, RoPE + attention, the MLP's
+    activation): called directly, or ``_recompute`` for remat "dots" (the
+    MoE FFN runs outside any segment).  Returns (x, aux)."""
     h = seg(rms_norm, x, p["ln"])
     qp, kp, vp = _qkv(p, h, cfg, policy)
-    ao = seg(_attn_core, qp, kp, vp, cfg)
+    ao = seg(_attn_core, qp, kp, vp, cfg, causal)
     ao = _einsum("bsk,kd->bsd", ao, _qw(policy, "attn_weights")(p["wo"]))
     x = x + ao
+    if memory is not None:
+        x = cross_attend(p, x, cfg, *cross_kv(p, memory, cfg))
     mo, aux = ffn(p, seg(rms_norm, x, p["ln2"]), cfg, policy, seg)
     return x + mo, aux
 
@@ -399,45 +486,76 @@ def rec_mix(p, x, cfg: ModelCfg, h0=None):
     return x + out, h_last
 
 
-def _run_stack(params, x, cfg: ModelCfg, policy):
+def _check_remat(cfg: ModelCfg) -> None:
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
+    if cfg.remat == "dots" and (set(cfg.block_types) - {"attn"}
+                                or cfg.family == "audio"):
+        raise NotImplementedError(
+            f"remat='dots' is not ported for the {cfg.family} family (use "
+            "'full' or 'none')")
+
+
+def _layer(block, p_i, x, cfg: ModelCfg, policy, *extra):
+    """One layer under ``cfg.remat``: in ``torch.utils.checkpoint`` for
+    "full", with ``_recompute`` segments for "dots", plainly for "none"."""
+    if cfg.remat == "full":
+        return checkpoint(block, p_i, x, cfg, policy, _call, *extra,
+                          use_reentrant=False)
+    return block(p_i, x, cfg, policy,
+                 _recompute if cfg.remat == "dots" else _call, *extra)
+
+
+def _run_stack(params, x, cfg: ModelCfg, policy, memory=None):
     """The layer stack: a Python loop over the layers (``layer_block``),
-    each layer the block of its type.  Under ``remat="full"`` each layer runs
-    in ``torch.utils.checkpoint`` (only the block inputs are saved; the
+    each layer the block of its type (an audio decoder block attends over
+    ``memory``).  Under ``remat="full"`` each layer runs in
+    ``torch.utils.checkpoint`` (only the block inputs are saved; the
     block recomputes in the backward).  Under ``"dots"`` (attention
     blocks) the weights' fake-quant and the weight products (``bsd,df``)
     run outside any checkpoint, so autograd keeps the products and their
     operands, and the norms, RoPE + attention and the MLP's activation
     recompute (the reference's ``dots_with_no_batch_dims_saveable`` keeps
-    the products alone and recomputes the fake-quant too).  The SSM and
-    recurrent blocks have no "dots" segmentation yet."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
-    if cfg.remat == "dots" and set(cfg.block_types) - {"attn"}:
-        raise NotImplementedError(
-            f"remat='dots' is not ported for the {cfg.family} family (use "
-            "'full' or 'none')")
+    the products alone and recomputes the fake-quant too).  The SSM,
+    recurrent and audio decoder blocks have no "dots" segmentation yet."""
     blocks = {"attn": _attn_block, "ssm": _ssm_block, "rec": _rec_block}
     aux = 0.0
     for l in range(cfg.n_layers):
         btype, p_i = layer_block(params, cfg, l)
-        block = blocks[btype]
-        if cfg.remat == "full":
-            x, a = checkpoint(block, p_i, x, cfg, policy,
-                              use_reentrant=False)
-        else:
-            x, a = block(p_i, x, cfg, policy,
-                         _recompute if cfg.remat == "dots" else _call)
+        extra = (memory,) if memory is not None else ()
+        x, a = _layer(blocks[btype], p_i, x, cfg, policy, *extra)
         aux = aux + a
     return x, aux
 
 
+def encode_audio(params, frames, cfg: ModelCfg, policy):
+    """The audio encoder: ``frames`` (B, enc_seq, d) plus the sinusoid
+    positions, in the model's dtype, through the ``enc_layers`` encoder
+    blocks (non-causal, no RoPE, weights through the policy's hook), then
+    ``enc_norm``: the memory (B, enc_seq, d) the decoder attends over."""
+    pe = sinusoid_positions(frames.shape[1], cfg.d_model, frames.device)
+    x = frames.to(cfg.dtype) + pe.to(cfg.dtype)
+    for l in range(cfg.enc_layers):
+        p = layer_params(params["enc_blocks"][0], l)
+        x, _ = _layer(_attn_block, p, x, cfg, policy, None, False)
+    return rms_norm(x, params["enc_norm"])
+
+
 def forward(params, batch, cfg: ModelCfg, policy: TCPolicy = BF16):
     """Training / scoring forward: returns (logits (B, S, vocab_pad),
-    aux_loss): the MoE layers' summed load-balancing loss, 0 for the dense
-    family."""
-    emb_q = policy.quantize_weight(params["embed"], "embed_weights")
-    x = emb_q[batch["tokens"]].to(cfg.dtype)
-    x, aux = _run_stack(params, x, cfg, policy)
+    aux_loss): the MoE layers' summed load-balancing loss, 0 for the other
+    families.  A vlm batch may carry ``embeds`` in place of ``tokens``;
+    an audio batch carries ``frames``, which the encoder turns into the
+    decoder's cross-attention memory."""
+    _check_remat(cfg)
+    if cfg.family == "vlm" and "embeds" in batch:
+        x = batch["embeds"].to(cfg.dtype)
+    else:
+        emb_q = policy.quantize_weight(params["embed"], "embed_weights")
+        x = emb_q[batch["tokens"]].to(cfg.dtype)
+    memory = (encode_audio(params, batch["frames"], cfg, policy)
+              if cfg.family == "audio" else None)
+    x, aux = _run_stack(params, x, cfg, policy, memory)
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
     head = policy.quantize_weight(head, "embed_weights", node="lm_head")
@@ -471,7 +589,10 @@ def hoist_weight_quant(params, policy: TCPolicy):
     leaves pass none and stay raw.  A recurrent block's MLP (``wi``,
     ``wo_mlp``) passes the ``mlp_weights`` hook; ``wx``, ``wy``,
     ``w_out``, the conv taps and the RG-LRU's leaves pass none on the
-    reference's serving path and stay raw."""
+    reference's serving path and stay raw.  An audio model's encoder
+    blocks (``enc_blocks``) are hoisted as the decoder's attention blocks
+    are; the cross-attention weights (``*_x``) pass no hook and stay
+    raw."""
     q_attn, q_mlp = _qw(policy, "attn_weights"), _qw(policy, "mlp_weights")
 
     def per_layer(q, w):
@@ -516,6 +637,9 @@ def hoist_weight_quant(params, policy: TCPolicy):
     out["blocks"] = tuple(hoist(blk, per_layer) for blk in params["blocks"])
     if "tail" in params:
         out["tail"] = tuple(hoist(blk, _call) for blk in params["tail"])
+    if "enc_blocks" in params:
+        out["enc_blocks"] = tuple(hoist(blk, per_layer)
+                                  for blk in params["enc_blocks"])
     return out
 
 

@@ -36,6 +36,23 @@ runs at the prompt's exact length with the window mask and fills each
 ring from ``max(S - W, 0)``.  The paged layout with a window is refused
 (the reference's ``ValueError``).
 
+A vlm stack (Qwen2-VL) is the attention stack with M-RoPE: a scalar
+``pos`` becomes a (B, 1) position per slot.  Its prefill and decode step
+take the stub frontend's patch embeddings (``batch["embeds"]``, (B, S, d);
+``embeds=`` (B, 1, d)) in place of tokens.
+
+An audio stack (Whisper) adds, per decoder layer, cross K/V over the
+encoder's output: ``xk``/``xv`` (P, B, enc_seq, nkv, hd) in the model's
+dtype (never posit codes), in ring and paged caches alike, and a
+top-level ``memory`` (B, enc_seq, d).  Its prefill runs the encoder once
+on ``batch["frames"]`` (B, enc_seq, d), keeps its output in ``memory`` and
+each layer's cross K/V in ``xk``/``xv``; its decode step attends over them
+with the plain ``attention.decode_attention`` at ``cache_len = enc_seq``,
+as the reference does (it has no kernel there).  The reference's
+failures are the port's refusals: a prefill without ``frames``, a
+bucketed prefill, and packed (``QuantizedTensor``) encoder or cross
+weights.
+
 In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
 chunk pass of speculative decoding) write K/V rows into the cache tensors
 they are given (per-layer views of the stacked buffers) and return the
@@ -57,8 +74,9 @@ from ..kernels import kv_cache as kv_kernels
 from ..kernels import paged_kv as paged_kernels
 from . import attention
 from .common import _einsum, apply_rope, rms_norm
-from .lm import (ModelCfg, _mlp, _qkv, _qw, _rope_cs, embed_rows, ffn,
-                 layer_block, lm_head, rec_mix)
+from .lm import (ModelCfg, _mlp, _qkv, _qw, _rope_cs, cross_attend,
+                 cross_kv, embed_rows, encode_audio, ffn, layer_block,
+                 lm_head, rec_mix, seq_positions)
 from .rglru import rglru_step
 from .ssm import _split_streams, in_proj, init_mamba2_state, mamba2_layer
 
@@ -96,7 +114,12 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
     Paged: ``num_pages=None`` reserves the full pool (1 trash page + batch
     * Pmax) with the identity table (slot i owns pages 1 + i*Pmax ..), so
     standalone prefill/decode needs no allocator; an explicit
-    ``num_pages`` gives a zero (all-trash) table that the caller owns."""
+    ``num_pages`` gives a zero (all-trash) table that the caller owns.
+    An audio stack's attention blocks add cross K/V ``xk``/``xv`` (B,
+    enc_seq, nkv, hd) in the model's dtype (per slot in either layout),
+    and the cache a zero ``memory`` (B, enc_seq, d): in the model's dtype
+    under a posit KV format, else in the KV format's (the reference's
+    dtypes)."""
     paged = check_layout(policy)
     if paged and cfg.window:
         raise ValueError("paged KV layout does not support sliding-window "
@@ -136,10 +159,24 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
         return {"k": torch.zeros(r + (hd,), dtype=dt, device=device),
                 "v": torch.zeros(r + (hd,), dtype=dt, device=device)}
 
-    cache = _cache(tuple(block(t, (cfg.n_periods,)) for t in cfg.period),
+    def attn_block(btype, lead):
+        blk = block(btype, lead)
+        if cfg.family == "audio":
+            x_shape = lead + (batch, cfg.enc_seq, nkv, hd)
+            blk["xk"] = torch.zeros(x_shape, dtype=cfg.dtype, device=device)
+            blk["xv"] = torch.zeros(x_shape, dtype=cfg.dtype, device=device)
+        return blk
+
+    cache = _cache(tuple(attn_block(t, (cfg.n_periods,))
+                         for t in cfg.period),
                    batch, max_len, policy, paged, num_pages, device)
     if cfg.n_tail:
         cache["tail"] = tuple(block(t, ()) for t in cfg.tail_types)
+    if cfg.family == "audio":
+        mem_dt = dtype or (spec.dtype if spec is not None
+                           and not spec.is_posit else cfg.dtype)
+        cache["memory"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                      dtype=mem_dt, device=device)
     return cache
 
 
@@ -201,7 +238,10 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     b = x.shape[0]
     h = rms_norm(x, p["ln"])
     qp, kp, vp = _qkv(p, h, cfg, policy)
-    posv = pos[:, None] if pos.ndim else pos[None]
+    if pos.ndim:
+        posv = pos[:, None]
+    else:           # M-RoPE takes a (B, 1) position, 1-D RoPE a (1,) one
+        posv = pos.expand(b)[:, None] if cfg.mrope else pos[None]
     cos, sin = _rope_cs(cfg, posv)
     qp = apply_rope(qp, cos, sin)
     kp = apply_rope(kp, cos, sin)
@@ -224,6 +264,14 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     # K/V); the residual stream keeps the model dtype
     x = x + _einsum("bsk,kd->bsd", ao.reshape(b, 1, -1),
                     _qw(policy, "attn_weights")(p["wo"])).to(x.dtype)
+    if "xk" in c:       # audio: cross-attention over the encoder's K/V
+        qx = _einsum("bsd,dk->bsk", rms_norm(x, p["ln_x"]),
+                     maybe_dequant(p["wq_x"])).reshape(
+            b, 1, cfg.n_heads, cfg.head_dim)
+        xo = attention.decode_attention(qx, c["xk"], c["xv"],
+                                        c["xk"].shape[1])
+        x = x + _einsum("bsk,kd->bsd", xo.reshape(b, 1, -1),
+                        maybe_dequant(p["wo_x"]))
     return x + _ffn(p, x, cfg, policy)
 
 
@@ -276,8 +324,9 @@ def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out):
 
 
 def decode_step(params, cache, tokens, cfg: ModelCfg,
-                policy: TCPolicy = BF16):
-    """One serving step. tokens: (B, 1) int.  Returns (logits (B,
+                policy: TCPolicy = BF16, embeds=None):
+    """One serving step. tokens: (B, 1) int, or ``embeds`` (B, 1, d) in
+    their place (a vlm stack's patch embeddings).  Returns (logits (B,
     vocab_pad), cache) with K/V rows written in place and ``pos`` + 1.
     Paged caches (``cache["page_table"]``) take per-slot positions; a
     scalar ``pos`` is broadcast to every slot.  An SSM stack's new states
@@ -286,7 +335,8 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
-    x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
+    x = (embeds.to(cfg.dtype) if embeds is not None else
+         embed_rows(params["embed"], tokens, policy).to(cfg.dtype))
     if cfg.family == "ssm":
         old = cache["blocks"][0]
         new = {k: torch.empty_like(v) for k, v in old.items()}
@@ -471,18 +521,27 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     ring rows from ``max(S - W, 0)``; each recurrent layer keeps the
     scan's last state and the last K-1 rows of its raw ``h @ wx`` stream.
     Packed (``QuantizedTensor``) recurrent weights raise ``TypeError``:
-    the reference's prefill reads ``wx`` raw and fails on them."""
+    the reference's prefill reads ``wx`` raw and fails on them.
+
+    A vlm batch may carry ``embeds`` (B, S, d) in place of ``tokens``
+    (exact length: no ``true_len``).  An audio batch carries ``tokens``
+    (the decoder prompt) and ``frames`` (B, enc_seq, d): the encoder runs
+    once, its output lands in ``cache["memory"]`` and each layer's cross
+    K/V in ``xk``/``xv``."""
     paged = check_layout(policy)
-    tokens = batch["tokens"]
-    dev = tokens.device
-    b, s = tokens.shape
+    if cfg.family == "audio":
+        _check_audio_prefill(params, batch)
+    x = _prefill_input(params, batch, cfg, policy)
+    dev = x.device
+    b, s = x.shape[:2]
     if paged and s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len} "
                          "for the paged KV layout")
-    x = embed_rows(params["embed"], tokens, policy).to(cfg.dtype)
     valid = None
     if true_len is not None:
-        if cfg.family != "dense":
+        if (set(cfg.block_types) != {"attn"} or cfg.window
+                or cfg.family in ("moe", "audio")
+                or (cfg.family == "vlm" and "embeds" in batch)):
             raise ValueError(
                 "bucketed prefill (true_len) needs a decoder-only "
                 "attention stack without MoE, sliding windows or "
@@ -501,7 +560,11 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
     ring_idx = (start + torch.arange(length, device=dev)) % w
     vm = None if valid is None else valid[:, start:start + length]
     positions = torch.arange(s, device=dev)
-    cos, sin = _rope_cs(cfg, positions)
+    cos, sin = _rope_cs(cfg, seq_positions(cfg, b, s, dev))
+    memory = None
+    if cfg.family == "audio":
+        memory = cache["memory"] = encode_audio(params, batch["frames"],
+                                                cfg, policy)
     if paged:
         ps = policy.kv_page_size
         rows2d = (cache["page_table"][:, positions // ps].long() * ps
@@ -557,8 +620,47 @@ def prefill(params, batch, cfg: ModelCfg, max_len: int,
         else:
             fill(c, "k", kp)
             fill(c, "v", vp)
+        if memory is not None:
+            kx, vx = cross_kv(p, memory, cfg)
+            x = cross_attend(p, x, cfg, kx, vx)
+            c["xk"].copy_(kx)
+            c["xv"].copy_(vx)
         x = x + _ffn(p, x, cfg, policy)
     return _prefill_logits(params, cache, x, cfg, true_len, paged)
+
+
+def _prefill_input(params, batch, cfg: ModelCfg, policy):
+    """The prefill's stack input: a vlm batch's ``embeds`` or the
+    embedding rows of ``tokens``, in the model's dtype."""
+    if cfg.family == "vlm" and "embeds" in batch:
+        return batch["embeds"].to(cfg.dtype)
+    return embed_rows(params["embed"], batch["tokens"], policy).to(cfg.dtype)
+
+
+def _check_audio_prefill(params, batch) -> None:
+    """An audio prefill's refusals, beside the reference's failures: a
+    batch without ``frames`` (the reference's ``KeyError``: its engine
+    passes tokens alone), and packed encoder or cross weights (the
+    reference's ``pack_params`` drops the encoder blocks' layer axis from
+    their scales, so its layer scan fails, and its prefill reads the cross
+    weights raw)."""
+    if "frames" not in batch:
+        raise ValueError(
+            "an audio (encoder-decoder) prefill needs batch['frames'], the "
+            "(B, enc_seq, d_model) frame embeddings, beside the decoder's "
+            "tokens; a tokens-only prompt (the engine's admission) has no "
+            "encoder input")
+    packed = [name for blk in params["enc_blocks"] for name, v in blk.items()
+              if isinstance(v, QuantizedTensor)]
+    packed += [name for blk in params["blocks"] for name, v in blk.items()
+               if name.endswith("_x") and isinstance(v, QuantizedTensor)]
+    if packed:
+        raise ValueError(
+            "an audio prefill over packed (QuantizedTensor) encoder or "
+            f"cross-attention weights ({sorted(set(packed))}) is refused: "
+            "the reference's pack_params scales enc_blocks across their "
+            "layers (it stacks only 'blocks') and its prefill fails on "
+            "them; serve unpacked weights")
 
 
 def _rec_prefill(p, c, x, cfg: ModelCfg, policy):

@@ -14,7 +14,12 @@ only (paged is refused at construction) and counts 0 KV-cache bytes.  A
 hybrid stack (Griffin) holds both: recurrent states and W = min(window,
 max_len)-row attention rings, prefills each prompt at its exact length and
 serves the ring layout only (paged is refused at construction, as the
-reference refuses a sliding window in a page pool).
+reference refuses a sliding window in a page pool).  A vlm stack serves
+text prompts as the dense one does, each prefilled at its exact length.
+An audio stack's engine builds (its cache adds the cross K/V, counted in
+the KV bytes as the reference counts them) but its first admission
+raises ``ValueError``: a request's prompt carries no frames for the
+encoder (the reference's engine raises ``KeyError: 'frames'``).
 
 Two KV layouts (``kv_layout``): ``ring`` reserves a dense max_len ring per
 slot; ``paged`` runs a shared posit page pool + per-sequence page tables
@@ -60,7 +65,8 @@ from .faults import FaultInjector, FaultPlan, RetryPolicy
 from .guard import GuardConfig, NumericGuard
 from .paged import PageAllocator, SlotPages, pages_for
 
-_KV_LEAF_NAMES = ("k", "v", "k_scale", "v_scale")
+_KV_LEAF_NAMES = ("k", "v", "k_scale", "v_scale", "xk", "xv")
+_POOL_LEAF_NAMES = ("k", "v", "k_scale", "v_scale")
 
 
 @dataclasses.dataclass
@@ -242,12 +248,13 @@ class ServingEngine:
 
     # ---- cache footprint ----
     def _kv_bytes(self, pool_frac: float = 1.0, cache=None) -> int:
-        """Bytes of the attention K/V leaves (codes + scales) of ``cache``
-        (default: the engine's target cache); the paged pool's leaves
-        scaled by an allocated-page fraction (another cache, such as the
-        speculative engine's draft ring, is never scaled).  Leaves are
-        summed in the reference's order (sorted names), scaled one by one,
-        so the float result truncates alike."""
+        """Bytes of the attention K/V leaves (codes + scales, and an audio
+        stack's cross K/V ``xk``/``xv``) of ``cache`` (default: the
+        engine's target cache); the paged pool's leaves scaled by an
+        allocated-page fraction (cross K/V does not page; another cache,
+        such as the speculative engine's draft ring, is never scaled).
+        Leaves are summed in the reference's order (sorted names), scaled
+        one by one, so the float result truncates alike."""
         paged = self.paged and cache is None
         cache = self.cache if cache is None else cache
         total = 0.0
@@ -256,7 +263,8 @@ class ServingEngine:
                 if name in _KV_LEAF_NAMES:
                     t = blk[name]
                     nbytes = t.numel() * t.element_size()
-                    total += nbytes * pool_frac if paged else nbytes
+                    total += (nbytes * pool_frac if paged
+                              and name in _POOL_LEAF_NAMES else nbytes)
         return int(total)
 
     def kv_cache_bytes(self) -> int:

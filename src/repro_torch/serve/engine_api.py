@@ -13,7 +13,9 @@
   hybrid family (its recurrence too, and its sliding window) prefill one
   prompt at its exact length, into a ``max_len``-wide prefix (a hybrid's
   attention rings are W = min(window, max_len) wide), as the reference
-  does.
+  does; so do the vlm and audio families, by the reference's rule.  An
+  audio engine builds but cannot admit: its prompts carry no frames (the
+  prefill raises ``ValueError``; the reference's raises ``KeyError``).
 * **Prefix = bucket-width cache.**  ``prefill`` returns a ``Prefix`` whose
   cache leaves are (B, bucket, ...) ring rows; ``insert`` copies one row's
   prefix into rows [0, bucket) of a slot's ring IN PLACE (an SSM or
@@ -165,12 +167,12 @@ class TransprecisionEngine:
         self.metrics = metrics
         self.stage_prefix = stage_prefix
         self.max_batch, self.max_len = max_batch, max_len
-        # bucketed (right-padded) prefill is exact only for decoder-only
-        # attention stacks without a sliding window (the reference's rule;
-        # the port carries no vision or audio stack); MoE, SSM and hybrid
-        # stacks keep exact-length prefill
+        # bucketed (right-padded) prefill only for decoder-only attention
+        # stacks without a sliding window, MoE, vision or audio inputs
+        # (the reference's rule); the others keep exact-length prefill
         self.bucketed = (all(bt == "attn" for bt in cfg.block_types)
-                         and not cfg.window and cfg.family != "moe")
+                         and not cfg.window
+                         and cfg.family not in ("moe", "audio", "vlm"))
         # chaos hardening (both None = a plain call): a FaultInjector whose
         # on_stage hook runs before every stage, and a RetryPolicy for
         # transient stage failures (serve/faults.py)

@@ -190,12 +190,15 @@ class SpeculativeEngine(ServingEngine):
         if slot is None:        # finished at admission (max_new<=1 / EOS)
             return True
         # mirror the prompt into the draft ring, so round 1 drafts from the
-        # target's committed prefix
+        # target's committed prefix (a bucket of it, or, where the engine is
+        # not bucketed (vlm), its exact length: the reference passes the
+        # lengths there too, which its unbucketed engine refuses)
         n = len(toks)
         pad = np.zeros((1, self.draft_engine.bucket_for(n)), np.int64)
         pad[0, :n] = toks
-        dpfx = self.draft_engine.prefill(self.draft_params,
-                                         torch.from_numpy(pad), [n])
+        dpfx = self.draft_engine.prefill(
+            self.draft_params, torch.from_numpy(pad),
+            [n] if self.draft_engine.bucketed else None)
         self.draft_cache = self.draft_engine.insert(dpfx, self.draft_cache,
                                                     slot)
         self.draft_pos[slot] = n

@@ -5,14 +5,23 @@ reference's (``repro.configs``).
   reference's field for field (the reference's fields the port does not
   carry, those of the unported families, sit at their defaults).
 * ``param_count()`` equals the reference's at full width (mamba2-2.7b:
-  2,702,624,256; recurrentgemma-9b: 7,483,699,200).
+  2,702,624,256; recurrentgemma-9b: 7,483,699,200; qwen2-vl-2b:
+  1,543,853,568; whisper-large-v3: 1,601,251,840).
+* ``pack_params`` equals the reference's leaf for leaf (codes and scales
+  bit-exact, the same scale shapes) on every registered smoke config
+  under ``paper_edge_p8`` (and ``serve_posit16`` for granite-moe and
+  whisper; the reference's packing jitted once per policy and arch): an
+  MoE expert's ``wo``
+  keeps its last axis, an audio model's ``enc_blocks`` share one scale
+  across their layers (the reference stacks only ``blocks``); a packed
+  granite-moe smoke decode step gives the reference's logits.
 * Greedy ``ServingEngine`` streams token-identical to the reference's at
   float32 (posit8 KV ring, ``paper_edge_p8``) for the four dense smoke
   configs: qk_norm with d_head != d_model / n_heads (qwen3), a gelu MLP
   (starcoder2), tied embeddings and an odd vocabulary (granite-3), rope
   500k (llama3).
-* The archs of the unported families raise ``NotImplementedError`` naming
-  themselves.
+* The two archs that were left unported (the vlm and audio families)
+  build now; an unknown arch raises ``KeyError``.
 """
 import dataclasses
 
@@ -22,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
@@ -35,19 +45,22 @@ from test_torch_serve import jax_params_to_numpy  # noqa: E402
 
 PORTED = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b",
           "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "mamba2-2.7b",
-          "recurrentgemma-9b", "paper-edge")
+          "recurrentgemma-9b", "qwen2-vl-2b", "whisper-large-v3",
+          "paper-edge")
 DENSE = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b")
 UNPORTED = ("qwen2-vl-2b", "whisper-large-v3")
 PARAM_COUNTS = {"granite-moe-1b-a400m": 1_334_887_424,
                 "phi3.5-moe-42b-a6.6b": 41_874_100_224,
                 "mamba2-2.7b": 2_702_624_256,
-                "recurrentgemma-9b": 7_483_699_200}
+                "recurrentgemma-9b": 7_483_699_200,
+                "qwen2-vl-2b": 1_543_853_568,
+                "whisper-large-v3": 1_601_251_840}
 
 
 def test_registry_covers_the_reference():
     assert set(tconfigs.ARCHS) == set(PORTED)
-    assert set(tconfigs.ARCHS) | set(tconfigs.UNPORTED) \
-        == set(jconfigs.ARCHS) | {"paper-edge"}
+    assert not tconfigs.UNPORTED
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS) | {"paper-edge"}
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -74,9 +87,12 @@ def test_param_count_equals_reference(arch):
 
 def test_smoke_init_leaves_match_reference_shapes():
     """``lm.init_params`` builds the reference's tree for a dense tied
-    config and an MoE config: same leaf names, shapes and dtypes."""
+    config, an MoE config, the vlm and the audio config: same leaf names
+    and shapes (the audio model's cross leaves, ``enc_blocks`` and
+    ``enc_norm`` included)."""
     from repro_torch.models import lm as tlm
-    for arch in ("granite-3-8b", "granite-moe-1b-a400m", "qwen3-4b"):
+    for arch in ("granite-3-8b", "granite-moe-1b-a400m", "qwen3-4b",
+                 "qwen2-vl-2b", "whisper-large-v3"):
         jc = jconfigs.get_config(arch, smoke=True)
         tc = tconfigs.get_config(arch, smoke=True)
         jp = jax_params_to_numpy(jlm.init_params(jax.random.PRNGKey(0), jc))
@@ -125,9 +141,98 @@ def test_dense_greedy_streams_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match=arch):
-        tconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match=arch):
-        tconfigs.get_config(arch, smoke=True)
+    """The archs once unported build now, full and smoke, in their
+    families; only an unknown arch raises."""
+    family = {"qwen2-vl-2b": "vlm", "whisper-large-v3": "audio"}[arch]
+    assert tconfigs.get_config(arch).family == family
+    assert tconfigs.get_config(arch, smoke=True).family == family
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
+
+
+def _leaves(tree, prefix=""):
+    """{path: leaf} of a params tree (a port or a reference
+    QuantizedTensor is one leaf)."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _leaves(v, f"{prefix}/{k}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _leaves(v, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_pack_params_equals_reference(arch):
+    """The port's ``pack_params`` on the reference's smoke weights (via
+    the bridge) against the reference's on the same weights: the same
+    leaves packed, codes and scales bit-exact, scale shapes equal."""
+    from repro.core.transprecision import get_policy as j_get_policy
+    from repro.core.transprecision import pack_params as j_pack_params
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.core.transprecision import get_policy, pack_params
+    jc = jconfigs.get_config(arch, smoke=True)
+    jp = jlm.init_params(jax.random.PRNGKey(0), jc)
+    tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", torch.bfloat16)
+    j_pack = jax.jit(j_pack_params, static_argnums=(1,))
+    for policy in ("paper_edge_p8",) + (
+            ("serve_posit16",) if arch in ("granite-moe-1b-a400m",
+                                           "whisper-large-v3") else ()):
+        want = _leaves(params_from_numpy(jax_params_to_numpy(
+            j_pack(jp, j_get_policy(policy))), "cpu", torch.bfloat16))
+        got = _leaves(pack_params(tp, get_policy(policy)))
+        assert set(got) == set(want)
+        n_packed = 0
+        for path, t in got.items():
+            j = want[path]
+            assert isinstance(t, QuantizedTensor) == isinstance(
+                j, QuantizedTensor), (policy, path)
+            if isinstance(t, QuantizedTensor):
+                n_packed += 1
+                assert t.fmt.name == j.fmt.name, (policy, path)
+                assert tuple(t.scale.shape) == tuple(j.scale.shape), (
+                    policy, path, tuple(t.scale.shape))
+                assert torch.equal(t.data, j.data), (policy, path)
+                assert torch.equal(t.scale, j.scale), (policy, path)
+            else:
+                assert torch.equal(t, j), (policy, path)
+        assert n_packed > 0
+    if arch == "granite-moe-1b-a400m":     # an expert's wo: (P, E, f, d)
+        wo = pack_params(tp, get_policy("paper_edge_p8"))["blocks"][0][
+            "moe"]["wo"]
+        assert tuple(wo.scale.shape) == (2, 1, 1, 64)
+
+
+def test_packed_moe_decode_equals_reference():
+    """A decode step of granite-moe smoke (float32) over ``pack_params``
+    weights (``paper_edge_p8``, posit8 KV) from a fresh cache, three
+    steps: the logits within 1e-5 of the reference's over its own packed
+    weights, greedy tokens equal."""
+    from repro.core.transprecision import get_policy as j_get_policy
+    from repro.core.transprecision import pack_params as j_pack_params
+    from repro.models import serve_model as jsm
+    from repro_torch.core.transprecision import get_policy, pack_params
+    from repro_torch.models import serve_model as tsm
+    arch = "granite-moe-1b-a400m"
+    jc = dataclasses.replace(jconfigs.get_config(arch, smoke=True),
+                             dtype_name="float32")
+    tc = dataclasses.replace(tconfigs.get_config(arch, smoke=True),
+                             dtype_name="float32")
+    jp = jlm.init_params(jax.random.PRNGKey(0), jc)
+    tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", tc.dtype)
+    jpol, tpol = j_get_policy("paper_edge_p8"), get_policy("paper_edge_p8")
+    jpk = jax.jit(j_pack_params, static_argnums=(1,))(jp, jpol)
+    tpk = pack_params(tp, tpol)
+    jcache = jsm.init_cache(jc, 2, 16, policy=jpol)
+    tcache = tsm.init_cache(tc, 2, 16, policy=tpol, device="cpu")
+    tok = np.array([[3], [77]], np.int32)
+    step = jax.jit(jsm.decode_step, static_argnums=(3, 4))
+    for _ in range(3):
+        jl, jcache = step(jpk, jcache, jnp.asarray(tok), jc, jpol)
+        tl, tcache = tsm.decode_step(tpk, tcache, torch.from_numpy(
+            tok.astype(np.int64)), tc, tpol)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=1e-5)
+        tok = np.asarray(jl)[:, :tc.vocab].argmax(-1)[:, None].astype(
+            np.int32)
+        assert (tl[:, :tc.vocab].argmax(-1).numpy() == tok[:, 0]).all()

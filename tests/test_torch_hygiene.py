@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor ``repro``,
 its entry points (ring and paged serving, the matmul kernel, training and
 the quickstart, speculative serving, the Trainer, the data shards, the
-train and serve launchers and the orchestrator) default to the GPU and
-raise without one, and the parts left to later slices raise
-``NotImplementedError``."""
+train and serve launchers, the orchestrator, the vlm and audio models'
+prefill and caches) default to the GPU and raise without one, and what is
+left to later work raises ``NotImplementedError`` (remat "dots" for the
+SSM, hybrid and audio blocks)."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -48,8 +50,11 @@ MOE = ("repro_torch.models.moe", "repro_torch.configs.granite_moe_1b",
        "repro_torch.configs.starcoder2_15b")
 # ... and of the hybrid family
 HYBRID = ("repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b")
+# ... and of the vlm and audio families
+VLM_AUDIO = ("repro_torch.configs.qwen2_vl_2b",
+             "repro_torch.configs.whisper_large_v3")
 REACHED = (SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY + MOE
-           + HYBRID)
+           + HYBRID + VLM_AUDIO)
 
 
 def _imported(tree):
@@ -125,11 +130,25 @@ def test_kernel_build_raises_without_nvcc():
 
 
 def test_later_slices_raise_not_implemented():
+    """Every family of the reference is ported (the vlm and audio ones
+    were the last slice): their configs build and an unknown family
+    raises ``ValueError``; remat "dots" for a block it does not segment
+    (the audio decoder's) raises ``NotImplementedError``."""
     cfg = get_config("paper-edge", smoke=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ModelCfg(family="vlm")
+    assert ModelCfg(family="vlm", mrope=True).family == "vlm"
+    assert get_config("qwen2-vl-2b").mrope
+    assert get_config("whisper-large-v3", smoke=True).enc_layers == 2
+    with pytest.raises(ValueError, match="unknown family"):
+        ModelCfg(family="diffusion")
+    audio = dataclasses.replace(get_config("whisper-large-v3", smoke=True),
+                                remat="dots")
+    audio_params = lm.init_params(audio, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
+             "labels": torch.zeros((1, 4), dtype=torch.long),
+             "frames": torch.zeros((1, audio.enc_seq, audio.d_model))}
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("qwen2-vl-2b")
+        lm.loss_fn(audio_params, batch, audio)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     # the numeric guard, fault injection and retry are ported (they were
@@ -140,11 +159,33 @@ def test_later_slices_raise_not_implemented():
                         retry=RetryPolicy())
     assert eng.guard is not None and eng.engine.retry is eng.retry
     assert eng.engine.faults is eng.faults is not None
-    # the energy accounting and the MoE, SSM and hybrid families are
-    # ported (they were a later slice); the vlm family is not
+    # the energy accounting and every family are ported (they were a
+    # later slice): the launcher serves the vlm arch
     from repro_torch.launch import serve as launch_serve
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch_serve.main(["--device", "cpu", "--arch", "qwen2-vl-2b"])
+    out = launch_serve.main(["--device", "cpu", "--arch", "qwen2-vl-2b",
+                             "--requests", "2", "--max-new", "2",
+                             "--batch", "2", "--max-len", "32"])
+    assert all(r.done and r.error is None for r in out["requests"])
+
+
+def test_vlm_and_audio_entry_points_default_to_gpu():
+    """The vlm and audio models' entry points (init, caches, the
+    pipeline's embeddings) run on the card unless the caller asks for
+    the CPU, and raise without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from repro_torch.data.pipeline import make_pipeline
+    for arch in ("qwen2-vl-2b", "whisper-large-v3"):
+        cfg = get_config(arch, smoke=True)
+        for call in (lambda: lm.init_params(cfg),
+                     lambda: serve_model.init_cache(cfg, 2, 32),
+                     lambda: make_pipeline(cfg, global_batch=2,
+                                           seq_len=8)(0)):
+            with pytest.raises(RuntimeError, match="no CUDA GPU"):
+                call()
+        cache = serve_model.init_cache(cfg, 2, 32, device="cpu")
+        assert cache["pos"].device.type == "cpu"
+        assert ("memory" in cache) == (cfg.family == "audio")
 
 
 def test_paged_entry_points_default_to_gpu():
