@@ -17,8 +17,10 @@ guard, runs the serve launcher, serves the full-width MoE model
 ``mamba2-2.7b`` and the full-width hybrid model ``recurrentgemma-9b`` in
 the ring, the full-width vision-language model ``qwen2-vl-2b`` in both
 layouts and speculatively and the full-width speech encoder-decoder
-``whisper-large-v3``, times every kernel and prints one JSON line per
-contract.  Needs one CUDA GPU; run from the
+``whisper-large-v3``, serves full-width paper-edge through the
+KV-sequence-sharded distributed decode (one NCCL rank, then two gloo
+ranks spawned on the one card), times every kernel and prints one JSON
+line per contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -102,7 +104,17 @@ cross-attention timed alone, then the paged layout for a prefill and 8
 steps; 18c K3/K4 and K5/K6 alone at hd 128 with 6 query heads per KV head
 and at hd 64 over 20 KV heads, in three formats, with times; 18d both
 smoke configs card vs CPU at float32; 18e the refusals on the card; a
-``{"vlm_audio": ...}`` JSON line.  Phase 12 runs
+``{"vlm_audio": ...}`` JSON line.  Phase 19 runs after 18 (own
+generators): full-width paper-edge (``paper_edge_p8``, phase 6's eight
+prompts x 32 tokens, max_len 1024) served first by the undistributed
+engine, ring and a posit8 pool of 258 16-row pages, at float32 and
+bf16; 19a one rank over NCCL (world 1, the production backend), ring,
+float32, through the distributed decode attention; 19b two processes
+spawned on the one card over gloo (a ``file://`` init in a temporary
+directory; NCCL refuses two ranks on one device), each holding half the
+KV sequence, both layouts and dtypes, with windows of decode steps for
+the step's wall, the profiler's kernel names and the combine's
+synchronised time; a ``{"distributed": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -256,6 +268,18 @@ Every phase asserts; nothing is caught.  Tolerances:
                  its first admission, SpeculativeEngine for it, a
                  true_len prefill of vlm embeddings and of audio, and an
                  audio prefill over packed weights raise ValueError.
+  distributed (19) every request gets its 32 tokens, every logit finite;
+                 float32 streams (19a, and both 19b ranks, ring and
+                 paged) equal to the undistributed engine's; both ranks'
+                 streams equal at bf16, whose first decode step's logits
+                 are within 0.1 of the undistributed engine's (the port's
+                 bf16 parity tolerance; tokens that agree counted); a
+                 rank's ring KV 26,738,688 B and pool KV half the
+                 undistributed engine's; 24 collectives a decode step,
+                 25,344 B a layer (304,128 B a step at max_len 512 and
+                 1024); K5 12 and K1 24 per decode step, K3 12 per
+                 prefill, the rest 0, by the wrappers' counts and, where
+                 its trace holds them, the profiler's kernel names.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -291,6 +315,8 @@ paged, speculative and embeddings runs' counts and per decode step) and
 ``launches_audio`` (18b: the prefill's, 64 ring steps', per step and the
 paged prefill and 8 steps'), and K3-K6's ``hd128_grp6`` and
 ``hd64_grp1``, 18c's posit8 times at those shapes beside their bounds;
+every entry carries ``launches_distributed`` (19a's served run, 19b rank
+0's ring and paged float32 runs, and per decode step);
 K2's ``launches`` are
 the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
@@ -302,6 +328,7 @@ trace and read "not measured" where the trace holds no device events.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -311,6 +338,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3143,6 +3171,423 @@ def phase18e(dev, seed) -> dict:
             "refused": refused}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the KV-sequence-sharded distributed decode
+# ---------------------------------------------------------------------------
+
+DIST_PAGES = 258            # the first count >= 6c's 257 that 2 ranks divide
+# a rank's ring at world 2: 12 layers x (2 x 8*512*4*64 B of posit8 codes +
+# 2 x 8*512*4*4 B of f32 scales), half of the undistributed 53,477,376 B
+DIST_KV_RANK_BYTES = 26_738_688
+# the combine per layer at B 8: o 8*4*3*64 f32 + m and l 8*4*3 f32 each
+DIST_COMBINE_LAYER_BYTES = 25_344
+DIST_WINDOW = 5             # steps per timed / profiled / collective window
+RUNS19 = (("float32", "ring"), ("float32", "paged"), ("bfloat16", "ring"),
+          ("bfloat16", "paged"))
+
+
+@contextlib.contextmanager
+def counted_collectives(timed: bool = False):
+    """Count the ``torch.distributed.all_reduce`` calls made inside the
+    block and the bytes they carry; ``timed`` also synchronises the card
+    around each call and sums their host-clock seconds (the combine's
+    time: the wait included)."""
+    import torch
+    import torch.distributed as dist
+    real = dist.all_reduce
+    log = {"calls": 0, "bytes": 0, "s": 0.0}
+
+    def counted(t, *a, **kw):
+        log["calls"] += 1
+        log["bytes"] += t.numel() * t.element_size()
+        if not timed:
+            return real(t, *a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        log["s"] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = counted
+    try:
+        yield log
+    finally:
+        dist.all_reduce = real
+
+
+def run19(dev, seed, prompts, warm, *, distributed: bool, runs,
+          windows: bool = False, num_pages: int = DIST_PAGES) -> dict:
+    """Serve phase 6's eight prompts (32 new tokens each) at full width
+    through fresh ``ServingEngine``s, one per (dtype, layout) of ``runs``:
+    paper-edge with seeded weights (``seed + 19``, so every process draws
+    the same), ``paper_edge_p8``, max batch 8, max_len 1024, the ring or a
+    posit8 pool of ``num_pages`` 16-row pages; ``distributed`` plugs the
+    KV-sequence-sharded decode attention of the initialised process group.
+    Each run: a warm-up request, then every kernel count and the
+    collective counter set to 0 just before the serve and read just after.
+    Returns, per run, the streams, the first decode step's logits, the
+    launches, steps, prefill calls, KV bytes and collectives; asserts
+    every request got its 32 tokens and every logit is finite.  With
+    ``windows`` (float32 ring, distributed): the 8 prompts readmitted,
+    then three windows of ``DIST_WINDOW`` decode steps, 8 slots live:
+    wall and wrapper launches per step; the profiler's kernel names per
+    step; the collectives per step, synchronised and timed; and the
+    combine's bytes of one ``make_distributed_decode_step`` call on a
+    fresh rank-local cache at max_len 512 and 1024."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy, kv_storage
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm, serve_model
+    from repro_torch.serve import (Request, ServeConfig, ServingEngine,
+                                   distributed_decode_attention,
+                                   make_distributed_decode_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = kv_storage(dataclasses.replace(get_policy("paper_edge_p8"),
+                                          kv_format="posit8"))
+    out = {}
+    for dtype_name in sorted({d for d, _ in runs}, reverse=True):
+        cfg = dataclasses.replace(get_config("paper-edge"),
+                                  dtype_name=dtype_name)
+        n_l = cfg.n_layers
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed + 19), device=dev)
+        for layout in ("ring", "paged"):
+            if (dtype_name, layout) not in runs:
+                continue
+            kw = ({"kv_layout": "paged", "page_size": PS,
+                   "num_pages": num_pages} if layout == "paged" else {})
+            plug = (distributed_decode_attention(
+                kv_spec=spec, paged=layout == "paged", page_size=PS)
+                if distributed else None)
+            eng = ServingEngine(cfg, params, ServeConfig(
+                max_batch=B, max_len=W, kv_format="posit8", **kw),
+                policy="paper_edge_p8", attn_impl=plug, device=dev)
+            nonfinite = []
+            checked_stages(eng, nonfinite)
+            eng.serve([Request(uid=-1, prompt=warm, max_new=3)])
+            first = []
+            generate = eng.engine.generate
+
+            def recorded(p, state, generate=generate, first=first):
+                state, logits = generate(p, state)
+                if not first:
+                    first.append(logits.float().cpu())
+                return state, logits
+
+            eng.engine.generate = recorded
+            reqs = [Request(uid=i, prompt=p, max_new=32)
+                    for i, p in enumerate(prompts)]
+            steps0 = eng.stats["decode_steps"]
+            calls = eng.metrics.counter("stage.prefill.calls")
+            calls0 = calls.value
+            torch.cuda.synchronize()
+            reset_launches()
+            with counted_collectives() as coll:
+                t0 = time.perf_counter()
+                eng.serve(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            steps = eng.stats["decode_steps"] - steps0
+            prefills = calls.value - calls0
+            assert not nonfinite, nonfinite
+            assert all(r.done and r.error is None and len(r.out_tokens) == 32
+                       for r in reqs)
+            want = {k: 0 for k in launches}
+            want["kv_append_rows"] = n_l * prefills
+            if distributed:
+                want["paged_kv_append_rows"] = n_l * steps
+                want["posit_decode"] = 2 * n_l * steps
+                assert coll["calls"] == 2 * n_l * steps, (coll, steps)
+                assert coll["bytes"] == DIST_COMBINE_LAYER_BYTES * n_l * \
+                    steps, (coll, steps)
+            elif layout == "ring":
+                want["kv_append_rows"] += n_l * steps
+                want["decode_attention"] = n_l * steps
+            else:
+                want["paged_kv_append_rows"] = n_l * steps
+                want["paged_decode_attention"] = n_l * steps
+            assert launches == want, (dtype_name, layout, launches, want)
+            run = {"tokens": [r.out_tokens for r in reqs],
+                   "first_logits": first[0], "launches": launches,
+                   "steps": steps, "prefill_calls": prefills,
+                   "kv_bytes": eng.kv_cache_bytes(), "wall_s": wall,
+                   "tok_s": 32 * len(reqs) / wall,
+                   "collectives": coll["calls"],
+                   "collective_bytes": coll["bytes"]}
+            if windows and dtype_name == "float32" and layout == "ring":
+                run["windows"] = _windows19(eng, prompts, n_l)
+                step = make_distributed_decode_step(cfg, eng.engine.policy)
+                tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+                per_len = {}
+                for max_len in (W // 2, W):
+                    cache = serve_model.init_cache(
+                        cfg, B, max_len, policy=eng.engine.policy,
+                        kv_shard=step.shard, device=dev)
+                    with counted_collectives() as c:
+                        step(eng.params, cache, tok)
+                    per_len[max_len] = c["bytes"]
+                assert set(per_len.values()) == {
+                    DIST_COMBINE_LAYER_BYTES * n_l}, per_len
+                run["combine_bytes_per_step_by_max_len"] = per_len
+            out[dtype_name, layout] = run
+            del eng
+            gc.collect()
+        del params
+    return out
+
+
+def _windows19(eng, prompts, n_l: int) -> dict:
+    """The three decode-step windows of ``run19`` on a distributed float32
+    ring engine, after readmitting the 8 prompts (one bucketed prefill)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import Request
+    assert all(eng.add_requests([Request(uid=100 + i, prompt=p, max_new=32)
+                                 for i, p in enumerate(prompts)]))
+
+    def step():
+        eng.cache, logits = eng.engine.generate(eng.params, eng.cache)
+        logits.float().cpu()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(DIST_WINDOW):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / DIST_WINDOW
+    per_step = {k: v / DIST_WINDOW for k, v in LAUNCHES.items() if v}
+    assert per_step == {"paged_kv_append_rows": n_l,
+                        "posit_decode": 2 * n_l}, per_step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(DIST_WINDOW):
+            step()
+        torch.cuda.synchronize()
+    n_kernels = {}
+    per_kernel = device_events(prof, n_kernels)
+    traced = {k: n_kernels.get(k, 0) / DIST_WINDOW for k in PORT_KERNEL_NAMES}
+    if per_kernel:          # a trace with no device events: not measured
+        assert traced == {k: {"posit_decode_kernel": 2 * n_l,
+                              "append_kernel": n_l}.get(k, 0)
+                          for k in traced}, traced
+    busy = (sum(per_kernel.values()) / DIST_WINDOW / 1e3 if per_kernel
+            else None)
+    with counted_collectives(timed=True) as coll:
+        t0 = time.perf_counter()
+        for _ in range(DIST_WINDOW):
+            step()
+        torch.cuda.synchronize()
+        timed_ms = 1e3 * (time.perf_counter() - t0) / DIST_WINDOW
+    assert coll["calls"] == 2 * n_l * DIST_WINDOW, coll
+    assert coll["bytes"] == DIST_COMBINE_LAYER_BYTES * n_l * DIST_WINDOW, \
+        coll
+    return {"step_wall_ms": wall_ms, "wrapper_launches_per_step": per_step,
+            "traced_port_kernels_per_step": traced,
+            "device_busy_ms": busy,
+            "kernel_launches_per_step":
+                sum(n_kernels.values()) / DIST_WINDOW if per_kernel else None,
+            "collectives_per_step": coll["calls"] / DIST_WINDOW,
+            "combine_bytes_per_step": coll["bytes"] / DIST_WINDOW,
+            "combine_ms_per_step": 1e3 * coll["s"] / DIST_WINDOW,
+            "step_wall_ms_with_timed_combine": timed_ms}
+
+
+def rank19(rank: int, world: int, root: str, backend: str, seed: int,
+           prompts, warm, device: str, num_pages: int) -> None:
+    """A rank process of ``run_ranks``: its ``device``, the ``backend``
+    group through ``file://<root>/group``, ``run19`` distributed over
+    every (dtype, layout) with the windows; its results in
+    ``<root>/rank<rank>.pt``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{root}/group",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = run19(dev, seed, prompts, warm, distributed=True,
+                    runs=RUNS19, windows=True, num_pages=num_pages)
+        torch.save(out, Path(root) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, devices, backend: str, seed: int, prompts, warm,
+              plain: dict, num_pages: int, timeout: float = 600) -> dict:
+    """Spawn ``world`` rank processes (rank r on ``devices[r]``) joined over
+    ``backend`` through a ``file://`` init in a temporary directory, each
+    serving ``run19``'s requests through the distributed decode attention
+    with 1/``world`` of the KV sequence, and hold them to ``plain``, the
+    undistributed ``run19`` of the same requests and pool: per run of
+    ``RUNS19``, the streams of every rank equal; every rank's KV bytes
+    1/``world`` of the undistributed engine's; at float32 the streams equal
+    the undistributed engine's; at bf16 the first decode step's logits
+    within 0.1 of its (the port's bf16 parity tolerance), the tokens that
+    agree counted.  Returns the comparison per run, every rank's float32
+    ring windows and rank 0's combine bytes by max_len."""
+    import torch
+    import torch.multiprocessing as mp
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host's ranks
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=rank19,
+                             args=(r, world, root, backend, seed, prompts,
+                                   warm, devices[r], num_pages))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=timeout)
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        assert not alive, f"ranks still running after {timeout} s: {alive}"
+        assert [p.exitcode for p in procs] == [0] * world, [
+            p.exitcode for p in procs]
+        ranks = [torch.load(Path(root) / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"world": world, "backend": backend, "num_pages": num_pages,
+           "ranks_s": time.perf_counter() - t0}
+    for key in RUNS19:
+        dtype_name, layout = key
+        want, got = plain[key], [r[key] for r in ranks]
+        assert all(g["tokens"] == got[0]["tokens"] for g in got), key
+        assert all(world * g["kv_bytes"] == want["kv_bytes"] for g in got), (
+            key, [g["kv_bytes"] for g in got], want["kv_bytes"])
+        diff = float((got[0]["first_logits"]
+                      - want["first_logits"]).abs().max())
+        agree = sum(a == b for x, y in zip(got[0]["tokens"], want["tokens"])
+                    for a, b in zip(x, y))
+        if dtype_name == "float32":
+            assert got[0]["tokens"] == want["tokens"], key
+        else:
+            assert diff < 0.1, (key, diff)
+        out[f"{dtype_name}_{layout}"] = {
+            "tokens_equal_undistributed": agree, "of": 32 * len(prompts),
+            "first_step_max_abs_logit_diff": diff,
+            "ranks_logits_equal": all(
+                torch.equal(g["first_logits"], got[0]["first_logits"])
+                for g in got),
+            "kv_bytes_rank": got[0]["kv_bytes"],
+            "kv_bytes_undistributed": want["kv_bytes"],
+            "launches_rank0": got[0]["launches"], "steps": got[0]["steps"],
+            "prefill_calls": got[0]["prefill_calls"],
+            "collectives_rank0": got[0]["collectives"],
+            "collective_bytes_rank0": got[0]["collective_bytes"],
+            "tok_s_ranks": [g["tok_s"] for g in got],
+            "tok_s_undistributed": want["tok_s"]}
+    out["windows"] = [r["float32", "ring"]["windows"] for r in ranks]
+    out["combine_bytes_per_step_by_max_len"] = ranks[0]["float32", "ring"][
+        "combine_bytes_per_step_by_max_len"]
+    return out
+
+
+def phase19(dev, seed, prompts, warm, card: str) -> dict:
+    """19. The KV-sequence-sharded distributed decode on the one card
+    (NCCL refuses two ranks on one device): full-width paper-edge,
+    ``paper_edge_p8``, phase 6's eight prompts x 32 new tokens (up to 894
+    tokens: the ring's rows [512, 1024) are live).  First the
+    undistributed engine in both layouts at float32 and bf16 (the ring;
+    a posit8 pool of 258 16-row pages).  19a: one rank over NCCL (world
+    1), ring, float32: its streams equal the undistributed engine's.  19b:
+    ``run_ranks`` with two processes on ``cuda:0`` over gloo, each holding
+    half the KV sequence (ring rows [0, 512) / [512, 1024); pages [0, 129)
+    / [129, 258)), both layouts and dtypes.  Asserts each rank's ring KV
+    at 26,738,688 B, half the undistributed 53,477,376 B (the paged
+    pool's, half too), 24 collectives a step carrying 25,344 B a layer
+    (304,128 B a step, at max_len 512 as at 1024), and K5 12 and K1 24
+    launches a decode step by the wrappers' counts and the profiler's
+    kernel names."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    plain = run19(dev, seed, prompts, warm, distributed=False, runs=RUNS19)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{root}/nccl",
+                                world_size=1, rank=0,
+                                device_id=torch.device(
+                                    "cuda", torch.cuda.current_device()),
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            nccl = run19(dev, seed, prompts, warm, distributed=True,
+                         runs=(("float32", "ring"),),
+                         windows=True)["float32", "ring"]
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert nccl["tokens"] == plain["float32", "ring"]["tokens"]
+    assert nccl["kv_bytes"] == plain["float32", "ring"]["kv_bytes"]
+    phase(f"phase 19a [{card}] one rank over NCCL (world 1), ring, "
+          f"float32: streams equal to the undistributed engine's (8 x "
+          f"32 tokens); {nccl['collectives']} collectives over "
+          f"{nccl['steps']} steps ({nccl['collective_bytes']} B); "
+          f"launches K1 {nccl['launches']['posit_decode']} K3 "
+          f"{nccl['launches']['kv_append_rows']} K5 "
+          f"{nccl['launches']['paged_kv_append_rows']}; "
+          f"{nccl['tok_s']:.1f} tok/s served; decode step, 8 slots "
+          f"live: wall {nccl['windows']['step_wall_ms']:.3f} ms, "
+          f"combine ({nccl['windows']['collectives_per_step']:.0f} "
+          f"all-reduces, synchronised) "
+          f"{nccl['windows']['combine_ms_per_step']:.3f} ms a step")
+    dev_name = f"cuda:{torch.cuda.current_device()}"
+    out = run_ranks(2, [dev_name] * 2, "gloo", seed, prompts, warm, plain,
+                    DIST_PAGES)
+    out["card"] = card
+    out["nccl_world1"] = {k: v for k, v in nccl.items()
+                          if k not in ("first_logits", "tokens")}
+    for dtype_name, layout in RUNS19:
+        r = out[f"{dtype_name}_{layout}"]
+        if layout == "ring":
+            assert r["kv_bytes_rank"] == DIST_KV_RANK_BYTES, r["kv_bytes_rank"]
+        tok_s = " / ".join(f"{v:.1f}" for v in r["tok_s_ranks"])
+        phase(f"phase 19b [{card}] two gloo ranks on {dev_name}, {layout}, "
+              f"{dtype_name}: streams of both ranks equal; "
+              f"{r['tokens_equal_undistributed']} of {r['of']} tokens equal "
+              f"to the undistributed engine's; first step's logits max "
+              f"|diff| {r['first_step_max_abs_logit_diff']:.3e}; KV "
+              f"{r['kv_bytes_rank']} B a rank (undistributed "
+              f"{r['kv_bytes_undistributed']} B); {r['collectives_rank0']} "
+              f"collectives over {r['steps']} steps; {tok_s} tok/s a rank "
+              f"(undistributed {r['tok_s_undistributed']:.1f})")
+    win = out["windows"]
+    out["undistributed_ring_float32_tok_s"] = plain["float32", "ring"][
+        "tok_s"]
+    out["phase_s"] = time.perf_counter() - t0
+    busy = ", ".join("not measured" if w["device_busy_ms"] is None
+                     else f"{w['device_busy_ms']:.3f}" for w in win)
+    phase(f"phase 19b [{card}] float32 ring decode step, 8 slots live, "
+          f"rank 0 / 1: wall {win[0]['step_wall_ms']:.3f} / "
+          f"{win[1]['step_wall_ms']:.3f} ms; combine "
+          f"({win[0]['collectives_per_step']:.0f} all-reduces, "
+          f"synchronised) {win[0]['combine_ms_per_step']:.3f} / "
+          f"{win[1]['combine_ms_per_step']:.3f} ms a step, "
+          f"{win[0]['combine_bytes_per_step']:.0f} B a step (max_len 512 "
+          f"and 1024: {out['combine_bytes_per_step_by_max_len']}); device "
+          f"busy {busy} ms a step; kernels traced per step "
+          f"{ {k: v for k, v in win[0]['traced_port_kernels_per_step'].items() if v} }"
+          f"; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4067,6 +4512,11 @@ def main() -> int:
                  "18e": phase18e(dev, args.seed)}
     print(json.dumps({"vlm_audio": vlm_audio}), flush=True)
 
+    # 19. the KV-sequence-sharded distributed decode: one rank over NCCL,
+    # then two gloo ranks on the one card (spawned processes) -------------
+    distributed = phase19(dev, args.seed, prompts, warm, smi)
+    print(json.dumps({"distributed": distributed}), flush=True)
+
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
     layers = cfg.n_layers
@@ -4985,6 +5435,17 @@ def main() -> int:
             "ring_64_steps": vb["launches"][name],
             "per_decode_step": vb["launches"][name] / 64,
             "paged_prefill_and_8_steps": vb["paged_launches"][name]}
+        # the distributed decode (19a: NCCL at world 1, the served run;
+        # 19b: gloo rank 0's served runs and its decode step)
+        entry["launches_distributed"] = {
+            "nccl_world1_ring_float32":
+                distributed["nccl_world1"]["launches"][name],
+            "gloo_rank0_ring_float32":
+                distributed["float32_ring"]["launches_rank0"][name],
+            "gloo_rank0_paged_float32":
+                distributed["float32_paged"]["launches_rank0"][name],
+            "per_decode_step": distributed["windows"][0][
+                "wrapper_launches_per_step"].get(name, 0)}
         key = {"kv_append_rows": "k3", "decode_attention": "k4",
                "paged_kv_append_rows": "k5",
                "paged_decode_attention": "k6"}.get(name)

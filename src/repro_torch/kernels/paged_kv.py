@@ -75,16 +75,34 @@ def paged_kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale, k_new,
                              packed: bool = False):
     """Plain version of K5.  k/v_codes (R, nkv, Dc), k/v_scale (R, nkv) are
     updated IN PLACE at the flat rows ``dst`` (B, T) from k/v_new
-    (B, T, nkv, hd).  Returns the four buffers."""
+    (B, T, nkv, hd); a ``dst`` row outside [0, R) is skipped, as the
+    kernel skips it.  Returns the four buffers."""
     b, t = k_new.shape[:2]
     rows = torch.as_tensor(dst, device=k_codes.device).to(
         torch.int64).reshape(b * t)
+    rows, keep = _rows_in_pool(rows, k_codes.shape[0])
     for codes, scale, new in ((k_codes, k_scale, k_new),
                               (v_codes, v_scale, v_new)):
         c, s = encode_kv_rows(new, fmt, packed)        # (B, T, nkv, Dc)
-        codes[rows] = c.reshape((b * t,) + c.shape[2:]).to(codes.dtype)
-        scale[rows] = s[..., 0].reshape(b * t, -1)
+        codes[rows] = c.reshape((b * t,) + c.shape[2:])[keep].to(codes.dtype)
+        scale[rows] = s[..., 0].reshape(b * t, -1)[keep]
     return k_codes, k_scale, v_codes, v_scale
+
+
+def _rows_in_pool(rows, r: int):
+    """``rows`` (N,) cut to the entries in [0, r), and the selector of
+    those entries: ``slice(None)`` (no op) where all lie inside.  The rows
+    are read on the host, outside any dispatch, so an op-counting trace
+    (``launch/op_cost.py``) sees the same ops as before the cut existed; a
+    meta tensor (a trace of shapes) has no rows to read and keeps all."""
+    if rows.is_meta:
+        return rows, slice(None)
+    host = (rows if rows.device.type == "cpu" else rows.cpu()).numpy()
+    inside = (host >= 0) & (host < r)
+    if inside.all():
+        return rows, slice(None)
+    keep = torch.from_numpy(inside).to(rows.device)
+    return rows[keep], keep
 
 
 def paged_kv_append_ref(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
@@ -98,10 +116,11 @@ def paged_kv_append_ref(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
 def paged_kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
                          dst, fmt: PositFormat, *, packed: bool = False):
     """K5: encode-on-write append of a T-token chunk into the paged pool,
-    in place (contract of ``paged_kv_append_rows_ref``; ``dst`` rows must
-    lie in [0, R)).  On the card k/v_new are read as they are, float32 or
-    bfloat16 (bf16 -> f32 is exact, so the codes are those of the f32
-    rows), at any strides that keep each row contiguous and 16-byte
+    in place (contract of ``paged_kv_append_rows_ref``: a ``dst`` row
+    outside [0, R) is skipped, which lets a rank of the distributed decode
+    pass -1 for rows another rank owns).  On the card k/v_new are read as
+    they are, float32 or bfloat16 (bf16 -> f32 is exact, so the codes are
+    those of the f32 rows), at any strides that keep each row contiguous and 16-byte
     aligned (``append_geometry`` has the limits): one launch, a group of
     (row bytes) / 16 lanes per (b, t, head) row."""
     if not k_codes.is_cuda:

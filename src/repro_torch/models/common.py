@@ -1,10 +1,18 @@
 """Shared model components: init, RMSNorm, the causal depthwise conv
 (Mamba-2's and the recurrent block's), RoPE and M-RoPE, Whisper's
-sinusoid positions, the training loss (port of ``repro.models.common``)."""
+sinusoid positions, the training loss, and the logical-axis sharding
+rules (port of ``repro.models.common``).
+
+Sharding is written as plain spec trees: a ``P`` holds one mesh axis name
+(or a tuple of them, or None) per dim.  The reference's ``constrain`` is a
+compiler hint with no counterpart in eager torch; the port has no
+tensor-parallel path for it to steer yet."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -14,6 +22,82 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """einsum with JAX's type promotion (bf16 x f32 -> f32)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding rules
+# ---------------------------------------------------------------------------
+# logical axes used by the models:
+#   "batch"   — global batch            -> ("pod","data") typically
+#   "seq"     — sequence                -> None or "model" (SP)
+#   "heads"   — attention heads         -> "model" when divisible
+#   "kv_seq"  — cache sequence          -> "model" for distributed decode
+#   "ffn"     — d_ff                    -> "model"
+#   "vocab"   — vocabulary              -> "model"
+#   "expert"  — MoE experts             -> "model"
+
+def _axis_entry(a):
+    """One dim's entry, canonical as ``jax.sharding.PartitionSpec`` keeps
+    it: a sequence of one name is the name, an empty one None."""
+    if isinstance(a, (tuple, list)):
+        return None if not a else a[0] if len(a) == 1 else tuple(a)
+    return a
+
+
+class P(tuple):
+    """A partition spec: per dim a mesh axis name, a tuple of names, or
+    None (replicated); trailing dims left out are replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (_axis_entry(a) for a in axes))
+
+    def __repr__(self) -> str:
+        return "P" + super().__repr__()
+
+
+def map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts, tuples and lists, with the
+    reference's path strings (keys and indices joined by "/"); a
+    ``QuantizedTensor`` and a ``P`` are one leaf each."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        return type(tree)(map_with_path(fn, v, f"{path}/{i}" if path
+                                        else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def kv_seq_dim(path: str, paged: bool) -> Optional[int]:
+    """The dim of a decode-cache leaf (by its ``map_with_path`` path) that
+    runs along the KV sequence, the one the "kv_seq" axis shards: a ring's
+    W in (B, W, nkv[, hd]), a pool's flat rows R in (R, nkv[, hd]), one
+    further under a period-stacked ``blocks`` leaf; None for any other
+    leaf."""
+    if path.split("/")[-1] not in ("k", "v", "k_scale", "v_scale"):
+        return None
+    return (1 if path.startswith("blocks") else 0) + (0 if paged else 1)
+
+
+_RULES: contextvars.ContextVar = contextvars.ContextVar("axis_rules",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Optional[dict]):
+    """Install logical -> mesh axis rules (launcher only)."""
+    tok = _RULES.set(rules)
+    try:
+        yield
+    finally:
+        _RULES.reset(tok)
+
+
+def logical_to_spec(names: Sequence[Optional[str]]) -> P:
+    """The installed rules applied to one logical name (or None) per dim."""
+    rules = _RULES.get() or {}
+    return P(*[rules.get(n) if n else None for n in names])
 
 
 # ---------------------------------------------------------------------------

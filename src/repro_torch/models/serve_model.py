@@ -53,6 +53,20 @@ failures are the port's refusals: a prefill without ``frames``, a
 bucketed prefill, and packed (``QuantizedTensor``) encoder or cross
 weights.
 
+A plugged decode attention (``decode_step(..., attn_impl=)``, the
+reference's hook) speaks one of three protocols by its attributes: a
+``paged_kv`` plug takes the pool's codes, scales and the page table; a
+``packed_kv`` plug the ring's codes and scales; any other plug decoded
+rows (K1 on the card: ``decode_kv_rows_device`` /
+``gather_decode_pages_device``; the plain decode on the CPU).  A plug
+with a ``shard`` (``serve/distributed.py``) reads a rank-local cache
+(``init_cache(..., kv_shard=)``): the rank's slice of every ring's rows
+or of the pool's pages, along each leaf's "kv_seq" dim (``kv_seq_dim``),
+with ``pos`` and the page table whole.  Its decode append maps each
+slot's global row to the rank's own, or to -1 where another rank owns
+it, and writes through K5 (``paged_kv_append_rows`` skips -1) on a flat
+view, ring and paged alike; a float cache takes a masked scatter.
+
 In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
 chunk pass of speculative decoding) write K/V rows into the cache tensors
 they are given (per-layer views of the stacked buffers) and return the
@@ -73,7 +87,7 @@ from ..core.transprecision import BF16, KVStorage, TCPolicy, kv_storage
 from ..kernels import kv_cache as kv_kernels
 from ..kernels import paged_kv as paged_kernels
 from . import attention
-from .common import _einsum, apply_rope, rms_norm
+from .common import _einsum, apply_rope, kv_seq_dim, map_with_path, rms_norm
 from .lm import (ModelCfg, _mlp, _qkv, _qw, _rope_cs, cross_attend,
                  cross_kv, embed_rows, encode_audio, ffn, layer_block,
                  lm_head, rec_mix, seq_positions)
@@ -106,7 +120,7 @@ def _attn_w(cfg: ModelCfg, max_len: int) -> int:
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
                policy: TCPolicy = BF16, *, num_pages: Optional[int] = None,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", kv_shard=None) -> Dict[str, Any]:
     """Empty decode state for ``batch`` sequences up to ``max_len`` tokens.
 
     A posit ``kv_format`` stores codes (zeros) plus per-row f32 pow2 scales
@@ -119,7 +133,22 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
     enc_seq, nkv, hd) in the model's dtype (per slot in either layout),
     and the cache a zero ``memory`` (B, enc_seq, d): in the model's dtype
     under a posit KV format, else in the KV format's (the reference's
-    dtypes)."""
+    dtypes).  With a ``kv_shard`` (``serve.distributed.KVShard``) the
+    cache is that rank's: every "kv_seq" dim (``kv_seq_dim``, which
+    ``launch.mesh.cache_specs`` shards) holds its 1/world slice
+    (``check_kv_shard``'s refusals)."""
+    if kv_shard is not None:
+        device = resolve_device(device)
+        full = init_cache(cfg, batch, max_len, dtype, policy,
+                          num_pages=num_pages, device="meta")
+        check_kv_shard(full, cfg, policy, kv_shard)
+        return _rank_local(full, lambda name, t, dim: (
+            torch.full([n // kv_shard.world if d == dim else n
+                        for d, n in enumerate(t.shape)],
+                       1.0 if name.endswith("_scale") else 0,
+                       dtype=t.dtype, device=device)),
+            top=_cache((), batch, max_len, policy, "page_table" in full,
+                       num_pages, device))
     paged = check_layout(policy)
     if paged and cfg.window:
         raise ValueError("paged KV layout does not support sliding-window "
@@ -197,6 +226,57 @@ def _cache(blocks, batch: int, max_len: int, policy: TCPolicy, paged: bool,
     return cache
 
 
+def check_shardable(cfg: ModelCfg) -> None:
+    """Refuse (``NotImplementedError``) a KV-sequence-sharded decode of a
+    stack whose serving cache is more than K/V: SSM, hybrid, audio."""
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        raise NotImplementedError(
+            f"KV-sequence-sharded decode covers the stacks whose serving "
+            f"cache is only K/V (dense, MoE, vlm); {cfg.name} is "
+            f"{cfg.family!r}, whose cache also holds recurrent state or "
+            "cross K/V: not ported yet")
+
+
+def check_kv_shard(cache, cfg: ModelCfg, policy: TCPolicy, shard) -> None:
+    """The refusals of a rank-local copy of ``cache`` (whole, or on the
+    meta device): ``check_shardable``'s, and a ring width or page count
+    the world size does not divide (``ValueError``)."""
+    check_shardable(cfg)
+    k = cache["blocks"][0]["k"]
+    if "page_table" in cache:
+        shard.local_range(k.shape[1] // policy.kv_page_size, "pool pages")
+    else:
+        shard.local_range(k.shape[2], "ring rows")
+
+
+def _rank_local(cache, leaf_fn, top=None):
+    """``cache`` with each leaf that has a "kv_seq" dim (``kv_seq_dim``)
+    replaced by ``leaf_fn(name, leaf, dim)``, the rank's share of it;
+    ``pos`` and the page table taken from ``top`` where given."""
+    paged = "page_table" in cache
+
+    def leaf(path, t):
+        d = kv_seq_dim(path, paged)
+        if d is not None:
+            return leaf_fn(path.split("/")[-1], t, d)
+        return t if top is None else top[path]
+
+    return map_with_path(leaf, cache)
+
+
+def shard_cache(cache, cfg: ModelCfg, policy: TCPolicy, shard):
+    """Rank ``shard.rank``'s copy of a whole cache (a prefill's, say): each
+    "kv_seq" dim cut to the rank's range, ``pos`` and the page table
+    shared."""
+    check_kv_shard(cache, cfg, policy, shard)
+
+    def cut(name, t, dim):
+        lo, hi = shard.local_range(t.shape[dim])
+        return t.narrow(dim, lo, hi - lo).contiguous()
+
+    return _rank_local(cache, cut)
+
+
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -212,29 +292,117 @@ def _ring_write(buf, val, pos):
         buf[:, int(pos) % w] = val[:, 0].to(buf.dtype)
 
 
-def _attn_decode_paged(c, qp, kp, vp, paged, spec: Optional[KVStorage]):
+def _local_rows(rows, lo: int, n: int):
+    """Global flat rows (B,) -> this rank's own rows [lo, lo + n) as local
+    indices, -1 where another rank owns the row."""
+    loc = rows.to(torch.int64) - lo
+    return torch.where((loc >= 0) & (loc < n), loc, -1)
+
+
+def _append_local(c, kp, vp, rows, spec: Optional[KVStorage]):
+    """A rank's decode append: the step's K/V rows (B, 1, nkv, hd) at the
+    rank's flat rows ``rows`` (B,) of the layer's cache viewed flat (ring
+    (B, Wl, ...) as (B * Wl, ...)), skipping -1.  Posit: K5, whose
+    destinations skip rows outside [0, R) on the card and in the plain
+    version; float: a masked scatter."""
+    k, v = (c[n].view((-1,) + c[n].shape[-2:]) for n in ("k", "v"))
+    if spec is not None and spec.is_posit:
+        ks, vs = (c[n].view(-1, c[n].shape[-1])
+                  for n in ("k_scale", "v_scale"))
+        paged_kernels.paged_kv_append_rows(
+            k, ks, v, vs, kp, vp, rows[:, None], spec.fmt,
+            packed=spec.packed)
+        return
+    keep = rows >= 0
+    k[rows[keep]] = kp[keep, 0].to(k.dtype)
+    v[rows[keep]] = vp[keep, 0].to(v.dtype)
+
+
+def _attn_decode_paged(c, qp, kp, vp, paged, spec: Optional[KVStorage],
+                       attn_impl=None):
     """Paged-pool K/V append + page-walking attention for one layer.
     ``paged`` is (dst (B,) flat rows, seq_lens (B,), page table (B, Pmax),
-    page size), shared by every layer of the step."""
+    page size), shared by every layer of the step.  A plug with a ``shard``
+    holds its rank's pages only: the append keeps the rows it owns."""
     dst, seq_lens, table, ps = paged
-    if spec is not None and spec.is_posit:
+    posit_kv = spec is not None and spec.is_posit
+    shard = getattr(attn_impl, "shard", None)
+    if shard is not None:
+        rl = c["k"].shape[0]
+        _append_local(c, kp, vp, _local_rows(dst, shard.rank * rl, rl), spec)
+    elif posit_kv:
         paged_kernels.paged_kv_append(   # K5 reads the model's dtype
             c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, dst,
             spec.fmt, packed=spec.packed)
+    else:
+        # float formats: plain scatter + gather, as the reference (no kernel)
+        rows = dst.long()
+        c["k"][rows] = kp[:, 0].to(c["k"].dtype)
+        c["v"][rows] = vp[:, 0].to(c["v"].dtype)
+    if getattr(attn_impl, "paged_kv", False):
+        # paged protocol: the pool (codes + scales, or float rows) and the
+        # page table cross the plug's boundary
+        return attn_impl(qp, c["k"], c["v"], seq_lens,
+                         k_scale=c.get("k_scale"), v_scale=c.get("v_scale"),
+                         kv_spec=spec, page_table=table, page_size=ps)
+    if attn_impl is None and posit_kv:
         return paged_kernels.paged_decode_attention(
             qp, c["k"], c["k_scale"], c["v"], c["v_scale"], table, seq_lens,
             spec.fmt, page_size=ps, packed=spec.packed)
-    # float formats: plain scatter + gather, as the reference (no kernel)
-    rows = dst.long()
-    c["k"][rows] = kp[:, 0].to(c["k"].dtype)
-    c["v"][rows] = vp[:, 0].to(c["v"].dtype)
-    return attention.decode_attention(
-        qp, paged_kernels.gather_pages(c["k"], table, ps),
-        paged_kernels.gather_pages(c["v"], table, ps), seq_lens)
+    if posit_kv:                # a plain plug reads decoded rows (K1)
+        k_read, v_read = (paged_kernels.gather_decode_pages_device(
+            c[n], c[n + "_scale"], table, ps, spec.fmt, spec.packed)
+            for n in ("k", "v"))
+    else:
+        k_read = paged_kernels.gather_pages(c["k"], table, ps)
+        v_read = paged_kernels.gather_pages(c["v"], table, ps)
+    return (attn_impl or attention.decode_attention)(qp, k_read, v_read,
+                                                     seq_lens)
+
+
+def _attn_decode_ring(c, qp, kp, vp, pos, spec: Optional[KVStorage],
+                      attn_impl=None):
+    """Ring K/V append at row pos mod W + attention over min(pos + 1, W)
+    rows for one layer.  A plug with a ``shard`` holds its rank's rows
+    [r * W/n, (r + 1) * W/n) of every slot's ring: the append keeps the
+    rows it owns (K5 on the ring viewed flat)."""
+    posit_kv = spec is not None and spec.is_posit
+    shard = getattr(attn_impl, "shard", None)
+    b, w = qp.shape[0], c["k"].shape[1]
+    if shard is not None:
+        wl, w = w, w * shard.world
+        r = pos.to(torch.int64).expand(b) % w
+        own = _local_rows(r, shard.rank * wl, wl)
+        slots = torch.arange(b, device=r.device) * wl
+        _append_local(c, kp, vp, torch.where(own >= 0, slots + own, -1),
+                      spec)
+    elif posit_kv:
+        kv_kernels.kv_append_rows(     # K3 reads the model's dtype
+            c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, pos,
+            spec.fmt, packed=spec.packed)
+    else:
+        _ring_write(c["k"], kp, pos)
+        _ring_write(c["v"], vp, pos)
+    cl = torch.clamp(pos + 1, max=w)
+    if posit_kv and getattr(attn_impl, "packed_kv", False):
+        # packed protocol: codes + scales cross the plug's boundary
+        return attn_impl(qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
+                         v_scale=c["v_scale"], kv_spec=spec)
+    if attn_impl is None and posit_kv:
+        return attention.decode_attention_packed(
+            qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
+            v_scale=c["v_scale"], spec=spec)
+    if posit_kv:                # a plain plug reads decoded rows (K1)
+        k_read, v_read = (kv_kernels.decode_kv_rows_device(
+            c[n], c[n + "_scale"][..., None], spec.fmt, spec.packed)
+            for n in ("k", "v"))
+    else:
+        k_read, v_read = c["k"], c["v"]
+    return (attn_impl or attention.decode_attention)(qp, k_read, v_read, cl)
 
 
 def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
-                 spec: Optional[KVStorage], paged=None):
+                 spec: Optional[KVStorage], paged=None, attn_impl=None):
     b = x.shape[0]
     h = rms_norm(x, p["ln"])
     qp, kp, vp = _qkv(p, h, cfg, policy)
@@ -246,20 +414,9 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     qp = apply_rope(qp, cos, sin)
     kp = apply_rope(kp, cos, sin)
     if paged is not None:
-        ao = _attn_decode_paged(c, qp, kp, vp, paged, spec)
+        ao = _attn_decode_paged(c, qp, kp, vp, paged, spec, attn_impl)
     else:
-        cl = torch.clamp(pos + 1, max=c["k"].shape[1])
-        if spec is not None and spec.is_posit:
-            kv_kernels.kv_append_rows(     # K3 reads the model's dtype
-                c["k"], c["k_scale"], c["v"], c["v_scale"], kp, vp, pos,
-                spec.fmt, packed=spec.packed)
-            ao = attention.decode_attention_packed(
-                qp, c["k"], c["v"], cl, k_scale=c["k_scale"],
-                v_scale=c["v_scale"], spec=spec)
-        else:
-            _ring_write(c["k"], kp, pos)
-            _ring_write(c["v"], vp, pos)
-            ao = attention.decode_attention(qp, c["k"], c["v"], cl)
+        ao = _attn_decode_ring(c, qp, kp, vp, pos, spec, attn_impl)
     # attention may run at higher precision than the stream (f32-decoded
     # K/V); the residual stream keeps the model dtype
     x = x + _einsum("bsk,kd->bsd", ao.reshape(b, 1, -1),
@@ -324,14 +481,16 @@ def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out):
 
 
 def decode_step(params, cache, tokens, cfg: ModelCfg,
-                policy: TCPolicy = BF16, embeds=None):
+                policy: TCPolicy = BF16, embeds=None, attn_impl=None):
     """One serving step. tokens: (B, 1) int, or ``embeds`` (B, 1, d) in
     their place (a vlm stack's patch embeddings).  Returns (logits (B,
     vocab_pad), cache) with K/V rows written in place and ``pos`` + 1.
     Paged caches (``cache["page_table"]``) take per-slot positions; a
     scalar ``pos`` is broadcast to every slot.  An SSM stack's new states
     land in new buffers, rebound on the dict as ``cache["blocks"]``; so do
-    a hybrid stack's recurrent states (``blocks`` and ``tail``)."""
+    a hybrid stack's recurrent states (``blocks`` and ``tail``).
+    ``attn_impl`` plugs a decode attention into every attention layer (the
+    module docstring has its protocols); None keeps the built-in one."""
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
@@ -360,7 +519,8 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
             x = _rec_decode(p, c, x, cfg, policy,
                             layer_block(new, cfg, i)[1])
         else:
-            x = _attn_decode(p, c, x, cfg, policy, pos_l, spec, paged)
+            x = _attn_decode(p, c, x, cfg, policy, pos_l, spec, paged,
+                             attn_impl)
     if new is not None:
         cache.update(new)
     return _readout(params, cache, x, cfg, pos)

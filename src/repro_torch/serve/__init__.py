@@ -1,6 +1,10 @@
 """Serving of the port: the three-stage engine API, the continuous-batching
 engines (ring and paged layouts, self-speculative decoding), the threaded
-orchestrator, fault injection and the numeric guard."""
+orchestrator, fault injection, the numeric guard and the KV-sequence-
+sharded distributed decode."""
+from .distributed import (KVShard, distributed_decode_attention,
+                          make_distributed_decode_step,
+                          make_distributed_engine)
 from .engine import Request, ServeConfig, ServingEngine
 from .engine_api import (Prefix, TransprecisionEngine, rollback_paged_cache,
                          rollback_ring_cache)

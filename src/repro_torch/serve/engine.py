@@ -40,6 +40,11 @@ quarantine with its precision-fallback re-decode (``serve/guard.py``).
 ``abort`` terminally releases a request from outside the decode loop
 (the orchestrator's deadlines, cancellation and crash containment).
 
+``attn_impl`` plugs a decode attention into every decode step
+(``serve/distributed.py``'s KV-sequence-sharded one makes the engine's
+decode state rank-local: each rank of a process group runs the same
+engine over the same requests and holds its slice of the KV rows).
+
 Weight quantization is hoisted: the policy's weight hook is a pure function
 of each weight, so the engine applies it once at construction
 (``models.lm.hoist_weight_quant``) and serves through the policy with its
@@ -156,7 +161,7 @@ def load_kv_kernels(policy: TCPolicy) -> None:
 
 class ServingEngine:
     def __init__(self, cfg: lm.ModelCfg, params, scfg: ServeConfig,
-                 policy: TCPolicy = BF16, *, device="cuda",
+                 policy: TCPolicy = BF16, *, attn_impl=None, device="cuda",
                  tracer: Optional[Tracer] = None, faults=None,
                  retry: Optional[RetryPolicy] = None, guard=None):
         self.device = resolve_device(device)
@@ -224,7 +229,8 @@ class ServingEngine:
         self.engine = TransprecisionEngine(
             cfg, lm.weights_free(self.policy, cfg.tie_embed), b, L,
             num_pages=self.num_pages if self.paged else None,
-            device=self.device, tracer=self.tracer, metrics=self.metrics,
+            attn_impl=attn_impl, device=self.device, tracer=self.tracer,
+            metrics=self.metrics,
             faults=self.faults, retry=self.retry, weight_policy=self.policy)
         self.guard: Optional[NumericGuard] = (
             NumericGuard(self, guard_cfg) if guard_cfg is not None else None)
@@ -268,7 +274,8 @@ class ServingEngine:
         return int(total)
 
     def kv_cache_bytes(self) -> int:
-        """Reserved device footprint of the attention K/V state."""
+        """Reserved device footprint of the attention K/V state (a rank's
+        own slice where ``attn_impl`` shards the KV sequence)."""
         return self._kv_bytes()
 
     def kv_cache_live_bytes(self) -> int:

@@ -31,6 +31,13 @@
   **rollback_ring** / **rollback_paged** rewind the rows a round rejected
   (the stages ``serve/speculative.py`` drives).
 
+Distributed decode: ``attn_impl`` plugs a decode attention into
+``generate`` (the reference's hook).  A plug with a ``shard``
+(``serve/distributed.py``) makes the decode state rank-local: each rank
+holds its slice of every ring's rows or of the pool's pages, the prefill
+runs whole on every rank, and ``insert`` keeps the prefix rows the rank
+owns.  ``verify`` refuses such a state (``NotImplementedError``).
+
 Energy accounting: the first call of each stage name records
 ``(fn, _abstract_args(args))`` in ``stage_specs``, the arguments as
 shape-and-dtype meta tensors; ``obs/energy.py`` re-runs the stage on them
@@ -61,8 +68,8 @@ import torch
 
 from .. import resolve_device
 from ..core.transprecision import TCPolicy, get_policy
-from ..models.serve_model import (check_layout, decode_step, init_cache,
-                                  prefill, verify_step)
+from ..models.serve_model import (_local_rows, check_layout, decode_step,
+                                  init_cache, prefill, verify_step)
 from ..obs import MetricsRegistry, Tracer
 
 _MIN_BUCKET = 16
@@ -143,11 +150,12 @@ class TransprecisionEngine:
     is the policy the served weights were quantized under (drivers hoist
     it and serve through ``policy`` with its weight roles cleared); the
     energy accountant prices weight storage and MACs by its roles.  It
-    defaults to ``policy``."""
+    defaults to ``policy``.  ``attn_impl`` plugs a custom decode attention
+    (e.g. the KV-sharded distributed path) into ``generate``."""
 
     def __init__(self, cfg, policy: TCPolicy, max_batch: int, max_len: int,
-                 *, num_pages: Optional[int] = None, device="cuda",
-                 tracer: Optional[Tracer] = None,
+                 *, num_pages: Optional[int] = None, attn_impl=None,
+                 device="cuda", tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  stage_prefix: str = "", faults=None, retry=None,
                  weight_policy: Optional[TCPolicy] = None):
@@ -157,6 +165,13 @@ class TransprecisionEngine:
                               else get_policy(weight_policy))
         self.paged = check_layout(self.policy)
         self.num_pages = num_pages
+        self.attn_impl = attn_impl
+        # a sharded plug's rank: its decode state holds the rank's slice
+        self.kv_shard = getattr(attn_impl, "shard", None)
+        if self.kv_shard is not None:       # its refusals, before any state
+            init_cache(cfg, max_batch, max_len, policy=self.policy,
+                       num_pages=num_pages, device="meta",
+                       kv_shard=self.kv_shard)
         # paged: prompts prefill through the ring datapath at bucket width
         # and insert scatters the rows into pool pages
         self._prefill_policy = (dataclasses.replace(
@@ -255,7 +270,7 @@ class TransprecisionEngine:
         it)."""
         state = init_cache(self.cfg, self.max_batch, self.max_len,
                            policy=self.policy, num_pages=self.num_pages,
-                           device=self.device)
+                           device=self.device, kv_shard=self.kv_shard)
         state["pos"] = torch.zeros((self.max_batch,), dtype=torch.int32,
                                    device=self.device)
         state["tok"] = torch.zeros((self.max_batch, 1), dtype=torch.int32,
@@ -312,7 +327,8 @@ class TransprecisionEngine:
         bucket-width K/V rows land at ring rows [0, bucket); an SSM row's
         ``state`` and ``conv`` replace the slot's.  Paged: they
         scatter to the ``dst_rows`` flat pool rows ((N,) int, N <= bucket,
-        padded with trash row 0)."""
+        padded with trash row 0).  A rank-local state keeps the rows the
+        rank owns."""
         if dst_rows is not None:
             dst_rows = torch.as_tensor(dst_rows, device=self.device).to(
                 torch.int64)
@@ -321,12 +337,25 @@ class TransprecisionEngine:
                             dst_rows)
 
     def _insert_impl(self, state, pcache, length, slot, row, dst_rows):
+        # a rank-local state (``kv_shard``) holds ring rows [lo, lo + Wl)
+        # of each slot, or pool rows [lo, lo + Rl); rank 0 of 1 holds all
+        rank = 0 if self.kv_shard is None else self.kv_shard.rank
         for dst, src in zip(state["blocks"], pcache["blocks"]):
             for name, d in dst.items():
+                s = src[name][:, row]              # (P, width, ...)
                 if dst_rows is None:
-                    d[:, slot, :src[name].shape[2]] = src[name][:, row]
-                else:       # (P, R, ...) <- (P, w, ...)
-                    d[:, dst_rows] = src[name][:, row, :len(dst_rows)]
+                    lo = rank * d.shape[2]
+                    n = min(s.shape[1] - lo, d.shape[2])
+                    if n > 0:
+                        d[:, slot, :n] = s[:, lo:lo + n]
+                    continue
+                rows, s = dst_rows, s[:, :len(dst_rows)]
+                if self.kv_shard is not None:  # (P, Rl, ...): own rows only
+                    rows = _local_rows(dst_rows, rank * d.shape[1],
+                                       d.shape[1])
+                    s = s[:, rows >= 0]
+                    rows = rows[rows >= 0]
+                d[:, rows] = s                     # (P, R, ...) <- (P, w, ...)
         for dst, src in zip(state.get("tail", ()), pcache.get("tail", ())):
             for name, d in dst.items():     # unstacked (B, ...) leaves
                 d[slot, :src[name].shape[1]] = src[name][row]
@@ -336,7 +365,7 @@ class TransprecisionEngine:
     # ---- stage: generate ----
     def _generate_impl(self, params, state):
         logits, state = decode_step(params, state, state["tok"], self.cfg,
-                                    self.policy)
+                                    self.policy, attn_impl=self.attn_impl)
         state["tok"] = logits[..., : self.cfg.vocab].argmax(dim=-1).to(
             torch.int32)[:, None]
         return state, logits
@@ -359,6 +388,10 @@ class TransprecisionEngine:
         and its K/V row written at position ``pos[b] + t``, in place.
         Returns ``(state, logits (B, T, vocab_pad))``; ``state["tok"]`` is
         left for the caller to set after acceptance."""
+        if self.kv_shard is not None:
+            raise NotImplementedError(
+                "verify over a rank-local (KV-sequence-sharded) decode "
+                "state: the chunk pass reads the whole cache")
         chunk = torch.as_tensor(chunk, device=self.device).to(torch.int64)
         return self._staged("verify", self._verify_impl, params, state,
                             chunk)

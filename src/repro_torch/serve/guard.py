@@ -149,14 +149,16 @@ class NumericGuard:
         """(stage engine, hoisted weights) of ladder level ``lvl``, built
         on its first quarantine: the engine's raw device parameters
         quantized under the rung's policy, served through the policy with
-        its weight roles cleared."""
+        its weight roles cleared, and the engine's plugged decode
+        attention (a sharded rung re-decodes the rank-local state)."""
         r = self._rungs.get(lvl)
         if r is None:
             eng, base = self.engine, self.engine.engine
             policy = self.ladder[lvl - 1]
             stages = TransprecisionEngine(
                 eng.cfg, lm.weights_free(policy, eng.cfg.tie_embed),
-                base.max_batch, base.max_len, num_pages=base.num_pages, device=eng.device,
+                base.max_batch, base.max_len, num_pages=base.num_pages,
+                attn_impl=base.attn_impl, device=eng.device,
                 tracer=eng.tracer, metrics=eng.metrics,
                 stage_prefix=f"guard{lvl}.")
             r = (stages, lm.hoist_weight_quant(eng.raw_params, policy))

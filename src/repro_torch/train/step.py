@@ -72,3 +72,12 @@ def make_train_step(cfg: lm.ModelCfg, opt_cfg: AdamWConfig,
 
     return step
 
+
+
+def state_specs(cfg: lm.ModelCfg, pspecs, policy: TCPolicy = BF16):
+    """TrainState spec trees mirroring the param specs (FSDP-consistent):
+    ``launch.mesh.opt_specs`` for the optimizer and, with a gradient wire,
+    the param specs for its residual."""
+    from ..launch.mesh import opt_specs
+    return TrainState(pspecs, opt_specs(pspecs),
+                      pspecs if policy.grad_wire else None)

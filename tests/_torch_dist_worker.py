@@ -1,0 +1,121 @@
+"""One rank of ``tests/test_torch_distributed.py``'s two-rank gloo run on
+the CPU (not a test module: the test starts it as a process).
+
+    python tests/_torch_dist_worker.py RANK WORLD DIR
+
+Joins the gloo process group through ``file://DIR/rendezvous``, reads the
+cases' weights and prompts from ``DIR/inputs.pt`` (written by the test),
+serves every case through the port's KV-sequence-sharded decode and
+writes what it saw to ``DIR/rank<RANK>.pt``.  Imports neither ``jax`` nor
+``repro``.
+"""
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_config
+from repro_torch.core.transprecision import get_policy, kv_storage
+from repro_torch.models import serve_model
+from repro_torch.serve import (Fault, FaultPlan, Request, ServeConfig,
+                               ServingEngine, distributed_decode_attention,
+                               make_distributed_decode_step)
+
+STREAM_FORMATS = ("f32", "posit16", "posit8")
+
+
+def serve(cfg, params, prompts, max_new, *, layout="ring", kv_format="posit8",
+          policy="bf16", page_size=8, num_pages=26, max_len=64, **kw):
+    """Serve ``prompts`` through a ServingEngine whose decode attention is
+    the sharded plug of the engine's own policy; returns the streams, the
+    engine and the logits of every ``generate``."""
+    scfg = ServeConfig(max_batch=len(prompts), max_len=max_len,
+                       kv_format=kv_format, kv_layout=layout,
+                       page_size=page_size,
+                       num_pages=num_pages if layout == "paged" else None)
+    probe = ServingEngine(cfg, params, scfg, policy=policy, device="cpu")
+    plug = distributed_decode_attention(
+        kv_spec=kv_storage(probe.policy), paged=layout == "paged",
+        page_size=page_size)
+    eng = ServingEngine(cfg, params, scfg, policy=policy, attn_impl=plug,
+                        device="cpu", **kw)
+    logits = []
+    generate = eng.engine.generate
+
+    def recorded(p, state):
+        state, out = generate(p, state)
+        logits.append(out.float().clone())
+        return state, out
+
+    eng.engine.generate = recorded
+    reqs = [Request(uid=i, prompt=np.asarray(p), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    eng.serve(reqs)
+    return [r.out_tokens for r in reqs], eng, logits
+
+
+def run(inp):
+    out = {}
+    cfg32 = dataclasses.replace(get_config("paper-edge", smoke=True),
+                                dtype_name="float32")
+    for layout in ("ring", "paged"):
+        for fmt in STREAM_FORMATS:
+            toks, eng, _ = serve(cfg32, inp["dense32"], inp["prompts"],
+                                 inp["max_new"], layout=layout, kv_format=fmt)
+            blk = eng.cache["blocks"][0]
+            out[layout, fmt] = {
+                "tokens": toks, "kv_bytes": eng.kv_cache_bytes(),
+                "shapes": {k: tuple(v.shape) for k, v in blk.items()}}
+            if fmt == "posit8":     # rows this rank wrote: per slot (ring)
+                out[layout, fmt]["written"] = (
+                    blk["k_scale"][0] != 1).any(-1).sum(-1)
+    cfg16 = get_config("paper-edge", smoke=True)
+    toks, _, logits = serve(cfg16, inp["dense16"], inp["prompts"],
+                            inp["max_new"])
+    out["bf16"] = {"tokens": toks, "first_logits": logits[0]}
+    cfg_moe = dataclasses.replace(get_config("granite-moe-1b-a400m",
+                                             smoke=True), dtype_name="float32")
+    out["moe"] = serve(cfg_moe, inp["moe32"], inp["moe_prompts"],
+                       inp["max_new"])[0]
+    # the guard: a poisoned round re-decoded by a rung that inherits the
+    # plug (the rung's policy is the base one: same logits, same streams)
+    plan = FaultPlan((Fault("poison_logits", at=3, slot=0),))
+    toks, eng, _ = serve(cfg32, inp["dense32"], inp["prompts"],
+                         inp["max_new"], guard=True, faults=plan)
+    rung = eng.guard.rung(1)[0]
+    out["guard"] = {"tokens": toks,
+                    "fallbacks": eng.metrics.counter("guard.fallbacks").value,
+                    "rung_inherits": rung.attn_impl is eng.engine.attn_impl}
+    # vlm through make_distributed_decode_step, fed patch embeddings
+    cfg_vlm = dataclasses.replace(get_config("qwen2-vl-2b", smoke=True),
+                                  dtype_name="float32")
+    policy = dataclasses.replace(get_policy("bf16"), kv_format="posit8")
+    _, cache = serve_model.prefill(
+        inp["vlm32"], {"embeds": torch.from_numpy(inp["vlm_embeds"])},
+        cfg_vlm, 64, policy)
+    step = make_distributed_decode_step(cfg_vlm, policy)
+    cache = serve_model.shard_cache(cache, cfg_vlm, policy, step.shard)
+    logits = []
+    for e in inp["vlm_steps"]:
+        lg, cache = step(inp["vlm32"], cache, torch.from_numpy(e))
+        logits.append(lg.clone())
+    out["vlm"] = logits
+    return out
+
+
+def main(rank: int, world: int, root: Path) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous",
+                            world_size=world, rank=rank)
+    try:
+        out = run(torch.load(root / "inputs.pt", weights_only=False))
+        torch.save(out, root / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))

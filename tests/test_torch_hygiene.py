@@ -2,7 +2,7 @@
 its entry points (ring and paged serving, the matmul kernel, training and
 the quickstart, speculative serving, the Trainer, the data shards, the
 train and serve launchers, the orchestrator, the vlm and audio models'
-prefill and caches) default to the GPU and raise without one, and what is
+prefill and caches, the distributed engine) default to the GPU and raise without one, and what is
 left to later work raises ``NotImplementedError`` (remat "dots" for the
 SSM, hybrid and audio blocks)."""
 import ast
@@ -53,8 +53,10 @@ HYBRID = ("repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b")
 # ... and of the vlm and audio families
 VLM_AUDIO = ("repro_torch.configs.qwen2_vl_2b",
              "repro_torch.configs.whisper_large_v3")
+# ... and of the distributed decode and the sharding spec trees
+DISTRIBUTED = ("repro_torch.serve.distributed", "repro_torch.launch.mesh")
 REACHED = (SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY + MOE
-           + HYBRID + VLM_AUDIO)
+           + HYBRID + VLM_AUDIO + DISTRIBUTED)
 
 
 def _imported(tree):
@@ -107,6 +109,11 @@ def test_default_device_raises_without_gpu():
         TransprecisionEngine(cfg, get_policy("bf16"), 2, 32)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         serve_model.init_cache(cfg, 2, 32)
+    from repro_torch.serve.distributed import KVShard, make_distributed_engine
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_distributed_engine(cfg, get_policy("bf16"), 2, 32)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        serve_model.init_cache(cfg, 2, 32, kv_shard=KVShard())
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         lm.init_params(cfg)
     from repro_torch.convert import params_from_numpy

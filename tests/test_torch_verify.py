@@ -6,7 +6,7 @@ package, on paper-edge smoke at float32 under ``paper_edge_p8`` weights.
   step) against the reference's, ring and paged, posit8 / posit16 / f32
   KV: logits within rtol 1e-4, atol 1e-5 (1e-4 with posit16, whose codes
   may flip by one step where the frameworks' f32 K/V differ in the last
-  bit: ROADMAP fault 2); posit8 codes and every scale bit-exact, posit16
+  bit: ROADMAP fault 3); posit8 codes and every scale bit-exact, posit16
   codes within one step on under 1 % of values, f32 K/V within 1e-5
   (the helpers of ``test_torch_serve`` / ``test_torch_paged_serve``).
 * ``verify_step`` against T sequential ``decode_step`` calls in the port
