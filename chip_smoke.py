@@ -19,7 +19,9 @@ the ring, the full-width vision-language model ``qwen2-vl-2b`` in both
 layouts and speculatively and the full-width speech encoder-decoder
 ``whisper-large-v3``, serves full-width paper-edge through the
 KV-sequence-sharded distributed decode (one NCCL rank, then two gloo
-ranks spawned on the one card), times every kernel and prints one JSON
+ranks spawned on the one card), runs the TALU's exact posit arithmetic
+on the card and builds paper-edge's decode_32k cell there against the
+meta-device dry run's reckoning, times every kernel and prints one JSON
 line per contract.  Needs one CUDA GPU; run from the
 repository root:
 
@@ -114,7 +116,16 @@ spawned on the one card over gloo (a ``file://`` init in a temporary
 directory; NCCL refuses two ranks on one device), each holding half the
 KV sequence, both layouts and dtypes, with windows of decode steps for
 the step's wall, the profiler's kernel names and the combine's
-synchronised time; a ``{"distributed": ...}`` JSON line.  Phase 12 runs
+synchronised time; a ``{"distributed": ...}`` JSON line.  Phase 20 runs
+after 19: 20a the exact posit arithmetic (``core.posit.mul`` / ``add`` /
+``sub`` on every pair of P(8,0) and P(8,2) codes, 2^20 seeded P(16,1)
+pairs, ``thermometer_decode`` of every P(8,2) code, ``matmul_exact`` of
+P(8,2) codes at (8, 768) x (768, 768) with its wall and kernel launches)
+and the TALU cycle simulator on every Table III cell; 20b paper-edge's
+``decode_32k`` cell (128 slots, 32,768-row rings, every row live) built
+on the card under bf16 and then posit8 KV, its allocated bytes against
+``launch/dryrun``'s reckoning for one card, and two decode steps; an
+``{"arith_dryrun": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
 posit16_2, and on sampled inputs and views for every format; 12b the wire
@@ -280,6 +291,19 @@ Every phase asserts; nothing is caught.  Tolerances:
                  1024); K5 12 and K1 24 per decode step, K3 12 per
                  prefill, the rest 0, by the wrappers' counts and, where
                  its trace holds them, the profiler's kernel names.
+  arithmetic (20a) bit-exact: card against the CPU run of the same
+                 functions, the P(8,*) tables and 4 matmul entries also
+                 against ``posit_ref`` (the latter as its sequential
+                 add(mul) chain); TALU cycles equal to TABLE3.
+  dry run (20b)  each part of each build (params, cache, token batch): the
+                 card's requested bytes equal to the dry run's argument
+                 bytes for that part under ``make_host_mesh(1)``;
+                 allocated over all within 1e-4; logits finite; K3 and K4
+                 12 launches a step under posit8 KV, none under bf16; K3
+                 on layer 0's 32,768-row ring at B 128 bit-exact to its
+                 plain version (pos W: the wrap; seeded positions), K4
+                 there within 1e-5 (f32 q, ragged lengths) and 2^-7 (bf16
+                 q, full); the card's memory back to its base after both.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -316,7 +340,8 @@ paged, speculative and embeddings runs' counts and per decode step) and
 paged prefill and 8 steps'), and K3-K6's ``hd128_grp6`` and
 ``hd64_grp1``, 18c's posit8 times at those shapes beside their bounds;
 every entry carries ``launches_distributed`` (19a's served run, 19b rank
-0's ring and paged float32 runs, and per decode step);
+0's ring and paged float32 runs, and per decode step) and
+``launches_decode_32k`` (20b: per decode step, bf16 and posit8 KV);
 K2's ``launches`` are
 the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
@@ -3588,6 +3613,355 @@ def phase19(dev, seed, prompts, warm, card: str) -> dict:
     return out
 
 
+# the (Table III config, simulator kind, format name, bits, Table III op)
+# cells of TABLE3, as the TALU simulator measures them
+TABLE3_CELLS = (
+    [(f"P({n},{es})", f"posit_{op}", f"posit{n}_{es}", None, op)
+     for op in ("decode", "mul", "add") for n in (8, 16) for es in (0, 2)]
+    + [(f"INT{b}", f"int_{op}", None, b, op)
+       for op in ("mul", "add") for b in (4, 8, 16)]
+    + [(f"FP{b}", f"fp_{op}", None, b, op)
+       for op in ("mul", "add") for b in (8, 16)])
+MATMUL20 = (8, 768, 768)    # a decode batch of paper-edge's wo projection
+
+
+def oracle_table(op: str, n: int, es: int):
+    """``posit_ref``'s ``op`` on every pair of P(n, es) codes (a in the
+    outer loop), memoised by the exact result value: its own
+    to_fraction / encode_fraction, which define its add / mul / sub."""
+    from repro_torch.core import posit_ref
+    fn = {"mul": lambda x, y: x * y, "add": lambda x, y: x + y,
+          "sub": lambda x, y: x - y}[op]
+    vals = [posit_ref.to_fraction(c, n, es) for c in range(1 << n)]
+    memo = {}
+    out = []
+    for x in vals:
+        for y in vals:
+            v = None if x is None or y is None else fn(x, y)
+            if v not in memo:
+                memo[v] = posit_ref.encode_fraction(v, n, es)
+            out.append(memo[v])
+    return np.asarray(out, dtype=np.int64)
+
+
+def phase20a(dev, seed) -> dict:
+    """20a. The TALU's exact posit arithmetic (``core.posit``'s compute
+    mode) on the card at paper-edge width: ``mul`` / ``add`` / ``sub`` over
+    every pair of P(8,0) and P(8,2) codes, bit-exact to the CPU run of the
+    same functions and to ``posit_ref``; 2^20 seeded P(16,1) pairs
+    bit-exact to the CPU; ``thermometer_decode`` of every P(8,2) code equal
+    to the CPU's; ``matmul_exact`` of P(8,2) codes at (8, 768) x (768,
+    768), a 768-step chain over 8 x 768 outputs, bit-exact to the CPU run
+    and 4 entries to ``posit_ref``'s sequential chain, with its wall ms
+    and CUDA kernel launches; then the port's TALU cycle simulator on
+    every Table III cell beside ``TABLE3``."""
+    import torch
+    from repro_torch.core import posit, posit_ref
+    from repro_torch.core.formats import get as get_fmt
+    from repro_torch.core.talu import TABLE3, TALU
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"p8": {}}
+    a8 = torch.arange(256, dtype=torch.uint8).repeat_interleave(256)
+    b8 = torch.arange(256, dtype=torch.uint8).repeat(256)
+    for name in ("posit8_0", "posit8_2"):
+        fmt = get_fmt(name)
+        for op in ("mul", "add", "sub"):
+            fn = getattr(posit, op)
+            got = fn(a8.to(dev), b8.to(dev), fmt)
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == torch.uint8
+            assert bits_equal(got.cpu(), fn(a8, b8, fmt)), (name, op)
+            table = oracle_table(op, 8, fmt.es)
+            assert np.array_equal(got.cpu().numpy().astype(np.int64),
+                                  table), (name, op)
+            out["p8"][f"{name}_{op}"] = "bit-exact"
+    # the memoised table is the oracle's own op on a sample of pairs
+    idx = np.random.default_rng(seed).integers(0, 1 << 16, 256)
+    table = oracle_table("add", 8, 2)
+    assert [posit_ref.add(int(i) >> 8, int(i) & 255, 8, 2)
+            for i in idx] == table[idx].tolist()
+    fmt = get_fmt("posit16_1")
+    g = torch.Generator().manual_seed(seed)
+    a16, b16 = (torch.randint(-(1 << 15), 1 << 15, (1 << 20,), generator=g,
+                              dtype=torch.int32).to(torch.int16)
+                for _ in range(2))
+    for op in ("mul", "add", "sub"):
+        fn = getattr(posit, op)
+        got = fn(a16.to(dev), b16.to(dev), fmt)
+        assert bits_equal(got.cpu(), fn(a16, b16, fmt)), op
+    p82 = get_fmt("posit8_2")
+    codes = torch.arange(256, dtype=torch.uint8)
+    for d, c in zip(posit.thermometer_decode(codes.to(dev), p82),
+                    posit.thermometer_decode(codes, p82)):
+        assert torch.equal(d.cpu(), c)
+    m, k, n = MATMUL20
+    g = torch.Generator().manual_seed(seed + 1)
+    a = torch.randint(0, 256, (m, k), generator=g, dtype=torch.int32)
+    b = torch.randint(0, 256, (k, n), generator=g, dtype=torch.int32)
+    a = torch.where(a == 128, 0, a).to(torch.uint8)      # no NaR
+    b = torch.where(b == 128, 0, b).to(torch.uint8)
+    ad, bd = a.to(dev), b.to(dev)
+    posit.matmul_exact(ad[:, :4], bd[:4], p82)            # warm-up
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    card = posit.matmul_exact(ad, bd, p82)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - s) * 1e3
+    s = time.perf_counter()
+    host = posit.matmul_exact(a, b, p82)
+    cpu_ms = (time.perf_counter() - s) * 1e3
+    assert card.is_cuda and bits_equal(card.cpu(), host)
+    for i, j in ((0, 0), (3, 100), (5, 511), (7, 767)):
+        acc = 0
+        for kk in range(k):
+            acc = posit_ref.add(acc, posit_ref.mul(int(a[i, kk]),
+                                                   int(b[kk, j]), 8, 2),
+                                8, 2)
+        assert int(host[i, j]) == acc, (i, j)
+    # CUDA kernel launches: chains of one and of two steps traced, the
+    # difference a step's, the rest the start (the zero code)
+    counts = []
+    for kk in (1, 2):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            posit.matmul_exact(ad[:, :kk], bd[:kk], p82)
+            torch.cuda.synchronize()
+        n_k = {}
+        device_events(prof, n_k)
+        counts.append(sum(n_k.values()))
+    per_step = counts[1] - counts[0]
+    launches = (counts[0] - per_step + k * per_step if counts[0]
+                else "not measured")
+    talu = {}
+    for cfg_name, kind, fname, bits, op in TABLE3_CELLS:
+        got = TALU().measure(kind, fmt=fname and get_fmt(fname),
+                             bits=bits or 8)
+        assert got == TABLE3[(cfg_name, op)], (cfg_name, op, got)
+        talu[f"{cfg_name} {op}"] = got
+    out.update({
+        "p16_1_pairs": 1 << 20, "thermometer_p8_2": "equal",
+        "matmul_exact": {"shape": list(MATMUL20), "format": "posit8_2",
+                         "card_wall_ms": card_ms, "cpu_wall_ms": cpu_ms,
+                         "card_vs_cpu": "bit-exact (whole product)",
+                         "oracle_entries": 4, "launches": launches},
+        "talu_table3": talu, "phase_s": time.perf_counter() - t0})
+    phase(f"phase 20a exact posit arithmetic on the card: mul/add/sub on "
+          f"all 65,536 pairs of P(8,0) and P(8,2) bit-exact to the CPU and "
+          f"to posit_ref; 2^20 P(16,1) pairs bit-exact to the CPU; "
+          f"thermometer_decode of every P(8,2) code equal; matmul_exact "
+          f"P(8,2) {m}x{k} @ {k}x{n} (a {k}-step chain) bit-exact to the "
+          f"CPU (whole product) and 4 entries to posit_ref: card wall "
+          f"{card_ms:.1f} ms, {launches} kernel launches, CPU "
+          f"{cpu_ms:.1f} ms; TALU cycles equal to TABLE3 on "
+          f"{len(talu)} cells ({talu}); phase {out['phase_s']:.1f} s")
+    return out
+
+
+def fill_kv(cache, g) -> None:
+    """Seeded K/V in every ring row, a layer at a time: N(0, 1) floats,
+    or posit8_2 codes of 1/4 .. 4 (no NaR)."""
+    import torch
+    for blk in cache["blocks"]:
+        for name in ("k", "v"):
+            for layer in blk[name]:
+                if layer.dtype == torch.uint8:
+                    layer.random_(48, 81, generator=g)
+                else:
+                    layer.normal_(generator=g)
+
+
+def kv_at_decode_32k(cache, cfg, fmt, g) -> dict:
+    """K3 and K4 on layer 0's ring of the decode_32k cell (B 128, W 32,768
+    rows, posit8), each against its plain version on the same inputs.  K3
+    from bf16 rows (the step's) at pos W for every slot (the wrap onto row
+    0, as the main path's second step) and at seeded per-slot positions
+    across the ring's end: codes and scales bit-exact over the whole ring.
+    K4 with a bf16 q at cache_len W (the main path's) within 2^-7, and an
+    f32 q at ragged lengths across split boundaries within rtol/atol 1e-5;
+    the plain version runs 8 slots at a time (a slot's result depends on
+    its own rows only)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import kv_cache as kvk
+    blk = cache["blocks"][0]
+    ring = tuple(blk[n][0] for n in ("k", "k_scale", "v", "v_scale"))
+    b, w, nkv, hd = ring[0].shape
+    nh, dev = cfg.n_heads, ring[0].device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def i32(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    pos_mixed = torch.randint(0, 2 * w, (b,), generator=g,
+                              dtype=torch.int32, device=dev)
+    pos_mixed[:4] = i32([w - 1, w, 2 * w - 1, 0])
+    for pos in (torch.full((b,), w, dtype=torch.int32, device=dev),
+                pos_mixed):
+        kn, vn = (randn(b, 1, nkv, hd).mul_(4).to(torch.bfloat16)
+                  for _ in range(2))
+        got = tuple(t.clone() for t in ring)
+        want = tuple(t.clone() for t in ring)
+        before = LAUNCHES["kv_append_rows"]
+        kvk.kv_append_rows(*got, kn, vn, pos, fmt)
+        assert LAUNCHES["kv_append_rows"] == before + 1
+        kvk.kv_append_rows_ref(*want, kn.float(), vn.float(), pos, fmt)
+        for a, c in zip(got, want):
+            assert bits_equal(a, c), "K3 at decode_32k"
+        del got, want
+    cl_rag = torch.randint(1, w + 1, (b,), generator=g, dtype=torch.int32,
+                           device=dev)
+    sr = kvk.SPLIT_ROWS
+    cl_rag[:8] = i32([1, sr - 1, sr, sr + 1, 2 * sr, w - sr, w - 1, w])
+    errs = {}
+    for label, q, cl, tol in (
+            ("bf16_q_full", randn(b, 1, nh, hd).to(torch.bfloat16),
+             torch.full((b,), w, dtype=torch.int32, device=dev), 2 ** -7),
+            ("f32_q_ragged", randn(b, 1, nh, hd), cl_rag, 1e-5)):
+        before = LAUNCHES["decode_attention"]
+        got = kvk.decode_attention(q, *ring, cl, fmt)
+        assert LAUNCHES["decode_attention"] == before + 1
+        want = torch.cat([kvk.decode_attention_ref(
+            q[i:i + 8], *(t[i:i + 8] for t in ring), cl[i:i + 8], fmt)
+            for i in range(0, b, 8)])
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        errs[label] = float((got.float() - want.float()).abs().max())
+    return {"k3_pos": "W for every slot (the wrap) and seeded across the "
+                      "ring's end", "k3_vs_plain": "bit-exact",
+            "k4_max_abs_err": errs, "k4_splits": -(-w // sr)}
+
+
+def part_bytes() -> dict:
+    """The card's allocated and requested (unrounded) bytes, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "requested": torch.cuda.memory_stats()[
+                "requested_bytes.all.current"]}
+
+
+def phase20b(dev, seed, card: str) -> dict:
+    """20b. The dry run against the card: paper-edge's ``decode_32k`` cell
+    (full width, 128 slots, 32,768-row rings, bf16 seeded weights) built
+    on one card with every row live (K/V filled with seeded values,
+    ``pos`` 32,767), first under bf16 KV, then with the policy's
+    ``kv_format`` posit8 (K3 and K4 over the rings).  Each part the
+    build makes (params, cache, token batch) is held to ``launch/dryrun``'s
+    argument bytes for that part under ``make_host_mesh(1)``: the card's
+    requested bytes equal, and its allocated bytes (rounded up by the
+    caching allocator) over all within 1e-4.  Two ``decode_step`` calls
+    give finite logits (the second timed with CUDA events, beside the dry
+    run's t_compute_s and t_memory_s at the card's constants); the posit8
+    run launches K3 and K4 12 times a step, the bf16 run none, and then
+    holds K3 and K4 at the cell's shapes against their plain versions
+    (``kv_at_decode_32k``).  Both builds are freed before the next
+    starts."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.formats import get as get_fmt
+    from repro_torch.core.transprecision import BF16
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, serve_model
+    t0 = time.perf_counter()
+    cfg = get_config("paper-edge")
+    b, s = SHAPES["decode_32k"].global_batch, SHAPES["decode_32k"].seq_len
+    out = {"card": card, "runs": {}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    for label, policy in (("bf16", BF16), ("posit8", dataclasses.replace(
+            BF16, kv_format="posit8"))):
+        rep = dryrun.lower_cell("paper-edge", "decode_32k",
+                                mesh=make_host_mesh(1), policy=policy)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        marks = [part_bytes()]
+        params = lm.init_params(cfg, g, device=dev)
+        marks.append(part_bytes())
+        cache = serve_model.init_cache(cfg, b, s, policy=policy, device=dev)
+        fill_kv(cache, g)
+        cache["pos"].fill_(s - 1)                # every row live
+        marks.append(part_bytes())
+        tok = torch.randint(0, cfg.vocab, (b, 1), generator=g,
+                            dtype=torch.int32, device=dev)
+        marks.append(part_bytes())
+        reckoned = rep["memory_analysis"]["argument_size_in_bytes"]
+        parts = rep["memory_analysis"]["argument_bytes_by_part"]
+        built = {part: {k: marks[i + 1][k] - marks[i][k]
+                        for k in ("allocated", "requested")}
+                 for i, part in enumerate(("params", "cache", "batch"))}
+        assert set(parts) == set(built), (label, parts)
+        for part, got in built.items():
+            assert got["requested"] == parts[part], (
+                label, part, got, parts[part])
+        allocated = marks[-1]["allocated"] - marks[0]["allocated"]
+        assert abs(allocated - reckoned) <= 1e-4 * reckoned, (
+            label, allocated, reckoned)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        logits, cache = serve_model.decode_step(params, cache, tok, cfg,
+                                                policy)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(logits).all()), label
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, cache = serve_model.decode_step(params, cache, tok, cfg,
+                                                policy)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms = ev[0].elapsed_time(ev[1])
+        assert bool(torch.isfinite(logits).all()), label
+        launches = {k: v for k, v in LAUNCHES.items()}
+        want = ({"kv_append_rows": 2 * cfg.n_layers,
+                 "decode_attention": 2 * cfg.n_layers}
+                if label == "posit8" else {})
+        assert {k: v for k, v in launches.items() if v} == want, launches
+        peak = torch.cuda.max_memory_allocated() - marks[0]["allocated"]
+        kernels = (kv_at_decode_32k(cache, cfg, get_fmt("posit8_2"), g)
+                   if label == "posit8" else None)
+        r = rep["roofline"]
+        out["runs"][label] = {
+            "allocated_bytes": allocated, "reckoned_bytes": reckoned,
+            "reckoned_by_part": parts, "built_by_part": built,
+            "allocated_over_reckoned": allocated / reckoned,
+            "peak_during_steps_bytes": peak,
+            "step_ms": step_ms, "t_compute_s": r["t_compute_s"],
+            "t_memory_s": r["t_memory_s"], "dominant": r["dominant"],
+            "dry_run_depth": rep["op_cost"]["depth"],
+            "launches_two_steps": launches, "k3_k4_at_cell": kernels}
+        del params, cache, logits, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"phase 20b [{card}] paper-edge decode_32k on one card, "
+              f"{label} KV (B {b}, {s}-row rings, every row live): "
+              f"requested bytes by part equal to the dry run's {parts}; "
+              f"allocated {allocated} B vs dry run {reckoned} B "
+              f"({allocated / reckoned:.6f}; by part {built}); decode step "
+              f"{step_ms:.3f} ms (CUDA events) vs dry run t_compute "
+              f"{r['t_compute_s'] * 1e3:.3f} ms, t_memory "
+              f"{r['t_memory_s'] * 1e3:.3f} ms (op bytes, a kernel call "
+              f"counted as its launch); peak over the build {peak} B; "
+              f"logits finite; launches over 2 steps "
+              f"{ {k: v for k, v in launches.items() if v} }"
+              + (f"; K3/K4 at the cell vs plain: {kernels}" if kernels
+                 else ""))
+    runs = out["runs"]
+    out["posit8_over_bf16_cache"] = (runs["posit8"]["reckoned_by_part"][
+        "cache"] / runs["bf16"]["reckoned_by_part"]["cache"])
+    # 64 MiB: workspaces a library makes at its first call (cuBLAS) stay
+    assert torch.cuda.memory_allocated() <= base + (64 << 20), (
+        "builds not freed", torch.cuda.memory_allocated() - base)
+    out["phase_s"] = time.perf_counter() - t0
+    phase(f"phase 20b posit8 cache / bf16 cache "
+          f"{out['posit8_over_bf16_cache']:.4f}; both builds freed; phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4516,6 +4890,13 @@ def main() -> int:
     # then two gloo ranks on the one card (spawned processes) -------------
     distributed = phase19(dev, args.seed, prompts, warm, smi)
     print(json.dumps({"distributed": distributed}), flush=True)
+
+    # 20. the TALU's exact posit arithmetic on the card, and the dry run's
+    # reckoning against paper-edge's decode_32k cell built on the card
+    # (own generators) ----------------------------------------------------
+    arith_dryrun = {"20a": phase20a(dev, args.seed),
+                    "20b": phase20b(dev, args.seed, smi)}
+    print(json.dumps({"arith_dryrun": arith_dryrun}), flush=True)
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
@@ -5446,6 +5827,11 @@ def main() -> int:
                 distributed["float32_paged"]["launches_rank0"][name],
             "per_decode_step": distributed["windows"][0][
                 "wrapper_launches_per_step"].get(name, 0)}
+        # paper-edge's decode_32k cell (20b: two decode steps at B 128
+        # over 32,768-row rings, bf16 and posit8 KV)
+        entry["launches_decode_32k"] = {
+            label: r["launches_two_steps"][name] / 2
+            for label, r in arith_dryrun["20b"]["runs"].items()}
         key = {"kv_append_rows": "k3", "decode_attention": "k4",
                "paged_kv_append_rows": "k5",
                "paged_decode_attention": "k6"}.get(name)

@@ -1,4 +1,5 @@
-"""Vectorized posit codec in plain PyTorch (port of ``repro.core.posit``).
+"""Vectorized posit codec and exact posit arithmetic in plain PyTorch
+(port of ``repro.core.posit``).
 
 ``decode_to_f32`` / ``encode_f32`` convert between posit codes and float32
 with bit-exact softposit semantics: two's-complement negatives,
@@ -8,7 +9,14 @@ encoder ``kernels.posit_encode.encode_tile`` flushes them instead.
 
 The regime is found with Algorithm 1's n-1 parallel threshold compares
 (``_regime_run``), the same form as the CUDA codec, so the plain version and
-the kernels share one algorithm.
+the kernels share one algorithm; ``thermometer_decode`` returns the compare
+matrix itself.
+
+``mul`` / ``add`` / ``sub`` / ``dot_exact`` / ``matmul_exact`` are *exact*
+posit arithmetic for n <= 16 (codes in, codes out), the software analogue
+of TALU's compute mode, with the reference's operand order and widths.
+They compute where their inputs live; ``dot_exact`` is a chain rounded at
+every step, k = 0 .. K-1, over whole tensors.
 
 Bit work: torch's unsigned 16/32-bit types have thin op coverage, so every
 "uint32" field here is an int64 tensor holding a value in [0, 2**32).  The
@@ -87,6 +95,35 @@ def to_storage(code, fmt: PositFormat):
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
+
+def _bit_length(x):
+    """Bits of a non-negative integer tensor below 2**53 (``int.bit_length``;
+    0 -> 0): float64's exponent is exact there, and torch has no clz."""
+    return torch.frexp(x.to(torch.float64)).exponent.to(torch.int64)
+
+
+def thermometer_decode(codes, fmt: PositFormat):
+    """Algorithm 1's Find_R, verbatim: parallel threshold comparisons.
+
+    Returns (V, r, K): V is the (..., n-1) thermometer matrix of
+    Q-function outputs ``V_i = T[n-2:0] >= 2^{n-1}-1-(2^i-1)``, r =
+    popcount(V) the regime run length and K the regime value.  Operates on
+    the raw code the way the TALU does (magnitude handling happens
+    upstream)."""
+    n = fmt.bits
+    body = _u(codes) & _mask(n - 1)
+    lead = _shr(body, n - 2) & 1
+    t_val = torch.where(lead == 1, body, (~body) & _mask(n - 1))
+    i = torch.arange(n - 1, dtype=torch.int64, device=t_val.device)
+    v = (t_val[..., None] >= (1 << (n - 1)) - (1 << i)).to(torch.int64)
+    r = v.sum(dim=-1)
+    return v, r, torch.where(lead == 1, r - 1, -r)
+
+
+def regime_lut(fmt: PositFormat) -> torch.Tensor:
+    """The paper's LUT: thermometer popcount -> K (for the lead=1 plane)."""
+    return torch.arange(fmt.bits, dtype=torch.int32) - 1
+
 
 def _regime_run(t_val, n: int):
     """Algorithm 1's Find_R: the regime run length as the count of n-1
@@ -215,8 +252,109 @@ def encode_f32(x, fmt: PositFormat):
     _, s, exp_raw, man_raw, is_zero, is_nar = f32_fields(x)
     subn = (exp_raw == 0) & (~is_zero)
     # leading zeros of the 23-bit field, plus one for the hidden bit
-    bitlen = torch.frexp(man_raw.to(torch.float64)).exponent.to(torch.int64)
-    nz_shift = 24 - bitlen
+    nz_shift = 24 - _bit_length(man_raw)
     man_n = torch.where(subn, _shl(man_raw, nz_shift) & _mask(23), man_raw)
     t = torch.where(subn, -126 - nz_shift, exp_raw - 127)
     return _encode_parts(s, t, man_n, 23, False, is_zero, is_nar, fmt)
+
+
+# ---------------------------------------------------------------------------
+# Exact arithmetic (n <= 16; every field below 2**31)
+# ---------------------------------------------------------------------------
+
+_FW = 14  # working fraction bits; >= max f_len (13 for P(16,0))
+
+
+def _check_exact(fmt: PositFormat) -> None:
+    if fmt.bits > 16:
+        raise NotImplementedError("exact posit arithmetic supports n<=16")
+
+
+def _dec_norm(codes, fmt: PositFormat):
+    """Decode to (s, t, mant) with mant = 1.f at _FW fraction bits."""
+    s, t, f_len, f_field, is_zero, is_nar = _decode_parts(codes, fmt)
+    mant = _shl(f_field, _FW - f_len) | (1 << _FW)
+    return s, t, mant, is_zero, is_nar
+
+
+def mul(a, b, fmt: PositFormat):
+    """Exact posit multiply (codes x codes -> storage codes), n <= 16."""
+    _check_exact(fmt)
+    sa, ta, ma, za, na = _dec_norm(a, fmt)
+    sb, tb, mb, zb, nb = _dec_norm(b, fmt)
+    prod = ma * mb                      # < 2^(2FW+2) = 2^30
+    hi = _shr(prod, 2 * _FW + 1) & 1
+    t = ta + tb + hi - 2 * fmt.bias     # undo double bias; encode re-adds one
+    frac = _shr(prod, hi) & _mask(2 * _FW)  # normalized: [2^2FW, 2^(2FW+1))
+    return _encode_parts(sa ^ sb, t, frac, 2 * _FW, False, za | zb, na | nb,
+                         fmt)
+
+
+def add(a, b, fmt: PositFormat):
+    """Exact posit add (codes x codes -> storage codes), n <= 16.
+
+    Classic guard/round/sticky alignment with 3 guard bits; a subtraction
+    borrows its sticky as a -1 so the kept bits stay a truncation of the
+    true result.  Where exactly one operand is zero, the other operand's
+    code comes back unchanged."""
+    _check_exact(fmt)
+    G = 3
+    sa, ta, ma, za, na = _dec_norm(a, fmt)
+    sb, tb, mb, zb, nb = _dec_norm(b, fmt)
+    swap = (tb > ta) | ((tb == ta) & (mb > ma))
+    sl, ss = torch.where(swap, sb, sa), torch.where(swap, sa, sb)
+    tl, ts = torch.where(swap, tb, ta), torch.where(swap, ta, tb)
+    ml, ms = torch.where(swap, mb, ma), torch.where(swap, ma, mb)
+    d = (tl - ts).clamp(0, _FW + G + 2)
+    msg_full = _shl(ms, G)
+    sticky = (msg_full & _mask(d)) != 0
+    mlg, msg = _shl(ml, G), _shr(msg_full, d)
+    mag = torch.where((sl ^ ss) == 1, mlg - msg - sticky.to(torch.int64),
+                      mlg + msg)
+    res_zero = (mag == 0) & ~sticky
+    mag = mag.clamp(min=1)              # masked out by res_zero
+    # normalize to 1.f at (FW+G) fraction bits
+    shift = _bit_length(mag) - 1 - (_FW + G)
+    mnorm = torch.where(shift >= 0, _shr(mag, shift), _shl(mag, -shift))
+    lost = (shift > 0) & ((mag & _mask(shift.clamp(min=0))) != 0)
+    t = tl + shift - fmt.bias           # one bias gets re-applied in encode
+    out = _encode_parts(torch.where(res_zero, 0, sl), t,
+                        mnorm & _mask(_FW + G), _FW + G, sticky | lost,
+                        (za & zb) | res_zero, na | nb, fmt)
+    out = torch.where(zb & ~za, to_storage(_u(a) & _mask(fmt.bits), fmt), out)
+    return torch.where(za & ~zb, to_storage(_u(b) & _mask(fmt.bits), fmt),
+                       out)
+
+
+def sub(a, b, fmt: PositFormat):
+    """a - b: b negated within n bits (zero and NaR map to themselves)."""
+    n = fmt.bits
+    bu = _u(b) & _mask(n)
+    nb = torch.where(bu == 0, bu, _negate_code(bu, n))
+    return add(a, to_storage(nb, fmt), fmt)
+
+
+def fma_f32(acc_f32, a_codes, b_codes, fmt: PositFormat):
+    """Decode-multiply-accumulate in f32 (posit as storage, float
+    compute)."""
+    return acc_f32 + decode_to_f32(a_codes, fmt) * decode_to_f32(b_codes,
+                                                                 fmt)
+
+
+def dot_exact(a_codes, b_codes, fmt: PositFormat):
+    """Exact posit dot product over the last axis: a sequential chain
+    ``acc = add(acc, mul(a_k, b_k))`` from a zero code, k = 0 .. K-1, each
+    step rounded (the TALU-V execution model).  Not a sum: a reordered or
+    tree reduction gives other codes."""
+    _check_exact(fmt)
+    a_t, b_t = a_codes.movedim(-1, 0), b_codes.movedim(-1, 0)
+    acc = torch.zeros(torch.broadcast_shapes(a_t.shape[1:], b_t.shape[1:]),
+                      dtype=fmt.storage_dtype, device=a_codes.device)
+    for ak, bk in zip(a_t, b_t):
+        acc = add(acc, mul(ak, bk, fmt), fmt)
+    return acc
+
+
+def matmul_exact(a_codes, b_codes, fmt: PositFormat):
+    """(M, K) x (K, N) exact posit matmul (TALU-V semantics)."""
+    return dot_exact(a_codes[:, None, :], b_codes.T[None, :, :], fmt)

@@ -8,6 +8,7 @@
 * ``quantize`` / ``dequantize`` — storage-format conversion.
 * ``fake_quant`` — straight-through-estimator quantization
   (``torch.autograd.Function``).
+* ``quantization_mse`` — the mean square error of a round trip.
 """
 from __future__ import annotations
 
@@ -136,3 +137,10 @@ def maybe_dequant(w, dtype=torch.bfloat16):
     if isinstance(w, QuantizedTensor):
         return dequantize(w, dtype)
     return w
+
+
+def quantization_mse(x, fmt, axis=None) -> torch.Tensor:
+    """Mean squared quantization error of storing ``x`` in ``fmt`` (float32,
+    on ``x``'s device)."""
+    qt = quantize(x, get(fmt), axis=axis)
+    return torch.mean((dequantize(qt) - x.to(torch.float32)) ** 2)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core.formats import PositFormat
+from ..launch.op_cost import custom_call
 from . import _build
 from .posit_decode import decode_tile, posit_decode
 from .posit_encode import encode_tile
@@ -81,14 +82,12 @@ def decode_kv_rows(codes, scale, fmt: PositFormat, packed: bool = False,
 
 def decode_kv_rows_device(codes, scale, fmt: PositFormat,
                           packed: bool = False):
-    """``decode_kv_rows`` to f32 through K1: on CUDA tensors the codes
-    (nibbles unpacked first) go through ``posit_decode`` and are then
-    multiplied by the row scale; CPU tensors take ``decode_kv_rows``.
-    K1 is bit-exact, so both give the same bits.  The speculative verify
-    reads the whole cache this way; ``decode_kv_rows`` stays plain, the
-    oracle of ``decode_attention_ref``."""
-    if not codes.is_cuda:
-        return decode_kv_rows(codes, scale, fmt, packed)
+    """``decode_kv_rows`` to f32 through K1: the codes (nibbles unpacked
+    first) go through ``posit_decode`` and are then multiplied by the row
+    scale (on CPU tensors K1's plain version, the same ops and bits as
+    ``decode_kv_rows``).  The speculative verify reads the whole cache this
+    way; ``decode_kv_rows`` stays plain, the oracle of
+    ``decode_attention_ref``."""
     if packed:
         codes = unpack_nibbles(codes)
     return posit_decode(codes, fmt) * scale
@@ -101,6 +100,13 @@ def code_channels(hd: int, fmt: PositFormat, packed: bool = False) -> int:
             raise ValueError("nibble packing needs an even head dim")
         return hd // 2
     return hd
+
+
+def written_rows(k_codes, k_scale, k_new):
+    """What an append of k/v_new (B, T, H, hd) writes: the (B, T, H) rows
+    of codes and of scales, K and V, as ``op_cost.custom_call`` extents."""
+    n = k_new.shape[0] * k_new.shape[1] * k_new.shape[2]
+    return [(k_codes.dtype, n * k_codes.shape[-1]), (k_scale.dtype, n)] * 2
 
 
 def _ring_rows(pos, b: int, t: int, w: int, device):
@@ -198,8 +204,10 @@ def kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
     aligned (``append_geometry`` has the limits): one launch of K5's lane
     groups, with ring rows (pos[b] + t) mod W as destinations."""
     if not k_codes.is_cuda:
-        return kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale, k_new,
-                                  v_new, pos, fmt, packed)
+        return custom_call(kv_append_rows_ref, k_codes, k_scale, v_codes,
+                           v_scale, k_new, v_new, pos, fmt, packed,
+                           reads=[k_new, v_new, pos],
+                           writes=written_rows(k_codes, k_scale, k_new))
     name = "kv_append_rows"
     _build.check_kv(name, fmt, packed, (k_codes, v_codes), (k_scale, v_scale))
     b, w, h, dc = k_codes.shape
@@ -283,8 +291,10 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, cache_len,
     second kernel merges the splits; the q scaling and the output cast
     happen inside the kernels (``split_geometry`` has the limits)."""
     if not q.is_cuda:
-        return decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
-                                    cache_len, fmt, packed)
+        return custom_call(decode_attention_ref, q, k_codes, k_scale,
+                           v_codes, v_scale, cache_len, fmt, packed,
+                           reads=[q, k_codes, k_scale, v_codes, v_scale,
+                                  cache_len])
     name = "decode_attention"
     _build.check_kv(name, fmt, packed, (k_codes, v_codes), (k_scale, v_scale))
     b, w, nkv, dc = k_codes.shape

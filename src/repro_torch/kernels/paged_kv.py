@@ -39,11 +39,12 @@ from __future__ import annotations
 import torch
 
 from ..core.formats import PositFormat
+from ..launch.op_cost import custom_call
 from ..models.attention import decode_attention
 from . import _build
 from .kv_cache import (SPLIT_ROWS, code_channels, decode_kv_rows,
                        decode_kv_rows_device, encode_kv_rows, launch_append,
-                       split_geometry)
+                       split_geometry, written_rows)
 
 
 def flat_dst_rows(page_table, pos, page_size: int):
@@ -124,8 +125,10 @@ def paged_kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
     aligned (``append_geometry`` has the limits): one launch, a group of
     (row bytes) / 16 lanes per (b, t, head) row."""
     if not k_codes.is_cuda:
-        return paged_kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale,
-                                        k_new, v_new, dst, fmt, packed)
+        return custom_call(paged_kv_append_rows_ref, k_codes, k_scale,
+                           v_codes, v_scale, k_new, v_new, dst, fmt, packed,
+                           reads=[k_new, v_new, dst],
+                           writes=written_rows(k_codes, k_scale, k_new))
     name = "paged_kv_append_rows"
     _build.check_kv(name, fmt, packed, (k_codes, v_codes), (k_scale, v_scale))
     r, h, dc = k_codes.shape
@@ -213,9 +216,15 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
     [0, num_pages).  The limits are ``split_geometry``'s, shared with the
     ring's K4."""
     if not q.is_cuda:
-        return paged_decode_attention_ref(
-            q, k_codes, k_scale, v_codes, v_scale, page_table, seq_lens,
-            fmt, page_size=page_size, packed=packed)
+        # the kernel reads the pages each slot's table lists
+        rows = page_table.numel() * page_size * k_codes.shape[1]
+        listed = [(k_codes.dtype, rows * k_codes.shape[-1]),
+                  (k_scale.dtype, rows)] * 2
+        return custom_call(
+            paged_decode_attention_ref, q, k_codes, k_scale, v_codes,
+            v_scale, page_table, seq_lens, fmt, page_size=page_size,
+            packed=packed,
+            reads=[q, page_table, seq_lens] + listed)
     name = "paged_decode_attention"
     _build.check_kv(name, fmt, packed, (k_codes, v_codes), (k_scale, v_scale))
     r, nkv, dc = k_codes.shape

@@ -14,6 +14,7 @@ import torch
 
 from ..core.formats import PositFormat
 from ..core.posit import decode_to_f32
+from ..launch.op_cost import custom_call
 from . import _build
 
 
@@ -30,7 +31,8 @@ def posit_decode(codes: torch.Tensor, fmt: PositFormat, *,
     """K1: codes (any shape; uint8, or int16 for posit16) -> float32 or
     bfloat16 of the same shape."""
     if not codes.is_cuda:
-        return decode_tile(codes, fmt, out_dtype)
+        return custom_call(decode_tile, codes, fmt, out_dtype,
+                           reads=[codes])
     _build.check_fmt("posit_decode", fmt)
     if codes.dtype != _build.code_dtype(fmt):
         raise TypeError(f"posit_decode: {fmt.name} codes must be "

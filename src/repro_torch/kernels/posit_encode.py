@@ -17,6 +17,7 @@ import torch
 
 from ..core.formats import PositFormat
 from ..core.posit import _encode_parts, encode_f32, f32_fields
+from ..launch.op_cost import custom_call
 from . import _build
 
 SUBNORMALS = ("flush", "normalize")
@@ -53,7 +54,8 @@ def posit_encode(x: torch.Tensor, fmt: PositFormat,
             f"representable in {fmt.name}; the normalising mode encodes "
             "every subnormal to +-minpos and refuses such a bias")
     if not x.is_cuda:
-        return encode_f32(x, fmt) if normalize else encode_tile(x, fmt)
+        return custom_call(encode_f32 if normalize else encode_tile, x, fmt,
+                           reads=[x])
     _build.check_fmt("posit_encode", fmt)
     if x.numel() >= 2 ** 31:
         raise ValueError("posit_encode: more than 2**31 - 1 values")

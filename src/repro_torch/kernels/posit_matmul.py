@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core.formats import PositFormat
+from ..launch.op_cost import custom_call
 from . import _build
 from .posit_decode import decode_tile
 
@@ -117,8 +118,9 @@ def posit_matmul(x: torch.Tensor, w_codes: torch.Tensor, fmt: PositFormat,
     if path not in (None,) + _PATHS:
         raise ValueError(f"posit_matmul: path must be one of {_PATHS}")
     if not x.is_cuda:
-        return posit_matmul_plain(x, w_codes, fmt, scale,
-                                  compute_dtype=compute_dtype)
+        return custom_call(posit_matmul_plain, x, w_codes, fmt, scale,
+                           compute_dtype=compute_dtype,
+                           reads=[x, w_codes, scale])
     srow = scale_row(scale, w_codes.shape[1], x.device)
     _build.check_fmt("posit_matmul", fmt)
     if w_codes.dtype != _build.code_dtype(fmt):

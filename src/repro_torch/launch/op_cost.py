@@ -37,18 +37,23 @@ Counts (the reference's keys):
   FLOPs go to its output's dtype.
 
 Running the same function on CPU tensors gives the same counts.  This is
-also the base for a meta-device dry run of a whole configuration.
+also the base for a meta-device dry run of a whole configuration: with
+``kernels="custom_call"`` every kernel wrapper that routes through
+:func:`custom_call` counts as the one launch it makes on the card, as the
+reference's ``hlo_cost`` counts a custom call (its operands read once, the
+rows it writes written once) and not as its plain version's ops.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import (Any, Callable, Dict, Iterable, List, Optional,
+                    Tuple)
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["TraceError", "analyze", "dtype_label",
+__all__ = ["TraceError", "analyze", "custom_call", "dtype_label",
            "entry_param_bytes_by_dtype"]
 
 _LABELS = {
@@ -97,11 +102,13 @@ class _OpCost(TorchDispatchMode):
     FLOPs come from ``flop_registry`` (the formulas ``FlopCounterMode``
     sums)."""
 
-    def __init__(self):
+    def __init__(self, kernels: str = "plain"):
         super().__init__()
         self.flops_by_dtype: Dict[str, float] = {}
         self.bytes_by_dtype: Dict[str, float] = {}
         self.mac_by_dtype: Dict[str, float] = {}
+        self.kernels = kernels
+        self.in_kernel = False      # inside a custom_call: products only
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -124,28 +131,80 @@ class _OpCost(TorchDispatchMode):
                 raise TraceError(f"{func} returned a tensor on {t.device}")
         if func.is_view or func in _FREE:
             return out
-        ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
-        for t in ins + outs:
-            _add(self.bytes_by_dtype, dtype_label(t.dtype),
-                 t.numel() * t.element_size())
+        if not self.in_kernel:
+            ins = [t for t in tree_flatten((args, kwargs))[0]
+                   if isinstance(t, torch.Tensor)]
+            for t in ins + outs:
+                _add(self.bytes_by_dtype, dtype_label(t.dtype),
+                     t.numel() * t.element_size())
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             mac = formula(*args, **kwargs, out_val=out)
             _add(self.mac_by_dtype, dtype_label(outs[0].dtype), mac)
             _add(self.flops_by_dtype, dtype_label(outs[0].dtype), mac)
-        else:
+        elif not self.in_kernel:
             for t in outs:
                 _add(self.flops_by_dtype, dtype_label(t.dtype), t.numel())
         return out
 
 
-def analyze(fn: Callable, spec) -> Dict[str, Any]:
+# the counting modes of the analyze() calls in progress, innermost last
+_ACTIVE: List[_OpCost] = []
+
+
+def _extents(items) -> List[Tuple[torch.dtype, int]]:
+    """(dtype, element count) of each tensor or pair in ``items``; other
+    operands (Python scalars, None) move nothing."""
+    return [(x.dtype, x.numel()) if isinstance(x, torch.Tensor) else x
+            for x in items if isinstance(x, (torch.Tensor, tuple))]
+
+
+def custom_call(plain: Callable, *args, reads: Iterable = (),
+                writes: Optional[Iterable] = None, **kwargs):
+    """Run ``plain(*args, **kwargs)``, a kernel wrapper's plain version, and
+    return its result.  Under ``analyze(..., kernels="custom_call")`` the
+    call counts as its kernel's one launch: the plain version's products
+    keep their FLOPs (``mac_flops`` is unchanged), its other ops count
+    nothing, and the call adds the bytes of ``reads`` (read once) and of
+    ``writes`` (written once; default: the tensors ``plain`` returns) and
+    one FLOP per element written.  ``reads`` and ``writes`` hold tensors or
+    ``(dtype, element count)`` pairs (anything else, a Python scalar or
+    None, is skipped): an in-place kernel names the rows it writes, not the
+    buffer they land in."""
+    mode = _ACTIVE[-1] if _ACTIVE else None
+    if mode is None or mode.kernels != "custom_call" or mode.in_kernel:
+        return plain(*args, **kwargs)
+    mode.in_kernel = True
+    try:
+        out = plain(*args, **kwargs)
+    finally:
+        mode.in_kernel = False
+    writes = _extents(tree_flatten(out)[0] if writes is None else writes)
+    for dtype, n in _extents(reads) + writes:
+        _add(mode.bytes_by_dtype, dtype_label(dtype), n * dtype.itemsize)
+    for dtype, n in writes:
+        _add(mode.flops_by_dtype, dtype_label(dtype), n)
+    return out
+
+
+def analyze(fn: Callable, spec, grad: bool = False,
+            kernels: str = "plain") -> Dict[str, Any]:
     """Run ``fn(*spec)`` once under the counting mode and return the
-    reference's ``analyze`` keys (``collective_bytes`` 0: one device)."""
-    cost = _OpCost()
-    with torch.no_grad(), cost:
-        fn(*spec)
+    reference's ``analyze`` keys (``collective_bytes`` 0: one device).
+    ``grad`` keeps autograd on, for a function that differentiates (a
+    train step: its backward ops are counted too).  ``kernels``: "plain"
+    counts a kernel wrapper's plain version op by op (the reference's
+    interpret-mode Pallas bodies); "custom_call" counts it as its one
+    launch (:func:`custom_call`)."""
+    if kernels not in ("plain", "custom_call"):
+        raise ValueError(f"kernels={kernels!r}: 'plain' or 'custom_call'")
+    cost = _OpCost(kernels)
+    _ACTIVE.append(cost)
+    try:
+        with torch.set_grad_enabled(grad), cost:
+            fn(*spec)
+    finally:
+        _ACTIVE.pop()
     return {
         "flops": float(sum(cost.flops_by_dtype.values())),
         "mac_flops": float(sum(cost.mac_by_dtype.values())),

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import kv_cache as kv_kernels
+from ..launch.op_cost import custom_call
 from .common import _einsum
 
 NEG_INF = -1e30
@@ -214,11 +215,20 @@ def decode_attention_packed(q, k_codes, v_codes, cache_len, *, k_scale,
     k/v_codes: (B, W, nkv, Dc); k/v_scale: (B, W, nkv) f32; ``spec`` a
     ``core.transprecision.KVStorage``.  CUDA tensors go to the fused K4
     kernel (output in q's dtype); CPU tensors decode the ring to f32 and
-    run ``decode_attention``, as the reference's CPU path does."""
+    run ``decode_attention``, as the reference's CPU path does (a meta
+    trace counts that as K4's one launch: ``op_cost.custom_call``)."""
     if q.is_cuda:
         return kv_kernels.decode_attention(
             q, k_codes, k_scale, v_codes, v_scale, cache_len, spec.fmt,
             packed=spec.packed)
+    return custom_call(_decode_attention_packed_plain, q, k_codes, v_codes,
+                       cache_len, k_scale, v_scale, spec,
+                       reads=[q, k_codes, k_scale, v_codes, v_scale,
+                              cache_len])
+
+
+def _decode_attention_packed_plain(q, k_codes, v_codes, cache_len, k_scale,
+                                   v_scale, spec):
     k = kv_kernels.decode_kv_rows(k_codes, k_scale[..., None], spec.fmt,
                                   spec.packed)
     v = kv_kernels.decode_kv_rows(v_codes, v_scale[..., None], spec.fmt,

@@ -284,12 +284,9 @@ def shard_cache(cache, cfg: ModelCfg, policy: TCPolicy, shard):
 def _ring_write(buf, val, pos):
     """buf: (B, W, ...); val: (B, 1, ...); write at pos mod W, in place.
     ``pos`` scalar (shared) or (B,) per-slot."""
-    w = buf.shape[1]
-    if pos.ndim:
-        buf[torch.arange(buf.shape[0], device=buf.device), pos.long() % w] = \
-            val[:, 0].to(buf.dtype)
-    else:
-        buf[:, int(pos) % w] = val[:, 0].to(buf.dtype)
+    b, w = buf.shape[:2]
+    buf[torch.arange(b, device=buf.device), pos.long().expand(b) % w] = \
+        val[:, 0].to(buf.dtype)
 
 
 def _local_rows(rows, lo: int, n: int):

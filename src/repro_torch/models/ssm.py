@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from .common import _einsum, causal_conv, dense_init, rms_norm
 
 
@@ -215,10 +216,12 @@ def mamba2_layer(params, x, cfg, *, conv_state=None, ssm_state=None,
     return _einsum("bsk,kd->bsd", y, w_out), (conv_state, ssm_state)
 
 
-def init_mamba2_state(cfg, batch, dtype=torch.float32, device="cpu"):
+def init_mamba2_state(cfg, batch, dtype=torch.float32, device="cuda"):
     """Zero (conv (*batch, K-1, conv_ch) in ``dtype``, ssm (*batch, nh, hd,
     ds) f32) states; ``batch`` is an int or a tuple of leading dims (the
-    serving cache's (layers, slots))."""
+    serving cache's (layers, slots)).  On the card unless the caller asks
+    for the CPU."""
+    device = resolve_device(device)
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
     _, nh, conv_ch = dims(cfg)
     return (torch.zeros(lead + (cfg.conv_kernel - 1, conv_ch), dtype=dtype,

@@ -55,8 +55,12 @@ VLM_AUDIO = ("repro_torch.configs.qwen2_vl_2b",
              "repro_torch.configs.whisper_large_v3")
 # ... and of the distributed decode and the sharding spec trees
 DISTRIBUTED = ("repro_torch.serve.distributed", "repro_torch.launch.mesh")
+# ... and of the exact posit arithmetic, the TALU simulator and the dry run
+ARITH_DRYRUN = ("repro_torch.core.posit_ref", "repro_torch.core.qfunc",
+                "repro_torch.core.talu", "repro_torch.launch.specs",
+                "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all")
 REACHED = (SLICE3 + SPECULATIVE + TRAINING + ROBUSTNESS + ENERGY + MOE
-           + HYBRID + VLM_AUDIO + DISTRIBUTED)
+           + HYBRID + VLM_AUDIO + DISTRIBUTED + ARITH_DRYRUN)
 
 
 def _imported(tree):
@@ -293,3 +297,33 @@ def test_serve_launcher_and_orchestrator_default_to_gpu():
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         ServingEngine(cfg, params, ServeConfig(max_batch=2, max_len=32),
                       guard=True, faults=FaultPlan.random(3))
+
+
+def test_mamba2_state_defaults_to_gpu():
+    """``ssm.init_mamba2_state`` runs on the card unless the caller asks
+    for the CPU (its serving caller passes the cache's device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from repro_torch.models.ssm import init_mamba2_state
+    cfg = get_config("mamba2-2.7b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        init_mamba2_state(cfg, 2)
+    conv, state = init_mamba2_state(cfg, (3, 2), device="cpu")
+    assert conv.device.type == state.device.type == "cpu"
+    assert conv.shape[:2] == state.shape[:2] == (3, 2)
+    cache = serve_model.init_cache(cfg, 2, 32, device="meta")
+    assert cache["blocks"][0]["state"].device.type == "meta"
+
+
+def test_dry_run_sets_no_xla_flags():
+    """The port's dry run is imported and run without touching
+    ``XLA_FLAGS`` (the reference's sets it at import)."""
+    code = ("import os\n"
+            "import repro_torch.launch.dryrun_all, repro_torch.launch.dryrun\n"
+            "print(os.environ.get('XLA_FLAGS', 'unset'))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(PKG.parent)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "unset"
