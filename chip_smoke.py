@@ -19,10 +19,12 @@ the ring, the full-width vision-language model ``qwen2-vl-2b`` in both
 layouts and speculatively and the full-width speech encoder-decoder
 ``whisper-large-v3``, serves full-width paper-edge through the
 KV-sequence-sharded distributed decode (one NCCL rank, then two gloo
-ranks spawned on the one card), runs the TALU's exact posit arithmetic
-on the card and builds paper-edge's decode_32k cell there against the
-meta-device dry run's reckoning, times every kernel and prints one JSON
-line per contract.  Needs one CUDA GPU; run from the
+ranks spawned on the one card) and the hybrid and audio models through
+it, runs the TALU's exact posit arithmetic on the card and builds
+paper-edge's decode_32k cell there against the meta-device dry run's
+reckoning, takes the first train steps of the SSM, vlm, audio and
+hybrid models at full width under each remat mode, times every kernel
+and prints one JSON line per contract.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -63,7 +65,7 @@ Table IV per-MAC PDP, 20 pJ/B DRAM; not the card's energy) of phase 6's,
 6c's and 11c's (ring, gamma 2) served runs, priced from meta-tensor
 traces of each stage, and card vs CPU at smoke size; an
 ``{"energy": ...}`` JSON line.  Phase 15 runs after 14 (own generators):
-15a ``granite-moe-1b-a400m`` at full width and depth (24 layers, 32
+15a ``granite-moe-1b-a400m`` at full width and 12 of 24 layers (32
 experts top-8, bf16 seeded weights, ``paper_edge_p8``) serving phase 6's
 eight prompts, 32 tokens each, in the ring and then the paged layout (one
 exact-length prefill per prompt: MoE routing sees every row of a call),
@@ -71,15 +73,15 @@ each with a profiled window of five engine steps, 8 slots live; 15b card
 vs CPU at float32 on the MoE smoke config, ring and paged; 15c
 ``moe_ffn``'s einsum and scatter dispatch on the card at the longest
 prompt's shape; a ``{"moe": ...}`` JSON line.  Phase 16 runs after 15
-(own generators): 16a ``mamba2-2.7b`` at full width and depth (64
-layers, d 2560, bf16 seeded weights, ``paper_edge_p8``, ring) serving
+(own generators): 16a ``mamba2-2.7b`` at full width and 32 of 64
+layers (d 2560, bf16 seeded weights, ``paper_edge_p8``, ring) serving
 eight prompts of 96-768 tokens (each at most the 256-token chunk or a
 multiple of it), 32 tokens each, one exact-length prefill per prompt,
 with a profiled window of five engine steps, 8 slots live; 16b card vs
 CPU at float32 on the mamba2 smoke config (a two-chunk prefill, then two
 decode steps from the card's state); 16c the refusals on the card; an
 ``{"ssm": ...}`` JSON line.  Phase 17 runs after 16 (own generators):
-17a ``recurrentgemma-9b`` at full width and depth (38 layers, d 4096, 16
+17a ``recurrentgemma-9b`` at full width and 20 of 38 layers (d 4096, 16
 query heads of 256 over 1 KV head, window 2048, bf16 seeded weights,
 ``paper_edge_p8``, ring, max_len 4096) serving eight prompts of
 182-3,500 tokens (four past the window: their prefills wrap the ring),
@@ -90,15 +92,15 @@ formats, with times; 17c card vs CPU at float32 on the recurrentgemma
 smoke config (prompts that wrap its 16-row ring, then decode steps from
 the card's state); 17d the refusals on the card; a ``{"hybrid": ...}``
 JSON line.  Phase 18 runs after 17 (own generators): 18a ``qwen2-vl-2b``
-at full width and depth (28 layers, d 1536, 12 query heads of 128 over 2
+at full width and 14 of 28 layers (d 1536, 12 query heads of 128 over 2
 KV heads, M-RoPE, tied 151,936-row table, bf16 seeded weights,
 ``paper_edge_p8``, max_len 1024) serving phase 6's eight prompts, 32
 tokens each, one exact-length prefill per prompt, in the ring and the
 paged layout, each with a profiled window of five engine steps, then the
 ``SpeculativeEngine`` (ring, gamma 2) over four of them, then a prefill
 over seeded (8, 256, 1536) patch embeddings and 16 decode steps; 18b
-``whisper-large-v3`` at full width and depth (32 encoder and 32 decoder
-layers, d 1280, 20 heads of 64, bf16 seeded weights, ``paper_edge_p8``,
+``whisper-large-v3`` at full width and 16 of its 32 encoder and 32
+decoder layers (d 1280, 20 heads of 64, bf16 seeded weights, ``paper_edge_p8``,
 max_len 448): 8 clips of seeded (1500, 1280) frame embeddings with the
 4-token start-of-transcript prompt, one ``prefill`` and 64 greedy
 ``decode_step`` calls, a profiled window of five, the plain
@@ -116,7 +118,25 @@ spawned on the one card over gloo (a ``file://`` init in a temporary
 directory; NCCL refuses two ranks on one device), each holding half the
 KV sequence, both layouts and dtypes, with windows of decode steps for
 the step's wall, the profiler's kernel names and the combine's
-synchronised time; a ``{"distributed": ...}`` JSON line.  Phase 20 runs
+synchronised time; 19c the same two gloo ranks serving recurrentgemma-9b
+at full width (14 layers: 4 periods and the 2-layer tail), float32,
+posit8 KV ring (W 2048 split 1024 + 1024), four prompts of 200-2,400
+tokens x 16 through the engine, beside the undistributed engine; 19d
+whisper-large-v3 at full width, float32, 8 clips with 240-token prompts,
+16 steps of ``make_distributed_decode_step`` over a ``shard_cache``d
+prefill (its 448-row rings split 224 + 224, cross K/V and memory whole),
+beside ``decode_step``; a ``{"distributed": ...}`` JSON line.  Phase 21
+runs after 20 (own generators): 21a one ``MIXED_TC`` wire step under remat
+"dots" of the mamba2, qwen2-vl, whisper and recurrentgemma (4 layers)
+smoke configs at float32, card vs CPU; 21b their first train steps at
+full width (``TRAIN21``: mamba2-2.7b cut to 56 layers, qwen2-vl-2b fed
+patch embeddings, whisper-large-v3 on 1500-frame clips, recurrentgemma-9b
+cut to 8 layers: 2 periods and the tail), MIXED_TC, one step under each
+remat mode from one seeded state ("full" first), with each step's ms,
+loss, launches and peak memory over the state, each mode's moments,
+residual and gradient held to "full"'s, and the wire on each family's
+largest leaf bit-exact against the plain codec; a
+``{"training_families": ...}`` JSON line.  Phase 20 runs
 after 19: 20a the exact posit arithmetic (``core.posit.mul`` / ``add`` /
 ``sub`` on every pair of P(8,0) and P(8,2) codes, 2^20 seeded P(16,1)
 pairs, ``thermometer_decode`` of every P(8,2) code, ``matmul_exact`` of
@@ -224,7 +244,7 @@ Every phase asserts; nothing is caught.  Tolerances:
                  1e-4 of the output's largest magnitude; aux equal.
   SSM (16a)      every request finishes with its 32 tokens, no error;
                  every prefill and decode logit finite; the recurrent
-                 state 1,358,692,352 B, the KV-cache bytes 0; none of
+                 state 679,346,176 B, the KV-cache bytes 0; none of
                  K1-K7 launched, by the wrappers' counts over the served
                  run and the profiled window and by the profiler's kernel
                  names.
@@ -237,8 +257,8 @@ Every phase asserts; nothing is caught.  Tolerances:
                  smoke prompt AssertionError.
   hybrid (17a)   every request finishes with its 32 tokens, no error;
                  every prefill and decode logit finite; KV cache
-                 102,236,160 B, recurrent state 8,519,680 B; K3 12 per
-                 decode step and per prefill, K4 12 per decode step, K1,
+                 51,118,080 B, recurrent state 4,587,520 B; K3 6 per
+                 decode step and per prefill, K4 6 per decode step, K1,
                  K2, K5-K7 0, by the wrappers' counts over the served run
                  and the profiled window and by the profiler's kernel
                  names where its trace holds K3's and K4's.
@@ -255,16 +275,16 @@ Every phase asserts; nothing is caught.  Tolerances:
   vlm (18a)      every request finishes with its 32 tokens, no error;
                  every prefill and decode logit finite (the engines' and
                  the embeddings prefill's and steps'); ring KV
-                 121,110,528 B; K3 + K4 28 per ring decode step and K3
-                 28 per prefill, K5 + K6 28 per paged decode step, K1 56
+                 60,555,264 B; K3 + K4 14 per ring decode step and K3
+                 14 per prefill, K5 + K6 14 per paged decode step, K1 28
                  per speculative round, K2 and K7 0, by the wrappers'
                  counts over the served runs and the profiled windows,
                  and by the profiler's kernel names where its trace holds
                  K3's and K4's.
-  audio (18b)    every logit finite; self K/V 311,951,360 B, cross K/V
-                 1,966,080,000 B, memory 30,720,000 B; K3 32 in the
-                 prefill and 32 per decode step, K4 32 per step; paged:
-                 K5 32 per prefill and step, K6 32 per step; K1, K2, K7
+  audio (18b)    every logit finite; self K/V 155,975,680 B, cross K/V
+                 983,040,000 B, memory 30,720,000 B; K3 16 in the
+                 prefill and 16 per decode step, K4 16 per step; paged:
+                 K5 16 per prefill and step, K6 16 per step; K1, K2, K7
                  0; the timed cross-attention call equal to the decode
                  step's bit for bit.
   KV (18c)       K3 and K5 bit-exact against their plain versions from f32
@@ -291,6 +311,22 @@ Every phase asserts; nothing is caught.  Tolerances:
                  1024); K5 12 and K1 24 per decode step, K3 12 per
                  prefill, the rest 0, by the wrappers' counts and, where
                  its trace holds them, the profiler's kernel names.
+  distributed (19c, 19d) every request gets its tokens, every logit
+                 finite; both ranks' float32 streams equal the
+                 undistributed run's; a rank's ring bytes half the
+                 undistributed ones, its recurrent state (19c) and cross
+                 K/V (19d) whole; K5 one and K1 two per attention layer a
+                 decode step, K3 one per prefill, the rest 0 (the
+                 undistributed runs: K3 and K4 one each), two
+                 collectives a layer carrying 4 B x slots x query heads x
+                 (hd + 2), by the wrappers' counts.
+  training (21a) card vs CPU: loss rtol 1e-5, updated params and masters
+                 atol 1e-6; K2 and K1 once per param leaf.
+  training (21b) every loss finite; "dots"'s and "none"'s losses equal to
+                 "full"'s, their params and masters within 1e-5 of
+                 "full"'s; K2 and K1 once per param leaf a step, nothing
+                 else; "dots"'s peak over the state below "none"'s where
+                 "none" ran.
   arithmetic (20a) bit-exact: card against the CPU run of the same
                  functions, the P(8,*) tables and 4 matmul entries also
                  against ``posit_ref`` (the latter as its sequential
@@ -340,8 +376,12 @@ paged, speculative and embeddings runs' counts and per decode step) and
 paged prefill and 8 steps'), and K3-K6's ``hd128_grp6`` and
 ``hd64_grp1``, 18c's posit8 times at those shapes beside their bounds;
 every entry carries ``launches_distributed`` (19a's served run, 19b rank
-0's ring and paged float32 runs, and per decode step) and
-``launches_decode_32k`` (20b: per decode step, bf16 and posit8 KV);
+0's ring and paged float32 runs, and per decode step),
+``launches_distributed_hybrid`` and ``launches_distributed_audio`` (19c
+and 19d, rank 0: per decode step and total),
+``launches_decode_32k`` (20b: per decode step, bf16 and posit8 KV) and
+``launches_train_ssm``, ``_vlm``, ``_audio`` and ``_hybrid`` (21b: per
+step and over every mode's steps);
 K2's ``launches`` are
 the training path's (12c: the Trainer's 6 steps);
 K1's and K2's entries carry ``launches_train`` (per step and total, 12c)
@@ -1118,6 +1158,23 @@ def phase14(dev, seed, runs) -> dict:
 
 
 MOE_ARCH = "granite-moe-1b-a400m"
+# phases 15a-18b run their models at full width and half their published
+# depth (granite-moe 24, mamba2 64, recurrentgemma 38 = 12 periods + 2,
+# qwen2-vl 28, whisper 32 + 32): the whole script stays near 900 s of
+# command with phases 19c-21
+DEPTH_15_18 = {"granite-moe-1b-a400m": 12, "mamba2-2.7b": 32,
+               "recurrentgemma-9b": 20, "qwen2-vl-2b": 14,
+               "whisper-large-v3": 16}
+
+
+def depth_cut(arch: str):
+    """``arch``'s full-width config at ``DEPTH_15_18``'s depth (an
+    encoder-decoder's encoder too)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n = DEPTH_15_18[arch]
+    return dataclasses.replace(cfg, n_layers=n, **(
+        {"enc_layers": n} if cfg.enc_layers else {}))
 # the KV kernels a MoE decode step runs: K3 + K4 (ring), K5 + K6 (paged)
 MOE_KERNELS = ("kv_append_rows", "decode_attention", "paged_kv_append_rows",
                "paged_decode_attention")
@@ -1159,7 +1216,8 @@ def route_gaps(params, tokens, top_k):
 
 
 def phase15a(dev, seed, prompts, warm, card: str) -> dict:
-    """15a. ``granite-moe-1b-a400m`` at full width and depth (bf16 seeded
+    """15a. ``granite-moe-1b-a400m`` at full width and 12 of its 24 layers
+    (``depth_cut``; bf16 seeded
     weights, ``paper_edge_p8``: posit8 weights hoisted, posit8 KV), max
     batch 8, max_len 1024, phase 6's eight prompts, 32 new tokens each,
     ring then paged (full pool of 16-row pages).  Every request finishes
@@ -1177,7 +1235,7 @@ def phase15a(dev, seed, prompts, warm, card: str) -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
-    cfg = get_config(MOE_ARCH)
+    cfg = depth_cut(MOE_ARCH)
     n_l = cfg.n_layers
     gen = torch.Generator(device=dev).manual_seed(seed + 15)
     params = lm.init_params(cfg, gen, device=dev)
@@ -1521,8 +1579,8 @@ SSM_PROMPT_LENS = (96, 182, 200, 256, 256, 512, 512, 768)
 
 
 def phase16a(dev, seed, card: str) -> dict:
-    """16a. ``mamba2-2.7b`` at full width and depth (64 layers, d 2560,
-    bf16 seeded weights, the published config uncut), ``paper_edge_p8``
+    """16a. ``mamba2-2.7b`` at full width and 32 of its 64 layers
+    (``depth_cut``; d 2560, bf16 seeded weights), ``paper_edge_p8``
     (posit8 in_proj / out_proj hoisted; the posit8 KV format has no K/V
     to hold), ring layout, max batch 8, max_len 1024: eight prompts of
     ``SSM_PROMPT_LENS`` tokens (each at most ``ssm_chunk`` or a multiple
@@ -1530,7 +1588,7 @@ def phase16a(dev, seed, card: str) -> dict:
     exact-length prefill per prompt.  Asserts every request finishes with
     its 32 tokens and no error, every prefill and decode logit is finite,
     the recurrent state is 8 slots x (80 x 64 x 128 f32 + 3 x 5376 bf16)
-    x 64 layers = 1,358,692,352 B, and none of K1-K7 launches (the
+    x 32 layers = 679,346,176 B, and none of K1-K7 launches (the
     wrappers' counts over the served run and the profiled window, and the
     profiler's kernel names).  Prints the decode step's wall, device
     busy, idle share and launches per step over a profiled window of 5
@@ -1543,7 +1601,7 @@ def phase16a(dev, seed, card: str) -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
-    cfg = get_config(SSM_ARCH)
+    cfg = depth_cut(SSM_ARCH)
     n_l = cfg.n_layers
     rng16 = np.random.default_rng([seed, 16])
     prompts = [rng16.integers(0, cfg.vocab, n) for n in SSM_PROMPT_LENS]
@@ -1579,7 +1637,7 @@ def phase16a(dev, seed, card: str) -> dict:
     peak_build = torch.cuda.max_memory_allocated()
     w_bytes = tensor_bytes(eng.params)
     state_bytes = tensor_bytes(eng.cache["blocks"])
-    assert state_bytes == 1_358_692_352, state_bytes
+    assert state_bytes == 679_346_176, state_bytes
     assert eng.kv_cache_bytes() == 0
     # a decode step reads every weight once (the tied head the whole
     # table) and reads and writes the whole recurrent state
@@ -1812,10 +1870,11 @@ HYBRID_ARCH = "recurrentgemma-9b"
 HYBRID_PROMPT_LENS = (182, 640, 1200, 1900, 2300, 2800, 3200, 3500)
 HYBRID_MAX_LEN = 4096
 HYBRID_KERNELS = ("kv_append_rows", "decode_attention")
-# 12 layers x 8 slots x 2048 rows x 2 x (256 codes + 4 scale bytes), half
-# of a 4096-row ring; 26 layers x 8 x (4096 x 4 + 3 x 4096 x 2)
-HYBRID_KV_BYTES = 102_236_160
-HYBRID_STATE_BYTES = 8_519_680
+# 6 attention layers x 8 slots x 2048 rows x 2 x (256 codes + 4 scale
+# bytes), half of a 4096-row ring; 14 recurrent layers x 8 x (4096 x 4 +
+# 3 x 4096 x 2)
+HYBRID_KV_BYTES = 51_118_080
+HYBRID_STATE_BYTES = 4_587_520
 
 
 def rec_state_bytes(cache, cfg) -> int:
@@ -1827,19 +1886,19 @@ def rec_state_bytes(cache, cfg) -> int:
 
 
 def phase17a(dev, seed, card: str) -> dict:
-    """17a. ``recurrentgemma-9b`` at full width and depth (38 layers: 12
-    periods of (rec, rec, local attn) and 2 recurrent tail blocks, d 4096,
-    16 heads of 256 over 1 KV head, bf16 seeded weights, the published
-    config uncut), ``paper_edge_p8`` (posit8 attention and MLP weights
+    """17a. ``recurrentgemma-9b`` at full width and 20 of its 38 layers
+    (``depth_cut``: 6 periods of (rec, rec, local attn) and the 2
+    recurrent tail blocks, d 4096, 16 heads of 256 over 1 KV head, bf16
+    seeded weights), ``paper_edge_p8`` (posit8 attention and MLP weights
     hoisted; the recurrent projections unhooked, as the reference serves
     them; posit8 KV), ring, max batch 8, max_len 4096 (2048-row rings):
     eight prompts of ``HYBRID_PROMPT_LENS`` tokens, 32 new tokens each,
     one exact-length prefill per prompt.  Asserts every request finishes
     with its 32 tokens and no error, every prefill and decode logit is
-    finite, the KV cache is 12 layers x 8 slots x 2048 rows x 2 x (256
-    codes + 4 scale bytes) = 102,236,160 B, the recurrent state 26 layers
-    x 8 x (4096 x 4 + 3 x 4096 x 2) = 8,519,680 B, and K3 launches 12
-    times per decode step and per prefill, K4 12 times per decode step,
+    finite, the KV cache is 6 layers x 8 slots x 2048 rows x 2 x (256
+    codes + 4 scale bytes) = 51,118,080 B, the recurrent state 14 layers
+    x 8 x (4096 x 4 + 3 x 4096 x 2) = 4,587,520 B, and K3 launches 6
+    times per decode step and per prefill, K4 6 times per decode step,
     K1, K2, K5, K6 and K7 never (the wrappers' counts over the served run
     and over a profiled window of 5 engine steps with 8 slots live, and
     the profiler's kernel names).  Prints the decode step's wall, device
@@ -1852,7 +1911,7 @@ def phase17a(dev, seed, card: str) -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
-    cfg = get_config(HYBRID_ARCH)
+    cfg = depth_cut(HYBRID_ARCH)
     n_attn = cfg.block_types.count("attn")
     w = min(cfg.window, HYBRID_MAX_LEN)
     rng17 = np.random.default_rng([seed, 17])
@@ -2357,19 +2416,19 @@ VLM_ARCH = "qwen2-vl-2b"
 AUDIO_ARCH = "whisper-large-v3"
 KV_KERNELS = ("kv_append_rows", "decode_attention", "paged_kv_append_rows",
               "paged_decode_attention")
-# 28 layers x 8 slots x 1024 rows x 2 KV heads x 2 x (128 codes + 4 scale
+# 14 layers x 8 slots x 1024 rows x 2 KV heads x 2 x (128 codes + 4 scale
 # bytes)
-VLM_KV_BYTES = 121_110_528
+VLM_KV_BYTES = 60_555_264
 # Whisper's decoder context, and its start-of-transcript prompt in
 # large-v3's vocabulary (<|startoftranscript|> <|en|> <|transcribe|>
 # <|notimestamps|>)
 AUDIO_MAX_LEN = 448
 AUDIO_PROMPT = (50258, 50259, 50360, 50364)
-# self K/V: 32 layers x 8 x 448 rows x 20 heads x 2 x (64 codes + 4 scale
-# bytes); cross K/V: 32 x 8 x 1500 x 20 x 64 bf16, xk and xv; memory: 8 x
+# self K/V: 16 layers x 8 x 448 rows x 20 heads x 2 x (64 codes + 4 scale
+# bytes); cross K/V: 16 x 8 x 1500 x 20 x 64 bf16, xk and xv; memory: 8 x
 # 1500 x 1280 bf16
-AUDIO_KV_BYTES = 311_951_360
-AUDIO_CROSS_BYTES = 1_966_080_000
+AUDIO_KV_BYTES = 155_975_680
+AUDIO_CROSS_BYTES = 983_040_000
 AUDIO_MEMORY_BYTES = 30_720_000
 
 
@@ -2460,11 +2519,11 @@ def device_line(p: dict, bound_ms: float) -> str:
 
 
 def phase18a(dev, seed, prompts, warm, card: str) -> dict:
-    """18a. ``qwen2-vl-2b`` at full width and depth (28 layers, d 1536, 12
-    query heads of 128 over 2 KV heads, M-RoPE, tied 151,936-row table,
-    1,543,853,568 params, bf16 seeded weights, the published config
-    uncut), ``paper_edge_p8`` (posit8 attention and MLP weights hoisted,
-    posit8 KV), max batch 8, max_len 1024: phase 6's eight prompts, 32 new
+    """18a. ``qwen2-vl-2b`` at full width and 14 of its 28 layers
+    (``depth_cut``; d 1536, 12 query heads of 128 over 2 KV heads,
+    M-RoPE, tied 151,936-row table, bf16 seeded weights),
+    ``paper_edge_p8`` (posit8 attention and MLP weights hoisted, posit8
+    KV), max batch 8, max_len 1024: phase 6's eight prompts, 32 new
     tokens each, one exact-length prefill per prompt (the reference does
     not bucket vlm), through ``ServingEngine.serve`` in the ring and then
     the paged layout, each with a profiled window of 5 engine steps with 8
@@ -2472,10 +2531,10 @@ def phase18a(dev, seed, prompts, warm, card: str) -> dict:
     the prompts; then one ``prefill`` over seeded patch embeddings (8, 256,
     1536), the stub frontend's, and 16 greedy ``decode_step`` calls.
     Asserts every request finishes with its 32 tokens and no error, every
-    logit finite, ring KV bytes 121,110,528, and by the wrappers' counts
-    (and the profiler's names where its trace holds them) K3 + K4 28 per
-    ring decode step and K3 28 per prefill, K5 + K6 28 per paged decode
-    step, K1 56 per speculative round, K2 and K7 never."""
+    logit finite, ring KV bytes 60,555,264, and by the wrappers' counts
+    (and the profiler's names where its trace holds them) K3 + K4 14 per
+    ring decode step and K3 14 per prefill, K5 + K6 14 per paged decode
+    step, K1 28 per speculative round, K2 and K7 never."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.transprecision import get_policy
@@ -2483,7 +2542,7 @@ def phase18a(dev, seed, prompts, warm, card: str) -> dict:
     from repro_torch.models import lm, serve_model
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
     from repro_torch.serve.speculative import SpeculativeEngine
-    cfg = get_config(VLM_ARCH)
+    cfg = depth_cut(VLM_ARCH)
     n_l = cfg.n_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -2681,27 +2740,27 @@ def phase18a(dev, seed, prompts, warm, card: str) -> dict:
 
 
 def phase18b(dev, seed, card: str) -> dict:
-    """18b. ``whisper-large-v3`` at full width and depth (32 encoder and
-    32 decoder layers, d 1280, 20 heads of 64, MHA, 1,601,251,840 params,
-    bf16 seeded weights, the published config uncut), ``paper_edge_p8``
+    """18b. ``whisper-large-v3`` at full width and 16 of its 32 encoder
+    and 32 decoder layers each (``depth_cut``; d 1280, 20 heads of 64,
+    MHA, bf16 seeded weights), ``paper_edge_p8``
     (posit8 attention and MLP weights hoisted, the encoder's included; the
     cross weights unhooked, as the reference serves them), posit8 KV
     ring, 8 clips of seeded (1500, 1280) frame embeddings (the stub conv
     frontend's output), each with Whisper's 4-token start-of-transcript
     prompt, max_len 448: one ``prefill``, then 64 greedy ``decode_step``
     calls; then the paged layout for a prefill and 8 steps.  Asserts
-    every logit finite; self K/V 311,951,360 B, cross K/V 1,966,080,000
-    B, ``memory`` 30,720,000 B; K3 + K4 32 per decode step and K3 32 per
+    every logit finite; self K/V 155,975,680 B, cross K/V 983,040,000
+    B, ``memory`` 30,720,000 B; K3 + K4 16 per decode step and K3 16 per
     prefill (K5 + K6 and K5 paged), K1, K2 and K7 never.  Prints the
     encoder's ms, the prefill's, the decode step's wall, device busy and
     idle share, the cross-attention's device ms per step (CUDA graph of
-    its 32 layers' calls) beside its bytes bound, tok/s and peak memory."""
+    its 16 layers' calls) beside its bytes bound, tok/s and peak memory."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.transprecision import get_policy
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import attention, lm, serve_model
-    cfg = get_config(AUDIO_ARCH)
+    cfg = depth_cut(AUDIO_ARCH)
     n_l = cfg.n_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -3445,6 +3504,39 @@ def rank19(rank: int, world: int, root: str, backend: str, seed: int,
         dist.destroy_process_group()
 
 
+def spawn_ranks(world: int, target, args_of, timeout: float = 600) -> list:
+    """Spawn ``world`` processes ``target(r, world, root, *args_of(r))``
+    around a temporary directory ``root`` (their ``file://`` init and
+    results); returns each rank's ``root/rank<r>.pt`` once every process
+    exited 0 within ``timeout`` seconds, and ends any that did not."""
+    import torch
+    import torch.multiprocessing as mp
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host's ranks
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=target,
+                             args=(r, world, root) + tuple(args_of(r)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=timeout)
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        assert not alive, f"ranks still running after {timeout} s: {alive}"
+        assert [p.exitcode for p in procs] == [0] * world, [
+            p.exitcode for p in procs]
+        return [torch.load(Path(root) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_ranks(world: int, devices, backend: str, seed: int, prompts, warm,
               plain: dict, num_pages: int, timeout: float = 600) -> dict:
     """Spawn ``world`` rank processes (rank r on ``devices[r]``) joined over
@@ -3459,33 +3551,9 @@ def run_ranks(world: int, devices, backend: str, seed: int, prompts, warm,
     agree counted.  Returns the comparison per run, every rank's float32
     ring windows and rank 0's combine bytes by max_len."""
     import torch
-    import torch.multiprocessing as mp
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host's ranks
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
-    try:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=rank19,
-                             args=(r, world, root, backend, seed, prompts,
-                                   warm, devices[r], num_pages))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=timeout)
-        alive = [p.pid for p in procs if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=30)
-        assert not alive, f"ranks still running after {timeout} s: {alive}"
-        assert [p.exitcode for p in procs] == [0] * world, [
-            p.exitcode for p in procs]
-        ranks = [torch.load(Path(root) / f"rank{r}.pt", weights_only=False)
-                 for r in range(world)]
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    ranks = spawn_ranks(world, rank19, lambda r: (
+        backend, seed, prompts, warm, devices[r], num_pages), timeout)
     out = {"world": world, "backend": backend, "num_pages": num_pages,
            "ranks_s": time.perf_counter() - t0}
     for key in RUNS19:
@@ -3610,6 +3678,321 @@ def phase19(dev, seed, prompts, warm, card: str) -> dict:
           f"busy {busy} ms a step; kernels traced per step "
           f"{ {k: v for k, v in win[0]['traced_port_kernels_per_step'].items() if v} }"
           f"; phase {out['phase_s']:.1f} s")
+    return out
+
+
+# 19c / 19d: the hybrid and audio stacks through the sharded decode.  19c
+# cuts recurrentgemma to 4 periods of (rec, rec, attn) and its 2-layer
+# tail: two float32 ranks of the whole 38 layers (30 GB each, twice that
+# while the engine hoists its weights) do not fit one card beside each
+# other
+HYBRID19_LAYERS = 14
+# two prompts past the 2048-row window: their prefills wrap the ring
+HYBRID19_LENS = (200, 1000, 2100, 2400)
+HYBRID19_NEW = 16
+# Whisper's <|startofprev|>, 235 tokens of previous text, then its 4
+# start-of-transcript tokens: rows from 224 (rank 1's half of the
+# 448-row ring) are live from the prefill on
+AUDIO19_PROMPT_LEN = 240
+AUDIO19_STEPS = 16
+STARTOFPREV = 50361
+TEXT_TOKENS = 50257         # large-v3's text ids lie below <|endoftext|>
+
+
+def ring_bytes(cache) -> int:
+    """Bytes of the attention K/V leaves (codes and scales) of a cache's
+    ``blocks`` and ``tail``."""
+    from repro_torch.models.common import KV_LEAVES
+    return tensor_bytes([blk[k] for part in ("blocks", "tail")
+                         for blk in cache.get(part, ())
+                         for k in KV_LEAVES if k in blk])
+
+
+def combine_layer_bytes(b: int, cfg) -> int:
+    """The LSE combine's all-reduced bytes a layer at ``b`` slots: m (the
+    MAX), then o and l in one SUM, f32 per query head."""
+    return 4 * b * cfg.n_heads * (cfg.head_dim + 2)
+
+
+def run19c(dev, seed, distributed: bool) -> dict:
+    """recurrentgemma-9b at full width and ``HYBRID19_LAYERS`` layers,
+    float32 seeded weights (``seed + 191``), ``paper_edge_p8`` (posit8
+    KV ring, W 2048 of max_len 4096) through a ``ServingEngine``: the
+    ``HYBRID19_LENS`` prompts x ``HYBRID19_NEW`` tokens, with the
+    KV-sequence-sharded decode attention of the initialised process group
+    where ``distributed``.  Kernel counts and the collective counter are
+    set to 0 just before the serve and read just after; asserts every
+    request's tokens, finite logits, K3 per attention layer a prefill,
+    then (distributed) K5 one and K1 two per attention layer a step and
+    two collectives of ``combine_layer_bytes`` a layer, or (plain) K3
+    and K4 one each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy, kv_storage
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serve import (Request, ServeConfig, ServingEngine,
+                                   distributed_decode_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), dtype_name="float32",
+                              n_layers=HYBRID19_LAYERS)
+    n_attn = cfg.block_types.count("attn")
+    rng = np.random.default_rng([seed, 191])
+    prompts = [rng.integers(0, cfg.vocab, n) for n in HYBRID19_LENS]
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 191), device=dev)
+    spec = kv_storage(dataclasses.replace(get_policy("paper_edge_p8"),
+                                          kv_format="posit8"))
+    plug = distributed_decode_attention(kv_spec=spec) if distributed else None
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_batch=len(prompts), max_len=HYBRID_MAX_LEN, kv_format="posit8"),
+        policy="paper_edge_p8", attn_impl=plug, device=dev)
+    del params
+    nonfinite = []
+    checked_stages(eng, nonfinite)
+    first = []
+    generate = eng.engine.generate
+
+    def recorded(p, state):
+        state, logits = generate(p, state)
+        if not first:
+            first.append(logits.float().cpu())
+        return state, logits
+
+    eng.engine.generate = recorded
+    reqs = [Request(uid=i, prompt=p, max_new=HYBRID19_NEW)
+            for i, p in enumerate(prompts)]
+    calls = eng.metrics.counter("stage.prefill.calls")
+    torch.cuda.synchronize()
+    reset_launches()
+    with counted_collectives() as coll:
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    steps, prefills = eng.stats["decode_steps"], calls.value
+    assert not nonfinite, nonfinite
+    assert all(r.done and r.error is None
+               and len(r.out_tokens) == HYBRID19_NEW for r in reqs)
+    want = {k: 0 for k in launches}
+    want["kv_append_rows"] = n_attn * prefills
+    if distributed:
+        want["paged_kv_append_rows"] = n_attn * steps
+        want["posit_decode"] = 2 * n_attn * steps
+        assert coll["calls"] == 2 * n_attn * steps, (coll, steps)
+        assert coll["bytes"] == combine_layer_bytes(
+            len(prompts), cfg) * n_attn * steps, (coll, steps)
+    else:
+        want["kv_append_rows"] += n_attn * steps
+        want["decode_attention"] = n_attn * steps
+    assert launches == want, (launches, want)
+    out = {"tokens": [r.out_tokens for r in reqs], "first_logits": first[0],
+           "launches": launches, "steps": steps, "prefill_calls": prefills,
+           "attention_layers": n_attn, "ring_bytes": ring_bytes(eng.cache),
+           "rec_state_bytes": rec_state_bytes(eng.cache, cfg),
+           "collectives": coll["calls"], "collective_bytes": coll["bytes"],
+           "wall_s": wall, "tok_s": HYBRID19_NEW * len(reqs) / wall}
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run19d(dev, seed, distributed: bool) -> dict:
+    """whisper-large-v3 at full width and depth, float32 seeded weights
+    (``seed + 192``), ``paper_edge_p8`` hoisted, posit8 KV ring of
+    ``AUDIO_MAX_LEN`` rows: one ``prefill`` of 8 clips of seeded (1500,
+    1280) frames, each with an ``AUDIO19_PROMPT_LEN``-token prompt, then
+    ``AUDIO19_STEPS`` greedy steps: ``make_distributed_decode_step`` over
+    the ``shard_cache``d prefill where ``distributed``, else
+    ``decode_step``.  Counts as ``run19c`` does, set to 0 just before the
+    steps; returns the streams and every step's logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm, serve_model
+    from repro_torch.serve import make_distributed_decode_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), dtype_name="float32")
+    n_l = cfg.n_layers
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 192), device=dev)
+    policy = dataclasses.replace(get_policy("paper_edge_p8"),
+                                 kv_format="posit8")
+    hoisted = lm.hoist_weight_quant(params, policy)
+    del params
+    free = lm.weights_free(policy, cfg.tie_embed)
+    rng = np.random.default_rng([seed, 192])
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    text = rng.integers(0, TEXT_TOKENS, (B, AUDIO19_PROMPT_LEN - 5))
+    tokens = torch.from_numpy(np.concatenate(
+        [np.full((B, 1), STARTOFPREV), text,
+         np.tile(np.asarray(AUDIO_PROMPT), (B, 1))], axis=1)).to(dev)
+    reset_launches()
+    logits, cache = serve_model.prefill(
+        hoisted, {"tokens": tokens, "frames": frames}, cfg, AUDIO_MAX_LEN,
+        free)
+    torch.cuda.synchronize()
+    prefill_launches = nonzero(LAUNCHES)
+    assert prefill_launches == {"kv_append_rows": n_l}, prefill_launches
+    if distributed:
+        step = make_distributed_decode_step(cfg, free)
+        cache = serve_model.shard_cache(cache, cfg, free, step.shard)
+    else:
+        def step(p, c, t):
+            return serve_model.decode_step(p, c, t, cfg, free)
+    kv = ring_bytes(cache)
+    cross = tensor_bytes([blk[k] for blk in cache["blocks"]
+                          for k in ("xk", "xv")])
+    toks, all_logits = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with counted_collectives() as coll:
+        t0 = time.perf_counter()
+        for _ in range(AUDIO19_STEPS):
+            tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+            toks.append(tok)
+            logits, cache = step(hoisted, cache, tok)
+            all_logits.append(logits.float())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    logits_all = torch.stack(all_logits).cpu()
+    assert bool(torch.isfinite(logits_all).all())
+    want = {k: 0 for k in launches}
+    if distributed:
+        want["paged_kv_append_rows"] = n_l * AUDIO19_STEPS
+        want["posit_decode"] = 2 * n_l * AUDIO19_STEPS
+        assert coll["calls"] == 2 * n_l * AUDIO19_STEPS, coll
+        assert coll["bytes"] == combine_layer_bytes(
+            B, cfg) * n_l * AUDIO19_STEPS, coll
+    else:
+        want.update(kv_append_rows=n_l * AUDIO19_STEPS,
+                    decode_attention=n_l * AUDIO19_STEPS)
+    assert launches == want, (launches, want)
+    out = {"tokens": torch.cat(toks, dim=1).cpu().tolist(),
+           "logits": logits_all, "launches": launches,
+           "prefill_launches": prefill_launches, "steps": AUDIO19_STEPS,
+           "ring_bytes": kv, "cross_bytes": cross,
+           "collectives": coll["calls"], "collective_bytes": coll["bytes"],
+           "step_ms": 1e3 * decode_s / AUDIO19_STEPS,
+           "pos": int(cache["pos"])}
+    del hoisted, cache, logits, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank19f(rank: int, world: int, root: str, backend: str, seed: int,
+            device: str) -> None:
+    """A rank process of ``phase19cd``: its ``device``, the ``backend``
+    group through ``file://<root>/group``, ``run19c`` and ``run19d``
+    distributed; its results in ``<root>/rank<rank>.pt``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{root}/group",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = {"19c": run19c(dev, seed, True), "19d": run19d(dev, seed, True)}
+        torch.save(out, Path(root) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase19cd(dev, seed, card: str) -> dict:
+    """19c / 19d. The sharded decode of the hybrid and audio stacks: first
+    ``run19c`` and ``run19d`` undistributed here, then two gloo ranks on
+    ``cuda:0`` (``spawn_ranks``), each holding half of every attention
+    ring (recurrentgemma's 2048-row windows 1024 + 1024, its recurrent
+    state whole; whisper's 448-row self-attention rings 224 + 224, its
+    cross K/V and encoder memory whole).  Asserts the streams of both
+    ranks equal each other's and the undistributed run's at float32,
+    each rank's ring bytes half the undistributed ones and its recurrent
+    or cross bytes whole, and the launches, collectives and combine
+    bytes a step ``run19c`` / ``run19d`` assert."""
+    import torch
+    t0 = time.perf_counter()
+    plain = {"19c": run19c(dev, seed, False), "19d": run19d(dev, seed, False)}
+    dev_name = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                else str(dev))
+    ranks = spawn_ranks(2, rank19f, lambda r: ("gloo", seed, dev_name))
+    out = {"card": card}
+    for key in ("19c", "19d"):
+        want, got = plain[key], [r[key] for r in ranks]
+        for g in got:
+            assert g["tokens"] == got[0]["tokens"] == want["tokens"], key
+            assert 2 * g["ring_bytes"] == want["ring_bytes"], (
+                key, g["ring_bytes"], want["ring_bytes"])
+        other = "rec_state_bytes" if key == "19c" else "cross_bytes"
+        assert all(g[other] == want[other] for g in got), key
+        ref_logits = want["first_logits" if key == "19c" else "logits"]
+        diff = max(float((g["first_logits" if key == "19c" else "logits"]
+                          - ref_logits).abs().max()) for g in got)
+        r0 = got[0]
+        out[key] = {
+            "tokens_equal": True, "max_abs_logit_diff": diff,
+            "ring_bytes_rank": r0["ring_bytes"],
+            "ring_bytes_undistributed": want["ring_bytes"],
+            other: want[other], "steps": r0["steps"],
+            "launches_rank0": r0["launches"],
+            "launches_per_step_rank0": {
+                k: v / r0["steps"] for k, v in r0["launches"].items()
+                if v and k != "kv_append_rows"},
+            "launches_undistributed": want["launches"],
+            "collectives_per_step": r0["collectives"] / r0["steps"],
+            "combine_bytes_per_step": r0["collective_bytes"] / r0["steps"],
+            "ranks_logits_equal": torch.equal(
+                got[0]["first_logits" if key == "19c" else "logits"],
+                got[1]["first_logits" if key == "19c" else "logits"])}
+        if key == "19c":
+            out[key].update(tok_s_ranks=[g["tok_s"] for g in got],
+                            tok_s_undistributed=want["tok_s"],
+                            attention_layers=want["attention_layers"],
+                            prefill_calls=r0["prefill_calls"])
+        else:
+            out[key].update(step_ms_ranks=[g["step_ms"] for g in got],
+                            step_ms_undistributed=want["step_ms"],
+                            pos=r0["pos"])
+    c, d = out["19c"], out["19d"]
+    out["phase_s"] = time.perf_counter() - t0
+    phase(f"phase 19c [{card}] two gloo ranks on {dev_name}, "
+          f"{HYBRID_ARCH} at full width ({HYBRID19_LAYERS} layers, "
+          f"{c['attention_layers']} local-attention), float32, posit8 KV "
+          f"ring W 2048, prompts {HYBRID19_LENS} x {HYBRID19_NEW}: streams "
+          f"of both ranks equal the undistributed engine's; first step's "
+          f"logits max |diff| {c['max_abs_logit_diff']:.3e}; ring "
+          f"{c['ring_bytes_rank']} B a rank (undistributed "
+          f"{c['ring_bytes_undistributed']} B), recurrent state "
+          f"{c['rec_state_bytes']} B whole on each; per step "
+          f"{c['launches_per_step_rank0']} launches, "
+          f"{c['collectives_per_step']:.0f} collectives, "
+          f"{c['combine_bytes_per_step']:.0f} B combined; tok/s "
+          f"{' / '.join(f'{v:.1f}' for v in c['tok_s_ranks'])} a rank "
+          f"(undistributed {c['tok_s_undistributed']:.1f})")
+    phase(f"phase 19d [{card}] two gloo ranks on {dev_name}, {AUDIO_ARCH} "
+          f"at full width, float32, 8 clips, {AUDIO19_PROMPT_LEN}-token "
+          f"prompts, {AUDIO19_STEPS} steps of make_distributed_decode_step "
+          f"over a shard_cache'd prefill: streams of both ranks equal the "
+          f"undistributed decode_step's; logits max |diff| "
+          f"{d['max_abs_logit_diff']:.3e}; ring {d['ring_bytes_rank']} B a "
+          f"rank (undistributed {d['ring_bytes_undistributed']} B), cross "
+          f"K/V {d['cross_bytes']} B whole on each; per step "
+          f"{d['launches_per_step_rank0']} launches, "
+          f"{d['collectives_per_step']:.0f} collectives, "
+          f"{d['combine_bytes_per_step']:.0f} B combined; step "
+          f"{' / '.join(f'{v:.1f}' for v in d['step_ms_ranks'])} ms a rank "
+          f"(undistributed {d['step_ms_undistributed']:.1f}); phase "
+          f"{out['phase_s']:.1f} s")
     return out
 
 
@@ -3959,6 +4342,375 @@ def phase20b(dev, seed, card: str) -> dict:
     phase(f"phase 20b posit8 cache / bf16 cache "
           f"{out['posit8_over_bf16_cache']:.4f}; both builds freed; phase "
           f"{out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the first train steps of the SSM, vlm, audio and hybrid families
+# ---------------------------------------------------------------------------
+
+# 21b's runs: (arch, depth cut, batch, sequence, remat modes), at full
+# width under MIXED_TC; the cuts and the modes follow the state's bytes
+# (PERF.md section 4): params, master, moments and residual, 18 B a
+# param, the gradients and the wire's decoded values and new residual,
+# 10 more, and the activations at B x S
+TRAIN21 = (
+    ("mamba2-2.7b", {"n_layers": 56}, 1, 1024, ("full", "dots")),
+    ("qwen2-vl-2b", {}, 1, 1024, ("full", "dots", "none")),
+    ("whisper-large-v3", {}, 1, 448, ("full", "dots", "none")),
+    ("recurrentgemma-9b", {"n_layers": 8}, 1, 1024,
+     ("full", "dots", "none")),
+)
+# 21a's smoke configs (recurrentgemma at 4 layers: a period and a
+# recurrent tail, as tests/test_torch_train_families.py runs them)
+SMOKE21 = (("mamba2-2.7b", {}), ("qwen2-vl-2b", {}),
+           ("whisper-large-v3", {}), ("recurrentgemma-9b", {"n_layers": 4}))
+
+
+def nonzero(counts: dict) -> dict:
+    """The kernels of a launch count that ran."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def few_apart(d, tol, cap) -> int:
+    """The values of a difference ``d`` outside ``tol``, asserted to be
+    < 0.5 % of them (one of fewer than 200: wire codes one posit step
+    apart) and all within ``cap``."""
+    far = int((d > tol).sum())
+    assert far <= max(1, 5e-3 * d.numel()), (far, d.numel())
+    assert float(d.max()) <= cap, (float(d.max()), cap)
+    return far
+
+
+def leaf_digest(t):
+    """float64 (sum, sum |x|, sum x^2, sum x_i sin(i)) of a tensor, 2^26
+    elements at a time: a gradient of the right sign but the wrong size
+    moves the second and third, one with its values moved about the
+    fourth."""
+    import torch
+    x = t.reshape(-1)
+    out = torch.zeros(4, dtype=torch.float64, device=t.device)
+    for i in range(0, x.numel(), 1 << 26):
+        c = x[i:i + (1 << 26)].to(torch.float64)
+        w = torch.sin(torch.arange(i, i + c.numel(), dtype=torch.float64,
+                                   device=c.device))
+        out += torch.stack([c.sum(), c.abs().sum(), (c * c).sum(),
+                            (c * w).sum()])
+    return out.cpu()
+
+
+def digest_rel(a, b) -> float:
+    """The largest difference of two ``leaf_digest`` stacks ((leaves, 4)),
+    each relative to its leaf's sum |x| (sum and the sine-weighted sum),
+    sum |x| or sum x^2 in ``b``."""
+    ref = b[:, [1, 1, 2, 1]].abs().clamp(min=1e-300)
+    return float(((a - b).abs() / ref).max())
+
+
+def wire_leaf_exact(g, r, fmt_name: str) -> dict:
+    """The train step's wire (``error_feedback_update``: K2 in its
+    normalising mode, then K1; ``r`` becomes the new residual) on one
+    large leaf against the plain codec of ``quant.quantize`` /
+    ``quant.dequantize`` (``encode_f32``, ``decode_to_f32``) at the same
+    whole-leaf scale, 2^24 elements at a time: the decoded values and the
+    new residual bit for bit."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.formats import get
+    from repro_torch.core.posit import encode_f32
+    from repro_torch.optim import compression as wire
+    fmt = get(fmt_name)
+    g32 = g.to(torch.float32) + r
+    s = quant._pow2_scale(g32, None)
+    (deq,), (res,) = wire.error_feedback_update([g], [r], fmt_name)
+    assert res is r
+    flat = [t.reshape(-1) for t in (g32, deq, res)]
+    blocks = 0
+    for i in range(0, g32.numel(), 1 << 24):
+        x, d, rr = (t[i:i + (1 << 24)] for t in flat)
+        want = quant.dequantize(quant.QuantizedTensor(
+            encode_f32(x / s, fmt), s, fmt))
+        assert bits_equal(d, want) and bits_equal(rr, x - want), i
+        blocks += 1
+    assert torch.isfinite(deq).all() and torch.isfinite(res).all()
+    return {"elements": g32.numel(), "scale": float(s), "blocks": blocks}
+
+
+def phase21a(dev, seed) -> dict:
+    """21a. One ``MIXED_TC`` train step (the posit16 gradient wire, remat
+    "dots", AdamW's default schedule) of each family's smoke config at
+    float32 (TF32 off), card against CPU from one state (params drawn on
+    the CPU and copied) and one batch: the loss within rtol 1e-5, every
+    updated param and f32 master within 1e-6, ``mu`` / ``nu`` within rtol
+    1e-4 of each leaf's largest moment and the wire's new residual within
+    2e-4 of the leaf's largest |gradient| (the CPU gradient), bar < 0.5 %
+    of a leaf's values where a wire code one posit step apart moved the
+    decoded gradient (there within 2^-6 of the moment, 2^-7 of the
+    gradient) (``tests/test_torch_train_families.py``'s tolerances
+    against the reference), K2 and K1 once per param leaf on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import MIXED_TC
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+    from repro_torch.train.step import TrainState, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, extra in SMOKE21:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype_name="float32", remat="dots",
+                                  **extra)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(
+            seed + 211), device="cpu")
+        n_leaves = len(tree_leaves(params))
+        batch_cpu = make_pipeline(cfg, global_batch=2, seq_len=32,
+                                  seed=seed, device="cpu")(0)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        gmax = [float(g.abs().max()) for g in torch.autograd.grad(
+            lm.loss_fn(params, batch_cpu, cfg, MIXED_TC)[0], leaves)]
+        for p in leaves:
+            p.requires_grad_(False)
+        res = {}
+        for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = tree_map(lambda t: t.to(device, copy=True), params)
+            st = TrainState(p, adamw_init(p), tree_map(
+                lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                      device=t.device), p))
+            batch = make_pipeline(cfg, global_batch=2, seq_len=32,
+                                  seed=seed, device=device)(0)
+            reset_launches()
+            st, m = make_train_step(cfg, AdamWConfig(total_steps=10),
+                                    MIXED_TC)(st, batch)
+            torch.cuda.synchronize()
+            res[label] = (st, float(m["loss"]), nonzero(LAUNCHES))
+        (sc, loss_c, launches), (sp, loss_p, _) = res["card"], res["cpu"]
+        assert launches == {"posit_encode": n_leaves,
+                            "posit_decode": n_leaves}, (arch, launches)
+        np.testing.assert_allclose(loss_c, loss_p, rtol=1e-5)
+        diff = {label: max(float((a.cpu().float() - b.float()).abs().max())
+                           for a, b in zip(tree_leaves(ta), tree_leaves(tb)))
+                for label, ta, tb in (
+                    ("params", sc.params, sp.params),
+                    ("master", sc.opt["master"], sp.opt["master"]))}
+        assert max(diff.values()) <= 1e-6, (arch, diff)
+        far = {}
+        for label, ta, tb in (("mu", sc.opt["mu"], sp.opt["mu"]),
+                              ("nu", sc.opt["nu"], sp.opt["nu"]),
+                              ("residual", sc.ef_residual, sp.ef_residual)):
+            far[label] = 0
+            for i, (a, b) in enumerate(zip(tree_leaves(ta),
+                                           tree_leaves(tb))):
+                d = (a.cpu() - b).abs()
+                if label == "residual":
+                    tol, cap = 2e-4 * gmax[i], 2.0 ** -7 * gmax[i]
+                else:
+                    top = float(b.abs().max())
+                    tol, cap = 1e-4 * (b.abs() + top), 2.0 ** -6 * top
+                try:
+                    far[label] += few_apart(d, tol, cap)
+                except AssertionError as e:
+                    raise AssertionError((arch, label, i, e.args)) from e
+            diff[label] = max(float((a.cpu() - b).abs().max())
+                              for a, b in zip(tree_leaves(ta),
+                                              tree_leaves(tb)))
+        assert any(float(r.abs().max()) > 0
+                   for r in tree_leaves(sc.ef_residual)), arch
+        out[arch] = {"loss_card": loss_c, "loss_cpu": loss_p,
+                     "max_abs_diff": diff, "values_one_step_apart": far,
+                     "leaves": n_leaves, "launches": launches,
+                     "n_layers": cfg.n_layers}
+        phase(f"phase 21a {arch} smoke ({cfg.n_layers} layers, float32, "
+              f"remat dots, MIXED_TC) one wire step card vs CPU: loss "
+              f"{loss_c:.7f} vs {loss_p:.7f} (rtol 1e-5); updated params "
+              f"and master max |diff| {diff['params']:.2e} / "
+              f"{diff['master']:.2e} (atol 1e-6); mu / nu / residual max "
+              f"|diff| {diff['mu']:.2e} / {diff['nu']:.2e} / "
+              f"{diff['residual']:.2e}, values a posit step apart "
+              f"{far}; launches {launches} ({n_leaves} leaves)")
+    return out
+
+
+def phase21b(dev, seed, card: str, runs=TRAIN21) -> dict:
+    """21b. The first train steps of mamba2-2.7b, qwen2-vl-2b (patch
+    embeddings), whisper-large-v3 (1500-frame clips through its 32
+    encoder layers) and recurrentgemma-9b at full width (``TRAIN21``'s
+    depth cuts, batch and sequence), bf16 seeded weights, ``MIXED_TC``
+    (P(8,2) weights, P(16,2) embeddings and head, the posit16 gradient
+    wire: K2 in its normalising mode and K1 on every param leaf), AdamW
+    lr 1e-3.  Per family, each remat mode of ``TRAIN21`` from one seeded
+    state and the pipeline's first batch: where "none" runs, "dots"'s
+    and "none"'s forward and backward alone first (``lm.loss_fn`` and
+    ``torch.autograd.grad``, the part remat changes); then one step of
+    ``make_train_step``; each with its peak memory over the state's base;
+    the step's ms (CUDA events), loss and K1 / K2 launches (the wrappers'
+    counts).  Each mode's step is the first its process takes at that
+    size: "full" runs first and carries the first calls' costs, and a
+    second step can peak higher (PERF.md section 7).  Asserts every loss
+    finite and the step's equal to its forward's, "dots"'s and "none"'s
+    losses equal to "full"'s, their updated params and f32 masters within
+    1e-5 of "full"'s (12d's gate), their gradient norms within rtol 1e-6
+    of "full"'s, and per leaf their ``mu``, ``nu`` and the gradient the
+    state holds (``mu / ((1 - b1) clip) + residual``, the wire's sum g +
+    r) within 1e-5 and the wire's residual within 1e-2 of "full"'s by
+    ``leaf_digest`` (step 1's update is about lr sign(g), so params
+    alone cannot see a gradient's size); K2 and K1 once per param leaf
+    and nothing else; "dots"'s forward-and-backward peak below "none"'s
+    where "none" ran; and the wire on the family's largest leaf (its
+    ``mu / (1 - b1)`` and residual after the last mode) bit for bit the
+    plain codec's (``wire_leaf_exact``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import MIXED_TC
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+    opt = AdamWConfig(lr=1e-3, total_steps=6, warmup_steps=1)
+    out = {"card": card}
+    for arch, cut, b, s, modes in runs:
+        t_fam = time.perf_counter()
+        cfg0 = dataclasses.replace(get_config(arch), **cut)
+        batch = make_pipeline(cfg0, global_batch=b, seq_len=s, seed=seed,
+                              device=dev)(0)
+        fam = {"n_layers": cfg0.n_layers, "published_n_layers":
+               get_config(arch).n_layers, "batch": b, "seq": s,
+               "inputs": sorted(batch), "modes": {}}
+        full = None
+        for mode in modes:
+            cfg = dataclasses.replace(cfg0, remat=mode)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            gen = torch.Generator(device=dev).manual_seed(seed + 212)
+            st = init_train_state(cfg, opt, MIXED_TC, generator=gen,
+                                  device=dev)
+            leaves = tree_leaves(st.params)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            r = {"state_bytes": base - before}
+            if "none" in modes and mode != "full":
+                # the forward and backward alone: the peak remat moves
+                torch.cuda.reset_peak_memory_stats()
+                for p in leaves:
+                    p.requires_grad_(True)
+                loss = lm.loss_fn(st.params, batch, cfg, MIXED_TC)[0]
+                grads = torch.autograd.grad(loss, leaves)
+                for p in leaves:
+                    p.requires_grad_(False)
+                torch.cuda.synchronize()
+                r["forward_backward_peak_over_base_bytes"] = (
+                    torch.cuda.max_memory_allocated() - base)
+                r["forward_backward_loss"] = float(loss)
+                del loss, grads
+            step = make_train_step(cfg, opt, MIXED_TC)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, m = step(st, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            r.update(ms=e0.elapsed_time(e1), loss=float(m["loss"]),
+                     step_peak_over_base_bytes=(
+                         torch.cuda.max_memory_allocated() - base),
+                     launches=nonzero(LAUNCHES))
+            assert np.isfinite(r["loss"]) and r["loss"] == r.get(
+                "forward_backward_loss", r["loss"]), (arch, mode, r)
+            assert r["launches"] == {"posit_encode": len(leaves),
+                                     "posit_decode": len(leaves)}, (
+                arch, mode, r["launches"])
+            finals = tree_leaves([st.params, st.opt["master"]])
+            # what the state holds of the gradient: mu = (1 - b1) clip deq
+            # at step 1, and deq + the new residual = g + r (the wire's sum)
+            clip = torch.clamp(opt.grad_clip / torch.clamp(
+                m["grad_norm"], min=1e-12), max=1.0)
+            r["grad_norm"] = float(m["grad_norm"])
+            mus = tree_leaves(st.opt["mu"])
+            res_l = tree_leaves(st.ef_residual)
+            dig = {"mu": mus, "nu": tree_leaves(st.opt["nu"]),
+                   "residual": res_l,
+                   "grad": (mu / (1 - opt.b1) / clip + rr
+                            for mu, rr in zip(mus, res_l))}
+            dig = {k: torch.stack([leaf_digest(t) for t in v])
+                   for k, v in dig.items()}
+            big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+            if full is None:        # the first mode is "full"
+                assert mode == "full"
+                full = [t.to("cpu", copy=True) for t in finals]
+                full_dig = dig
+            else:
+                assert r["loss"] == fam["modes"]["full"]["loss"], (
+                    arch, mode, r["loss"], fam["modes"]["full"]["loss"])
+                r["max_abs_diff_vs_full"] = max(
+                    float((a.float() - f.to(dev).float()).abs().max())
+                    for a, f in zip(finals, full))
+                assert r["max_abs_diff_vs_full"] <= 1e-5, (arch, mode, r)
+                gn_full = fam["modes"]["full"]["grad_norm"]
+                r["grad_norm_rel_vs_full"] = abs(
+                    r["grad_norm"] - gn_full) / gn_full
+                r["digest_rel_vs_full"] = {
+                    k: digest_rel(dig[k], full_dig[k]) for k in dig}
+                assert r["grad_norm_rel_vs_full"] <= 1e-6, (arch, mode, r)
+                assert max(r["digest_rel_vs_full"][k] for k in
+                           ("mu", "nu", "grad")) <= 1e-5, (arch, mode, r)
+                assert r["digest_rel_vs_full"]["residual"] <= 1e-2, (
+                    arch, mode, r)
+            del dig
+            fam["params"] = sum(t.numel() for t in leaves)
+            fam["leaves"] = len(leaves)
+            fam["modes"][mode] = r
+            phase(f"phase 21b [{card}] {arch} remat {mode}: loss "
+                  f"{r['loss']}, step {r['ms']:.1f} ms, peak over the "
+                  f"state's {r['state_bytes']} B: step "
+                  f"{r['step_peak_over_base_bytes']} B, forward and "
+                  f"backward {r.get('forward_backward_peak_over_base_bytes')}"
+                  f" B")
+            if mode == modes[-1]:   # the largest leaf, for the wire check
+                g_big, r_big = mus[big] / (1 - opt.b1), res_l[big]
+            del st, step, leaves, finals, m, mus, res_l, clip
+        del full, full_dig, batch
+        fam["wire_largest_leaf"] = wire_leaf_exact(g_big, r_big,
+                                                   MIXED_TC.grad_wire)
+        del g_big, r_big
+        modes_r = fam["modes"]
+        if "none" in modes_r:
+            assert (modes_r["dots"]["forward_backward_peak_over_base_bytes"]
+                    < modes_r["none"][
+                        "forward_backward_peak_over_base_bytes"]), modes_r
+        fam["phase_s"] = time.perf_counter() - t_fam
+        out[arch] = fam
+        phase(f"phase 21b [{card}] {arch} at full width ({fam['n_layers']} "
+              f"of {fam['published_n_layers']} layers, {fam['params']} "
+              f"params in {fam['leaves']} leaves), MIXED_TC, batch {b} x "
+              f"{s} ({', '.join(fam['inputs'])}): "
+              + "; ".join(
+                  f"{mode} loss {r['loss']:.6f}, step {r['ms']:.1f} ms "
+                  f"(CUDA events), peak over the state's {r['state_bytes']}"
+                  f" B {r['step_peak_over_base_bytes']} B (step)"
+                  + (f" / {r['forward_backward_peak_over_base_bytes']} B "
+                     f"(forward and backward)"
+                     if "forward_backward_loss" in r else "")
+                  + (f", params and master max |diff| vs full "
+                     f"{r['max_abs_diff_vs_full']:.2e}, grad norm rel. "
+                     f"{r['grad_norm_rel_vs_full']:.2e}, digests rel. "
+                     + ", ".join(f"{k} {v:.2e}" for k, v in
+                                 r["digest_rel_vs_full"].items())
+                     if "max_abs_diff_vs_full" in r else "")
+                  for mode, r in modes_r.items())
+              + f"; K2 and K1 {fam['leaves']} each a step; the wire on "
+              f"the largest leaf ({fam['wire_largest_leaf']['elements']} "
+              f"elements) bit-exact against the plain codec; phase "
+              f"{fam['phase_s']:.1f} s")
     return out
 
 
@@ -4889,6 +5641,8 @@ def main() -> int:
     # 19. the KV-sequence-sharded distributed decode: one rank over NCCL,
     # then two gloo ranks on the one card (spawned processes) -------------
     distributed = phase19(dev, args.seed, prompts, warm, smi)
+    # 19c / 19d. the hybrid and audio stacks through the sharded decode
+    distributed.update(phase19cd(dev, args.seed, smi))
     print(json.dumps({"distributed": distributed}), flush=True)
 
     # 20. the TALU's exact posit arithmetic on the card, and the dry run's
@@ -4897,6 +5651,15 @@ def main() -> int:
     arith_dryrun = {"20a": phase20a(dev, args.seed),
                     "20b": phase20b(dev, args.seed, smi)}
     print(json.dumps({"arith_dryrun": arith_dryrun}), flush=True)
+
+    # 21. the first train steps of the SSM, vlm, audio and hybrid families:
+    # smoke card vs CPU, then full width under remat full / dots / none
+    # (own generators) ----------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_families = {"21a": phase21a(dev, args.seed),
+                         "21b": phase21b(dev, args.seed, smi)}
+    print(json.dumps({"training_families": training_families}), flush=True)
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
@@ -5509,7 +6272,10 @@ def main() -> int:
     _, r0 = wire.compress_grads(grads12, wire_fmt)   # one step's residual
     torch.cuda.synchronize()
     reset_launches()
-    deq_k, res_k = wire.error_feedback_update(grads12, r0, wire_fmt)
+    # the train step's wire: it writes the new residual into the one it
+    # is given (a copy of r0 here, which the checks below read)
+    deq_k, res_k = wire.error_feedback_update(
+        grads12, [r.clone() for r in r0], wire_fmt)
     torch.cuda.synchronize()
     wire_launches = {k: v for k, v in LAUNCHES.items() if v}
     assert wire_launches == {"posit_encode": 11, "posit_decode": 11}, \
@@ -5528,11 +6294,14 @@ def main() -> int:
     del deq_k, res_k, res_k2, g32, qt, deq
     # the wire's time per step: CUDA events around the eager call, and its
     # device busy time by kernel from a profiler trace
+    # (its residual carried from call to call, as a trainer's is)
+    r_t = [r.clone() for r in r0]
     wire_ms = time_ms(lambda i: wire.error_feedback_update(
-        grads12, r0, wire_fmt), 1, iters=3, reps=5)
+        grads12, r_t, wire_fmt), 1, iters=3, reps=5)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wire.error_feedback_update(grads12, r0, wire_fmt)
+        wire.error_feedback_update(grads12, r_t, wire_fmt)
         torch.cuda.synchronize()
+    del r_t
     wire_ops = {k: v / 1e3 for k, v in device_events(prof).items()}
     wire_busy = sum(wire_ops.values())
     wire_top = sorted(wire_ops.items(), key=lambda kv: -kv[1])[:6]
@@ -5827,6 +6596,22 @@ def main() -> int:
                 distributed["float32_paged"]["launches_rank0"][name],
             "per_decode_step": distributed["windows"][0][
                 "wrapper_launches_per_step"].get(name, 0)}
+        # the hybrid's and the audio stack's sharded decode (19c / 19d:
+        # gloo rank 0, per decode step; K3 counted per prefill)
+        for key, fam in (("19c", "hybrid"), ("19d", "audio")):
+            d_ = distributed[key]
+            entry[f"launches_distributed_{fam}"] = {
+                "per_decode_step": d_["launches_per_step_rank0"].get(name, 0),
+                "total": d_["launches_rank0"][name]}
+        # the families' train steps (21b: per step, and over every mode's
+        # steps)
+        for arch, fam in training_families["21b"].items():
+            if arch == "card":
+                continue
+            total = sum(r["launches"].get(name, 0)
+                        for r in fam["modes"].values())
+            entry[f"launches_train_{get_config(arch).family}"] = {
+                "per_step": total / len(fam["modes"]), "total": total}
         # paper-edge's decode_32k cell (20b: two decode steps at B 128
         # over 32,768-row rings, bf16 and posit8 KV)
         entry["launches_decode_32k"] = {

@@ -105,13 +105,38 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32,
     """``decode(codes, fmt)`` -> float32 is the posit codec (the gradient
     wire passes K1)."""
     fmt = qt.fmt
-    if isinstance(fmt, PositFormat):
-        v = torch.nan_to_num(decode(qt.data, fmt))  # NaR -> 0
-    else:
-        v = qt.data.to(torch.float32)
+    if isinstance(fmt, PositFormat):        # a fresh tensor: in place
+        v = torch.nan_to_num_(decode(qt.data, fmt))  # NaR -> 0
+        if qt.scale is not None:
+            v.mul_(qt.scale)
+        return v.to(dtype)
+    v = qt.data.to(torch.float32)
     if qt.scale is not None:
         v = v * qt.scale
     return v.to(dtype)
+
+
+# elements the plain posit codec takes at a time in a fake-quant: it keeps
+# ~250 B of integer temporaries an element, so a full-width embedding
+# table (~1e9 entries) would need ~250 GB at once
+_FAKE_QUANT_BLOCK = 1 << 24
+
+
+def _fake_quant_value(x, fmt, axis):
+    """``dequantize(quantize(x, fmt, axis), x.dtype)``.  Under a posit
+    format the codec runs ``_FAKE_QUANT_BLOCK`` elements of the scaled
+    tensor at a time, in place in one contiguous f32 copy of ``x``: the
+    same values, since it is elementwise and the scale is the whole
+    tensor's."""
+    fmt = get(fmt)
+    if not isinstance(fmt, PositFormat):
+        return dequantize(quantize(x, fmt, axis=axis), x.dtype)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    s = _pow2_scale(y.copy_(x), axis)
+    for blk in y.div_(s).view(-1).split(_FAKE_QUANT_BLOCK):
+        blk.copy_(torch.nan_to_num_(posit.decode_to_f32(
+            posit.encode_f32(blk, fmt), fmt)))             # NaR -> 0
+    return y.mul_(s).to(x.dtype)
 
 
 class _FakeQuant(torch.autograd.Function):
@@ -120,7 +145,7 @@ class _FakeQuant(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, fmt_name, axis):
-        return dequantize(quantize(x, get(fmt_name), axis=axis), x.dtype)
+        return _fake_quant_value(x, fmt_name, axis)
 
     @staticmethod
     def backward(ctx, g):

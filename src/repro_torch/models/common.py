@@ -24,6 +24,12 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
+def _call(f, *args):
+    """A block's ``seg`` when nothing is recomputed: call ``f`` directly
+    (``lm._recompute`` is the remat "dots" one)."""
+    return f(*args)
+
+
 # ---------------------------------------------------------------------------
 # Logical-axis sharding rules
 # ---------------------------------------------------------------------------
@@ -69,13 +75,18 @@ def map_with_path(fn, tree, path: str = ""):
     return fn(path, tree)
 
 
+# a decode cache's attention K/V leaves (codes or values, and their
+# scales): the leaves that run along the KV sequence
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
 def kv_seq_dim(path: str, paged: bool) -> Optional[int]:
     """The dim of a decode-cache leaf (by its ``map_with_path`` path) that
     runs along the KV sequence, the one the "kv_seq" axis shards: a ring's
     W in (B, W, nkv[, hd]), a pool's flat rows R in (R, nkv[, hd]), one
     further under a period-stacked ``blocks`` leaf; None for any other
     leaf."""
-    if path.split("/")[-1] not in ("k", "v", "k_scale", "v_scale"):
+    if path.split("/")[-1] not in KV_LEAVES:
         return None
     return (1 if path.startswith("blocks") else 0) + (0 if paged else 1)
 

@@ -55,7 +55,7 @@ from ..core import posit, quant
 from ..core.formats import PositFormat, get
 from ..core.transprecision import BF16, TCPolicy
 from .attention import blockwise_attention
-from .common import (_einsum, apply_rope, causal_conv, cross_entropy,
+from .common import (_call, _einsum, apply_rope, causal_conv, cross_entropy,
                      dense_init, embed_init, mrope_freqs, rms_norm,
                      rope_freqs, sinusoid_positions)
 from .moe import init_moe, moe_ffn
@@ -317,10 +317,6 @@ def _qw(policy: TCPolicy, role):
     return q
 
 
-def _call(f, *args):
-    return f(*args)
-
-
 def _recompute(f, *args):
     """One segment of remat "dots": its inputs are saved and it runs again
     in the backward (nothing in it draws random numbers)."""
@@ -420,15 +416,20 @@ def cross_kv(p, memory, cfg: ModelCfg):
                  for name in ("wk_x", "wv_x"))
 
 
-def cross_attend(p, x, cfg: ModelCfg, kx, vx):
+def _cross_core(qx, kx, vx, cfg: ModelCfg):
+    return blockwise_attention(qx, kx, vx, causal=False, q_block=cfg.q_block,
+                               kv_block=cfg.kv_block, vjp=cfg.attn_vjp)
+
+
+def cross_attend(p, x, cfg: ModelCfg, kx, vx, seg=_call):
     """x + the cross-attention of the block's stream ``x`` over cross K/V
-    (``ln_x``, ``wq_x``, non-causal blockwise attention, ``wo_x``)."""
+    (``ln_x``, ``wq_x``, non-causal blockwise attention, ``wo_x``);
+    ``seg`` runs the norm and the attention."""
     b, s = x.shape[:2]
-    qx = _einsum("bsd,dk->bsk", rms_norm(x, p["ln_x"]),
+    qx = _einsum("bsd,dk->bsk", seg(rms_norm, x, p["ln_x"]),
                  quant.maybe_dequant(p["wq_x"])).reshape(
         b, s, cfg.n_heads, cfg.head_dim)
-    xo = blockwise_attention(qx, kx, vx, causal=False, q_block=cfg.q_block,
-                             kv_block=cfg.kv_block, vjp=cfg.attn_vjp)
+    xo = seg(_cross_core, qx, kx, vx, cfg)
     return x + _einsum("bsk,kd->bsd", xo.reshape(b, s, -1),
                        quant.maybe_dequant(p["wo_x"]))
 
@@ -448,17 +449,20 @@ def _attn_block(p, x, cfg: ModelCfg, policy, seg=_call, memory=None,
     ao = _einsum("bsk,kd->bsd", ao, _qw(policy, "attn_weights")(p["wo"]))
     x = x + ao
     if memory is not None:
-        x = cross_attend(p, x, cfg, *cross_kv(p, memory, cfg))
+        x = cross_attend(p, x, cfg, *cross_kv(p, memory, cfg), seg=seg)
     mo, aux = ffn(p, seg(rms_norm, x, p["ln2"]), cfg, policy, seg)
     return x + mo, aux
 
 
 def _ssm_block(p, x, cfg: ModelCfg, policy, seg=_call):
     """Training Mamba-2 block (no FFN): norm, the SSD layer with its two
-    projections through the ``mlp_weights`` hook, residual.  Returns (x,
-    aux = 0)."""
-    h = rms_norm(x, p["ln"])
-    y, _ = mamba2_layer(p, h, cfg, quantize_w=_qw(policy, "mlp_weights"))
+    projections through the ``mlp_weights`` hook, residual; ``seg`` runs
+    the norm and the layer's part between its projections (the stream
+    split, the causal conv, the chunked scan and the gated norm).  Returns
+    (x, aux = 0)."""
+    h = seg(rms_norm, x, p["ln"])
+    y, _ = mamba2_layer(p, h, cfg, quantize_w=_qw(policy, "mlp_weights"),
+                        seg=seg)
     return x + y.to(x.dtype), 0.0
 
 
@@ -467,33 +471,38 @@ def _rec_block(p, x, cfg: ModelCfg, policy, seg=_call):
     wx]`` product, the GELU gate, the causal conv, the RG-LRU scan, the
     gated ``w_out`` product, then the MLP through the ``mlp_weights`` hook.
     ``wx`` / ``wy`` / ``w_out`` and the gates pass no hook (the
-    reference's ``maybe_dequant`` only).  Returns (x, aux = 0)."""
-    x, _ = rec_mix(p, x, cfg)
-    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy), 0.0
+    reference's ``maybe_dequant`` only); ``seg`` runs the norms, the part
+    between the two products (gate, conv, the RG-LRU's gates and scan)
+    and the MLP's activation.  Returns (x, aux = 0)."""
+    x, _ = rec_mix(p, x, cfg, seg=seg)
+    return x + _mlp(p, seg(rms_norm, x, p["ln2"]), cfg, policy, seg), 0.0
 
 
-def rec_mix(p, x, cfg: ModelCfg, h0=None):
+def _rec_core(yu, conv_w, rg, h0):
+    """The recurrent mix between its two products: GELU gate, causal conv
+    and the RG-LRU over ``yu = h @ [wy | wx]``: (y * gate, h_last)."""
+    gate_in, u = torch.chunk(yu, 2, dim=-1)
+    gate = torch.nn.functional.gelu(gate_in, approximate="tanh")
+    y, h_last = rglru(rg, causal_conv(u, conv_w), h0=h0)
+    return y * gate, h_last
+
+
+def rec_mix(p, x, cfg: ModelCfg, h0=None, seg=_call):
     """The recurrent block's temporal mix and residual, before its MLP:
     (x + w_out(rglru(conv(u)) * gelu(gate)), the scan's last state (B, d)
     f32)."""
-    h = rms_norm(x, p["ln"])
+    h = seg(rms_norm, x, p["ln"])
     wyx = torch.cat([quant.maybe_dequant(p["wy"]),
                      quant.maybe_dequant(p["wx"])], dim=-1)
-    gate_in, u = torch.chunk(_einsum("bsd,dk->bsk", h, wyx), 2, dim=-1)
-    gate = torch.nn.functional.gelu(gate_in, approximate="tanh")
-    y, h_last = rglru(p["rglru"], causal_conv(u, p["conv_w"]), h0=h0)
-    out = _einsum("bsk,kd->bsd", y * gate, quant.maybe_dequant(p["w_out"]))
+    yg, h_last = seg(_rec_core, _einsum("bsd,dk->bsk", h, wyx),
+                     p["conv_w"], p["rglru"], h0)
+    out = _einsum("bsk,kd->bsd", yg, quant.maybe_dequant(p["w_out"]))
     return x + out, h_last
 
 
 def _check_remat(cfg: ModelCfg) -> None:
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
-    if cfg.remat == "dots" and (set(cfg.block_types) - {"attn"}
-                                or cfg.family == "audio"):
-        raise NotImplementedError(
-            f"remat='dots' is not ported for the {cfg.family} family (use "
-            "'full' or 'none')")
 
 
 def _layer(block, p_i, x, cfg: ModelCfg, policy, *extra):
@@ -511,13 +520,17 @@ def _run_stack(params, x, cfg: ModelCfg, policy, memory=None):
     each layer the block of its type (an audio decoder block attends over
     ``memory``).  Under ``remat="full"`` each layer runs in
     ``torch.utils.checkpoint`` (only the block inputs are saved; the
-    block recomputes in the backward).  Under ``"dots"`` (attention
-    blocks) the weights' fake-quant and the weight products (``bsd,df``)
-    run outside any checkpoint, so autograd keeps the products and their
-    operands, and the norms, RoPE + attention and the MLP's activation
-    recompute (the reference's ``dots_with_no_batch_dims_saveable`` keeps
-    the products alone and recomputes the fake-quant too).  The SSM,
-    recurrent and audio decoder blocks have no "dots" segmentation yet."""
+    block recomputes in the backward).  Under ``"dots"`` the weights'
+    fake-quant and the weight products (``bsd,df``) run outside any
+    checkpoint, so autograd keeps the products and their operands, and
+    what lies between them recomputes in ``torch.utils.checkpoint``
+    segments (the reference's ``dots_with_no_batch_dims_saveable`` keeps
+    the products alone and recomputes the fake-quant too): the norms,
+    RoPE + attention and the MLP's activation of an attention block (an
+    audio decoder block's cross-attention norm and attention too, its
+    cross K/V products kept); the stream split, causal conv, chunked scan
+    and gated norm of a Mamba-2 block; the GELU gate, causal conv and
+    RG-LRU (its per-head gate products included) of a recurrent block."""
     blocks = {"attn": _attn_block, "ssm": _ssm_block, "rec": _rec_block}
     aux = 0.0
     for l in range(cfg.n_layers):

@@ -65,7 +65,13 @@ or of the pool's pages, along each leaf's "kv_seq" dim (``kv_seq_dim``),
 with ``pos`` and the page table whole.  Its decode append maps each
 slot's global row to the rank's own, or to -1 where another rank owns
 it, and writes through K5 (``paged_kv_append_rows`` skips -1) on a flat
-view, ring and paged alike; a float cache takes a masked scatter.
+view, ring and paged alike; a float cache takes a masked scatter.  A
+hybrid stack's local-attention rings (W = min(window, max_len) rows,
+``blocks`` and ``tail`` alike) split the same way; its recurrent ``h`` /
+``conv``, and an audio stack's ``xk`` / ``xv`` and ``memory``, stay whole
+on every rank (the cross-attention reads them through the plain
+``attention.decode_attention``, as the reference's does).  The SSM stack
+has no KV sequence to shard and is refused (``check_shardable``).
 
 In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
 chunk pass of speculative decoding) write K/V rows into the cache tensors
@@ -142,13 +148,15 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
         full = init_cache(cfg, batch, max_len, dtype, policy,
                           num_pages=num_pages, device="meta")
         check_kv_shard(full, cfg, policy, kv_shard)
+        top = _cache((), batch, max_len, policy, "page_table" in full,
+                     num_pages, device)
         return _rank_local(full, lambda name, t, dim: (
             torch.full([n // kv_shard.world if d == dim else n
                         for d, n in enumerate(t.shape)],
                        1.0 if name.endswith("_scale") else 0,
                        dtype=t.dtype, device=device)),
-            top=_cache((), batch, max_len, policy, "page_table" in full,
-                       num_pages, device))
+            other=lambda path, t: top[path] if path in top else torch.zeros(
+                t.shape, dtype=t.dtype, device=device))
     paged = check_layout(policy)
     if paged and cfg.window:
         raise ValueError("paged KV layout does not support sliding-window "
@@ -227,39 +235,54 @@ def _cache(blocks, batch: int, max_len: int, policy: TCPolicy, paged: bool,
 
 
 def check_shardable(cfg: ModelCfg) -> None:
-    """Refuse (``NotImplementedError``) a KV-sequence-sharded decode of a
-    stack whose serving cache is more than K/V: SSM, hybrid, audio."""
-    if cfg.family in ("ssm", "hybrid", "audio"):
+    """Refuse (``NotImplementedError``) a KV-sequence-sharded decode of the
+    SSM stack: it has no attention layer, so no KV sequence to shard, and
+    splitting its recurrent state's heads over ranks waits for tensor
+    parallelism."""
+    if "attn" not in cfg.block_types:
         raise NotImplementedError(
-            f"KV-sequence-sharded decode covers the stacks whose serving "
-            f"cache is only K/V (dense, MoE, vlm); {cfg.name} is "
-            f"{cfg.family!r}, whose cache also holds recurrent state or "
-            "cross K/V: not ported yet")
+            f"KV-sequence-sharded decode: {cfg.name} ({cfg.family!r}) holds "
+            "no KV sequence (no attention layer); splitting its recurrent "
+            "state's heads over ranks needs tensor parallelism, not ported")
+
+
+def _first_kv(cache, paged: bool):
+    """(the first attention layer's ``k`` leaf, its "kv_seq" dim), in
+    ``blocks`` or else in the unstacked ``tail`` (a hybrid stack's first
+    period position is a recurrent block)."""
+    found = []
+    map_with_path(lambda path, t: found.append((t, kv_seq_dim(path, paged)))
+                  if path.endswith("/k") else None,
+                  {n: cache[n] for n in ("blocks", "tail") if n in cache})
+    return found[0]
 
 
 def check_kv_shard(cache, cfg: ModelCfg, policy: TCPolicy, shard) -> None:
     """The refusals of a rank-local copy of ``cache`` (whole, or on the
-    meta device): ``check_shardable``'s, and a ring width or page count
-    the world size does not divide (``ValueError``)."""
+    meta device): ``check_shardable``'s, and a ring width (a local
+    attention ring's W = min(window, max_len) too) or page count the world
+    size does not divide (``ValueError``)."""
     check_shardable(cfg)
-    k = cache["blocks"][0]["k"]
-    if "page_table" in cache:
-        shard.local_range(k.shape[1] // policy.kv_page_size, "pool pages")
+    paged = "page_table" in cache
+    k, dim = _first_kv(cache, paged)
+    if paged:
+        shard.local_range(k.shape[dim] // policy.kv_page_size, "pool pages")
     else:
-        shard.local_range(k.shape[2], "ring rows")
+        shard.local_range(k.shape[dim], "ring rows")
 
 
-def _rank_local(cache, leaf_fn, top=None):
+def _rank_local(cache, leaf_fn, other=None):
     """``cache`` with each leaf that has a "kv_seq" dim (``kv_seq_dim``)
-    replaced by ``leaf_fn(name, leaf, dim)``, the rank's share of it;
-    ``pos`` and the page table taken from ``top`` where given."""
+    replaced by ``leaf_fn(name, leaf, dim)``, the rank's share of it; every
+    other leaf (``pos``, the page table, recurrent state, cross K/V and
+    ``memory``: whole on every rank) kept, or ``other(path, leaf)``."""
     paged = "page_table" in cache
 
     def leaf(path, t):
         d = kv_seq_dim(path, paged)
         if d is not None:
             return leaf_fn(path.split("/")[-1], t, d)
-        return t if top is None else top[path]
+        return t if other is None else other(path, t)
 
     return map_with_path(leaf, cache)
 

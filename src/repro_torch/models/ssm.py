@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from .common import _einsum, causal_conv, dense_init, rms_norm
+from .common import _call, _einsum, causal_conv, dense_init, rms_norm
 
 
 def dims(cfg):
@@ -171,49 +171,70 @@ def in_proj(params, x, quantize_w=None):
     return _einsum("bsd,dk->bsk", x, w_in)
 
 
-def mamba2_layer(params, x, cfg, *, conv_state=None, ssm_state=None,
-                 quantize_w=None, zxbcdt=None, out=None):
-    """Full mamba2 block.  Train / prefill: conv_state / ssm_state None ->
-    (y, (None, ssm_state)).  Decode: S == 1 with both states given ->
-    (y, (conv_state, ssm_state)), new tensors (``out``: a (conv, state)
-    pair of buffers to write them into); the given states are only read.
-    ``zxbcdt`` is :func:`in_proj`'s output where the caller already has
-    it."""
+def _streams(zxbcdt, params, cfg):
+    """(z, xBC, dt softplus'd in f32, A = -exp(A_log)) of the fused
+    projection."""
+    z, xBC, dt = _split_streams(zxbcdt, cfg)
+    dt = dt.to(torch.float32) + params["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))    # jax.nn.softplus
+    return z, xBC, dt, -torch.exp(params["A_log"])
+
+
+def _heads(xBC, cfg):
+    """xBC (b, S, conv_ch) -> x (b, S, nh, hd), B and C (b, S, ng, ds)."""
     d_in, nh, _ = dims(cfg)
     ng, ds = cfg.ssm_groups, cfg.ssm_state
+    xs, B, C = torch.split(xBC, [d_in, ng * ds, ng * ds], dim=-1)
+    b, s = xs.shape[0], xs.shape[1]
+    return (xs.reshape(b, s, nh, cfg.ssm_headdim), B.reshape(b, s, ng, ds),
+            C.reshape(b, s, ng, ds))
+
+
+def _gated_norm(y, z, params):
+    """The gated RMSNorm before the out projection: norm(y * silu(z))."""
+    b, s = y.shape[0], y.shape[1]
+    return rms_norm(y.reshape(b, s, -1) * F.silu(z), params["norm_scale"])
+
+
+def _chunked_mix(zxbcdt, params, cfg):
+    """Train / prefill: the layer between its two projections (the stream
+    split, the causal conv, ``ssd_chunked`` and the gated norm): (the out
+    projection's input, the final SSD state)."""
+    z, xBC, dt, A = _streams(zxbcdt, params, cfg)
+    xh, Bh, Ch = _heads(_causal_conv(xBC, params["conv_w"]), cfg)
+    y, state = ssd_chunked(xh, dt, A, Bh, Ch, params["D"],
+                           min(cfg.ssm_chunk, xh.shape[1]))
+    return _gated_norm(y, z, params), state
+
+
+def mamba2_layer(params, x, cfg, *, conv_state=None, ssm_state=None,
+                 quantize_w=None, zxbcdt=None, out=None, seg=_call):
+    """Full mamba2 block.  Train / prefill: conv_state / ssm_state None ->
+    (y, (None, ssm_state)); ``seg`` runs the part between the two
+    projections (``_chunked_mix``: called directly, or a checkpoint
+    segment under remat "dots").  Decode: S == 1 with both states given
+    -> (y, (conv_state, ssm_state)), new tensors (``out``: a (conv,
+    state) pair of buffers to write them into); the given states are only
+    read.  ``zxbcdt`` is :func:`in_proj`'s output where the caller already
+    has it."""
     if zxbcdt is None:
         zxbcdt = in_proj(params, x, quantize_w)
     w_out = params["out_proj"]
     if quantize_w is not None:
         w_out = quantize_w(w_out)
-    z, xBC, dt = _split_streams(zxbcdt, cfg)
-    dt = dt.to(torch.float32) + params["dt_bias"]
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))    # jax.nn.softplus
-    A = -torch.exp(params["A_log"])
-    decode = ssm_state is not None
-    if decode:
-        xBC, conv_state = _causal_conv(xBC, params["conv_w"], conv_state)
-        if out is not None:
-            conv_state = out[0].copy_(conv_state)
-    else:
-        xBC = _causal_conv(xBC, params["conv_w"])
-    xs, B, C = torch.split(xBC, [d_in, ng * ds, ng * ds], dim=-1)
-    b, s = xs.shape[0], xs.shape[1]
-    xh = xs.reshape(b, s, nh, cfg.ssm_headdim)
-    Bh = B.reshape(b, s, ng, ds)
-    Ch = C.reshape(b, s, ng, ds)
-    if decode:
-        y, ssm_state = ssd_decode_step(
-            ssm_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0],
-            params["D"], out=None if out is None else out[1])
-        y = y[:, None]
-    else:
-        y, ssm_state = ssd_chunked(xh, dt, A, Bh, Ch, params["D"],
-                                   min(cfg.ssm_chunk, s))
-    y = y.reshape(b, s, d_in)
-    # gated RMSNorm (norm(y) * silu(z)) then the out projection
-    y = rms_norm(y * F.silu(z), params["norm_scale"])
-    return _einsum("bsk,kd->bsd", y, w_out), (conv_state, ssm_state)
+    if ssm_state is None:
+        y, ssm_state = seg(_chunked_mix, zxbcdt, params, cfg)
+        return _einsum("bsk,kd->bsd", y, w_out), (None, ssm_state)
+    z, xBC, dt, A = _streams(zxbcdt, params, cfg)
+    xBC, conv_state = _causal_conv(xBC, params["conv_w"], conv_state)
+    if out is not None:
+        conv_state = out[0].copy_(conv_state)
+    xh, Bh, Ch = _heads(xBC, cfg)
+    y, ssm_state = ssd_decode_step(
+        ssm_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0], params["D"],
+        out=None if out is None else out[1])
+    return (_einsum("bsk,kd->bsd", _gated_norm(y[:, None], z, params),
+                    w_out), (conv_state, ssm_state))
 
 
 def init_mamba2_state(cfg, batch, dtype=torch.float32, device="cuda"):

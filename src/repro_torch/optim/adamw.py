@@ -107,10 +107,31 @@ def global_norm(tree):
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def clip_by_global_norm(grads, max_norm):
+def _clip_scale(grads, max_norm):
+    """(the factor that clips ``grads`` to ``max_norm``, their norm)."""
     gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0), gn
+
+
+def clip_by_global_norm(grads, max_norm):
+    scale, gn = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn
+
+
+# elements of a leaf the update takes at a time: its f32 temporaries stay
+# a few of these wide however large the leaf (a full-width embedding
+# table has ~1e9 elements)
+_CHUNK = 1 << 26
+
+
+def _chunks(p, mst, g, m, v):
+    """The update's operands in flat slices of at most ``_CHUNK``
+    elements (every op of the update is elementwise, so slice by slice it
+    gives the same values), or whole where a written tensor is not
+    contiguous (its flat view would be a copy)."""
+    if not all(t.is_contiguous() for t in (p, mst, m, v)):
+        return ((p, mst, g, m, v),)
+    return zip(*(t.reshape(-1).split(_CHUNK) for t in (p, mst, g, m, v)))
 
 
 @torch.no_grad()
@@ -120,23 +141,27 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     ``state`` tensors are overwritten.  Returns the metrics (grad norm
     before clipping, lr).  Decoupled weight decay applies to leaves with
     ndim >= 2, so the stacked (P, d) norm gains decay too, as in the
-    reference."""
+    reference.  Each leaf's gradient is clipped as its update reads it
+    (no clipped copy of the whole tree), ``_CHUNK`` elements at a time."""
     state["step"] += 1
     step = state["step"].to(torch.float32)
     if lr is None:
         lr = make_schedule(cfg)(step)
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    scale, gn = _clip_scale(grads, cfg.grad_clip)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step
     bc2 = 1 - b2 ** step
 
     def upd(p, mst, g, m, v):
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        step_v = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        wd = cfg.weight_decay * mst if mst.ndim >= 2 else 0.0
-        mst.copy_(mst - lr * (step_v + wd))
-        p.copy_(mst.to(p.dtype))
+        decay = mst.ndim >= 2
+        for p, mst, g, m, v in _chunks(p, mst, g, m, v):
+            g = g.to(torch.float32) * scale        # clipped
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            step_v = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            wd = cfg.weight_decay * mst if decay else 0.0
+            mst.copy_(mst - lr * (step_v + wd))
+            p.copy_(mst.to(p.dtype))
 
     tree_map(upd, params, state["master"], grads, state["mu"], state["nu"])
     return {"grad_norm": gn, "lr": lr}

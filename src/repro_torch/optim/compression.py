@@ -59,22 +59,12 @@ def _dequantize(qt: quant.QuantizedTensor) -> torch.Tensor:
     return quant.dequantize(qt, torch.float32, decode=posit_decode)
 
 
-def _wire(grads, fmt_name: str, residual):
-    """Per leaf (wire, decoded, new residual), in ``tree_leaves`` order:
-    each leaf is encoded once and decoded once."""
-    fmt = get(fmt_name)
+def _leaves(grads, residual):
+    """(gradient, residual) leaf pairs in ``tree_leaves`` order; the
+    residual None for every leaf when ``residual`` is None (zeros)."""
     flat_g = tree_leaves(grads)
-    flat_r = ([None] * len(flat_g) if residual is None
-              else tree_leaves(residual))
-    out = []
-    for g, r in zip(flat_g, flat_r):
-        g32 = g.to(torch.float32)
-        if r is not None:
-            g32 = g32 + r
-        qt = _quantize(g32, fmt)
-        deq = _dequantize(qt)
-        out.append((qt, deq, g32 - deq))
-    return out
+    return zip(flat_g, [None] * len(flat_g) if residual is None
+               else tree_leaves(residual))
 
 
 def compress_grads(grads, fmt_name: Optional[str], residual=None):
@@ -82,12 +72,19 @@ def compress_grads(grads, fmt_name: Optional[str], residual=None):
 
     Returns (wire tree, new residual): wire leaves are ``QuantizedTensor``s
     (codes + scale), residual leaves float32 tensors.  ``residual`` None is
-    a tree of zeros."""
+    a tree of zeros; it is left as it was."""
     if fmt_name is None:
         return grads, residual
-    out = _wire(grads, fmt_name, residual)
-    return (tree_unflatten(grads, [w for w, _, _ in out]),
-            tree_unflatten(grads, [r for _, _, r in out]))
+    fmt = get(fmt_name)
+    wires, res = [], []
+    for g, r in _leaves(grads, residual):
+        g32 = g.to(torch.float32)
+        if r is not None:
+            g32 = g32 + r
+        qt = _quantize(g32, fmt)
+        wires.append(qt)
+        res.append(g32 - _dequantize(qt))
+    return tree_unflatten(grads, wires), tree_unflatten(grads, res)
 
 
 def decompress_grads(wires):
@@ -98,15 +95,23 @@ def decompress_grads(wires):
 
 def error_feedback_update(grads, residual, fmt_name: Optional[str]):
     """One compress -> decompress with error feedback: returns (decoded
-    gradients, new residual), the decode of ``compress_grads`` reused (on
+    gradients, new residual), each leaf encoded once and decoded once (on
     the card one K2 and one K1 launch per leaf).  The train step applies
     it between the gradients and AdamW, so the update sees the
-    wire-precision values."""
+    wire-precision values.  The new residual is written into
+    ``residual``'s own leaves (they hold g + r, then g + r - decoded: the
+    values of ``compress_grads``, with no second f32 copy of the model);
+    ``residual`` None is zeros, and the new residual is then fresh."""
     if fmt_name is None:
         return grads, residual
-    out = _wire(grads, fmt_name, residual)
-    return (tree_unflatten(grads, [d for _, d, _ in out]),
-            tree_unflatten(grads, [r for _, _, r in out]))
+    fmt = get(fmt_name)
+    deqs, res = [], []
+    for g, r in _leaves(grads, residual):
+        g32 = g.to(torch.float32, copy=True) if r is None else r.add_(g)
+        deq = _dequantize(_quantize(g32, fmt))
+        deqs.append(deq)
+        res.append(g32.sub_(deq))
+    return tree_unflatten(grads, deqs), tree_unflatten(grads, res)
 
 
 def wire_bytes(grads, fmt_name: Optional[str]) -> int:

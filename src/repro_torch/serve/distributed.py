@@ -29,9 +29,12 @@ row and writes it where the rank owns it (K5 on the card, ring and paged,
 with -1 for rows of other ranks), and the plug decodes the rank's codes
 (K1 on the card) before its partial LSE.  W or the page count must be a
 multiple of the world size (``ValueError``; the reference's paged body
-misreads rows silently when pages straddle shards).  The SSM, hybrid and
-audio stacks, whose serving caches hold more than K/V, raise
-``NotImplementedError``.
+misreads rows silently when pages straddle shards).  A hybrid stack's
+local-attention rings split the same way (W = min(window, max_len) rows,
+which the world must divide); its recurrent state, and an audio stack's
+cross K/V and encoder memory, stay whole on every rank, where the
+cross-attention reads them without the plug.  The SSM stack holds no KV
+sequence and raises ``NotImplementedError``.
 
 With no initialised process group the world is 1 and no collective runs.
 """

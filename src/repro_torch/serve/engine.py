@@ -64,14 +64,14 @@ from ..core.transprecision import BF16, TCPolicy, get_policy, kv_storage
 from ..kernels import _build
 from ..kernels.kv_cache import append_geometry, code_channels, split_geometry
 from ..models import lm
+from ..models.common import KV_LEAVES
 from ..obs import MetricsRegistry, StatsView, Tracer
 from .engine_api import TransprecisionEngine
 from .faults import FaultInjector, FaultPlan, RetryPolicy
 from .guard import GuardConfig, NumericGuard
 from .paged import PageAllocator, SlotPages, pages_for
 
-_KV_LEAF_NAMES = ("k", "v", "k_scale", "v_scale", "xk", "xv")
-_POOL_LEAF_NAMES = ("k", "v", "k_scale", "v_scale")
+_KV_LEAF_NAMES = KV_LEAVES + ("xk", "xv")
 
 
 @dataclasses.dataclass
@@ -270,7 +270,7 @@ class ServingEngine:
                     t = blk[name]
                     nbytes = t.numel() * t.element_size()
                     total += (nbytes * pool_frac if paged
-                              and name in _POOL_LEAF_NAMES else nbytes)
+                              and name in KV_LEAVES else nbytes)
         return int(total)
 
     def kv_cache_bytes(self) -> int:

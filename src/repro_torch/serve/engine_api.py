@@ -68,6 +68,7 @@ import torch
 
 from .. import resolve_device
 from ..core.transprecision import TCPolicy, get_policy
+from ..models.common import KV_LEAVES
 from ..models.serve_model import (_local_rows, check_layout, decode_step,
                                   init_cache, prefill, verify_step)
 from ..obs import MetricsRegistry, Tracer
@@ -324,11 +325,13 @@ class TransprecisionEngine:
                dst_rows=None):
         """Copy prefix row ``row`` into decode-state slot ``slot``, in
         place, and set ``pos[slot]`` to the prompt length.  Ring: its
-        bucket-width K/V rows land at ring rows [0, bucket); an SSM row's
-        ``state`` and ``conv`` replace the slot's.  Paged: they
-        scatter to the ``dst_rows`` flat pool rows ((N,) int, N <= bucket,
-        padded with trash row 0).  A rank-local state keeps the rows the
-        rank owns."""
+        bucket-width K/V rows land at ring rows [0, bucket) (a window
+        prefill's ring is the state's width: row pos mod W); an SSM or
+        recurrent row's state and ``conv``, and an audio row's cross K/V,
+        replace the slot's.  Paged: the K/V rows scatter to the
+        ``dst_rows`` flat pool rows ((N,) int, N <= bucket, padded with
+        trash row 0).  A rank-local state keeps the K/V rows the rank owns
+        (``blocks`` and ``tail`` alike) and the rest whole."""
         if dst_rows is not None:
             dst_rows = torch.as_tensor(dst_rows, device=self.device).to(
                 torch.int64)
@@ -338,27 +341,32 @@ class TransprecisionEngine:
 
     def _insert_impl(self, state, pcache, length, slot, row, dst_rows):
         # a rank-local state (``kv_shard``) holds ring rows [lo, lo + Wl)
-        # of each slot, or pool rows [lo, lo + Rl); rank 0 of 1 holds all
+        # of each slot, or pool rows [lo, lo + Rl); rank 0 of 1 holds all.
+        # K/V leaves follow their "kv_seq" dim; a recurrent block's state
+        # and an audio block's cross K/V are whole per slot on every rank
         rank = 0 if self.kv_shard is None else self.kv_shard.rank
-        for dst, src in zip(state["blocks"], pcache["blocks"]):
-            for name, d in dst.items():
-                s = src[name][:, row]              # (P, width, ...)
-                if dst_rows is None:
-                    lo = rank * d.shape[2]
-                    n = min(s.shape[1] - lo, d.shape[2])
-                    if n > 0:
-                        d[:, slot, :n] = s[:, lo:lo + n]
-                    continue
-                rows, s = dst_rows, s[:, :len(dst_rows)]
-                if self.kv_shard is not None:  # (P, Rl, ...): own rows only
-                    rows = _local_rows(dst_rows, rank * d.shape[1],
-                                       d.shape[1])
-                    s = s[:, rows >= 0]
-                    rows = rows[rows >= 0]
-                d[:, rows] = s                     # (P, R, ...) <- (P, w, ...)
-        for dst, src in zip(state.get("tail", ()), pcache.get("tail", ())):
-            for name, d in dst.items():     # unstacked (B, ...) leaves
-                d[slot, :src[name].shape[1]] = src[name][row]
+        for part, lead in (("blocks", (slice(None),)), ("tail", ())):
+            for dst, src in zip(state.get(part, ()), pcache.get(part, ())):
+                for name, d in dst.items():
+                    s = src[name][lead + (row,)]   # ([P,] width, ...)
+                    if name not in KV_LEAVES:
+                        d[lead + (slot,)] = s
+                    elif dst_rows is None:
+                        w = d.shape[len(lead) + 1]
+                        lo = rank * w
+                        n = min(s.shape[len(lead)] - lo, w)
+                        if n > 0:
+                            d[lead + (slot, slice(0, n))] = \
+                                s[lead + (slice(lo, lo + n),)]
+                    else:
+                        rows = dst_rows
+                        s = s[lead + (slice(0, len(dst_rows)),)]
+                        if self.kv_shard is not None:  # own rows only
+                            r = d.shape[len(lead)]
+                            rows = _local_rows(dst_rows, rank * r, r)
+                            s = s[lead + (rows >= 0,)]
+                            rows = rows[rows >= 0]
+                        d[lead + (rows,)] = s      # ([P,] R, ...)
         state["pos"][slot] = length[row]
         return state
 

@@ -1,7 +1,7 @@
 """The reference's side of ``tests/test_torch_distributed.py`` (not a test
 module: the test runs it as one subprocess).
 
-    python tests/_jax_dist_reference.py DIR
+    python tests/_jax_dist_reference.py DIR [families]
 
 Sets ``XLA_FLAGS`` for two host devices before ``jax`` is imported, builds
 the reference's ``(1, 2)`` ``("data", "model")`` mesh with Auto axes (with
@@ -14,6 +14,13 @@ distributed decode attention, ring and paged, f32, posit16 and posit8 KV
 smoke config's distributed streams; and the vlm smoke config's
 ``make_distributed_decode_step`` fed patch embeddings.  The weights are
 ``init_params`` at ``PRNGKey(0)``, as the test builds them.
+
+With ``families`` (``tests/test_torch_distributed_families.py``) it runs
+the hybrid and audio stacks instead: the recurrentgemma smoke config's
+streams through its ``ServingEngine`` with and without the distributed
+decode attention (ring, f32 and posit8 KV, float32 model), and the
+whisper smoke config's ``make_distributed_decode_step`` logits over a
+prefill of tokens and frames.
 """
 import os
 import sys
@@ -113,5 +120,38 @@ def main(root: str) -> None:
     np.savez(os.path.join(root, "reference.npz"), **out)
 
 
+def families(root: str) -> None:
+    inp = np.load(os.path.join(root, "inputs.npz"))
+    mesh = jax.make_mesh((1, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    out = {}
+    cfg_h = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
+                                dtype_name="float32")
+    p_h = lm.init_params(jax.random.PRNGKey(0), cfg_h)
+    prompts = [inp[f"hybrid_prompt{i}"] for i in range(int(inp["n_hybrid"]))]
+    for fmt in ("f32", "posit8"):
+        out[f"hybrid_{fmt}_engine"], _, eng = serve(
+            mesh, cfg_h, p_h, prompts, int(inp["max_new"]), kv_format=fmt,
+            distributed=False)
+        out[f"hybrid_{fmt}_dist"] = serve(
+            mesh, cfg_h, p_h, prompts, int(inp["max_new"]), kv_format=fmt,
+            share=eng)[0]
+    cfg_a = dataclasses.replace(get_config("whisper-large-v3", smoke=True),
+                                dtype_name="float32")
+    p_a = lm.init_params(jax.random.PRNGKey(0), cfg_a)
+    policy = get_policy("bf16")
+    _, cache = jax.jit(jsm.prefill, static_argnums=(2, 3, 4))(
+        p_a, {"tokens": jnp.asarray(inp["audio_tokens"]),
+              "frames": jnp.asarray(inp["audio_frames"])}, cfg_a, 64, policy)
+    step = jax.jit(make_distributed_decode_step(cfg_a, policy, mesh, None))
+    for i, t in enumerate(inp["audio_steps"]):
+        logits, cache = step(p_a, cache, jnp.asarray(t))
+        out[f"audio_logits{i}"] = np.asarray(logits, np.float32)
+    np.savez(os.path.join(root, "reference.npz"), **out)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] == ["families"]:
+        families(sys.argv[1])
+    else:
+        main(sys.argv[1])

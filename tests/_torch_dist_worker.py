@@ -1,13 +1,15 @@
 """One rank of ``tests/test_torch_distributed.py``'s two-rank gloo run on
 the CPU (not a test module: the test starts it as a process).
 
-    python tests/_torch_dist_worker.py RANK WORLD DIR
+    python tests/_torch_dist_worker.py RANK WORLD DIR [families]
 
 Joins the gloo process group through ``file://DIR/rendezvous``, reads the
 cases' weights and prompts from ``DIR/inputs.pt`` (written by the test),
 serves every case through the port's KV-sequence-sharded decode and
-writes what it saw to ``DIR/rank<RANK>.pt``.  Imports neither ``jax`` nor
-``repro``.
+writes what it saw to ``DIR/rank<RANK>.pt``.  With ``families``
+(``tests/test_torch_distributed_families.py``) the cases are the hybrid
+stack's engine and the audio stack's decode step.  Imports neither
+``jax`` nor ``repro``.
 """
 import dataclasses
 import sys
@@ -106,16 +108,54 @@ def run(inp):
     return out
 
 
-def main(rank: int, world: int, root: Path) -> None:
+def run_families(inp):
+    """The hybrid smoke config through the sharded engine (ring, f32 and
+    posit8 KV: streams, KV bytes, every ring leaf's shape and the rank's
+    recurrent state after the serve), and the audio smoke config's
+    ``make_distributed_decode_step`` over a ``shard_cache``d prefill."""
+    out = {}
+    cfg_h = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
+                                dtype_name="float32")
+    for fmt in ("f32", "posit8"):
+        toks, eng, _ = serve(cfg_h, inp["hybrid32"], inp["hybrid_prompts"],
+                             inp["max_new"], kv_format=fmt)
+        out["hybrid", fmt] = {
+            "tokens": toks, "kv_bytes": eng.kv_cache_bytes(),
+            "shapes": {f"{part}/{i}/{k}": tuple(v.shape)
+                       for part in ("blocks", "tail")
+                       for i, blk in enumerate(eng.cache.get(part, ()))
+                       for k, v in blk.items()}}
+    cfg_a = dataclasses.replace(get_config("whisper-large-v3", smoke=True),
+                                dtype_name="float32")
+    policy = get_policy("bf16")
+    _, cache = serve_model.prefill(
+        inp["audio32"], {"tokens": torch.from_numpy(inp["audio_tokens"]),
+                         "frames": torch.from_numpy(inp["audio_frames"])},
+        cfg_a, 64, policy)
+    step = make_distributed_decode_step(cfg_a, policy)
+    cache = serve_model.shard_cache(cache, cfg_a, policy, step.shard)
+    out["audio_k_shape"] = tuple(cache["blocks"][0]["k"].shape)
+    out["audio_xk_shape"] = tuple(cache["blocks"][0]["xk"].shape)
+    logits = []
+    for t in inp["audio_steps"]:
+        lg, cache = step(inp["audio32"], cache, torch.from_numpy(t))
+        logits.append(lg.clone())
+    out["audio"] = logits
+    return out
+
+
+def main(rank: int, world: int, root: Path, cases: str = "dense") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous",
                             world_size=world, rank=rank)
     try:
-        out = run(torch.load(root / "inputs.pt", weights_only=False))
+        inp = torch.load(root / "inputs.pt", weights_only=False)
+        out = run_families(inp) if cases == "families" else run(inp)
         torch.save(out, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))
+    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]),
+         *sys.argv[4:5])

@@ -9,8 +9,8 @@ against the reference, from the same seeded numpy inputs and weights.
   dtype, non-causal blocks without RoPE, ``enc_norm``) and ``forward`` /
   ``loss_fn``: float32 within rtol 1e-5, atol 1e-5 of the reference's;
   bf16 within 1/32 of the largest magnitude.
-* Remat "full" and "none" give the same loss and gradients; "dots" raises
-  ``NotImplementedError`` for the audio decoder block.
+* Remat "dots" and "none" give "full"'s loss bit for bit and its
+  gradients within 1e-6 (the encoder's and the cross-attention's too).
 * ``hoist_weight_quant`` quantizes every encoder layer's attention and MLP
   weights, each layer's slice on its own, and leaves the cross-attention
   weights raw (the reference's paths hook none of them).
@@ -116,12 +116,13 @@ def test_encoder_forward_and_loss_match_reference(models, dtype):
 
 
 def test_remat_modes(models):
-    """"full" and "none": equal loss, every gradient within 1e-6 (the
-    encoder's and the cross-attention's included); "dots" raises."""
+    """"dots" and "none" against "full": equal loss bit for bit, every
+    gradient within 1e-6 (the encoder's and the cross-attention's
+    included)."""
     _, tc, _, tp = models["float32"]
     batch = _to_torch(_batch(tc, seed=1))
     out = {}
-    for remat in ("full", "none"):
+    for remat in ("full", "dots", "none"):
         cfg = dataclasses.replace(tc, remat=remat)
         params = jax.tree_util.tree_map(
             lambda t: t.detach().clone().requires_grad_(), tp)
@@ -129,12 +130,11 @@ def test_remat_modes(models):
         loss.backward()
         out[remat] = (float(loss.detach()), [
             t.grad for t in jax.tree_util.tree_leaves(params)])
-    assert out["none"][0] == out["full"][0]
-    for a, b in zip(out["none"][1], out["full"][1]):
-        assert a is not None
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.loss_fn(tp, batch, dataclasses.replace(tc, remat="dots"))
+    for remat in ("dots", "none"):
+        assert out[remat][0] == out["full"][0], remat
+        for a, b in zip(out[remat][1], out["full"][1]):
+            assert a is not None
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
 def test_hoist_quantizes_the_encoder_and_leaves_cross_weights_raw(models):

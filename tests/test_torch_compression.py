@@ -53,7 +53,7 @@ from repro_torch.core.transprecision import TCPolicy  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.optim import compression as tcomp  # noqa: E402
-from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train.step import init_train_state, make_train_step  # noqa: E402
 
 WIRE = "posit16_2"
@@ -191,7 +191,9 @@ def test_error_feedback_carries_the_residual():
     g1, g2 = _grads(1), _grads(2)
     fmt = jget(WIRE)
     deq1, r1 = tcomp.error_feedback_update(_t(_tree(g1)), None, WIRE)
-    deq2, r2 = tcomp.error_feedback_update(_t(_tree(g2)), r1, WIRE)
+    # the update writes its new residual into r1's leaves: pass a copy
+    deq2, r2 = tcomp.error_feedback_update(
+        _t(_tree(g2)), tree_map(torch.clone, r1), WIRE)
     wires2, _ = tcomp.compress_grads(_t(_tree(g2)), WIRE, r1)
     for x, ra, w, d, rb in zip(g2, tree_leaves(r1), tree_leaves(wires2),
                                tree_leaves(deq2), tree_leaves(r2)):
@@ -302,6 +304,33 @@ def test_wire_formats_without_a_kernel_are_refused():
         assert not r.any()
     assert init_train_state(cfg, AdamWConfig(), device="cpu"
                             ).ef_residual is None
+
+
+def test_error_feedback_writes_the_residual_in_place():
+    """The update writes the new residual into the old one's leaves (no
+    second f32 copy of the model): decoded gradients and residual bit for
+    bit those of ``compress_grads`` + ``decompress_grads``, which leave
+    their residual as it was; bf16 gradients widen first.  With no
+    residual, the gradients are left as they were."""
+    grads = _t(_tree(_grads(seed=4)))
+    grads["a"] = grads["a"].to(torch.bfloat16)
+    residual = _t(_tree(_grads(seed=5)))
+    before = [r.clone() for r in tree_leaves(residual)]
+    wires, want_res = tcomp.compress_grads(grads, WIRE, residual)
+    want_deq = tcomp.decompress_grads(wires)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(residual),
+                                                  before))
+    deq, res = tcomp.error_feedback_update(grads, residual, WIRE)
+    for a, b in zip(tree_leaves(deq) + tree_leaves(res),
+                    tree_leaves(want_deq) + tree_leaves(want_res)):
+        assert torch.equal(a, b)
+    assert all(r is o for r, o in zip(tree_leaves(res),
+                                      tree_leaves(residual)))
+    g = [t.clone() for t in tree_leaves(grads)]
+    deq0, res0 = tcomp.error_feedback_update(grads, None, WIRE)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), g))
+    assert not any(r is t for r, t in zip(tree_leaves(res0),
+                                          tree_leaves(grads)))
 
 
 def test_one_encode_and_one_decode_per_leaf(monkeypatch):

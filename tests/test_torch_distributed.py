@@ -19,8 +19,9 @@ undistributed engine.
   embeddings; a guard rung that inherits the plug.
 * In one process: a plain plug's float32 streams equal ``attn_impl=None``'s,
   the world-1 plug's too; ``paged_kv_append_rows_ref`` skips rows outside
-  [0, R); the refusals (an indivisible ring or pool, the SSM, hybrid and
-  audio stacks).
+  [0, R); the refusals (an indivisible ring or pool, the SSM stack; the
+  hybrid and audio stacks build, ``test_torch_distributed_families.py``
+  serves them).
 """
 import dataclasses
 import os
@@ -258,15 +259,22 @@ def test_refusals():
     local = serve_model.init_cache(cfg, 3, 64, policy=paged, num_pages=26,
                                    device="cpu", kv_shard=half)
     assert local["blocks"][0]["k"].shape[1] == 26 * 8 // 2
-    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "whisper-large-v3"):
+    c = get_config("mamba2-2.7b", smoke=True)
+    with pytest.raises(NotImplementedError, match="no KV sequence"):
+        make_distributed_engine(c, pol, 2, 64, device="cpu")
+    with pytest.raises(NotImplementedError, match="no KV sequence"):
+        make_distributed_decode_step(c, pol)
+    with pytest.raises(NotImplementedError, match="no KV sequence"):
+        serve_model.init_cache(c, 2, 64, policy=pol, device="cpu",
+                               kv_shard=half)
+    # the hybrid and audio stacks shard (test_torch_distributed_families)
+    for arch in ("recurrentgemma-9b", "whisper-large-v3"):
         c = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_distributed_engine(c, pol, 2, 64, device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_distributed_decode_step(c, pol)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve_model.init_cache(c, 2, 64, policy=pol, device="cpu",
-                                   kv_shard=half)
+        assert make_distributed_engine(c, pol, 2, 64,
+                                       device="cpu").kv_shard == KVShard()
+        assert make_distributed_decode_step(c, pol).shard == KVShard()
+        serve_model.init_cache(c, 2, 64, policy=pol, device="cpu",
+                               kv_shard=half)
     eng = make_distributed_engine(cfg, pol, 2, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="verify"):
         eng.verify(None, eng.init_decode_state(), torch.zeros((2, 2)))

@@ -3,8 +3,8 @@ its entry points (ring and paged serving, the matmul kernel, training and
 the quickstart, speculative serving, the Trainer, the data shards, the
 train and serve launchers, the orchestrator, the vlm and audio models'
 prefill and caches, the distributed engine) default to the GPU and raise without one, and what is
-left to later work raises ``NotImplementedError`` (remat "dots" for the
-SSM, hybrid and audio blocks)."""
+left to later work raises ``NotImplementedError`` (the KV-sequence-sharded
+decode of the SSM stack)."""
 import ast
 import dataclasses
 import os
@@ -143,8 +143,10 @@ def test_kernel_build_raises_without_nvcc():
 def test_later_slices_raise_not_implemented():
     """Every family of the reference is ported (the vlm and audio ones
     were the last slice): their configs build and an unknown family
-    raises ``ValueError``; remat "dots" for a block it does not segment
-    (the audio decoder's) raises ``NotImplementedError``."""
+    raises ``ValueError``; remat "dots" runs for the audio decoder block
+    (a later slice); the KV-sequence-sharded decode of the SSM stack,
+    which holds no KV sequence (its state's head split waits for tensor
+    parallelism), raises ``NotImplementedError``."""
     cfg = get_config("paper-edge", smoke=True)
     assert ModelCfg(family="vlm", mrope=True).family == "vlm"
     assert get_config("qwen2-vl-2b").mrope
@@ -158,8 +160,11 @@ def test_later_slices_raise_not_implemented():
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
              "labels": torch.zeros((1, 4), dtype=torch.long),
              "frames": torch.zeros((1, audio.enc_seq, audio.d_model))}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.loss_fn(audio_params, batch, audio)
+    assert torch.isfinite(lm.loss_fn(audio_params, batch, audio)[0])
+    from repro_torch.serve import make_distributed_decode_step
+    with pytest.raises(NotImplementedError, match="no KV sequence"):
+        make_distributed_decode_step(get_config("mamba2-2.7b", smoke=True),
+                                     "bf16")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     # the numeric guard, fault injection and retry are ported (they were

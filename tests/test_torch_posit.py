@@ -135,6 +135,28 @@ def test_quantize_dequantize_fake_quant(name, axis):
                         tquant.fake_quant(torch.from_numpy(w), name, axis))
 
 
+@pytest.mark.parametrize("name", ["posit8_2", "posit16_2"])
+@pytest.mark.parametrize("shape,axis", [((48, 24), (0,)),
+                                        ((5, 12, 16), (0, 1)),
+                                        ((24, 48), None)])
+def test_fake_quant_in_blocks_equals_whole(monkeypatch, name, shape, axis):
+    """The fake-quant codes the scaled tensor a block of elements at a
+    time, with the whole tensor's scale: bit-equal to the one-shot round
+    trip ``dequantize(quantize(...))``, in one block and in many, for a
+    transposed view too (the tied head)."""
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.normal(0, 0.03, shape).astype(
+        np.float32)).to(torch.bfloat16)
+    for x in (w, w.transpose(0, -1)):
+        whole = tquant.dequantize(tquant.quantize(x, name, axis), x.dtype)
+        assert torch.equal(tquant.fake_quant(x, name, axis), whole)
+        monkeypatch.setattr(tquant, "_FAKE_QUANT_BLOCK", 100)
+        blocked = tquant.fake_quant(x, name, axis)
+        monkeypatch.undo()
+        assert blocked.dtype == whole.dtype and blocked.shape == whole.shape
+        assert torch.equal(blocked, whole)
+
+
 def test_fake_quant_straight_through_gradient():
     x = torch.linspace(-2, 2, 17, requires_grad=True)
     g = torch.arange(17.0)

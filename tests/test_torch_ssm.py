@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import serve_model as tsm  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
 
 ARCH = "mamba2-2.7b"
@@ -246,29 +247,29 @@ def test_forward_and_loss_equal_reference(model, dtype_name, s):
 
 
 def test_remat_modes(model):
-    """"full" and "none" give the same loss and gradients; "dots" is not
-    ported for the SSM block."""
+    """"full", "dots" and "none" give the same loss, "dots" and "none"
+    bit for bit with "full", and every gradient (the embedding's and the
+    head's included) within 1e-6 (relative) and 1e-7 of "full"'s."""
     _, tc, _, tp = model["float32"]
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rng.integers(0, tc.vocab, (2, 16))),
              "labels": torch.from_numpy(rng.integers(0, tc.vocab, (2, 16)))}
     grads = {}
-    for remat in ("none", "full"):
+    for remat in ("full", "dots", "none"):
         cfg = dataclasses.replace(tc, remat=remat)
-        params = {k: v for k, v in tp.items()}
-        params["blocks"] = ({k: v.clone().requires_grad_(True)
-                             for k, v in tp["blocks"][0].items()},)
-        loss, _ = tlm.loss_fn(params, batch, cfg)
-        loss.backward()
-        grads[remat] = (float(loss.detach()), {k: v.grad for k, v in
-                                      params["blocks"][0].items()})
-    assert grads["none"][0] == grads["full"][0]
-    for k, g in grads["none"][1].items():
-        assert g is not None and torch.isfinite(g).all(), k
-        torch.testing.assert_close(grads["full"][1][k], g, rtol=1e-6,
-                                   atol=1e-7)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.loss_fn(tp, batch, dataclasses.replace(tc, remat="dots"))
+        leaves = tree_leaves(tp)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = tlm.loss_fn(tp, batch, cfg)
+        grads[remat] = (float(loss.detach()),
+                        torch.autograd.grad(loss, leaves))
+        for t in leaves:
+            t.requires_grad_(False)
+    for remat in ("dots", "none"):
+        assert grads[remat][0] == grads["full"][0], remat
+        for g, want in zip(grads[remat][1], grads["full"][1]):
+            assert torch.isfinite(g).all(), remat
+            torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))

@@ -319,3 +319,29 @@ def test_later_slice_options_raise():
         tattn.blockwise_attention(torch.zeros(1, 4, 2, 8),
                                   torch.zeros(1, 4, 2, 8),
                                   torch.zeros(1, 4, 2, 8), vjp="fast")
+
+
+def test_adamw_update_in_chunks_equals_whole(monkeypatch):
+    """``adamw_update`` takes a leaf ``_CHUNK`` elements at a time and
+    clips each slice as it reads it: params and state bit-equal to the
+    whole-leaf update, for a bf16 and an f32 leaf and a non-contiguous
+    gradient."""
+    rng = np.random.default_rng(7)
+    tree = {"w": rng.normal(0, 1, (37, 29)).astype(np.float32),
+            "b": rng.normal(0, 1, (53,)).astype(np.float32)}
+    grads = {"w": torch.from_numpy(rng.normal(0, 3, (29, 37)).astype(
+        np.float32)).T, "b": torch.from_numpy(rng.normal(0, 3, (53,)).astype(
+            np.float32))}
+    out = []
+    for chunk in (1 << 26, 100):
+        monkeypatch.setattr(tadamw, "_CHUNK", chunk)
+        params = {"w": torch.from_numpy(tree["w"]).to(torch.bfloat16),
+                  "b": torch.from_numpy(tree["b"]).clone()}
+        state = tadamw.adamw_init(params)
+        for _ in range(2):
+            m = tadamw.adamw_update(grads, state, params,
+                                    tadamw.AdamWConfig(warmup_steps=1))
+        out.append((params, state, m))
+    (p0, s0, m0), (p1, s1, m1) = out
+    for a, b in zip(tree_leaves([p0, s0, m0]), tree_leaves([p1, s1, m1])):
+        assert torch.equal(a, b)
