@@ -43,7 +43,8 @@ calls it, and K5 at a prefill's T = 1024; 8e the same for the ring's K3; 9
 K7 (both paths, the crossover's neighbours; posit8 and posit16 at every
 es); 9b K7's two paths timed by M (the crossover); 10 the quickstart path
 (serving's counterpart: training; part 2's device time); 10b train step
-card vs CPU; then K7's times.  Phases 11a-11c run after 7b (own generator):
+card vs CPU (the CPU's step on a host thread beside 12c and 12d, held
+after 12d); then K7's times.  Phases 11a-11c run after 7b (own generator):
 11a the speculative verify pass at float32, card vs CPU and vs five
 sequential decode steps, and K3/K5 at T = 5 from bf16 rows; 11b rollback,
 card vs CPU; 11c speculative serving (main path of K1) in both layouts at
@@ -125,7 +126,11 @@ tokens x 16 through the engine, beside the undistributed engine; 19d
 whisper-large-v3 at full width, float32, 8 clips with 240-token prompts,
 16 steps of ``make_distributed_decode_step`` over a ``shard_cache``d
 prefill (its 448-row rings split 224 + 224, cross K/V and memory whole),
-beside ``decode_step``; a ``{"distributed": ...}`` JSON line.  Phase 21
+beside ``decode_step``; 19e mamba2-2.7b at full width and all 64
+layers, float32, B 8, 32 new tokens, over the same two ranks, each
+holding half the state's heads and the conv's channels, beside the
+undistributed engine (recurrentgemma's ``h`` and ``conv`` split too in
+19c); a ``{"distributed": ...}`` JSON line.  Phase 21
 runs after 20 (own generators): 21a one ``MIXED_TC`` wire step under remat
 "dots" of the mamba2, qwen2-vl, whisper and recurrentgemma (4 layers)
 smoke configs at float32, card vs CPU; 21b their first train steps at
@@ -144,7 +149,9 @@ P(8,2) codes at (8, 768) x (768, 768) with its wall and kernel launches)
 and the TALU cycle simulator on every Table III cell; 20b paper-edge's
 ``decode_32k`` cell (128 slots, 32,768-row rings, every row live) built
 on the card under bf16 and then posit8 KV, its allocated bytes against
-``launch/dryrun``'s reckoning for one card, and two decode steps; an
+``launch/dryrun``'s reckoning for one card, and two decode steps; 20c
+the dry run's ``--mesh host --world 2 --distributed-decode`` collectives
+at 19b's, 19c's and 19e's shapes against rank 0's counts; an
 ``{"arith_dryrun": ...}`` JSON line.  Phase 12 runs
 after 10b (own generators): 12a K2's wire mode (subnormals normalised, as
 ``core.posit.encode_f32``) on every f32 bit pattern for posit8_2 and
@@ -182,8 +189,9 @@ Every phase asserts; nothing is caught.  Tolerances:
                  counterpart (a value at a rounding midpoint) or, near zero,
                  within 2^-12 of the row's scale (posit8's spacing there is
                  below f32 noise), ring and paged.
-  train step     card vs CPU at float32: loss rtol 1e-4, grad norm rtol
-                 1e-3, every updated param and master leaf atol 1e-5.
+  train step     card vs CPU at float32 (10b, 6 of 12 layers): loss rtol
+                 1e-4, grad norm rtol 1e-3, every updated param and
+                 master leaf atol 1e-5.
   verify (11a)   card vs CPU from identical caches, and card vs five card
                  decode steps: logits rtol 1e-3, atol 1e-3; written codes
                  by the card-vs-CPU rule above; K3/K5 bit-exact.
@@ -311,15 +319,19 @@ Every phase asserts; nothing is caught.  Tolerances:
                  1024); K5 12 and K1 24 per decode step, K3 12 per
                  prefill, the rest 0, by the wrappers' counts and, where
                  its trace holds them, the profiler's kernel names.
-  distributed (19c, 19d) every request gets its tokens, every logit
-                 finite; both ranks' float32 streams equal the
+  distributed (19c, 19d, 19e) every request gets its tokens, every
+                 logit finite; both ranks' float32 streams equal the
                  undistributed run's; a rank's ring bytes half the
-                 undistributed ones, its recurrent state (19c) and cross
-                 K/V (19d) whole; K5 one and K1 two per attention layer a
-                 decode step, K3 one per prefill, the rest 0 (the
-                 undistributed runs: K3 and K4 one each), two
-                 collectives a layer carrying 4 B x slots x query heads x
-                 (hd + 2), by the wrappers' counts.
+                 undistributed ones, its recurrent ``h``/``conv`` (19c)
+                 and mamba2 ``state``/``conv`` (19e; state 671,088,640
+                 of 1,342,177,280 B) at ``cache_specs``' local shape and
+                 half the bytes, its cross K/V (19d) whole; K5 one and
+                 K1 two per attention layer a decode step, K3 one per
+                 prefill, the rest 0 (the undistributed runs: K3 and K4
+                 one each; 19e none), two all-reduces an attention layer
+                 carrying 4 B x slots x query heads x (hd + 2) and two
+                 all-gathers a recurrent layer of slots x channels f32,
+                 by the wrappers' and the collective door's counts.
   training (21a) card vs CPU: loss rtol 1e-5, updated params and masters
                  atol 1e-6; K2 and K1 once per param leaf.
   training (21b) every loss finite; "dots"'s and "none"'s losses equal to
@@ -340,6 +352,8 @@ Every phase asserts; nothing is caught.  Tolerances:
                  plain version (pos W: the wrap; seeded positions), K4
                  there within 1e-5 (f32 q, ragged lengths) and 2^-7 (bf16
                  q, full); the card's memory back to its base after both.
+  dry run (20c)  the dry run's collectives a step equal rank 0's counted
+                 ones, per kind: count, result and operand bytes.
   speculative (11c) every request gets its 32 tokens, no page leaks, K1,
                  K3, K4 (and K5, paged) launched; the tokens equal to the
                  baseline's stream are counted, not asserted (decode reads
@@ -377,8 +391,9 @@ paged prefill and 8 steps'), and K3-K6's ``hd128_grp6`` and
 ``hd64_grp1``, 18c's posit8 times at those shapes beside their bounds;
 every entry carries ``launches_distributed`` (19a's served run, 19b rank
 0's ring and paged float32 runs, and per decode step),
-``launches_distributed_hybrid`` and ``launches_distributed_audio`` (19c
-and 19d, rank 0: per decode step and total),
+``launches_distributed_hybrid``, ``launches_distributed_audio`` and
+``launches_distributed_ssm`` (19c, 19d and 19e, rank 0: per decode step
+and total),
 ``launches_decode_32k`` (20b: per decode step, bf16 and posit8 KV) and
 ``launches_train_ssm``, ``_vlm``, ``_audio`` and ``_hybrid`` (21b: per
 step and over every mode's steps);
@@ -393,6 +408,7 @@ trace and read "not measured" where the trace holds no device events.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -3272,32 +3288,36 @@ RUNS19 = (("float32", "ring"), ("float32", "paged"), ("bfloat16", "ring"),
 
 @contextlib.contextmanager
 def counted_collectives(timed: bool = False):
-    """Count the ``torch.distributed.all_reduce`` calls made inside the
-    block and the bytes they carry; ``timed`` also synchronises the card
-    around each call and sums their host-clock seconds (the combine's
-    time: the wait included)."""
+    """Count the collectives the distributed decode issues inside the
+    block: ``serve.distributed``'s counter (its one collective door), set
+    to 0 on entry and read on exit into ``calls`` and ``bytes`` (result
+    bytes) over all kinds and ``by_kind``; ``timed`` also synchronises
+    the card around each call's communication and sums their host-clock
+    seconds (the wait included)."""
     import torch
-    import torch.distributed as dist
-    real = dist.all_reduce
-    log = {"calls": 0, "bytes": 0, "s": 0.0}
+    from repro_torch.serve import distributed as sd
+    real = sd._transport
+    log = {"calls": 0, "bytes": 0, "s": 0.0, "by_kind": {}}
 
-    def counted(t, *a, **kw):
-        log["calls"] += 1
-        log["bytes"] += t.numel() * t.element_size()
-        if not timed:
-            return real(t, *a, **kw)
+    def timed_transport(*a):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = real(t, *a, **kw)
+        real(*a)
         torch.cuda.synchronize()
         log["s"] += time.perf_counter() - t0
-        return out
 
-    dist.all_reduce = counted
+    if timed:
+        sd._transport = timed_transport
+    sd.reset_collectives()
     try:
         yield log
     finally:
-        dist.all_reduce = real
+        sd._transport = real
+        log["by_kind"] = {k: dict(v) for k, v in sd.COLLECTIVES.items()
+                          if v["count"]}
+        log["calls"] = sum(v["count"] for v in log["by_kind"].values())
+        log["bytes"] = sum(v["result_bytes"]
+                           for v in log["by_kind"].values())
 
 
 def run19(dev, seed, prompts, warm, *, distributed: bool, runs,
@@ -3401,7 +3421,8 @@ def run19(dev, seed, prompts, warm, *, distributed: bool, runs,
                    "kv_bytes": eng.kv_cache_bytes(), "wall_s": wall,
                    "tok_s": 32 * len(reqs) / wall,
                    "collectives": coll["calls"],
-                   "collective_bytes": coll["bytes"]}
+                   "collective_bytes": coll["bytes"],
+                   "collectives_by_kind": coll["by_kind"]}
             if windows and dtype_name == "float32" and layout == "ring":
                 run["windows"] = _windows19(eng, prompts, n_l)
                 step = make_distributed_decode_step(cfg, eng.engine.policy)
@@ -3582,6 +3603,7 @@ def run_ranks(world: int, devices, backend: str, seed: int, prompts, warm,
             "prefill_calls": got[0]["prefill_calls"],
             "collectives_rank0": got[0]["collectives"],
             "collective_bytes_rank0": got[0]["collective_bytes"],
+            "collectives_by_kind_rank0": got[0]["collectives_by_kind"],
             "tok_s_ranks": [g["tok_s"] for g in got],
             "tok_s_undistributed": want["tok_s"]}
     out["windows"] = [r["float32", "ring"]["windows"] for r in ranks]
@@ -3714,6 +3736,24 @@ def combine_layer_bytes(b: int, cfg) -> int:
     return 4 * b * cfg.n_heads * (cfg.head_dim + 2)
 
 
+def split_leaves(cache) -> dict:
+    """The leaves a rank of the distributed decode holds a slice of on
+    ``models.common.rank_split``'s recurrent "model" dims (``state``,
+    ``conv``, ``h``), by name: {name: ([(shape, split dim)], total
+    bytes)} over ``blocks`` and ``tail``."""
+    from repro_torch.models.common import RECURRENT_SPLIT, rank_split
+    out = {}
+    for part in ("blocks", "tail"):
+        for i, blk in enumerate(cache.get(part, ())):
+            for name, t in blk.items():
+                if name in RECURRENT_SPLIT:
+                    dim = rank_split(f"{part}/{i}/{name}", False)[0]
+                    shapes, n = out.get(name, ([], 0))
+                    out[name] = (shapes + [(tuple(t.shape), dim)],
+                                 n + t.numel() * t.element_size())
+    return out
+
+
 def run19c(dev, seed, distributed: bool) -> dict:
     """recurrentgemma-9b at full width and ``HYBRID19_LAYERS`` layers,
     float32 seeded weights (``seed + 191``), ``paper_edge_p8`` (posit8
@@ -3723,9 +3763,10 @@ def run19c(dev, seed, distributed: bool) -> dict:
     where ``distributed``.  Kernel counts and the collective counter are
     set to 0 just before the serve and read just after; asserts every
     request's tokens, finite logits, K3 per attention layer a prefill,
-    then (distributed) K5 one and K1 two per attention layer a step and
-    two collectives of ``combine_layer_bytes`` a layer, or (plain) K3
-    and K4 one each."""
+    then (distributed) K5 one and K1 two per attention layer a step, two
+    all-reduces of ``combine_layer_bytes`` an attention layer and two
+    all-gathers of slots x width f32 a recurrent layer, or (plain) K3 and
+    K4 one each."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.transprecision import get_policy, kv_storage
@@ -3738,6 +3779,7 @@ def run19c(dev, seed, distributed: bool) -> dict:
     cfg = dataclasses.replace(get_config(HYBRID_ARCH), dtype_name="float32",
                               n_layers=HYBRID19_LAYERS)
     n_attn = cfg.block_types.count("attn")
+    n_rec = cfg.n_layers - n_attn
     rng = np.random.default_rng([seed, 191])
     prompts = [rng.integers(0, cfg.vocab, n) for n in HYBRID19_LENS]
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -3781,9 +3823,13 @@ def run19c(dev, seed, distributed: bool) -> dict:
     if distributed:
         want["paged_kv_append_rows"] = n_attn * steps
         want["posit_decode"] = 2 * n_attn * steps
-        assert coll["calls"] == 2 * n_attn * steps, (coll, steps)
-        assert coll["bytes"] == combine_layer_bytes(
+        ar, ag = coll["by_kind"]["all-reduce"], coll["by_kind"]["all-gather"]
+        assert ar["count"] == 2 * n_attn * steps, (coll, steps)
+        assert ar["result_bytes"] == combine_layer_bytes(
             len(prompts), cfg) * n_attn * steps, (coll, steps)
+        assert ag["count"] == 2 * n_rec * steps, (coll, steps)
+        assert ag["result_bytes"] == 2 * 4 * len(prompts) * cfg.d_model * \
+            n_rec * steps, (coll, steps)
     else:
         want["kv_append_rows"] += n_attn * steps
         want["decode_attention"] = n_attn * steps
@@ -3792,7 +3838,9 @@ def run19c(dev, seed, distributed: bool) -> dict:
            "launches": launches, "steps": steps, "prefill_calls": prefills,
            "attention_layers": n_attn, "ring_bytes": ring_bytes(eng.cache),
            "rec_state_bytes": rec_state_bytes(eng.cache, cfg),
+           "split_leaves": split_leaves(eng.cache),
            "collectives": coll["calls"], "collective_bytes": coll["bytes"],
+           "collectives_by_kind": coll["by_kind"],
            "wall_s": wall, "tok_s": HYBRID19_NEW * len(reqs) / wall}
     del eng, reqs
     gc.collect()
@@ -3880,6 +3928,7 @@ def run19d(dev, seed, distributed: bool) -> dict:
            "prefill_launches": prefill_launches, "steps": AUDIO19_STEPS,
            "ring_bytes": kv, "cross_bytes": cross,
            "collectives": coll["calls"], "collective_bytes": coll["bytes"],
+           "collectives_by_kind": coll["by_kind"],
            "step_ms": 1e3 * decode_s / AUDIO19_STEPS,
            "pos": int(cache["pos"])}
     del hoisted, cache, logits, frames
@@ -3888,11 +3937,106 @@ def run19d(dev, seed, distributed: bool) -> dict:
     return out
 
 
+# 19e: mamba2-2.7b at full width and depth over two float32 ranks; a
+# rank's state is 64 layers x 8 slots x 40 of 80 heads x 64 x 128 f32
+SSM19_NEW = 32
+SSM19_STATE_BYTES = 1_342_177_280
+
+
+def run19e(dev, seed, distributed: bool) -> dict:
+    """mamba2-2.7b at full width and all 64 layers, float32 seeded weights
+    (``seed + 193``), ``paper_edge_p8`` (posit8 ``in_proj`` / ``out_proj``
+    hoisted), ring, max batch 8, max_len 1024, through a
+    ``ServingEngine``: ``SSM_PROMPT_LENS`` prompts x ``SSM19_NEW`` tokens,
+    over the distributed decode of the initialised process group where
+    ``distributed`` (a rank holds half of every layer's state heads and
+    conv channels).  Kernel counts and the collective counter are set to
+    0 just before the serve and read just after; asserts every request's
+    tokens, finite logits, no kernel launched and (distributed) two
+    all-gathers a layer a step, of slots x conv channels and slots x
+    d_inner f32 values, and no other collective.  Returns the streams,
+    every step's logits, the state's and conv's shapes and bytes and the
+    decode step's ms (each ``generate`` call synchronised)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy, kv_storage
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.ssm import dims
+    from repro_torch.serve import (Request, ServeConfig, ServingEngine,
+                                   distributed_decode_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype_name="float32")
+    d_inner, _, conv_ch = dims(cfg)
+    rng = np.random.default_rng([seed, 193])
+    prompts = [rng.integers(0, cfg.vocab, n) for n in SSM_PROMPT_LENS]
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 193), device=dev)
+    spec = kv_storage(dataclasses.replace(get_policy("paper_edge_p8"),
+                                          kv_format="posit8"))
+    plug = distributed_decode_attention(kv_spec=spec) if distributed else None
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_batch=B, max_len=W, kv_format="posit8"),
+        policy="paper_edge_p8", attn_impl=plug, device=dev)
+    del params
+    nonfinite = []
+    checked_stages(eng, nonfinite)
+    logits_all, step_s = [], []
+    generate = eng.engine.generate
+
+    def recorded(p, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logits = generate(p, state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits_all.append(logits.float().cpu())
+        return state, logits
+
+    eng.engine.generate = recorded
+    reqs = [Request(uid=i, prompt=p, max_new=SSM19_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launches()
+    with counted_collectives() as coll:
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    steps = eng.stats["decode_steps"]
+    assert not nonfinite, nonfinite
+    assert all(r.done and r.error is None and len(r.out_tokens) == SSM19_NEW
+               for r in reqs)
+    assert not any(launches.values()), launches
+    n_l = cfg.n_layers
+    if distributed:
+        assert set(coll["by_kind"]) == {"all-gather"}, coll
+        ag = coll["by_kind"]["all-gather"]
+        assert ag["count"] == 2 * n_l * steps, (coll, steps)
+        assert ag["result_bytes"] == 4 * B * (conv_ch + d_inner) * n_l * \
+            steps, (coll, steps)
+    else:
+        assert coll["calls"] == 0, coll
+    out = {"tokens": [r.out_tokens for r in reqs],
+           "logits": torch.stack(logits_all), "launches": launches,
+           "steps": steps, "split_leaves": split_leaves(eng.cache),
+           "collectives": coll["calls"], "collective_bytes": coll["bytes"],
+           "collectives_by_kind": coll["by_kind"], "wall_s": wall,
+           "step_ms": 1e3 * statistics.mean(step_s),
+           "step_ms_median": 1e3 * statistics.median(step_s)}
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def rank19f(rank: int, world: int, root: str, backend: str, seed: int,
             device: str) -> None:
     """A rank process of ``phase19cd``: its ``device``, the ``backend``
-    group through ``file://<root>/group``, ``run19c`` and ``run19d``
-    distributed; its results in ``<root>/rank<rank>.pt``."""
+    group through ``file://<root>/group``, ``run19c``, ``run19d`` and
+    ``run19e`` distributed; its results in ``<root>/rank<rank>.pt``."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3904,28 +4048,53 @@ def rank19f(rank: int, world: int, root: str, backend: str, seed: int,
                             timeout=datetime.timedelta(seconds=300))
     try:
         out = {"19c": run19c(dev, seed, True), "19d": run19d(dev, seed, True)}
+        t0 = time.perf_counter()
+        out["19e"] = run19e(dev, seed, True)
+        out["19e"]["run_s"] = time.perf_counter() - t0
         torch.save(out, Path(root) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
+def check_split_leaves(got: dict, want: dict) -> None:
+    """Every recurrent leaf of a rank (``split_leaves``) has the whole
+    leaf's shape with its split dim halved (``cache_specs``' local shape
+    at world 2), and half its bytes."""
+    assert set(got) == set(want), (set(got), set(want))
+    for name, (shapes, nbytes) in got.items():
+        w_shapes, w_bytes = want[name]
+        for (sh, dim), (w_sh, _) in zip(shapes, w_shapes, strict=True):
+            assert sh == tuple(n // 2 if d == dim else n
+                               for d, n in enumerate(w_sh)), (name, sh, w_sh)
+        assert 2 * nbytes == w_bytes, (name, nbytes, w_bytes)
+
+
 def phase19cd(dev, seed, card: str) -> dict:
-    """19c / 19d. The sharded decode of the hybrid and audio stacks: first
-    ``run19c`` and ``run19d`` undistributed here, then two gloo ranks on
-    ``cuda:0`` (``spawn_ranks``), each holding half of every attention
-    ring (recurrentgemma's 2048-row windows 1024 + 1024, its recurrent
-    state whole; whisper's 448-row self-attention rings 224 + 224, its
-    cross K/V and encoder memory whole).  Asserts the streams of both
-    ranks equal each other's and the undistributed run's at float32,
-    each rank's ring bytes half the undistributed ones and its recurrent
-    or cross bytes whole, and the launches, collectives and combine
-    bytes a step ``run19c`` / ``run19d`` assert."""
+    """19c / 19d / 19e. The sharded decode of the hybrid, audio and SSM
+    stacks: first ``run19c``, ``run19d`` and ``run19e`` undistributed
+    here, then two gloo ranks on ``cuda:0`` (``spawn_ranks``), each
+    holding half of every attention ring (recurrentgemma's 2048-row
+    windows 1024 + 1024; whisper's 448-row self-attention rings 224 +
+    224, its cross K/V and encoder memory whole) and half of every
+    recurrent leaf's split dim (recurrentgemma's ``h`` and ``conv``
+    width, 2048 of 4096; mamba2's state heads, 40 of 80, and conv
+    channels, 2688 of 5376).  Asserts the streams of both ranks equal
+    each other's and the undistributed run's at float32, each rank's
+    ring bytes half the undistributed ones, its recurrent leaves at
+    ``cache_specs``' local shape and half the bytes, its cross bytes
+    whole, and the launches, collectives and bytes a step ``run19c`` /
+    ``run19d`` / ``run19e`` assert."""
     import torch
     t0 = time.perf_counter()
     plain = {"19c": run19c(dev, seed, False), "19d": run19d(dev, seed, False)}
+    t19e = time.perf_counter()
+    plain["19e"] = run19e(dev, seed, False)
+    plain_19e_s = time.perf_counter() - t19e
     dev_name = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
                 else str(dev))
+    t_ranks = time.perf_counter()
     ranks = spawn_ranks(2, rank19f, lambda r: ("gloo", seed, dev_name))
+    ranks_s = time.perf_counter() - t_ranks
     out = {"card": card}
     for key in ("19c", "19d"):
         want, got = plain[key], [r[key] for r in ranks]
@@ -3933,8 +4102,14 @@ def phase19cd(dev, seed, card: str) -> dict:
             assert g["tokens"] == got[0]["tokens"] == want["tokens"], key
             assert 2 * g["ring_bytes"] == want["ring_bytes"], (
                 key, g["ring_bytes"], want["ring_bytes"])
-        other = "rec_state_bytes" if key == "19c" else "cross_bytes"
-        assert all(g[other] == want[other] for g in got), key
+        if key == "19c":
+            other = "rec_state_bytes"
+            for g in got:
+                check_split_leaves(g["split_leaves"], want["split_leaves"])
+                assert 2 * g[other] == want[other], (g[other], want[other])
+        else:
+            other = "cross_bytes"
+            assert all(g[other] == want[other] for g in got), key
         ref_logits = want["first_logits" if key == "19c" else "logits"]
         diff = max(float((g["first_logits" if key == "19c" else "logits"]
                           - ref_logits).abs().max()) for g in got)
@@ -3951,6 +4126,7 @@ def phase19cd(dev, seed, card: str) -> dict:
             "launches_undistributed": want["launches"],
             "collectives_per_step": r0["collectives"] / r0["steps"],
             "combine_bytes_per_step": r0["collective_bytes"] / r0["steps"],
+            "collectives_by_kind_rank0": r0["collectives_by_kind"],
             "ranks_logits_equal": torch.equal(
                 got[0]["first_logits" if key == "19c" else "logits"],
                 got[1]["first_logits" if key == "19c" else "logits"])}
@@ -3958,12 +4134,45 @@ def phase19cd(dev, seed, card: str) -> dict:
             out[key].update(tok_s_ranks=[g["tok_s"] for g in got],
                             tok_s_undistributed=want["tok_s"],
                             attention_layers=want["attention_layers"],
-                            prefill_calls=r0["prefill_calls"])
+                            prefill_calls=r0["prefill_calls"],
+                            rec_state_bytes_rank=r0["rec_state_bytes"])
         else:
             out[key].update(step_ms_ranks=[g["step_ms"] for g in got],
                             step_ms_undistributed=want["step_ms"],
                             pos=r0["pos"])
-    c, d = out["19c"], out["19d"]
+    want, got = plain["19e"], [r["19e"] for r in ranks]
+    for g in got:
+        assert g["tokens"] == got[0]["tokens"] == want["tokens"], "19e"
+        check_split_leaves(g["split_leaves"], want["split_leaves"])
+    assert want["split_leaves"]["state"][1] == SSM19_STATE_BYTES
+    r0 = got[0]
+    out["19e"] = {
+        "tokens_equal": True,
+        "max_abs_logit_diff": max(float((g["logits"] - want["logits"])
+                                        .abs().max()) for g in got),
+        "ranks_logits_equal": torch.equal(got[0]["logits"],
+                                          got[1]["logits"]),
+        "state_bytes_rank": r0["split_leaves"]["state"][1],
+        "state_bytes_undistributed": want["split_leaves"]["state"][1],
+        "conv_bytes_rank": r0["split_leaves"]["conv"][1],
+        "conv_bytes_undistributed": want["split_leaves"]["conv"][1],
+        "state_shape_rank": r0["split_leaves"]["state"][0][0][0],
+        "conv_shape_rank": r0["split_leaves"]["conv"][0][0][0],
+        "steps": r0["steps"], "launches_rank0": r0["launches"],
+        "launches_per_step_rank0": {k: v / r0["steps"] for k, v
+                                    in r0["launches"].items() if v},
+        "collectives_per_step": r0["collectives"] / r0["steps"],
+        "collective_bytes_per_step": r0["collective_bytes"] / r0["steps"],
+        "collectives_by_kind_rank0": r0["collectives_by_kind"],
+        "step_ms_ranks": [g["step_ms"] for g in got],
+        "step_ms_median_ranks": [g["step_ms_median"] for g in got],
+        "step_ms_undistributed": want["step_ms"],
+        "step_ms_median_undistributed": want["step_ms_median"],
+        "wall_s_ranks": [g["wall_s"] for g in got],
+        "wall_s_undistributed": want["wall_s"],
+        "run_s_ranks": [g["run_s"] for g in got],
+        "run_s_undistributed": plain_19e_s, "ranks_s": ranks_s}
+    c, d, e = out["19c"], out["19d"], out["19e"]
     out["phase_s"] = time.perf_counter() - t0
     phase(f"phase 19c [{card}] two gloo ranks on {dev_name}, "
           f"{HYBRID_ARCH} at full width ({HYBRID19_LAYERS} layers, "
@@ -3972,11 +4181,13 @@ def phase19cd(dev, seed, card: str) -> dict:
           f"of both ranks equal the undistributed engine's; first step's "
           f"logits max |diff| {c['max_abs_logit_diff']:.3e}; ring "
           f"{c['ring_bytes_rank']} B a rank (undistributed "
-          f"{c['ring_bytes_undistributed']} B), recurrent state "
-          f"{c['rec_state_bytes']} B whole on each; per step "
+          f"{c['ring_bytes_undistributed']} B), recurrent h and conv "
+          f"{c['rec_state_bytes_rank']} B a rank at half width "
+          f"(undistributed {c['rec_state_bytes']} B); per step "
           f"{c['launches_per_step_rank0']} launches, "
-          f"{c['collectives_per_step']:.0f} collectives, "
-          f"{c['combine_bytes_per_step']:.0f} B combined; tok/s "
+          f"{c['collectives_per_step']:.0f} collectives "
+          f"({ {k: v['count'] // c['steps'] for k, v in c['collectives_by_kind_rank0'].items()} }), "
+          f"{c['combine_bytes_per_step']:.0f} B; tok/s "
           f"{' / '.join(f'{v:.1f}' for v in c['tok_s_ranks'])} a rank "
           f"(undistributed {c['tok_s_undistributed']:.1f})")
     phase(f"phase 19d [{card}] two gloo ranks on {dev_name}, {AUDIO_ARCH} "
@@ -3991,8 +4202,26 @@ def phase19cd(dev, seed, card: str) -> dict:
           f"{d['collectives_per_step']:.0f} collectives, "
           f"{d['combine_bytes_per_step']:.0f} B combined; step "
           f"{' / '.join(f'{v:.1f}' for v in d['step_ms_ranks'])} ms a rank "
-          f"(undistributed {d['step_ms_undistributed']:.1f}); phase "
-          f"{out['phase_s']:.1f} s")
+          f"(undistributed {d['step_ms_undistributed']:.1f})")
+    ag = e["collectives_by_kind_rank0"]["all-gather"]
+    phase(f"phase 19e [{card}] two gloo ranks on {dev_name}, {SSM_ARCH} "
+          f"at full width and 64 layers, float32, {len(SSM_PROMPT_LENS)} "
+          f"prompts x {SSM19_NEW}: streams of both ranks equal the "
+          f"undistributed engine's; logits max |diff| "
+          f"{e['max_abs_logit_diff']:.3e} over {e['steps']} steps; state "
+          f"{e['state_bytes_rank']} B a rank {e['state_shape_rank']} "
+          f"(undistributed {e['state_bytes_undistributed']} B), conv "
+          f"{e['conv_bytes_rank']} B a rank (undistributed "
+          f"{e['conv_bytes_undistributed']} B); per step "
+          f"{ag['count'] // e['steps']} all-gathers, "
+          f"{ag['result_bytes'] // e['steps']} B, no kernel; decode step "
+          f"{' / '.join(f'{v:.1f}' for v in e['step_ms_ranks'])} ms a rank "
+          f"(median {' / '.join(f'{v:.1f}' for v in e['step_ms_median_ranks'])}"
+          f"), undistributed {e['step_ms_undistributed']:.1f} ms (median "
+          f"{e['step_ms_median_undistributed']:.1f}); 19e's runs "
+          f"{e['run_s_undistributed']:.1f} s undistributed, "
+          f"{' / '.join(f'{v:.1f}' for v in e['run_s_ranks'])} s a rank; "
+          f"ranks {ranks_s:.1f} s; phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -4342,6 +4571,68 @@ def phase20b(dev, seed, card: str) -> dict:
     phase(f"phase 20b posit8 cache / bf16 cache "
           f"{out['posit8_over_bf16_cache']:.4f}; both builds freed; phase "
           f"{out['phase_s']:.1f} s")
+    return out
+
+
+def phase20c(distributed: dict, card: str) -> dict:
+    """20c. The dry run's reckoned collectives of one rank's distributed
+    decode step against what the counting wrapper saw on rank 0 of 19b's
+    float32 ring run, 19c and 19e: ``launch.dryrun.step_cost`` under
+    ``Variant(distributed_decode=True)`` over ``make_host_mesh(2,
+    model=True)`` (the ``--mesh host --world 2 --distributed-decode``
+    cell) at each phase's configuration, policy and shape (paper-edge
+    float32, B 8, max_len 1024; recurrentgemma at 14 layers, B 4, max_len
+    4096; mamba2-2.7b float32, B 8, max_len 1024; the engines' policy:
+    ``paper_edge_p8`` with posit8 KV, its weights hoisted), traced on the
+    meta device.  Asserts, per kind, the count and the result and operand
+    bytes a step equal the card's (its totals over its steps)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import weights_free
+    t0 = time.perf_counter()
+    policy = weights_free(dataclasses.replace(get_policy("paper_edge_p8"),
+                                              kv_format="posit8"))
+    mesh = make_host_mesh(2, model=True)
+    variant = dryrun.Variant(distributed_decode=True)
+    seen = distributed["float32_ring"]
+    cells = {
+        "19b": (dataclasses.replace(get_config("paper-edge"),
+                                    dtype_name="float32"), B, W,
+                seen["collectives_by_kind_rank0"], seen["steps"]),
+        "19c": (dataclasses.replace(get_config(HYBRID_ARCH),
+                                    dtype_name="float32",
+                                    n_layers=HYBRID19_LAYERS),
+                len(HYBRID19_LENS), HYBRID_MAX_LEN,
+                distributed["19c"]["collectives_by_kind_rank0"],
+                distributed["19c"]["steps"]),
+        "19e": (dataclasses.replace(get_config(SSM_ARCH),
+                                    dtype_name="float32"), B, W,
+                distributed["19e"]["collectives_by_kind_rank0"],
+                distributed["19e"]["steps"])}
+    out = {"card": card}
+    for key, (cfg, batch, max_len, card_kinds, steps) in cells.items():
+        cost = dryrun.step_cost(cfg, ShapeSpec(key, "decode", max_len,
+                                               batch), policy, variant, mesh)
+        reckoned = {k: v for k, v in cost["collectives"].items()
+                    if v["count"]}
+        assert set(reckoned) == set(card_kinds), (key, reckoned, card_kinds)
+        for kind, rec in reckoned.items():
+            for field, n in rec.items():
+                assert n * steps == card_kinds[kind][field], (
+                    key, kind, field, n, card_kinds[kind][field], steps)
+        out[key] = {"reckoned_per_step": reckoned, "card_steps": steps,
+                    "depth": cost["depth"]}
+    out["phase_s"] = time.perf_counter() - t0
+    phase(f"phase 20c [{card}] the dry run's --mesh host --world 2 "
+          f"--distributed-decode collectives a step equal rank 0's counted "
+          "ones: " + "; ".join(
+              f"{key} " + ", ".join(
+                  f"{v['count']} {kind} {v['result_bytes']} B"
+                  for kind, v in r["reckoned_per_step"].items())
+              for key, r in out.items() if key.startswith("19"))
+          + f"; phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -5649,7 +5940,8 @@ def main() -> int:
     # reckoning against paper-edge's decode_32k cell built on the card
     # (own generators) ----------------------------------------------------
     arith_dryrun = {"20a": phase20a(dev, args.seed),
-                    "20b": phase20b(dev, args.seed, smi)}
+                    "20b": phase20b(dev, args.seed, smi),
+                    "20c": phase20c(distributed, smi)}
     print(json.dumps({"arith_dryrun": arith_dryrun}), flush=True)
 
     # 21. the first train steps of the SSM, vlm, audio and hybrid families:
@@ -6090,47 +6382,58 @@ def main() -> int:
           f"{train_device}; other launches "
           f"{ {k: v for k, v in qs_launches.items() if k != 'posit_matmul'} }")
 
-    # 10b. one train step, card vs CPU, float32, TF32 off -----------------
+    # 10b. one train step, card vs CPU, float32, TF32 off: the card's step
+    # here; the CPU's, the host's longest work in the script, on a host
+    # thread with all but two of the host's intra-op threads beside phases
+    # 12c and 12d, and held to the card's after them by ``check10b`` -----
     cfg_t32 = dataclasses.replace(cfg, dtype_name="float32")
     p_card = lm.init_params(cfg_t32, gen, device=dev)
     p_cpu = snapshot(p_card)
-    stepped = {}
-    for device, p in (("cuda", p_card), ("cpu", p_cpu)):
+
+    def step10b(device, p, threads=None):
+        if threads:             # this thread's intra-op threads only
+            torch.set_num_threads(threads)
         t0 = time.perf_counter()
         st, m = make_train_step(cfg_t32, opt_cfg, PAPER_EDGE)(
             TrainState(p, adamw_init(p)),
             make_pipeline(cfg_t32, global_batch=2, seq_len=256,
                           seed=args.seed, device=device)(0))
-        stepped[device] = (st, m, time.perf_counter() - t0)
-    (sc, mc, tc), (sp, mp, tp) = stepped["cuda"], stepped["cpu"]
-    np.testing.assert_allclose(float(mc["loss"]), float(mp["loss"]),
-                               rtol=1e-4)
-    np.testing.assert_allclose(float(mc["grad_norm"]),
-                               float(mp["grad_norm"]), rtol=1e-3)
-    leaf_diff, beyond = {}, 0
-    for label_, tree_c, tree_p in (("params", sc.params, sp.params),
-                                   ("master", sc.opt["master"],
-                                    sp.opt["master"])):
-        for key in ("embed", "final_norm", "lm_head"):
-            d_ = (tree_c[key].cpu() - tree_p[key]).abs()
-            leaf_diff[f"{label_}.{key}"] = float(d_.max())
-            beyond += int((d_ > 1e-5).sum())
-        for key, leaf in tree_c["blocks"][0].items():
-            d_ = (leaf.cpu() - tree_p["blocks"][0][key]).abs()
-            leaf_diff[f"{label_}.{key}"] = float(d_.max())
-            beyond += int((d_ > 1e-5).sum())
-    # both steps fake-quantize identical weights (a posit midpoint flip
-    # needs inputs that differ), so no updated element may leave 1e-5
-    assert beyond == 0, (beyond, leaf_diff)
-    phase(f"phase 10b train step card vs CPU (float32, TF32 off, batch 2 x "
-          f"256, same params): loss {float(mc['loss']):.6f} vs "
-          f"{float(mp['loss']):.6f} (rtol 1e-4, |diff| "
-          f"{abs(float(mc['loss']) - float(mp['loss'])):.3e}), grad norm "
-          f"{float(mc['grad_norm']):.6f} vs {float(mp['grad_norm']):.6f} "
-          f"(rtol 1e-3); updated params and master within atol 1e-5, "
-          f"elements beyond 0; max |diff| per leaf "
-          + ", ".join(f"{k} {v:.2e}" for k, v in leaf_diff.items())
-          + f"; step {tc:.1f} s card, {tp:.1f} s CPU")
+        return st, m, time.perf_counter() - t0
+
+    sc, mc, tc = step10b("cuda", p_card)
+
+    def check10b(sp, mp, tp):
+        np.testing.assert_allclose(float(mc["loss"]), float(mp["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(mc["grad_norm"]),
+                                   float(mp["grad_norm"]), rtol=1e-3)
+        leaf_diff, beyond = {}, 0
+        for label_, tree_c, tree_p in (("params", sc.params, sp.params),
+                                       ("master", sc.opt["master"],
+                                        sp.opt["master"])):
+            for key in ("embed", "final_norm", "lm_head"):
+                d_ = (tree_c[key].cpu() - tree_p[key]).abs()
+                leaf_diff[f"{label_}.{key}"] = float(d_.max())
+                beyond += int((d_ > 1e-5).sum())
+            for key, leaf in tree_c["blocks"][0].items():
+                d_ = (leaf.cpu() - tree_p["blocks"][0][key]).abs()
+                leaf_diff[f"{label_}.{key}"] = float(d_.max())
+                beyond += int((d_ > 1e-5).sum())
+        # both steps fake-quantize identical weights (a posit midpoint flip
+        # needs inputs that differ), so no updated element may leave 1e-5
+        assert beyond == 0, (beyond, leaf_diff)
+        phase(f"phase 10b train step card vs CPU (float32, TF32 off, batch "
+              f"2 x 256, same params): loss {float(mc['loss']):.6f} vs "
+              f"{float(mp['loss']):.6f} (rtol 1e-4, |diff| "
+              f"{abs(float(mc['loss']) - float(mp['loss'])):.3e}), grad "
+              f"norm {float(mc['grad_norm']):.6f} vs "
+              f"{float(mp['grad_norm']):.6f} (rtol 1e-3); updated params and "
+              f"master within atol 1e-5, elements beyond 0; max |diff| per "
+              f"leaf "
+              + ", ".join(f"{k} {v:.2e}" for k, v in leaf_diff.items())
+              + f"; step {tc:.1f} s card, {tp:.1f} s CPU (on a host thread "
+              f"beside 12c and 12d, {n_cpu10b} intra-op threads; the "
+              f"card's main thread {torch.get_num_threads()})")
 
     # kernels line, K7: x (M, 768) f32 times one layer's wi (768 x 4096,
     # posit8_2, (1, N) scale), argument sets rotated over the 12 layers
@@ -6387,6 +6690,10 @@ def main() -> int:
     # restores and finishes; checkpoints under build/ (removed after)
     ck_root = ROOT / "build" / f"chip_smoke_ckpt_{os.getpid()}"
     shutil.rmtree(ck_root, ignore_errors=True)
+    # 10b's CPU step on a host thread, two cores left to this one's launches
+    n_cpu10b = max(1, torch.get_num_threads() - 2)
+    cpu10b = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    step10b_cpu = cpu10b.submit(step10b, "cpu", p_cpu, n_cpu10b)
     tkw = dict(steps=6, global_batch=8, seq_len=1024, seed=args.seed,
                log_every=1)
     torch.cuda.synchronize()
@@ -6528,6 +6835,8 @@ def main() -> int:
           f"over the states' base {remat['full']['peak_over_base_bytes']} / "
           f"{remat['dots']['peak_over_base_bytes']} / "
           f"{remat['none']['peak_over_base_bytes']} B")
+    check10b(*step10b_cpu.result())
+    cpu10b.shutdown()
     print(json.dumps({"training": {
         "wire": {"format": wire_fmt, "values": n_grad, "wire_bytes": wire_b,
                  "f32_bytes": n_params * 4, "launches": wire_launches,
@@ -6598,7 +6907,8 @@ def main() -> int:
                 "wrapper_launches_per_step"].get(name, 0)}
         # the hybrid's and the audio stack's sharded decode (19c / 19d:
         # gloo rank 0, per decode step; K3 counted per prefill)
-        for key, fam in (("19c", "hybrid"), ("19d", "audio")):
+        for key, fam in (("19c", "hybrid"), ("19d", "audio"),
+                         ("19e", "ssm")):
             d_ = distributed[key]
             entry[f"launches_distributed_{fam}"] = {
                 "per_decode_step": d_["launches_per_step_rank0"].get(name, 0),

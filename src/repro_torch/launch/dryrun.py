@@ -15,7 +15,9 @@ compiler, so each number comes from another source, named in the report:
   params (packed under ``Variant.packed``), the optimizer state (train),
   the batch and the cache, its shard's bytes under the spec trees of
   ``launch/mesh.py`` and ``train.step.state_specs`` (each dim divided,
-  rounded up, by the mesh axes its spec names).  No compiler gives temp
+  rounded up, by the mesh axes its spec names); under
+  ``Variant.distributed_decode`` on a decode cell the params are whole on
+  every rank, as that step's ranks hold them.  No compiler gives temp
   bytes: the report says so rather than writing 0, and ``fits_hbm``
   weighs the arguments alone.
 * **The step's FLOPs and bytes** (``step_cost``): ``launch/op_cost``'s
@@ -29,8 +31,21 @@ compiler, so each number comes from another source, named in the report:
   reference's ``hlo_cost`` multiplies a scan body by its trip count; the
   report says which.  Per-device figures are the global counts split
   evenly over the mesh, labelled so.
-* **Collectives are not counted**: the port has no partitioner that
-  inserts them.  The collective terms are null, and ``dominant`` is chosen
+* **Collectives** are counted under ``Variant.distributed_decode`` on a
+  decode cell (``--distributed-decode``, the reference's knob): the step
+  is then one rank's ``serve.distributed.make_distributed_decode_step``,
+  traced on the meta device at the rank-local shapes (the batch cut over
+  the data axes; the KV rows and the recurrent state's "model" dims cut
+  over the "model" axis: 16 on ``pod1`` / ``pod2``, ``--world`` ranks on
+  ``--mesh host``), and a stand-in behind ``serve.distributed``'s one
+  collective door counts each collective that rank issues, with no
+  process group: two all-reduces an attention layer, two all-gathers a
+  Mamba-2 or RG-LRU layer.  The counts fill the reference's keys
+  (``per_kind``: ``count``, ``result_bytes``, ``operand_bytes``), and
+  ``t_collective_s`` is the result bytes over one direction of the
+  card's NVLink, a reckoned figure; the FLOPs and bytes are then that
+  rank's own.  Every other cell has no partitioner that inserts
+  collectives: its collective terms are null, and ``dominant`` is chosen
   between compute and memory.
 
 The hardware constants are one NVIDIA H100 SXM card's.
@@ -53,8 +68,9 @@ from ..core.transprecision import TCPolicy, get_policy, pack_params
 from ..models import lm
 from ..models.common import P, map_with_path
 from ..models.lm import ModelCfg
-from ..models.serve_model import decode_step, prefill
+from ..models.serve_model import decode_step, init_cache, prefill
 from ..optim import AdamWConfig
+from ..serve import distributed
 from ..train.step import init_train_state, make_train_step, state_specs
 from . import mesh as mesh_lib
 from .op_cost import analyze
@@ -64,6 +80,12 @@ from .specs import decode_specs, input_specs
 PEAK_FLOPS = 989e12          # bf16 tensor-core FLOP/s, NVIDIA H100 SXM
 HBM_BW = 3.35e12             # bytes/s, NVIDIA H100 SXM HBM3
 HBM_CAP = 80e9               # bytes, NVIDIA H100 80GB
+# bytes/s one way over NVLink 4, NVIDIA H100 SXM (NVIDIA's data sheet: 900
+# GB/s bidirectional); the collective term is reckoned from it
+NVLINK_BW = 450e9
+# the reference's collective kinds (its ``parse_collectives``)
+COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+              "collective-permute")
 
 
 # ---------------------------------------------------------------------------
@@ -102,13 +124,13 @@ def model_flops(cfg: ModelCfg, kind: str, batch: int, seq: int,
 @dataclasses.dataclass
 class Variant:
     """Hillclimb knobs (defaults = baseline), the reference's that act on
-    the port.  Its ``scan_layers`` (the port's stacks always run layer by
-    layer) and ``distributed_decode`` (a combine of collectives, which
-    this dry run does not count) have no counterpart."""
+    the port.  Its ``scan_layers`` has no counterpart: the port's stacks
+    run layer by layer in eager torch, with no compiled loop to roll."""
     policy: str = "bf16"
     seq_shard: bool = True          # sequence-parallel residual stream
     heads_shard: bool = True        # shard attention heads on "model"
     remat: Optional[str] = None     # override cfg.remat
+    distributed_decode: bool = False  # one rank's distributed decode step
     q_block: Optional[int] = None
     kv_block: Optional[int] = None
     attn_vjp: Optional[str] = None    # flash | naive
@@ -177,7 +199,9 @@ def argument_bytes(cfg: ModelCfg, spec: ShapeSpec, mesh,
     """One device's argument bytes for the cell, by part (``params``,
     ``opt`` and ``ef_residual`` for train, ``batch``, ``cache``) and in
     all (``total``), reckoned from the spec trees over ``mesh`` (a
-    ``launch.mesh.MeshShape``)."""
+    ``launch.mesh.MeshShape``); under ``variant.distributed_decode`` on a
+    decode cell the params are whole on every rank, as its ranks hold
+    them."""
     rules = _rules(mesh, spec, variant)
     out: Dict[str, int] = {}
     if spec.kind == "train":
@@ -194,8 +218,12 @@ def argument_bytes(cfg: ModelCfg, spec: ShapeSpec, mesh,
             batch, mesh_lib.batch_specs(cfg, rules), mesh)
         return _total(out)
     params = _serve_params(cfg, policy, variant)
-    out["params"] = tree_shard_bytes(
-        params, mesh_lib.param_specs(params, fsdp=None), mesh)
+    pspecs = mesh_lib.param_specs(params, fsdp=None)
+    if variant.distributed_decode and spec.kind == "decode":
+        # the distributed decode's ranks hold every weight whole: the port
+        # has no tensor-parallel weights
+        pspecs = map_with_path(lambda _path, _spec: P(), pspecs)
+    out["params"] = tree_shard_bytes(params, pspecs, mesh)
     if spec.kind == "prefill":
         batch = input_specs(cfg, spec)
         out["batch"] = tree_shard_bytes(
@@ -229,9 +257,38 @@ def _cut(cfg: ModelCfg, units: Dict[str, int]) -> ModelCfg:
     return dataclasses.replace(cfg, **kw)
 
 
+def _rank_trace(cfg: ModelCfg, spec: ShapeSpec, policy: TCPolicy,
+                variant: Variant, mesh) -> Dict[str, Any]:
+    """op_cost of one rank's ``make_distributed_decode_step`` on meta
+    tensors at the rank-local shapes (the batch cut over the data axes
+    where ``serve_rules`` shards it; the split dims of
+    ``init_cache(..., kv_shard=)`` over the mesh's "model" axis), and the
+    collectives that rank issues, by kind, the communication standing
+    in."""
+    rules = mesh_lib.serve_rules(mesh, global_batch=spec.global_batch)
+    batch = spec.global_batch // math.prod(
+        mesh.shape[a] for a in rules["batch"] or ())
+    shard = distributed.KVShard(rank=0, world=mesh.shape["model"],
+                                collective=True)
+    cache = init_cache(cfg, batch, spec.seq_len, policy=policy,
+                       device="meta", kv_shard=shard)
+    _, tok = decode_specs(cfg, dataclasses.replace(spec, global_batch=batch),
+                          policy)
+    step = distributed.make_distributed_decode_step(cfg, policy)
+    step.attn_impl.shard = shard        # a rank with no process group
+    with distributed.stand_in_collectives() as seen:
+        cost = analyze(step, (_serve_params(cfg, policy, variant), cache,
+                              tok), kernels="custom_call")
+    return {**cost, "collectives": {k: dict(v) for k, v in seen.items()}}
+
+
 def _trace(cfg: ModelCfg, spec: ShapeSpec, policy: TCPolicy,
-           variant: Variant) -> Dict[str, Any]:
-    """op_cost of the cell's step at ``cfg``'s depth, on meta tensors."""
+           variant: Variant, mesh=None) -> Dict[str, Any]:
+    """op_cost of the cell's step at ``cfg``'s depth, on meta tensors;
+    under ``variant.distributed_decode`` (a decode cell) one rank's step
+    over ``mesh``, with its ``collectives``."""
+    if spec.kind == "decode" and variant.distributed_decode:
+        return _rank_trace(cfg, spec, policy, variant, mesh)
     if spec.kind == "train":
         state = init_train_state(cfg, AdamWConfig(), policy, device="meta")
         step = make_train_step(cfg, AdamWConfig(), policy)
@@ -256,27 +313,35 @@ _BY_DTYPE = ("flops_by_dtype", "bytes_by_dtype")
 
 
 def step_cost(cfg: ModelCfg, spec: ShapeSpec, policy: TCPolicy,
-              variant: Variant = Variant()) -> Dict[str, Any]:
-    """Global FLOPs and bytes of the cell's step (``op_cost``'s keys, no
-    collectives) and ``depth``: "full" where every unit of the stack was
-    traced, else how it was extrapolated."""
+              variant: Variant = Variant(), mesh=None) -> Dict[str, Any]:
+    """FLOPs and bytes of the cell's step (``op_cost``'s keys): global, or
+    one rank's with its ``collectives`` by kind under
+    ``variant.distributed_decode`` on a decode cell over ``mesh``; and
+    ``depth``: "full" where every unit of the stack was traced, else how
+    it was extrapolated (the collectives alike)."""
     knobs = _depth_knobs(cfg)
     if all(full <= 2 for _, full in knobs.values()):
-        cost = _trace(cfg, spec, policy, variant)
+        cost = _trace(cfg, spec, policy, variant, mesh)
         cost["depth"] = "full"
         return cost
     ones = {f: 1 for f in knobs}
-    base = _trace(_cut(cfg, ones), spec, policy, variant)
+    base = _trace(_cut(cfg, ones), spec, policy, variant, mesh)
     cost = {k: base[k] for k in _SUMMED}
     cost.update({k: dict(base[k]) for k in _BY_DTYPE})
+    cost["collectives"] = {k: dict(v)
+                           for k, v in base["collectives"].items()}
     for f, (unit, full) in knobs.items():
-        two = _trace(_cut(cfg, {**ones, f: 2}), spec, policy, variant)
+        two = _trace(_cut(cfg, {**ones, f: 2}), spec, policy, variant, mesh)
         for k in _SUMMED:
             cost[k] += (full - 1) * (two[k] - base[k])
         for k in _BY_DTYPE:
             for dt in set(two[k]) | set(base[k]):
                 cost[k][dt] = cost[k].get(dt, 0.0) + (full - 1) * (
                     two[k].get(dt, 0.0) - base[k].get(dt, 0.0))
+        for kind, rec in cost["collectives"].items():
+            for key in rec:
+                rec[key] += (full - 1) * (two["collectives"][kind][key]
+                                          - base["collectives"][kind][key])
     units = ", ".join(f"{f} ({unit} layers a unit, {full} units)"
                       for f, (unit, full) in knobs.items())
     tail = f"; {cfg.n_tail} tail layers in every trace" if cfg.n_tail else ""
@@ -303,19 +368,37 @@ def lower_cell(arch: str, shape: str, multi_pod: bool = False,
     t0 = time.time()
     args = argument_bytes(cfg, spec, mesh, policy, variant)
     t_reckon = time.time() - t0
-    cost = step_cost(cfg, spec, policy, variant)
+    cost = step_cost(cfg, spec, policy, variant, mesh)
     t_trace = time.time() - t0 - t_reckon
     np_info = active_params(cfg)
 
-    flops = cost["flops"] / n_chips
-    bytes_acc = cost["bytes"] / n_chips
+    # one rank's step under the distributed decode: per device already
+    rank = variant.distributed_decode and spec.kind == "decode"
+    flops = cost["flops"] / (1 if rank else n_chips)
+    bytes_acc = cost["bytes"] / (1 if rank else n_chips)
     t_compute = flops / PEAK_FLOPS
     t_memory = bytes_acc / HBM_BW
-    dominant = "compute" if t_compute >= t_memory else "memory"
+    coll = coll_bytes = t_coll = None
+    terms = {"compute": t_compute, "memory": t_memory}
+    if rank:
+        per_kind = {k: cost["collectives"].get(
+            k, {"count": 0, "result_bytes": 0, "operand_bytes": 0})
+            for k in COLL_KINDS}
+        coll = {"per_kind": per_kind,
+                "result_bytes": sum(v["result_bytes"]
+                                    for v in per_kind.values()),
+                "operand_bytes": sum(v["operand_bytes"]
+                                     for v in per_kind.values()),
+                "source": "counted per decode step from one rank's trace "
+                          "of the port's step, the collectives standing "
+                          "in; " + cost["depth"]}
+        coll_bytes = float(coll["result_bytes"])
+        t_coll = terms["collective"] = coll_bytes / NVLINK_BW
+    dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, spec.kind, spec.global_batch, spec.seq_len,
                      np_info["active"])
     mf_per_dev = mf / n_chips
-    t_max = max(t_compute, t_memory)
+    t_max = max(terms.values())
     return {
         "arch": arch, "shape": shape, "mesh": mesh_name(mesh),
         "n_chips": n_chips, "kind": spec.kind,
@@ -325,27 +408,38 @@ def lower_cell(arch: str, shape: str, multi_pod: bool = False,
                     "bytes": cost["bytes"],
                     "flops_by_dtype": cost["flops_by_dtype"],
                     "bytes_by_dtype": cost["bytes_by_dtype"],
-                    "collectives": None, "scope": "global",
+                    "collectives": coll and coll["per_kind"],
+                    "scope": "one rank" if rank else "global",
                     "depth": cost["depth"],
                     "source": "launch/op_cost on meta tensors at the "
-                              "cell's global shape; bytes unfused; each "
-                              "kernel call counted as one launch"},
+                              + ("rank-local shapes of one rank's "
+                                 "distributed decode step" if rank else
+                                 "cell's global shape")
+                              + "; bytes unfused; each kernel call "
+                              "counted as one launch"},
         "memory_analysis": {
             "argument_size_in_bytes": args["total"],
             "argument_bytes_by_part": {k: v for k, v in args.items()
                                        if k != "total"},
             "temp_size_in_bytes": None,
-            "source": "reckoned per device from the spec trees; no "
-                      "compiler gives temp bytes"},
-        "collectives_single_instance": None,
+            "source": "reckoned per device from the spec trees"
+                      + ("; the params whole on every rank, as the "
+                         "distributed decode holds them" if rank else "")
+                      + "; no compiler gives temp bytes"},
+        "collectives_single_instance": coll,
         "hlo_ops": None,
         "roofline": {
-            "per_device": "global counts split evenly over the mesh",
+            "per_device": ("one rank's counts" if rank else
+                           "global counts split evenly over the mesh"),
             "flops_per_device": flops,
             "hbm_bytes_per_device": bytes_acc,
-            "collective_bytes_per_device": None,
+            "collective_bytes_per_device": coll_bytes,
             "t_compute_s": t_compute, "t_memory_s": t_memory,
-            "t_collective_s": None, "dominant": dominant,
+            "t_collective_s": t_coll,
+            "t_collective_source": (
+                "reckoned: the result bytes over one direction of NVLink "
+                f"({NVLINK_BW:.3g} B/s, H100 SXM)" if rank else None),
+            "dominant": dominant,
             "model_flops_global": mf,
             "model_flops_per_device": mf_per_dev,
             "useful_flops_ratio": (mf_per_dev / flops) if flops else 0.0,
@@ -359,8 +453,13 @@ def lower_cell(arch: str, shape: str, multi_pod: bool = False,
 
 
 def _mesh_of(args):
+    """The cell's mesh; on ``--mesh host`` the ranks are the "model" axis
+    only for a decode cell under ``--distributed-decode``, where the
+    variant acts."""
     if args.mesh == "host":
-        return mesh_lib.make_host_mesh(args.world)
+        return mesh_lib.make_host_mesh(
+            args.world, model=args.distributed_decode
+            and SHAPES[args.shape].kind == "decode")
     return mesh_lib.make_production_mesh(multi_pod=args.mesh == "pod2")
 
 
@@ -376,6 +475,9 @@ def main(argv=None):
     ap.add_argument("--no-seq-shard", action="store_true")
     ap.add_argument("--no-heads-shard", action="store_true")
     ap.add_argument("--remat", default=None)
+    ap.add_argument("--distributed-decode", action="store_true",
+                    help="decode cells: one rank's distributed decode "
+                         "step, its collectives counted")
     ap.add_argument("--q-block", type=int, default=0)
     ap.add_argument("--kv-block", type=int, default=0)
     ap.add_argument("--attn-vjp", default=None, choices=["flash", "naive"])
@@ -403,7 +505,8 @@ def main(argv=None):
     variant = Variant(
         policy=args.policy, seq_shard=not args.no_seq_shard,
         heads_shard=not args.no_heads_shard, remat=args.remat,
-        q_block=args.q_block, kv_block=args.kv_block,
+        distributed_decode=args.distributed_decode, q_block=args.q_block,
+        kv_block=args.kv_block,
         attn_vjp=args.attn_vjp, packed=args.packed)
     report = lower_cell(args.arch, args.shape, variant=variant,
                         mesh=_mesh_of(args))
@@ -413,7 +516,10 @@ def main(argv=None):
     r = report["roofline"]
     print(f"OK {name}: dominant={r['dominant']} "
           f"compute={r['t_compute_s']:.4f}s memory={r['t_memory_s']:.4f}s "
-          f"frac={r['roofline_fraction']:.3f} "
+          + (f"collective={r['t_collective_s']:.6f}s "
+             f"({r['collective_bytes_per_device']:.0f} B) "
+             if r["t_collective_s"] is not None else "")
+          + f"frac={r['roofline_fraction']:.3f} "
           f"args={report['memory_analysis']['argument_size_in_bytes']} B "
           f"fits={report['fits_hbm']} "
           f"trace={report['timings']['trace_s']:.0f}s")

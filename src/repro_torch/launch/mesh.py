@@ -8,9 +8,11 @@ device and no process group.  The specs say what is sharded where:
     sharding: matrix input dims -> "data" (FSDP), output dims -> "model"
     (TP), experts -> "model" (EP), KV-cache sequence -> "model".
 
-The port runs one of them: ``cache_specs``' "kv_seq" dims are what a rank
-of the distributed decode (``serve/distributed.py``) holds a slice of
-(``models.serve_model.init_cache(..., kv_shard=)``).  A paged pool, which
+The port runs one of them: the dims ``cache_specs`` splits (the "kv_seq"
+dims and the recurrent state's "model" dims, ``models.common.rank_split``)
+are what a rank of the distributed decode (``serve/distributed.py``) holds
+a slice of (``models.serve_model.init_cache(..., kv_shard=)``), with the
+"model" axis as the ranks.  A paged pool, which
 the reference's rule does not cover (its leaves have no batch axis),
 shards its flat rows on "kv_seq".
 """
@@ -20,7 +22,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
-from ..models.common import P, kv_seq_dim, map_with_path
+from ..models.common import P, map_with_path, rank_split
 from ..models.lm import ModelCfg
 
 
@@ -42,9 +44,12 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_host_mesh(world: int = 1) -> MeshShape:
-    """``world`` ranks as a 1-D data mesh (CPU tests, examples)."""
-    return MeshShape(("data", "model"), (world, 1))
+def make_host_mesh(world: int = 1, *, model: bool = False) -> MeshShape:
+    """``world`` ranks as a 1-D data mesh (CPU tests, examples), or with
+    ``model`` as the "model" axis: the ranks of one host's distributed
+    decode, each holding the whole batch and 1/world of the split
+    state."""
+    return MeshShape(("data", "model"), (1, world) if model else (world, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +166,14 @@ def batch_specs(cfg: ModelCfg, rules: Dict[str, Any], keys=None):
 
 
 def cache_specs(cache, cfg: ModelCfg, rules: Dict[str, Any]):
-    """Decode-cache specs: KV sequence on ``rules["kv_seq"]``, batch on
-    ``rules["batch"]``.  A paged cache (one with a ``page_table``) shards
-    its pools' flat rows (P, R, nkv, Dc|hd) on the KV axis, and keeps the
-    page table replicated."""
+    """Decode-cache specs: KV sequence on ``rules["kv_seq"]``, the
+    recurrent state's heads, channels and width on "model", batch on
+    ``rules["batch"]`` (``models.common.rank_split`` names each split
+    dim).  A paged cache (one with a ``page_table``) shards its pools'
+    flat rows (P, R, nkv, Dc|hd) on the KV axis, and keeps the page table
+    replicated."""
     b = rules.get("batch")
-    kv = rules.get("kv_seq")
-    model = "model"
+    axis_of = {"kv_seq": rules.get("kv_seq"), "model": "model"}
     paged = "page_table" in cache
 
     def spec(path: str, leaf) -> P:
@@ -178,21 +184,15 @@ def cache_specs(cache, cfg: ModelCfg, rules: Dict[str, Any]):
             return P()
         if name == "memory":                  # (B, enc_seq, d)
             return P(b, None, None)
-        d = kv_seq_dim(path, paged)
-        if d is not None:       # K/V codes or rows, and their scales
-            axes = [None] * nd  # ring (B, W, nkv[, hd]); pool (R, nkv[, hd])
-            axes[d] = kv
-            if not paged:
-                axes[d - 1] = b
-            return P(*axes)
         if name in ("xk", "xv"):              # (B, enc_seq, nkv, hd)
             return P(*lead, b, None, None, None)
-        if name == "state":                   # (B, nh, hd, ds)
-            return P(*lead, b, model, None, None)
-        if name == "conv":                    # (B, K-1, ch)
-            return P(*lead, b, None, model)
-        if name == "h":                       # (B, width)
-            return P(*lead, b, model)
-        return P(*([None] * nd))
+        split = rank_split(path, paged)
+        if split is None:
+            return P(*([None] * nd))
+        axes = [None] * nd      # ring (B, W, nkv[, hd]); pool (R, nkv[, hd]);
+        axes[split[0]] = axis_of[split[1]]  # state, conv, h: (B, ...)
+        if not (paged and split[1] == "kv_seq"):
+            axes[len(lead)] = b
+        return P(*axes)
 
     return map_with_path(spec, cache)

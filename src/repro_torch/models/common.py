@@ -12,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,17 +78,32 @@ def map_with_path(fn, tree, path: str = ""):
 # a decode cache's attention K/V leaves (codes or values, and their
 # scales): the leaves that run along the KV sequence
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+# a decode cache's recurrent leaves, which "model" splits: the dim in the
+# leaf's per-layer shape, and what it counts
+RECURRENT_SPLIT = {"state": (1, "SSD heads"),       # (B, nh, hd, ds)
+                   "conv": (2, "conv channels"),    # (B, K-1, ch)
+                   "h": (1, "RG-LRU channels")}     # (B, width)
 
 
-def kv_seq_dim(path: str, paged: bool) -> Optional[int]:
-    """The dim of a decode-cache leaf (by its ``map_with_path`` path) that
-    runs along the KV sequence, the one the "kv_seq" axis shards: a ring's
-    W in (B, W, nkv[, hd]), a pool's flat rows R in (R, nkv[, hd]), one
-    further under a period-stacked ``blocks`` leaf; None for any other
-    leaf."""
-    if path.split("/")[-1] not in KV_LEAVES:
-        return None
-    return (1 if path.startswith("blocks") else 0) + (0 if paged else 1)
+def rank_split(path: str, paged: bool) -> Optional[Tuple[int, str, str]]:
+    """How a rank of the distributed decode holds a decode-cache leaf (by
+    its ``map_with_path`` path), as ``launch.mesh.cache_specs`` shards it:
+    (dim, mesh axis, what the dim counts) for a leaf a rank holds a slice
+    of, one further under a period-stacked ``blocks`` leaf; None for a
+    leaf whole on every rank (``pos``, the page table, cross K/V,
+    ``memory``).  "kv_seq": a K/V ring's W in (B, W, nkv[, hd]) or a
+    pool's flat rows R in (R, nkv[, hd]); "model": the Mamba-2 state's
+    heads, its conv's channels, the RG-LRU ``h``'s and its conv's
+    width."""
+    name = path.split("/")[-1]
+    lead = 1 if path.startswith("blocks") else 0
+    if name in KV_LEAVES:
+        return (lead + (0 if paged else 1), "kv_seq",
+                "pool pages" if paged else "ring rows")
+    if name in RECURRENT_SPLIT:
+        dim, what = RECURRENT_SPLIT[name]
+        return lead + dim, "model", what
+    return None
 
 
 _RULES: contextvars.ContextVar = contextvars.ContextVar("axis_rules",

@@ -46,21 +46,22 @@ def init_rglru(width: int, lead, dtype, device, generator=None):
             "Lambda": lam}
 
 
-def _gates(params, x):
+def _gates(params, x, cols=slice(None)):
     """(a, gated x), both f32: the fused ``[w_a | w_x]`` product in x's
     dtype (packed weights decoded, no policy hook), then the gates in f32,
-    as the reference computes them."""
-    w_ax = torch.cat([maybe_dequant(params["w_a"]),
-                      maybe_dequant(params["w_x"])], dim=-1)
+    as the reference computes them.  ``cols``: the width columns to
+    compute (a rank's share of a split state), all by default."""
+    w_ax = torch.cat([maybe_dequant(params["w_a"])[..., cols],
+                      maybe_dequant(params["w_x"])[..., cols]], dim=-1)
     ri = _einsum("...d,dk->...k", x, w_ax).to(torch.float32)
     r_in, i_in = torch.chunk(ri, 2, dim=-1)
-    r = torch.sigmoid(r_in + params["b_a"])
-    i = torch.sigmoid(i_in + params["b_x"])
-    lam = params["Lambda"]
+    r = torch.sigmoid(r_in + params["b_a"][..., cols])
+    i = torch.sigmoid(i_in + params["b_x"][..., cols])
+    lam = params["Lambda"][..., cols]
     log_a = -C_FACTOR * torch.logaddexp(lam, torch.zeros_like(lam)) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return a, mult * i * x.to(torch.float32)
+    return a, mult * i * x[..., cols].to(torch.float32)
 
 
 def scan(a, b):
@@ -88,9 +89,11 @@ def rglru(params, x, h0=None):
     return h.to(x.dtype), h[:, -1]
 
 
-def rglru_step(params, x1, h):
+def rglru_step(params, x1, h, cols=slice(None)):
     """Decode: x1 (B, 1, width), h (B, width) f32 -> (y (B, 1, width) in
-    x1's dtype, h' (B, width) f32, a new tensor; ``h`` is only read)."""
-    a, gx = _gates(params, x1)
+    x1's dtype, h' (B, width) f32, a new tensor; ``h`` is only read).
+    With ``cols`` (a rank's width columns) ``h``, y and h' hold those
+    columns only."""
+    a, gx = _gates(params, x1, cols)
     h_new = a[:, 0] * h + gx[:, 0]
     return h_new[:, None].to(x1.dtype), h_new

@@ -61,17 +61,20 @@ rows (K1 on the card: ``decode_kv_rows_device`` /
 ``gather_decode_pages_device``; the plain decode on the CPU).  A plug
 with a ``shard`` (``serve/distributed.py``) reads a rank-local cache
 (``init_cache(..., kv_shard=)``): the rank's slice of every ring's rows
-or of the pool's pages, along each leaf's "kv_seq" dim (``kv_seq_dim``),
+or of the pool's pages, along each leaf's "kv_seq" dim (``rank_split``),
 with ``pos`` and the page table whole.  Its decode append maps each
 slot's global row to the rank's own, or to -1 where another rank owns
 it, and writes through K5 (``paged_kv_append_rows`` skips -1) on a flat
 view, ring and paged alike; a float cache takes a masked scatter.  A
 hybrid stack's local-attention rings (W = min(window, max_len) rows,
-``blocks`` and ``tail`` alike) split the same way; its recurrent ``h`` /
-``conv``, and an audio stack's ``xk`` / ``xv`` and ``memory``, stay whole
-on every rank (the cross-attention reads them through the plain
-``attention.decode_attention``, as the reference's does).  The SSM stack
-has no KV sequence to shard and is refused (``check_shardable``).
+``blocks`` and ``tail`` alike) split the same way.  The recurrent state
+splits on "model" (``rank_split``): a Mamba-2 layer's ``state`` by heads
+and ``conv`` by channels, an RG-LRU layer's ``h`` and ``conv`` by width;
+the step runs the rank's own heads or columns and all-gathers the conv's
+output and y through the plug's shard (``serve/distributed.py``).  An
+audio stack's ``xk`` / ``xv`` and ``memory`` stay whole on every rank
+(the cross-attention reads them through the plain
+``attention.decode_attention``, as the reference's does).
 
 In place: ``prefill``, ``decode_step`` and ``verify_step`` (the T-token
 chunk pass of speculative decoding) write K/V rows into the cache tensors
@@ -93,7 +96,7 @@ from ..core.transprecision import BF16, KVStorage, TCPolicy, kv_storage
 from ..kernels import kv_cache as kv_kernels
 from ..kernels import paged_kv as paged_kernels
 from . import attention
-from .common import _einsum, apply_rope, kv_seq_dim, map_with_path, rms_norm
+from .common import _einsum, apply_rope, map_with_path, rank_split, rms_norm
 from .lm import (ModelCfg, _mlp, _qkv, _qw, _rope_cs, cross_attend,
                  cross_kv, embed_rows, encode_audio, ffn, layer_block,
                  lm_head, rec_mix, seq_positions)
@@ -140,9 +143,9 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, dtype=None,
     and the cache a zero ``memory`` (B, enc_seq, d): in the model's dtype
     under a posit KV format, else in the KV format's (the reference's
     dtypes).  With a ``kv_shard`` (``serve.distributed.KVShard``) the
-    cache is that rank's: every "kv_seq" dim (``kv_seq_dim``, which
-    ``launch.mesh.cache_specs`` shards) holds its 1/world slice
-    (``check_kv_shard``'s refusals)."""
+    cache is that rank's: every dim ``launch.mesh.cache_specs`` splits
+    (``rank_split``: the "kv_seq" dims and the recurrent "model" dims)
+    holds its 1/world slice (``check_kv_shard``'s refusals)."""
     if kv_shard is not None:
         device = resolve_device(device)
         full = init_cache(cfg, batch, max_len, dtype, policy,
@@ -234,54 +237,39 @@ def _cache(blocks, batch: int, max_len: int, policy: TCPolicy, paged: bool,
     return cache
 
 
-def check_shardable(cfg: ModelCfg) -> None:
-    """Refuse (``NotImplementedError``) a KV-sequence-sharded decode of the
-    SSM stack: it has no attention layer, so no KV sequence to shard, and
-    splitting its recurrent state's heads over ranks waits for tensor
-    parallelism."""
-    if "attn" not in cfg.block_types:
-        raise NotImplementedError(
-            f"KV-sequence-sharded decode: {cfg.name} ({cfg.family!r}) holds "
-            "no KV sequence (no attention layer); splitting its recurrent "
-            "state's heads over ranks needs tensor parallelism, not ported")
-
-
-def _first_kv(cache, paged: bool):
-    """(the first attention layer's ``k`` leaf, its "kv_seq" dim), in
-    ``blocks`` or else in the unstacked ``tail`` (a hybrid stack's first
-    period position is a recurrent block)."""
-    found = []
-    map_with_path(lambda path, t: found.append((t, kv_seq_dim(path, paged)))
-                  if path.endswith("/k") else None,
-                  {n: cache[n] for n in ("blocks", "tail") if n in cache})
-    return found[0]
-
-
 def check_kv_shard(cache, cfg: ModelCfg, policy: TCPolicy, shard) -> None:
     """The refusals of a rank-local copy of ``cache`` (whole, or on the
-    meta device): ``check_shardable``'s, and a ring width (a local
-    attention ring's W = min(window, max_len) too) or page count the world
-    size does not divide (``ValueError``)."""
-    check_shardable(cfg)
+    meta device): an extent of a split dim (``rank_split``) that the world
+    size does not divide raises ``ValueError`` naming it: a ring width (a
+    local attention ring's W = min(window, max_len) too) or page count
+    first, then the SSD heads, conv channels or RG-LRU channels."""
     paged = "page_table" in cache
-    k, dim = _first_kv(cache, paged)
-    if paged:
-        shard.local_range(k.shape[dim] // policy.kv_page_size, "pool pages")
-    else:
-        shard.local_range(k.shape[dim], "ring rows")
+    splits = []
+
+    def note(path, t):
+        split = rank_split(path, paged)
+        if split is not None:
+            n = t.shape[split[0]]
+            if split[2] == "pool pages":
+                n //= policy.kv_page_size
+            splits.append((split[1] != "kv_seq", n, split[2]))
+
+    map_with_path(note, cache)
+    for _, n, what in sorted(splits, key=lambda e: e[0]):
+        shard.local_range(n, what)
 
 
 def _rank_local(cache, leaf_fn, other=None):
-    """``cache`` with each leaf that has a "kv_seq" dim (``kv_seq_dim``)
+    """``cache`` with each leaf that a rank splits (``rank_split``)
     replaced by ``leaf_fn(name, leaf, dim)``, the rank's share of it; every
-    other leaf (``pos``, the page table, recurrent state, cross K/V and
-    ``memory``: whole on every rank) kept, or ``other(path, leaf)``."""
+    other leaf (``pos``, the page table, cross K/V and ``memory``: whole
+    on every rank) kept, or ``other(path, leaf)``."""
     paged = "page_table" in cache
 
     def leaf(path, t):
-        d = kv_seq_dim(path, paged)
-        if d is not None:
-            return leaf_fn(path.split("/")[-1], t, d)
+        split = rank_split(path, paged)
+        if split is not None:
+            return leaf_fn(path.split("/")[-1], t, split[0])
         return t if other is None else other(path, t)
 
     return map_with_path(leaf, cache)
@@ -289,8 +277,8 @@ def _rank_local(cache, leaf_fn, other=None):
 
 def shard_cache(cache, cfg: ModelCfg, policy: TCPolicy, shard):
     """Rank ``shard.rank``'s copy of a whole cache (a prefill's, say): each
-    "kv_seq" dim cut to the rank's range, ``pos`` and the page table
-    shared."""
+    split dim (``rank_split``) cut to the rank's range, ``pos`` and the
+    page table shared."""
     check_kv_shard(cache, cfg, policy, shard)
 
     def cut(name, t, dim):
@@ -324,7 +312,10 @@ def _append_local(c, kp, vp, rows, spec: Optional[KVStorage]):
     rank's flat rows ``rows`` (B,) of the layer's cache viewed flat (ring
     (B, Wl, ...) as (B * Wl, ...)), skipping -1.  Posit: K5, whose
     destinations skip rows outside [0, R) on the card and in the plain
-    version; float: a masked scatter."""
+    version; float: a scatter with no host sync, in which a slot whose row
+    another rank owns writes the first owned slot's row and value again
+    (or, where no slot owns one, row 0's own value): duplicate writes of
+    one value."""
     k, v = (c[n].view((-1,) + c[n].shape[-2:]) for n in ("k", "v"))
     if spec is not None and spec.is_posit:
         ks, vs = (c[n].view(-1, c[n].shape[-1])
@@ -334,8 +325,14 @@ def _append_local(c, kp, vp, rows, spec: Optional[KVStorage]):
             packed=spec.packed)
         return
     keep = rows >= 0
-    k[rows[keep]] = kp[keep, 0].to(k.dtype)
-    v[rows[keep]] = vp[keep, 0].to(v.dtype)
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)
+    some = keep.any()
+    dst = torch.where(keep, rows,
+                      torch.where(some, rows.index_select(0, first), 0))
+    for buf, new in ((k, kp), (v, vp)):
+        new = new[:, 0].to(buf.dtype)
+        other = torch.where(some, new.index_select(0, first), buf[0])
+        buf[dst] = torch.where(keep[:, None, None], new, other)
 
 
 def _attn_decode_paged(c, qp, kp, vp, paged, spec: Optional[KVStorage],
@@ -452,21 +449,31 @@ def _attn_decode(p, c, x, cfg: ModelCfg, policy, pos,
     return x + _ffn(p, x, cfg, policy)
 
 
-def _rec_decode(p, c, x, cfg: ModelCfg, policy, out):
+def _rec_decode(p, c, x, cfg: ModelCfg, policy, out, shard=None):
     """One recurrent layer's step: separate ``wy`` / ``wx`` products (the
     reference's decode does not fuse them), the K-tap conv over the
     layer's ``c["conv"]`` rows and the new one, the RG-LRU update from
     ``c["h"]``, ``w_out`` and the MLP.  The new state lands in ``out`` (a
-    dict of buffers that do not alias ``c``); ``c`` is only read."""
+    dict of buffers that do not alias ``c``); ``c`` is only read.  With a
+    ``shard`` (``serve.distributed.KVShard``) ``c`` holds the rank's
+    width columns: the conv runs over them and its output is all-gathered,
+    the update runs the rank's columns of ``w_a`` / ``w_x`` and its y is
+    all-gathered; the products around them run whole."""
     h = rms_norm(x, p["ln"])
     gate = torch.nn.functional.gelu(
         _einsum("bsd,dk->bsk", h, maybe_dequant(p["wy"])),
         approximate="tanh")
     u = _einsum("bsd,dk->bsk", h, maybe_dequant(p["wx"]))
-    window = torch.cat([c["conv"], u.to(c["conv"].dtype)], dim=1)
-    u = sum(window[:, i:i + 1] * p["conv_w"][i]
+    cols = (slice(None) if shard is None
+            else shard.own(u.shape[-1], "RG-LRU channels"))
+    window = torch.cat([c["conv"], u[..., cols].to(c["conv"].dtype)], dim=1)
+    u = sum(window[:, i:i + 1] * p["conv_w"][i, cols]
             for i in range(cfg.conv_kernel))
-    y, h_new = rglru_step(p["rglru"], u, c["h"])
+    if shard is not None:
+        u = shard.all_gather(u)
+    y, h_new = rglru_step(p["rglru"], u, c["h"], cols)
+    if shard is not None:
+        y = shard.all_gather(y)
     out["h"].copy_(h_new)
     out["conv"].copy_(window[:, 1:])
     x = x + _einsum("bsk,kd->bsd", y * gate, maybe_dequant(p["w_out"]))
@@ -489,14 +496,15 @@ def _fresh_rec_state(cache, cfg: ModelCfg):
     return new
 
 
-def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out):
+def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out, shard=None):
     """One Mamba-2 layer's step: reads the layer's ``c["conv"]`` /
-    ``c["state"]`` and writes the new ones into ``out`` (a (conv, state)
-    pair of buffers)."""
+    ``c["state"]`` (the rank's channels and heads under a ``shard``) and
+    writes the new ones into ``out`` (a (conv, state) pair of buffers)."""
     h = rms_norm(x, p["ln"])
     y, _ = mamba2_layer(p, h, cfg, conv_state=c["conv"],
                         ssm_state=c["state"],
-                        quantize_w=_qw(policy, "mlp_weights"), out=out)
+                        quantize_w=_qw(policy, "mlp_weights"), out=out,
+                        shard=shard)
     return x + y
 
 
@@ -510,10 +518,12 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
     land in new buffers, rebound on the dict as ``cache["blocks"]``; so do
     a hybrid stack's recurrent states (``blocks`` and ``tail``).
     ``attn_impl`` plugs a decode attention into every attention layer (the
-    module docstring has its protocols); None keeps the built-in one."""
+    module docstring has its protocols); None keeps the built-in one.  A
+    plug's ``shard`` also splits the recurrent layers' state."""
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
+    shard = getattr(attn_impl, "shard", None)
     x = (embeds.to(cfg.dtype) if embeds is not None else
          embed_rows(params["embed"], tokens, policy).to(cfg.dtype))
     if cfg.family == "ssm":
@@ -522,7 +532,7 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
         for i in range(cfg.n_layers):
             x = _ssm_decode(layer_block(params, cfg, i)[1],
                             layer_block(cache, cfg, i)[1], x, cfg, policy,
-                            (new["conv"][i], new["state"][i]))
+                            (new["conv"][i], new["state"][i]), shard)
         cache["blocks"] = (new,)
         return _readout(params, cache, x, cfg, pos)
     table, paged, pos_l = cache.get("page_table"), None, pos
@@ -537,7 +547,7 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
         c = layer_block(cache, cfg, i)[1]     # views of the stacked rows
         if btype == "rec":
             x = _rec_decode(p, c, x, cfg, policy,
-                            layer_block(new, cfg, i)[1])
+                            layer_block(new, cfg, i)[1], shard)
         else:
             x = _attn_decode(p, c, x, cfg, policy, pos_l, spec, paged,
                              attn_impl)

@@ -144,7 +144,8 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
 
 def ssd_decode_step(state, x, dt, A, B, C, D, out=None):
     """One-token recurrence. state: (b, nh, hd, ds); x: (b, nh, hd);
-    dt: (b, nh); B, C: (b, ng, ds).  Returns (y (b, nh, hd) in x's dtype,
+    dt: (b, nh); B, C: (b, ng, ds) (per head where ng = nh: a rank's
+    heads).  Returns (y (b, nh, hd) in x's dtype,
     new_state).  ``out`` (the shape of ``state``, not aliasing it) takes
     the new state; ``state`` is only read."""
     nh = x.shape[1]
@@ -208,7 +209,8 @@ def _chunked_mix(zxbcdt, params, cfg):
 
 
 def mamba2_layer(params, x, cfg, *, conv_state=None, ssm_state=None,
-                 quantize_w=None, zxbcdt=None, out=None, seg=_call):
+                 quantize_w=None, zxbcdt=None, out=None, seg=_call,
+                 shard=None):
     """Full mamba2 block.  Train / prefill: conv_state / ssm_state None ->
     (y, (None, ssm_state)); ``seg`` runs the part between the two
     projections (``_chunked_mix``: called directly, or a checkpoint
@@ -216,7 +218,11 @@ def mamba2_layer(params, x, cfg, *, conv_state=None, ssm_state=None,
     -> (y, (conv_state, ssm_state)), new tensors (``out``: a (conv,
     state) pair of buffers to write them into); the given states are only
     read.  ``zxbcdt`` is :func:`in_proj`'s output where the caller already
-    has it."""
+    has it.  A decode ``shard`` (``serve.distributed.KVShard``) gives the
+    rank's share of the states: ``conv_state`` its conv channels,
+    ``ssm_state`` its heads; the conv runs over its channels and its
+    output is all-gathered, the SSD update runs its heads and y is
+    all-gathered; the projections and the gated norm run whole."""
     if zxbcdt is None:
         zxbcdt = in_proj(params, x, quantize_w)
     w_out = params["out_proj"]
@@ -225,14 +231,26 @@ def mamba2_layer(params, x, cfg, *, conv_state=None, ssm_state=None,
     if ssm_state is None:
         y, ssm_state = seg(_chunked_mix, zxbcdt, params, cfg)
         return _einsum("bsk,kd->bsd", y, w_out), (None, ssm_state)
+    _, nh, conv_ch = dims(cfg)
+    chans, heads = ((slice(None),) * 2 if shard is None else
+                    (shard.own(conv_ch, "conv channels"),
+                     shard.own(nh, "SSD heads")))
     z, xBC, dt, A = _streams(zxbcdt, params, cfg)
-    xBC, conv_state = _causal_conv(xBC, params["conv_w"], conv_state)
+    xBC, conv_state = _causal_conv(xBC[..., chans],
+                                   params["conv_w"][:, chans], conv_state)
     if out is not None:
         conv_state = out[0].copy_(conv_state)
+    if shard is not None:
+        xBC = shard.all_gather(xBC)
     xh, Bh, Ch = _heads(xBC, cfg)
+    rep = nh // cfg.ssm_groups          # B and C per head, then the rank's
     y, ssm_state = ssd_decode_step(
-        ssm_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0], params["D"],
+        ssm_state, xh[:, 0, heads], dt[:, 0, heads], A[heads],
+        Bh[:, 0].repeat_interleave(rep, dim=1)[:, heads],
+        Ch[:, 0].repeat_interleave(rep, dim=1)[:, heads], params["D"][heads],
         out=None if out is None else out[1])
+    if shard is not None:
+        y = shard.all_gather(y, dim=1)
     return (_einsum("bsk,kd->bsd", _gated_norm(y[:, None], z, params),
                     w_out), (conv_state, ssm_state))
 

@@ -41,9 +41,10 @@ quarantine with its precision-fallback re-decode (``serve/guard.py``).
 (the orchestrator's deadlines, cancellation and crash containment).
 
 ``attn_impl`` plugs a decode attention into every decode step
-(``serve/distributed.py``'s KV-sequence-sharded one makes the engine's
-decode state rank-local: each rank of a process group runs the same
-engine over the same requests and holds its slice of the KV rows).
+(``serve/distributed.py``'s distributed one makes the engine's decode
+state rank-local: each rank of a process group runs the same engine
+over the same requests and holds its slice of the KV rows and of the
+recurrent state).
 
 Weight quantization is hoisted: the policy's weight hook is a pure function
 of each weight, so the engine applies it once at construction

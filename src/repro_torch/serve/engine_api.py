@@ -34,9 +34,10 @@
 Distributed decode: ``attn_impl`` plugs a decode attention into
 ``generate`` (the reference's hook).  A plug with a ``shard``
 (``serve/distributed.py``) makes the decode state rank-local: each rank
-holds its slice of every ring's rows or of the pool's pages, the prefill
-runs whole on every rank, and ``insert`` keeps the prefix rows the rank
-owns.  ``verify`` refuses such a state (``NotImplementedError``).
+holds its slice of every ring's rows or of the pool's pages and of the
+recurrent state's split dims (``models.common.rank_split``), the prefill
+runs whole on every rank, and ``insert`` keeps the rank's share of the
+prefix.  ``verify`` refuses such a state (``NotImplementedError``).
 
 Energy accounting: the first call of each stage name records
 ``(fn, _abstract_args(args))`` in ``stage_specs``, the arguments as
@@ -68,7 +69,7 @@ import torch
 
 from .. import resolve_device
 from ..core.transprecision import TCPolicy, get_policy
-from ..models.common import KV_LEAVES
+from ..models.common import KV_LEAVES, RECURRENT_SPLIT
 from ..models.serve_model import (_local_rows, check_layout, decode_step,
                                   init_cache, prefill, verify_step)
 from ..obs import MetricsRegistry, Tracer
@@ -331,7 +332,9 @@ class TransprecisionEngine:
         replace the slot's.  Paged: the K/V rows scatter to the
         ``dst_rows`` flat pool rows ((N,) int, N <= bucket, padded with
         trash row 0).  A rank-local state keeps the K/V rows the rank owns
-        (``blocks`` and ``tail`` alike) and the rest whole."""
+        and its slice of the recurrent ``state``, ``conv`` and ``h``
+        (``blocks`` and ``tail`` alike, ``rank_split``'s dims) and the rest
+        whole."""
         if dst_rows is not None:
             dst_rows = torch.as_tensor(dst_rows, device=self.device).to(
                 torch.int64)
@@ -341,15 +344,19 @@ class TransprecisionEngine:
 
     def _insert_impl(self, state, pcache, length, slot, row, dst_rows):
         # a rank-local state (``kv_shard``) holds ring rows [lo, lo + Wl)
-        # of each slot, or pool rows [lo, lo + Rl); rank 0 of 1 holds all.
-        # K/V leaves follow their "kv_seq" dim; a recurrent block's state
-        # and an audio block's cross K/V are whole per slot on every rank
+        # of each slot, or pool rows [lo, lo + Rl), and its 1/world of each
+        # recurrent leaf's split dim; rank 0 of 1 holds all.  An audio
+        # block's cross K/V is whole per slot on every rank
         rank = 0 if self.kv_shard is None else self.kv_shard.rank
         for part, lead in (("blocks", (slice(None),)), ("tail", ())):
             for dst, src in zip(state.get(part, ()), pcache.get(part, ())):
                 for name, d in dst.items():
                     s = src[name][lead + (row,)]   # ([P,] width, ...)
-                    if name not in KV_LEAVES:
+                    if name in RECURRENT_SPLIT:    # its dim in s: one less
+                        dim = len(lead) + RECURRENT_SPLIT[name][0]
+                        n = d.shape[dim]
+                        d[lead + (slot,)] = s.narrow(dim - 1, rank * n, n)
+                    elif name not in KV_LEAVES:
                         d[lead + (slot,)] = s
                     elif dst_rows is None:
                         w = d.shape[len(lead) + 1]

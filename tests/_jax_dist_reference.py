@@ -1,26 +1,36 @@
-"""The reference's side of ``tests/test_torch_distributed.py`` (not a test
-module: the test runs it as one subprocess).
+"""The reference's side of the port's distributed tests (not a test
+module: each test file runs it as one subprocess).
 
-    python tests/_jax_dist_reference.py DIR [families]
+    python tests/_jax_dist_reference.py DIR dense|models|families|recurrent
 
 Sets ``XLA_FLAGS`` for two host devices before ``jax`` is imported, builds
 the reference's ``(1, 2)`` ``("data", "model")`` mesh with Auto axes (with
 ``jax.make_mesh``'s default Explicit axes its ring and posit-paged cache
 scatters raise ``ShardingTypeError``), reads the prompts from
 ``DIR/inputs.npz`` and writes the reference's streams and logits to
-``DIR/reference.npz``: its ``ServingEngine`` with and without its
-distributed decode attention, ring and paged, f32, posit16 and posit8 KV
-(float32 model); its distributed engine at bf16 (posit8 ring); the MoE
-smoke config's distributed streams; and the vlm smoke config's
-``make_distributed_decode_step`` fed patch embeddings.  The weights are
-``init_params`` at ``PRNGKey(0)``, as the test builds them.
+``DIR/reference.npz``.  The weights are ``init_params`` at
+``PRNGKey(0)``, as the tests build them.
+
+With ``dense`` (``tests/test_torch_distributed{,_paged}.py``) it runs
+its ``ServingEngine`` with and without its distributed decode
+attention in the layout the inputs name, f32, posit16 and posit8 KV
+(float32 model).  With
+``models`` (``tests/test_torch_distributed_models.py``) its distributed
+engine at bf16 (posit8 ring), the MoE smoke config's distributed streams
+and the vlm smoke config's ``make_distributed_decode_step`` fed patch
+embeddings.
 
 With ``families`` (``tests/test_torch_distributed_families.py``) it runs
 the hybrid and audio stacks instead: the recurrentgemma smoke config's
 streams through its ``ServingEngine`` with and without the distributed
 decode attention (ring, f32 and posit8 KV, float32 model), and the
 whisper smoke config's ``make_distributed_decode_step`` logits over a
-prefill of tokens and frames.
+prefill of tokens and frames.  With ``recurrent``
+(``tests/test_torch_distributed_recurrent.py``) the families' SSM member:
+the mamba2 smoke config's streams and every decode step's logits
+through its ``ServingEngine`` with and without the distributed decode
+attention (ring, f32 KV, float32 model; the SSM decode ignores the plug,
+so its distributed engine runs the whole state).
 """
 import os
 import sys
@@ -44,14 +54,14 @@ from repro.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 
 
 def serve(mesh, cfg, params, prompts, max_new, *, layout="ring",
-          kv_format="posit8", distributed=True, share=None):
+          kv_format="posit8", distributed=True, share=None, max_len=64):
     """Serve ``prompts`` through the reference's ``ServingEngine``, with
     its distributed decode attention on ``mesh`` where ``distributed``;
     returns the streams, every ``generate``'s logits and the engine.
     ``share``, an engine of the same config, policy and layout, lends its
     compiled prefill and insert (neither reads the plug), so only the
     decode step compiles anew."""
-    scfg = ServeConfig(max_batch=len(prompts), max_len=64,
+    scfg = ServeConfig(max_batch=len(prompts), max_len=max_len,
                        kv_format=kv_format, kv_layout=layout, page_size=8,
                        num_pages=26 if layout == "paged" else None)
     eng = ServingEngine(cfg, params, scfg)
@@ -78,25 +88,38 @@ def serve(mesh, cfg, params, prompts, max_new, *, layout="ring",
     return np.asarray([r.out_tokens for r in reqs]), logits, eng
 
 
-def main(root: str) -> None:
+def _mesh():
+    return jax.make_mesh((1, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+def dense(root: str) -> None:
     inp = np.load(os.path.join(root, "inputs.npz"))
     prompts = [inp[f"prompt{i}"] for i in range(3)]
-    moe_prompts = [inp[f"moe_prompt{i}"] for i in range(3)]
     max_new = int(inp["max_new"])
-    mesh = jax.make_mesh((1, 2), ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    mesh = _mesh()
     out = {}
     cfg32 = dataclasses.replace(get_config("paper-edge", smoke=True),
                                 dtype_name="float32")
     p32 = lm.init_params(jax.random.PRNGKey(0), cfg32)
-    for layout in ("ring", "paged"):
-        for fmt in ("f32", "posit16", "posit8"):
-            out[f"{layout}_{fmt}_engine"], _, eng = serve(
-                mesh, cfg32, p32, prompts, max_new, layout=layout,
-                kv_format=fmt, distributed=False)
-            out[f"{layout}_{fmt}_dist"] = serve(
-                mesh, cfg32, p32, prompts, max_new, layout=layout,
-                kv_format=fmt, share=eng)[0]
+    layout = str(inp["layout"])
+    for fmt in ("f32", "posit16", "posit8"):
+        out[f"{layout}_{fmt}_engine"], _, eng = serve(
+            mesh, cfg32, p32, prompts, max_new, layout=layout,
+            kv_format=fmt, distributed=False)
+        out[f"{layout}_{fmt}_dist"] = serve(
+            mesh, cfg32, p32, prompts, max_new, layout=layout,
+            kv_format=fmt, share=eng)[0]
+    np.savez(os.path.join(root, "reference.npz"), **out)
+
+
+def models(root: str) -> None:
+    inp = np.load(os.path.join(root, "inputs.npz"))
+    prompts = [inp[f"prompt{i}"] for i in range(3)]
+    moe_prompts = [inp[f"moe_prompt{i}"] for i in range(3)]
+    max_new = int(inp["max_new"])
+    mesh = _mesh()
+    out = {}
     cfg16 = get_config("paper-edge", smoke=True)
     toks, logits, _ = serve(mesh, cfg16, lm.init_params(jax.random.PRNGKey(0),
                                                      cfg16), prompts, max_new)
@@ -122,8 +145,7 @@ def main(root: str) -> None:
 
 def families(root: str) -> None:
     inp = np.load(os.path.join(root, "inputs.npz"))
-    mesh = jax.make_mesh((1, 2), ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    mesh = _mesh()
     out = {}
     cfg_h = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
                                 dtype_name="float32")
@@ -150,8 +172,25 @@ def families(root: str) -> None:
     np.savez(os.path.join(root, "reference.npz"), **out)
 
 
+def recurrent(root: str) -> None:
+    inp = np.load(os.path.join(root, "inputs.npz"))
+    mesh = _mesh()
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", smoke=True),
+                              dtype_name="float32")
+    params = lm.init_params(jax.random.PRNGKey(0), cfg)
+    prompts = [inp[f"ssm_prompt{i}"] for i in range(int(inp["n_ssm"]))]
+    kw = dict(kv_format="f32", max_len=int(inp["max_len"]))
+    out = {}
+    out["ssm_engine"], _, eng = serve(mesh, cfg, params, prompts,
+                                      int(inp["max_new"]), distributed=False,
+                                      **kw)
+    out["ssm_dist"], logits, _ = serve(mesh, cfg, params, prompts,
+                                       int(inp["max_new"]), share=eng, **kw)
+    for i, lg in enumerate(logits):
+        out[f"ssm_logits{i}"] = lg
+    np.savez(os.path.join(root, "reference.npz"), **out)
+
+
 if __name__ == "__main__":
-    if sys.argv[2:] == ["families"]:
-        families(sys.argv[1])
-    else:
-        main(sys.argv[1])
+    {"dense": dense, "models": models, "families": families,
+     "recurrent": recurrent}[sys.argv[2]](sys.argv[1])

@@ -1,15 +1,21 @@
-"""One rank of ``tests/test_torch_distributed.py``'s two-rank gloo run on
-the CPU (not a test module: the test starts it as a process).
+"""One rank of the port's two-rank gloo runs on the CPU (not a test
+module: the distributed tests start it as a process).
 
-    python tests/_torch_dist_worker.py RANK WORLD DIR [families]
+    python tests/_torch_dist_worker.py RANK WORLD DIR
+        dense|models|families|recurrent
 
 Joins the gloo process group through ``file://DIR/rendezvous``, reads the
 cases' weights and prompts from ``DIR/inputs.pt`` (written by the test),
 serves every case through the port's KV-sequence-sharded decode and
-writes what it saw to ``DIR/rank<RANK>.pt``.  With ``families``
-(``tests/test_torch_distributed_families.py``) the cases are the hybrid
-stack's engine and the audio stack's decode step.  Imports neither
-``jax`` nor ``repro``.
+writes what it saw to ``DIR/rank<RANK>.pt``.  The cases: ``dense``
+(``tests/test_torch_distributed{,_paged}.py``) paper-edge's float32
+engines in one layout;
+``models`` (``tests/test_torch_distributed_models.py``) the bf16 and MoE
+engines, the guard and the vlm decode step; ``families``
+(``tests/test_torch_distributed_families.py``) the hybrid stack's engine
+and the audio stack's decode step; ``recurrent``
+(``tests/test_torch_distributed_recurrent.py``) the SSM stack's engine.
+Imports neither ``jax`` nor ``repro``.
 """
 import dataclasses
 import sys
@@ -59,21 +65,32 @@ def serve(cfg, params, prompts, max_new, *, layout="ring", kv_format="posit8",
     return [r.out_tokens for r in reqs], eng, logits
 
 
-def run(inp):
+def run_dense(inp):
+    """paper-edge smoke at float32, ``inp["layout"]`` x f32, posit16 and
+    posit8 KV: streams, KV bytes, leaf shapes, rows written."""
     out = {}
     cfg32 = dataclasses.replace(get_config("paper-edge", smoke=True),
                                 dtype_name="float32")
-    for layout in ("ring", "paged"):
-        for fmt in STREAM_FORMATS:
-            toks, eng, _ = serve(cfg32, inp["dense32"], inp["prompts"],
-                                 inp["max_new"], layout=layout, kv_format=fmt)
-            blk = eng.cache["blocks"][0]
-            out[layout, fmt] = {
-                "tokens": toks, "kv_bytes": eng.kv_cache_bytes(),
-                "shapes": {k: tuple(v.shape) for k, v in blk.items()}}
-            if fmt == "posit8":     # rows this rank wrote: per slot (ring)
-                out[layout, fmt]["written"] = (
-                    blk["k_scale"][0] != 1).any(-1).sum(-1)
+    layout = inp["layout"]
+    for fmt in STREAM_FORMATS:
+        toks, eng, _ = serve(cfg32, inp["dense32"], inp["prompts"],
+                             inp["max_new"], layout=layout, kv_format=fmt)
+        blk = eng.cache["blocks"][0]
+        out[layout, fmt] = {
+            "tokens": toks, "kv_bytes": eng.kv_cache_bytes(),
+            "shapes": {k: tuple(v.shape) for k, v in blk.items()}}
+        if fmt == "posit8":     # rows this rank wrote: per slot (ring)
+            out[layout, fmt]["written"] = (
+                blk["k_scale"][0] != 1).any(-1).sum(-1)
+    return out
+
+
+def run_models(inp):
+    """The bf16 and MoE engines, the guard's rung and the vlm decode
+    step."""
+    out = {}
+    cfg32 = dataclasses.replace(get_config("paper-edge", smoke=True),
+                                dtype_name="float32")
     cfg16 = get_config("paper-edge", smoke=True)
     toks, _, logits = serve(cfg16, inp["dense16"], inp["prompts"],
                             inp["max_new"])
@@ -144,18 +161,37 @@ def run_families(inp):
     return out
 
 
-def main(rank: int, world: int, root: Path, cases: str = "dense") -> None:
+def run_recurrent(inp):
+    """The mamba2 smoke config through the sharded engine (ring, float32):
+    streams, every decode step's logits and the rank's recurrent leaves'
+    shapes and bytes after the serve."""
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", smoke=True),
+                              dtype_name="float32")
+    toks, eng, logits = serve(cfg, inp["ssm32"], inp["ssm_prompts"],
+                              inp["max_new"], kv_format="f32",
+                              max_len=inp["max_len"])
+    blk = eng.cache["blocks"][0]
+    return {"tokens": toks, "logits": logits,
+            "shapes": {k: tuple(v.shape) for k, v in blk.items()},
+            "bytes": {k: v.numel() * v.element_size()
+                      for k, v in blk.items()}}
+
+
+CASES = {"dense": run_dense, "models": run_models, "families": run_families,
+         "recurrent": run_recurrent}
+
+
+def main(rank: int, world: int, root: Path, cases: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous",
                             world_size=world, rank=rank)
     try:
         inp = torch.load(root / "inputs.pt", weights_only=False)
-        out = run_families(inp) if cases == "families" else run(inp)
+        out = CASES[cases](inp)
         torch.save(out, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]),
-         *sys.argv[4:5])
+    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4])

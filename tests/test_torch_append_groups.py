@@ -30,6 +30,7 @@ from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.kernels import kv_cache as tkv  # noqa: E402
 from repro_torch.kernels import paged_kv as tpkv  # noqa: E402
 from repro_torch.kernels.posit_encode import encode_tile  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 FMTS = [("posit16_2", False), ("posit8_2", False), ("posit4_1", True)]
 PS, PMAX = 4, 3

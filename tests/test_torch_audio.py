@@ -37,6 +37,7 @@ from repro_torch.data.pipeline import make_pipeline  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from test_torch_vlm import _np, family_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "whisper-large-v3"
 _J_FORWARD = jax.jit(jlm.forward, static_argnums=(2,))

@@ -49,6 +49,7 @@ from repro_torch.serve import (Request, ServeConfig, ServingEngine,  # noqa: E40
 from repro_torch.serve.engine import check_kv_kernels  # noqa: E402
 from test_torch_serve import _codes  # noqa: E402
 from test_torch_vlm import _np, family_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "whisper-large-v3"
 POLICY = "paper_edge_p8"

@@ -33,6 +33,7 @@ from repro_torch.serve import (Fault, FaultPlan, InjectedFault,  # noqa: E402
                                RetryPolicy, ServeConfig, ServingEngine,
                                StreamingRequest)
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MAX_LEN = 64
 POLICY = "paper_edge_p8"        # 2 real guard rungs (posit16 -> full)

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.transprecision import MIXED_TC  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train.step import init_train_state  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 CFG = get_config("paper-edge", smoke=True)
 

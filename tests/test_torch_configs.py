@@ -14,7 +14,8 @@ reference's (``repro.configs``).
   MoE expert's ``wo``
   keeps its last axis, an audio model's ``enc_blocks`` share one scale
   across their layers (the reference stacks only ``blocks``); a packed
-  granite-moe smoke decode step gives the reference's logits.
+  granite-moe smoke decode step gives the reference's logits.  These two
+  are in ``test_torch_configs_pack.py``, on this file's helpers.
 * Greedy ``ServingEngine`` streams token-identical to the reference's at
   float32 (posit8 KV ring, ``paper_edge_p8``) for the four dense smoke
   configs: qk_norm with d_head != d_model / n_heads (qwen3), a gelu MLP
@@ -42,6 +43,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 PORTED = ("llama3-8b", "granite-3-8b", "qwen3-4b", "starcoder2-15b",
           "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "mamba2-2.7b",
@@ -160,79 +162,3 @@ def _leaves(tree, prefix=""):
         return {k2: v2 for i, v in enumerate(tree)
                 for k2, v2 in _leaves(v, f"{prefix}/{i}").items()}
     return {prefix: tree}
-
-
-@pytest.mark.parametrize("arch", PORTED)
-def test_pack_params_equals_reference(arch):
-    """The port's ``pack_params`` on the reference's smoke weights (via
-    the bridge) against the reference's on the same weights: the same
-    leaves packed, codes and scales bit-exact, scale shapes equal."""
-    from repro.core.transprecision import get_policy as j_get_policy
-    from repro.core.transprecision import pack_params as j_pack_params
-    from repro_torch.core.quant import QuantizedTensor
-    from repro_torch.core.transprecision import get_policy, pack_params
-    jc = jconfigs.get_config(arch, smoke=True)
-    jp = jlm.init_params(jax.random.PRNGKey(0), jc)
-    tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", torch.bfloat16)
-    j_pack = jax.jit(j_pack_params, static_argnums=(1,))
-    for policy in ("paper_edge_p8",) + (
-            ("serve_posit16",) if arch in ("granite-moe-1b-a400m",
-                                           "whisper-large-v3") else ()):
-        want = _leaves(params_from_numpy(jax_params_to_numpy(
-            j_pack(jp, j_get_policy(policy))), "cpu", torch.bfloat16))
-        got = _leaves(pack_params(tp, get_policy(policy)))
-        assert set(got) == set(want)
-        n_packed = 0
-        for path, t in got.items():
-            j = want[path]
-            assert isinstance(t, QuantizedTensor) == isinstance(
-                j, QuantizedTensor), (policy, path)
-            if isinstance(t, QuantizedTensor):
-                n_packed += 1
-                assert t.fmt.name == j.fmt.name, (policy, path)
-                assert tuple(t.scale.shape) == tuple(j.scale.shape), (
-                    policy, path, tuple(t.scale.shape))
-                assert torch.equal(t.data, j.data), (policy, path)
-                assert torch.equal(t.scale, j.scale), (policy, path)
-            else:
-                assert torch.equal(t, j), (policy, path)
-        assert n_packed > 0
-    if arch == "granite-moe-1b-a400m":     # an expert's wo: (P, E, f, d)
-        wo = pack_params(tp, get_policy("paper_edge_p8"))["blocks"][0][
-            "moe"]["wo"]
-        assert tuple(wo.scale.shape) == (2, 1, 1, 64)
-
-
-def test_packed_moe_decode_equals_reference():
-    """A decode step of granite-moe smoke (float32) over ``pack_params``
-    weights (``paper_edge_p8``, posit8 KV) from a fresh cache, three
-    steps: the logits within 1e-5 of the reference's over its own packed
-    weights, greedy tokens equal."""
-    from repro.core.transprecision import get_policy as j_get_policy
-    from repro.core.transprecision import pack_params as j_pack_params
-    from repro.models import serve_model as jsm
-    from repro_torch.core.transprecision import get_policy, pack_params
-    from repro_torch.models import serve_model as tsm
-    arch = "granite-moe-1b-a400m"
-    jc = dataclasses.replace(jconfigs.get_config(arch, smoke=True),
-                             dtype_name="float32")
-    tc = dataclasses.replace(tconfigs.get_config(arch, smoke=True),
-                             dtype_name="float32")
-    jp = jlm.init_params(jax.random.PRNGKey(0), jc)
-    tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", tc.dtype)
-    jpol, tpol = j_get_policy("paper_edge_p8"), get_policy("paper_edge_p8")
-    jpk = jax.jit(j_pack_params, static_argnums=(1,))(jp, jpol)
-    tpk = pack_params(tp, tpol)
-    jcache = jsm.init_cache(jc, 2, 16, policy=jpol)
-    tcache = tsm.init_cache(tc, 2, 16, policy=tpol, device="cpu")
-    tok = np.array([[3], [77]], np.int32)
-    step = jax.jit(jsm.decode_step, static_argnums=(3, 4))
-    for _ in range(3):
-        jl, jcache = step(jpk, jcache, jnp.asarray(tok), jc, jpol)
-        tl, tcache = tsm.decode_step(tpk, tcache, torch.from_numpy(
-            tok.astype(np.int64)), tc, tpol)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
-                                   atol=1e-5)
-        tok = np.asarray(jl)[:, :tc.vocab].argmax(-1)[:, None].astype(
-            np.int32)
-        assert (tl[:, :tc.vocab].argmax(-1).numpy() == tok[:, 0]).all()

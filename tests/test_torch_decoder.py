@@ -33,6 +33,7 @@ except ImportError:      # the GPU machine: only the card test runs there
     jnp = None
 from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.kernels.posit_decode import decode_tile  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 FORMATS = ["posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",
            "posit16_1", "posit16_2"]

@@ -13,15 +13,17 @@ undistributed engine.
   token-identical on both ranks, to the reference's ``ServingEngine`` and
   to its distributed engine on two host devices (one subprocess per
   module, an Auto-axis (1, 2) mesh), each rank's KV bytes half the
-  undistributed engine's.  bf16 posit8 ring against the reference's
-  distributed path by logit tolerance; granite-moe smoke (ring posit8);
-  qwen2-vl smoke through ``make_distributed_decode_step`` fed patch
-  embeddings; a guard rung that inherits the plug.
+  undistributed engine's (the port's undistributed engines serve while
+  the subprocesses run).  This file runs the ring;
+  ``test_torch_distributed_paged.py`` the paged layout and
+  ``test_torch_distributed_models.py`` the bf16, granite-moe, qwen2-vl
+  and guard cases, each over their own ranks and reference.
 * In one process: a plain plug's float32 streams equal ``attn_impl=None``'s,
   the world-1 plug's too; ``paged_kv_append_rows_ref`` skips rows outside
-  [0, R); the refusals (an indivisible ring or pool, the SSM stack; the
-  hybrid and audio stacks build, ``test_torch_distributed_families.py``
-  serves them).
+  [0, R); the refusals (an indivisible ring or pool); the hybrid, audio
+  and SSM stacks build (``test_torch_distributed_families.py`` and
+  ``test_torch_distributed_recurrent.py`` serve them), the SSM's
+  rank-local cache split as ``cache_specs`` splits it.
 """
 import dataclasses
 import os
@@ -46,7 +48,7 @@ from repro_torch.core.formats import get as get_fmt  # noqa: E402
 from repro_torch.core.transprecision import get_policy, kv_storage  # noqa: E402
 from repro_torch.kernels.paged_kv import paged_kv_append_rows_ref  # noqa: E402
 from repro_torch.models import attention, serve_model  # noqa: E402
-from repro_torch.serve import (Fault, FaultPlan, KVShard, Request,  # noqa: E402
+from repro_torch.serve import (KVShard, Request,  # noqa: E402
                                ServeConfig, ServingEngine,
                                TransprecisionEngine,
                                distributed_decode_attention,
@@ -54,6 +56,7 @@ from repro_torch.serve import (Fault, FaultPlan, KVShard, Request,  # noqa: E402
                                make_distributed_engine)
 from repro_torch.serve.distributed import _local_lse  # noqa: E402
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
@@ -90,32 +93,52 @@ def _env():
     return env
 
 
+def dense_runs(root, layout):
+    """Both ranks' results and the reference's for ``layout``'s three KV
+    formats, from one start each, and the port's undistributed engines'
+    (served meanwhile)."""
+    prompts = _inputs()[0]
+    np.savez(root / "inputs.npz", max_new=MAX_NEW, layout=layout,
+             **{f"prompt{i}": p for i, p in enumerate(prompts)})
+    models = {"dense32": _pair("paper-edge", "float32")}
+    out = start_runs(root, "dense", models, {"prompts": prompts,
+                                             "layout": layout}, lambda: {
+        (layout, fmt): _plain(*models["dense32"], prompts, layout, fmt)
+        for fmt in FORMATS})
+    return {**out, "prompts": prompts}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both ranks' results and the reference's, from one start each."""
-    root = tmp_path_factory.mktemp("distributed")
-    prompts, moe_prompts, embeds, steps = _inputs()
-    np.savez(root / "inputs.npz", max_new=MAX_NEW, vlm_embeds=embeds,
-             vlm_steps=steps, **{f"prompt{i}": p for i, p in
-                                 enumerate(prompts)},
-             **{f"moe_prompt{i}": p for i, p in enumerate(moe_prompts)})
+    """The ring layout (``test_torch_distributed_paged.py``: the pool)."""
+    return dense_runs(tmp_path_factory.mktemp("distributed"), "ring")
+
+
+def _plain(cfg, params, prompts, layout, fmt):
+    """The undistributed engine's streams, KV bytes and leaf shapes."""
+    toks, eng = _serve(cfg, params, prompts, layout, fmt)
+    return {"tokens": toks, "kv_bytes": eng.kv_cache_bytes(),
+            "shapes": {k: tuple(v.shape)
+                       for k, v in eng.cache["blocks"][0].items()}}
+
+
+def start_runs(root, cases, models, extra, plain):
+    """Start the two gloo ranks (``_torch_dist_worker.py ... cases``) and
+    the reference (``_jax_dist_reference.py DIR cases``) on ``root``'s
+    inputs, run ``plain()`` (the port's undistributed side) while they
+    run, and return every result."""
     ref = subprocess.Popen(
-        [sys.executable, str(HERE / "_jax_dist_reference.py"), str(root)],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
-    models = {"dense32": _pair("paper-edge", "float32"),
-              "dense16": _pair("paper-edge", "bfloat16"),
-              "moe32": _pair("granite-moe-1b-a400m", "float32"),
-              "vlm32": _pair("qwen2-vl-2b", "float32")}
+        [sys.executable, str(HERE / "_jax_dist_reference.py"), str(root),
+         cases], env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
     torch.save({**{k: p for k, (_, p) in models.items()},
-                "prompts": prompts, "moe_prompts": moe_prompts,
-                "max_new": MAX_NEW, "vlm_embeds": embeds,
-                "vlm_steps": steps}, root / "inputs.pt")
+                "max_new": MAX_NEW, **extra}, root / "inputs.pt")
     ranks = [subprocess.Popen(
         [sys.executable, str(HERE / "_torch_dist_worker.py"), str(r), "2",
-         str(root)], env=_env(), stdout=subprocess.PIPE,
+         str(root), cases], env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
     try:
+        want = plain()
         logs = [p.communicate(timeout=WAIT_S)[0] for p in ranks + [ref]]
     finally:
         for p in ranks + [ref]:
@@ -125,7 +148,7 @@ def runs(tmp_path_factory):
     return {"ranks": [torch.load(root / f"rank{r}.pt", weights_only=False)
                       for r in range(2)],
             "ref": dict(np.load(root / "reference.npz")),
-            "models": models, "prompts": prompts}
+            "models": models, "plain": want}
 
 
 def _serve(cfg, params, prompts, layout="ring", kv_format="posit8",
@@ -259,16 +282,23 @@ def test_refusals():
     local = serve_model.init_cache(cfg, 3, 64, policy=paged, num_pages=26,
                                    device="cpu", kv_shard=half)
     assert local["blocks"][0]["k"].shape[1] == 26 * 8 // 2
+    # the SSM stack, which holds no KV sequence, shards its recurrent
+    # state (test_torch_distributed_recurrent serves it over two ranks):
+    # its rank-local cache on the meta device has cache_specs' shapes
     c = get_config("mamba2-2.7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="no KV sequence"):
-        make_distributed_engine(c, pol, 2, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="no KV sequence"):
-        make_distributed_decode_step(c, pol)
-    with pytest.raises(NotImplementedError, match="no KV sequence"):
-        serve_model.init_cache(c, 2, 64, policy=pol, device="cpu",
-                               kv_shard=half)
-    # the hybrid and audio stacks shard (test_torch_distributed_families)
-    for arch in ("recurrentgemma-9b", "whisper-large-v3"):
+    local = serve_model.init_cache(c, 2, 64, policy=pol, device="meta",
+                                   kv_shard=half)["blocks"][0]
+    full = serve_model.init_cache(c, 2, 64, policy=pol, device="meta")
+    for name, dim in (("state", 2), ("conv", 3)):
+        shape = list(full["blocks"][0][name].shape)
+        shape[dim] //= 2
+        assert list(local[name].shape) == shape, name
+    cut = serve_model.shard_cache(full, c, pol, half)["blocks"][0]
+    assert {k: v.shape for k, v in cut.items()} == {
+        k: v.shape for k, v in local.items()}
+    # the hybrid, audio and SSM stacks shard
+    # (test_torch_distributed_families, test_torch_distributed_recurrent)
+    for arch in ("recurrentgemma-9b", "whisper-large-v3", "mamba2-2.7b"):
         c = get_config(arch, smoke=True)
         assert make_distributed_engine(c, pol, 2, 64,
                                        device="cpu").kv_shard == KVShard()
@@ -284,84 +314,38 @@ def test_refusals():
 # Two gloo ranks against the reference's two host devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fmt", FORMATS)
-@pytest.mark.parametrize("layout", ["ring", "paged"])
-def test_two_rank_streams_equal_reference(runs, layout, fmt):
+def check_streams(runs, layout, fmt):
+    """Both ranks' streams equal each other's, the reference's engines'
+    and the port's undistributed engine's; a rank's KV bytes half; every
+    leaf halved along its "kv_seq" dim."""
     (r0, r1), ref = runs["ranks"], runs["ref"]
     toks = r0[layout, fmt]["tokens"]
     assert r1[layout, fmt]["tokens"] == toks
     assert toks == ref[f"{layout}_{fmt}_engine"].tolist()
     assert toks == ref[f"{layout}_{fmt}_dist"].tolist()
     assert all(len(t) == MAX_NEW for t in toks)
-    cfg, params = runs["models"]["dense32"]
-    want, eng = _serve(cfg, params, runs["prompts"], layout, fmt)
-    assert toks == want
+    want = runs["plain"][layout, fmt]
+    assert toks == want["tokens"]
     for r in (r0, r1):
-        assert 2 * r[layout, fmt]["kv_bytes"] == eng.kv_cache_bytes()
+        assert 2 * r[layout, fmt]["kv_bytes"] == want["kv_bytes"]
     seq = 2 if layout == "ring" else 1          # the "kv_seq" dim
     for name, shape in r0[layout, fmt]["shapes"].items():
-        full = tuple(eng.cache["blocks"][0][name].shape)
+        full = want["shapes"][name]
         assert shape == full[:seq] + (full[seq] // 2,) + full[seq + 1:]
 
 
+def check_live_rows(runs, layout):
+    written = runs["ranks"][1][layout, "posit8"]["written"]
+    assert (written > 0).all(), (layout, written)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("layout", ["ring"])
+def test_two_rank_streams_equal_reference(runs, layout, fmt):
+    check_streams(runs, layout, fmt)
+
+
 def test_live_rows_on_both_shards(runs):
-    """Every slot wrote rows on rank 1 (its ring rows 32-63; its pool
-    pages 13-25): shard 1's partials enter the combine."""
-    for layout in ("ring", "paged"):
-        written = runs["ranks"][1][layout, "posit8"]["written"]
-        assert (written > 0).all(), (layout, written)
-
-
-def test_two_rank_bf16_against_reference(runs):
-    """bf16 rounds at other places in the two frameworks: the first
-    decode step's logits within 0.1 of the reference's distributed
-    path's (test_torch_serve's bf16 tolerance); both ranks equal."""
-    (r0, r1), ref = runs["ranks"], runs["ref"]
-    got, want = r0["bf16"]["first_logits"].numpy(), ref["bf16_first_logits"]
-    assert np.abs(got - want).max() < 0.1, np.abs(got - want).max()
-    assert np.abs(want).max() > 0.5
-    assert torch.equal(r0["bf16"]["first_logits"],
-                       r1["bf16"]["first_logits"])
-    assert r0["bf16"]["tokens"] == r1["bf16"]["tokens"]
-
-
-def test_two_rank_moe_streams(runs):
-    (r0, r1), ref = runs["ranks"], runs["ref"]
-    assert r0["moe"] == r1["moe"] == ref["moe_dist"].tolist()
-    cfg, params = runs["models"]["moe32"]
-    prompts = _inputs()[1]
-    assert r0["moe"] == _serve(cfg, params, prompts)[0]
-
-
-def test_two_rank_vlm_decode_step_with_embeds(runs):
-    """make_distributed_decode_step on patch embeddings: logits within the
-    vlm parity tolerance of the reference's (M-RoPE's tables agree within
-    1e-6) and of the port's undistributed decode_step."""
-    (r0, r1), ref = runs["ranks"], runs["ref"]
-    cfg, params = runs["models"]["vlm32"]
-    _, _, embeds, steps = _inputs()
-    policy = dataclasses.replace(get_policy("bf16"), kv_format="posit8")
-    _, cache = serve_model.prefill(params, {"embeds": torch.from_numpy(
-        embeds)}, cfg, 64, policy)
-    for i, e in enumerate(steps):
-        want, cache = serve_model.decode_step(
-            params, cache, None, cfg, policy, embeds=torch.from_numpy(e))
-        assert torch.equal(r0["vlm"][i], r1["vlm"][i])
-        np.testing.assert_allclose(r0["vlm"][i].numpy(),
-                                   ref[f"vlm_logits{i}"], rtol=1e-4,
-                                   atol=1e-4)
-        np.testing.assert_allclose(r0["vlm"][i].numpy(), want.numpy(),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_two_rank_guard_rung_inherits_the_plug(runs):
-    """A poisoned round re-decoded by the first rung over the rank-local
-    state: the streams equal the undistributed guarded engine's."""
-    (r0, r1) = runs["ranks"]
-    assert r0["guard"]["rung_inherits"] and r1["guard"]["rung_inherits"]
-    assert r0["guard"]["fallbacks"] == r1["guard"]["fallbacks"] == 1
-    cfg, params = runs["models"]["dense32"]
-    plan = FaultPlan((Fault("poison_logits", at=3, slot=0),))
-    want, eng = _serve(cfg, params, runs["prompts"], guard=True, faults=plan)
-    assert eng.metrics.counter("guard.fallbacks").value == 1
-    assert r0["guard"]["tokens"] == r1["guard"]["tokens"] == want
+    """Every slot wrote rows on rank 1 (its ring rows 32-63): shard 1's
+    partials enter the combine."""
+    check_live_rows(runs, "ring")

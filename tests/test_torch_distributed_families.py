@@ -13,14 +13,16 @@ reference's, and against the port's own undistributed paths.
   streams of both ranks equal the undistributed engine's, the
   reference's undistributed engine's and its distributed engine's; each
   rank's KV bytes half the undistributed engine's, every ring leaf half
-  its width and the recurrent ``h`` / ``conv`` whole.
+  its width and the recurrent ``h`` / ``conv`` half their width
+  (``cache_specs``' "model" split).
 * The whisper smoke config (float32, f32 KV): ``make_distributed_decode_
   step`` over a ``shard_cache``d prefill of 36 tokens and 24 frames (ring
   rows 32-35 live on rank 1), 4 steps: both ranks' logits equal, within
   1e-5 of the reference's distributed step and of the port's plain
   ``decode_step``; ``xk`` whole on every rank.
-* In one process: the refusals (the SSM stack's message, a window the
-  world does not divide) and ``check_kv_shard`` / ``init_cache(...,
+* In one process: the refusals (a window, an RG-LRU width or a count of
+  SSD heads the world does not divide), the SSM stack's engine, step and
+  rank-local cache building, and ``check_kv_shard`` / ``init_cache(...,
   kv_shard=)`` on a hybrid cache on the meta device.
 """
 import dataclasses
@@ -42,12 +44,14 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.transprecision import get_policy  # noqa: E402
 from repro_torch.models import serve_model  # noqa: E402
+from repro_torch.models.common import map_with_path  # noqa: E402
 from repro_torch.serve import (KVShard, Request, ServeConfig,  # noqa: E402
                                ServingEngine, TransprecisionEngine,
                                distributed_decode_attention,
                                make_distributed_decode_step,
                                make_distributed_engine)
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
@@ -141,8 +145,9 @@ def test_two_rank_hybrid_streams(runs, fmt):
     for path, shape in r0["hybrid", fmt]["shapes"].items():
         part, i, name = path.split("/")
         full = tuple(eng.cache[part][int(i)][name].shape)
-        if name in ("h", "conv"):           # recurrent state: whole
-            assert shape == full, path
+        if name in ("h", "conv"):           # ([P,] B, [K-1,] width / 2)
+            assert shape == full[:-1] + (full[-1] // 2,), path
+            assert full[-1] == cfg.d_model
         else:                               # (P, B, W, ...): W / 2 a rank
             assert shape == full[:2] + (full[2] // 2,) + full[3:], path
             assert full[2] == cfg.window
@@ -176,14 +181,27 @@ def test_refusals():
     pol = get_policy("bf16")
     half = KVShard(rank=0, world=2)
     ssm = get_config("mamba2-2.7b", smoke=True)
-    for call in (lambda: make_distributed_engine(ssm, pol, 2, 64,
-                                                 device="cpu"),
-                 lambda: make_distributed_decode_step(ssm, pol),
-                 lambda: serve_model.init_cache(ssm, 2, 64, policy=pol,
-                                                device="cpu", kv_shard=half)):
-        with pytest.raises(NotImplementedError,
-                           match="no KV sequence.*tensor parallelism"):
-            call()
+    assert make_distributed_engine(ssm, pol, 2, 64,
+                                   device="cpu").kv_shard == KVShard()
+    assert make_distributed_decode_step(ssm, pol).shard == KVShard()
+    assert serve_model.init_cache(ssm, 2, 64, policy=pol, device="cpu",
+                                  kv_shard=half)["blocks"][0][
+        "state"].shape[2] == 4
+    third = KVShard(rank=0, world=3)
+    with pytest.raises(ValueError,
+                       match="8 SSD heads do not split over 3 ranks"):
+        serve_model.init_cache(ssm, 2, 64, policy=pol, device="cpu",
+                               kv_shard=third)
+    plug = distributed_decode_attention()
+    plug.shard = third
+    with pytest.raises(ValueError, match="8 SSD heads"):
+        TransprecisionEngine(ssm, pol, 2, 64, attn_impl=plug, device="cpu")
+    # a 15-row ring splits over 3 ranks, the 64-wide RG-LRU does not
+    hyb = get_config("recurrentgemma-9b", smoke=True)
+    with pytest.raises(ValueError,
+                       match="64 RG-LRU channels do not split over 3 ranks"):
+        serve_model.init_cache(hyb, 2, 15, policy=pol, device="cpu",
+                               kv_shard=third)
     odd = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
                               window=15)
     with pytest.raises(ValueError, match="15 ring rows"):
@@ -199,13 +217,20 @@ def test_refusals():
         kv_shard=half)["blocks"][2]["k"].shape[2] == 7
 
 
+def _leaves(tree):
+    out = []
+    map_with_path(lambda p, t: out.append((p, t)), tree)
+    return out
+
+
 @pytest.mark.parametrize("fmt", ["f32", "posit8"])
 def test_hybrid_rank_local_cache_on_meta(fmt):
-    """``check_kv_shard`` finds the first attention leaf past the
-    recurrent period positions; the rank-local cache halves every ring
-    leaf along its "kv_seq" dim and keeps the recurrent leaves (zeros,
-    the whole cache's dtypes) and ``pos``; on the meta device and on the
-    CPU alike."""
+    """``check_kv_shard`` checks the attention leaves past the recurrent
+    period positions; the rank-local cache halves every ring leaf along
+    its "kv_seq" dim and every recurrent leaf along its width (zeros, the
+    whole cache's dtypes) and keeps ``pos``; ``shard_cache`` of the whole
+    cache gives the same shapes; on the meta device and on the CPU
+    alike."""
     cfg = get_config("recurrentgemma-9b", smoke=True)
     pol = dataclasses.replace(get_policy("bf16"), kv_format=fmt)
     full = serve_model.init_cache(cfg, 3, 64, policy=pol, device="meta")
@@ -225,9 +250,14 @@ def test_hybrid_rank_local_cache_on_meta(fmt):
                         shape = list(t.shape)
                         if name in ("k", "v", "k_scale", "v_scale"):
                             shape[2] //= 2
+                        else:               # h, conv: width last
+                            shape[-1] //= 2
                         assert list(got.shape) == shape, (part, name)
                         if dev == "cpu" and name in ("h", "conv"):
                             assert not got.any()
             assert tuple(local["pos"].shape) == ()
+        cut = serve_model.shard_cache(full, cfg, pol, shard)
+        assert ({p: t.shape for p, t in _leaves(cut)}
+                == {p: t.shape for p, t in _leaves(local)})
     with pytest.raises(ValueError, match="ring rows"):
         serve_model.check_kv_shard(full, cfg, pol, KVShard(rank=0, world=3))

@@ -27,6 +27,7 @@ Importing ``repro.launch.dryrun`` writes
 ``os.environ``: the fixture starts JAX first (keeping its one CPU device)
 and puts the variable back after the import.
 """
+import argparse
 import dataclasses
 import functools
 import json
@@ -58,6 +59,7 @@ from repro_torch.core.transprecision import BF16, SERVE_P8  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models.common import map_with_path  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 AXIS_SIZE = {"pod": 2, "data": 16, "model": 16}
 
@@ -318,6 +320,7 @@ def test_cli_report_and_skip_file(tmp_path):
     assert on_disk["memory_analysis"] == rep["memory_analysis"]
     mem = rep["memory_analysis"]
     assert mem["argument_size_in_bytes"] == 51_788_983_812
+    whole_params = mem["argument_bytes_by_part"]["params"]
     assert mem["temp_size_in_bytes"] is None
     r = rep["roofline"]
     assert r["t_collective_s"] is None and r["dominant"] in (
@@ -337,10 +340,110 @@ def test_cli_report_and_skip_file(tmp_path):
     table = summary(out, ["paper-edge", "llama3-8b"], ["host", "pod1"])
     assert "| paper-edge | ? / ? | ? / ? | 51.79 / ? | ? / ? |" in table
     assert "| llama3-8b | ? / ? | ? / ? | ? / ? | ? / skip |" in table
-    for flag in ("--no-scan", "--distributed-decode"):
-        with pytest.raises(SystemExit):
-            dryrun.main(["--arch", "paper-edge", "--shape", "decode_32k",
-                         "--out", out, flag])
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "paper-edge", "--shape", "decode_32k",
+                     "--out", out, "--no-scan"])
+    # the distributed decode's variant: one rank of two, its collectives
+    rep = dryrun.main(["--arch", "paper-edge", "--shape", "decode_32k",
+                       "--mesh", "host", "--world", "2",
+                       "--distributed-decode", "--out", out, "--tag", "dd"])
+    on_disk = json.load(open(tmp_path / "paper-edge_decode_32k_host2_dd.json"))
+    assert on_disk["collectives_single_instance"] == \
+        rep["collectives_single_instance"]
+    assert rep["variant"]["distributed_decode"] is True
+    assert rep["mesh"] == "1x2" and rep["op_cost"]["scope"] == "one rank"
+    r = rep["roofline"]
+    assert r["t_collective_s"] == (r["collective_bytes_per_device"]
+                                   / dryrun.NVLINK_BW) > 0
+    assert r["dominant"] == max(
+        ("compute", "memory", "collective"),
+        key=lambda k: r[f"t_{k}_s"])
+    # its ranks hold every weight whole, and half the K/V rows each (the
+    # cache's 4-byte ``pos`` whole on both)
+    parts = rep["memory_analysis"]["argument_bytes_by_part"]
+    assert parts["params"] == whole_params
+    assert 2 * (parts["cache"] - 4) == mem["argument_bytes_by_part"][
+        "cache"] - 4
+    # the variant makes the ranks the "model" axis on decode cells only
+    for shape, sizes in (("decode_32k", (1, 2)), ("prefill_32k", (2, 1)),
+                         ("train_4k", (2, 1))):
+        ns = argparse.Namespace(mesh="host", world=2, shape=shape,
+                                distributed_decode=True)
+        assert dryrun._mesh_of(ns).sizes == sizes, shape
+
+
+# ---- the distributed decode's collectives ----
+
+def _expected_collectives(cfg, b):
+    """Per kind (count, result bytes) of one rank's distributed decode
+    step at ``b`` slots: two all-reduces an attention layer, of b x nh f32
+    (the max) and b x nh x (hd + 1) f32 (o and l); two all-gathers a
+    Mamba-2 layer, of b x conv channels and b x d_inner values, and an
+    RG-LRU layer, of b x width values twice, in the model's dtype."""
+    from repro_torch.models.ssm import dims
+    per = {"attn": ("all-reduce", 4 * b * cfg.n_heads
+                    + 4 * b * cfg.n_heads * (cfg.head_dim + 1))}
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    if cfg.family == "ssm":
+        d_in, _, ch = dims(cfg)
+        per["ssm"] = ("all-gather", item * b * (ch + d_in))
+    per["rec"] = ("all-gather", 2 * item * b * cfg.d_model)
+    out = {}
+    for t in cfg.block_types:
+        kind, nbytes = per[t]
+        count, total = out.get(kind, (0, 0))
+        out[kind] = (count + 2, total + nbytes)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["paper-edge", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
+def test_distributed_decode_collectives_per_layer(arch):
+    """``--mesh host --world 2 --distributed-decode`` on decode_32k counts
+    the collectives one rank's step issues (its trace, extrapolated over
+    the periods as the FLOPs are): two all-reduces per attention layer
+    carrying B x nh x 4 and B x nh x (hd + 1) x 4 bytes (B the rank's
+    batch, the whole 128 here), two all-gathers per Mamba-2 layer of B x
+    ch and B x d_inner elements, both kinds for the hybrid; every other
+    kind 0, and the report's totals their sums."""
+    cfg = tconfigs.get_config(arch)
+    rep = dryrun.lower_cell(arch, "decode_32k",
+                            variant=dryrun.Variant(distributed_decode=True),
+                            mesh=tmesh.make_host_mesh(2, model=True))
+    coll = rep["collectives_single_instance"]
+    want = _expected_collectives(cfg, SHAPES["decode_32k"].global_batch)
+    got = {k: (v["count"], v["result_bytes"])
+           for k, v in coll["per_kind"].items() if v["count"]}
+    assert got == want
+    assert set(coll["per_kind"]) == set(dryrun.COLL_KINDS)
+    for kind, v in coll["per_kind"].items():    # a gather's result: 2 parts
+        assert v["operand_bytes"] * (2 if kind == "all-gather" else 1) == \
+            v["result_bytes"]
+    assert rep["op_cost"]["collectives"] == coll["per_kind"]
+    assert rep["roofline"]["collective_bytes_per_device"] == sum(
+        n for _, n in want.values()) == coll["result_bytes"]
+
+
+def test_distributed_decode_hybrid_worked_check():
+    """The formula's worked check: recurrentgemma at 14 layers (4
+    attention layers), B 4, max_len 4096, posit8 KV, over two ranks: the
+    combine all-reduces 264,192 B a step, 4 x 66,048 B, as phase 19c
+    measured on the card (the engine's policy there: ``paper_edge_p8``'s
+    posit8 KV, its weights hoisted)."""
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models.lm import weights_free
+    cfg = dataclasses.replace(tconfigs.get_config("recurrentgemma-9b"),
+                              dtype_name="float32", n_layers=14)
+    policy = weights_free(dataclasses.replace(get_policy("paper_edge_p8"),
+                                              kv_format="posit8"))
+    cost = dryrun.step_cost(cfg, ShapeSpec("19c", "decode", 4096, 4),
+                            policy, dryrun.Variant(distributed_decode=True),
+                            tmesh.make_host_mesh(2, model=True))
+    ar = cost["collectives"]["all-reduce"]
+    assert (ar["count"], ar["result_bytes"]) == (8, 264_192)
+    assert _expected_collectives(cfg, 4) == {
+        k: (v["count"], v["result_bytes"])
+        for k, v in cost["collectives"].items() if v["count"]}
 
 
 # ---- kernel calls counted as launches ----

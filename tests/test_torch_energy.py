@@ -12,7 +12,10 @@ family, mamba2 smoke, ring; the hybrid family, recurrentgemma smoke,
 ring; and the vlm family, qwen2-vl smoke, ring), pricing that leaves the
 engine's state and weights as they were, and full-width paper-edge,
 mamba2-2.7b, recurrentgemma-9b and qwen2-vl-2b priced on the meta device
-(no weights, no card) to fixed joules per token."""
+(no weights, no card) to fixed joules per token.  The speculative and MoE
+parity cases, the SSM, hybrid and vlm ones and their full-width pricing
+are in ``test_torch_energy_{speculative,moe,hybrid,ssm,vlm}.py``, on this
+file's helpers, so that the driver's ``--dist loadfile`` spreads them."""
 import numpy as np
 import pytest
 
@@ -32,6 +35,7 @@ from repro_torch.obs import energy as energy_mod  # noqa: E402
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serve.speculative import SpeculativeEngine  # noqa: E402
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MAX_LEN = 64
 POLICY = "paper_edge_p8"
@@ -188,8 +192,10 @@ CASES = {"ring_posit8": ({"kv_format": "posit8"}, None),
          "speculative_ring": ({"kv_format": "posit8"}, 2)}
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_accountant_matches_reference(pair, case):
+def check_accountant(pair, case):
+    """The accountant's breakdown of a served ``CASES`` engine against the
+    reference's on the same requests: streams, stages, calls, MACs and
+    mixes equal, bytes, pJ per call and J/token within rel 1e-3."""
     jc, tc, jp, tp = pair
     kw, gamma = CASES[case]
     if gamma is None:
@@ -227,39 +233,10 @@ def test_accountant_matches_reference(pair, case):
                                                    rel=1e-3)
 
 
-@pytest.mark.parametrize("layout", ["ring", "paged"])
-def test_accountant_matches_reference_moe(layout):
-    """The MoE family (granite-moe-1b-a400m smoke, float32): one
-    exact-length prefill per prompt into a max_len-wide prefix, the
-    router and the expert products priced; the same rules as the dense
-    cases."""
-    from test_torch_moe_serve import moe_pair
-    jc, tc, jp, tp = moe_pair("float32")
-    kw = dict(max_batch=2, max_len=MAX_LEN, kv_format="posit8",
-              **({"kv_layout": "paged", "page_size": 8}
-                 if layout == "paged" else {}))
-    je = JServingEngine(jc, jp, JServeConfig(**kw), policy=POLICY)
-    te = ServingEngine(tc, tp, ServeConfig(**kw), policy=POLICY,
-                       device="cpu")
-    jr, tr = _requests(JRequest, tc.vocab), _requests(Request, tc.vocab)
-    je.serve(jr)
-    te.serve(tr)
-    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
-    jb, tb = JAccountant(je).breakdown(), EnergyAccountant(te).breakdown()
-    assert "errors" not in tb and "errors" not in jb
-    assert set(tb["stages"]) == set(jb["stages"]) == {"prefill", "insert",
-                                                      "generate"}
-    for name, j in jb["stages"].items():
-        t = tb["stages"][name]
-        assert t["calls"] == j["calls"], name
-        assert t["mac_flops"] == j["mac_flops"], name
-        assert t["model_bytes"] == pytest.approx(j["model_bytes"],
-                                                 rel=1e-3), name
-        assert t["pj_per_call"] == pytest.approx(j["pj_per_call"],
-                                                 rel=1e-3), name
-        assert t["mac_mix"] == j["mac_mix"], name
-    assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
-                                                   rel=1e-3)
+# the speculative case: test_torch_energy_speculative.py
+@pytest.mark.parametrize("case", sorted(set(CASES) - {"speculative_ring"}))
+def test_accountant_matches_reference(pair, case):
+    check_accountant(pair, case)
 
 
 def test_pricing_leaves_state_and_weights_unchanged(pair):
@@ -333,254 +310,8 @@ def test_full_width_prices_on_the_meta_device(layout, num_pages, steps,
 
 # ---- the SSM family ----
 
-def test_accountant_matches_reference_ssm():
-    """mamba2 smoke (float32, ring, posit8 KV format, max_batch 2): prompts
-    of 5, 12 and 32 tokens, 4 tokens each.  The stages' calls and MACs
-    equal the reference's exactly: 6 generate calls of 299,008 MAC FLOPs
-    (the pairwise SSD products keep XLA's contractions: the decode's
-    outer product is no product), 3 prefills priced at the first call's
-    5 tokens, 671,808 (in_proj counted once, as XLA's CSE leaves it), and
-    inserts of 0; modeled bytes and J/token within 1e-3 (the port's slot
-    and row are Python ints, the reference's 4-byte arrays)."""
-    from test_torch_ssm_serve import ssm_pair
-    jc, tc, jp, tp = ssm_pair("float32")
-    kw = dict(max_batch=2, max_len=MAX_LEN, kv_format="posit8")
-    je = JServingEngine(jc, jp, JServeConfig(**kw), policy=POLICY)
-    te = ServingEngine(tc, tp, ServeConfig(**kw), policy=POLICY,
-                       device="cpu")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, tc.vocab, n) for n in (5, 12, 32)]
-    jr = [JRequest(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
-    tr = [Request(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
-    je.serve(jr)
-    te.serve(tr)
-    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
-    jb, tb = JAccountant(je).breakdown(), EnergyAccountant(te).breakdown()
-    assert "errors" not in tb and "errors" not in jb
-    assert set(tb["stages"]) == set(jb["stages"]) == {"prefill", "insert",
-                                                      "generate"}
-    want = {"generate": (6, 299_008), "prefill": (3, 671_808),
-            "insert": (3, 0)}
-    for name, j in jb["stages"].items():
-        t = tb["stages"][name]
-        assert (t["calls"], t["mac_flops"]) == want[name] == (
-            j["calls"], j["mac_flops"]), name
-        assert t["model_bytes"] == pytest.approx(j["model_bytes"],
-                                                 rel=1e-3), name
-        assert t["pj_per_call"] == pytest.approx(j["pj_per_call"],
-                                                 rel=1e-3), name
-        assert t["mac_mix"] == j["mac_mix"], name
-    assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
-                                                   rel=1e-3)
-
-
-def test_full_width_ssm_prices_on_the_meta_device():
-    """Full-width mamba2-2.7b (bf16, 64 layers, max_batch 8, W 1024)
-    priced with no weight, state or activation allocated: one 256-token
-    prefill (one chunk), an insert and a decode step on meta tensors,
-    then the calls of an 8-prompt run (8 prefills, 8 inserts, 31 decode
-    steps, 256 tokens).  MACs are the analytic count: the decode step's
-    two projections, SSD readout and the tied head per slot; the
-    prefill's projections, the chunk's C.B scores, intra-chunk sum,
-    chunk state and inter-chunk readout, and the head at one row."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.core.transprecision import get_policy
-    from repro_torch.models import lm
-    from repro_torch.models.ssm import dims
-    from repro_torch.serve.engine_api import TransprecisionEngine
-    cfg = get_config("mamba2-2.7b")
-    policy = dataclasses.replace(get_policy(POLICY), kv_format="posit8")
-    meta = torch.device("meta")
-    eng = TransprecisionEngine(cfg, lm.weights_free(policy, cfg.tie_embed),
-                               8, 1024, weight_policy=policy, device=meta)
-    params = lm.init_params(cfg, device=meta)
-    state = eng.init_decode_state()
-    s = 256
-    prefix = eng.prefill(params, torch.empty((1, s), dtype=torch.int64,
-                                             device=meta))
-    eng.generate(params, eng.insert(prefix, state, 0))
-    bd = EnergyAccountant(eng).breakdown(
-        calls={"prefill": 8, "insert": 8, "generate": 31}, tokens=256)
-    assert "errors" not in bd
-    d, n_l, v = cfg.d_model, cfg.n_layers, cfg.vocab_pad
-    d_in, nh, _ = dims(cfg)
-    hd, ds, ng = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups
-    proj = d * (2 * d_in + 2 * ng * ds + nh) + d_in * d
-    st = bd["stages"]
-    assert st["generate"]["mac_flops"] == 2 * 8 * (
-        n_l * (proj + nh * hd * ds) + d * v)
-    assert st["prefill"]["mac_flops"] == 2 * (
-        n_l * (s * proj + ng * s * s * ds + nh * s * s * hd
-               + 2 * nh * hd * ds * s) + d * v)
-    assert st["insert"]["mac_flops"] == 0
-    assert bd["joules_per_token"] == pytest.approx(JPT_MAMBA2, rel=1e-12)
-
 
 # ---- the hybrid family ----
 
-def test_accountant_matches_reference_hybrid():
-    """recurrentgemma smoke (float32, ring, posit8 KV format, max_batch
-    2): prompts of 5, 12 and 30 tokens (the last wraps the 16-row
-    window), 4 tokens each.  The stages' calls and MACs equal the
-    reference's exactly (the RG-LRU scan and the conv are elementwise:
-    no MACs; the prefill's separate ``h @ wx`` product counts beside the
-    fused ``[wy | wx]`` one, as XLA keeps both), with the recurrent
-    projections priced at ``mlp_weights``' format in both; modeled bytes
-    and J/token within 1e-3."""
-    from test_torch_rglru import hybrid_pair
-    jc, tc, jp, tp = hybrid_pair("float32")
-    kw = dict(max_batch=2, max_len=MAX_LEN, kv_format="posit8")
-    je = JServingEngine(jc, jp, JServeConfig(**kw), policy=POLICY)
-    te = ServingEngine(tc, tp, ServeConfig(**kw), policy=POLICY,
-                       device="cpu")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, tc.vocab, n) for n in (5, 12, 30)]
-    jr = [JRequest(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
-    tr = [Request(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
-    je.serve(jr)
-    te.serve(tr)
-    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
-    jb, tb = JAccountant(je).breakdown(), EnergyAccountant(te).breakdown()
-    assert "errors" not in tb and "errors" not in jb
-    assert set(tb["stages"]) == set(jb["stages"]) == {"prefill", "insert",
-                                                      "generate"}
-    for name, j in jb["stages"].items():
-        t = tb["stages"][name]
-        assert (t["calls"], t["mac_flops"]) == (j["calls"],
-                                                j["mac_flops"]), name
-        assert t["model_bytes"] == pytest.approx(j["model_bytes"],
-                                                 rel=1e-3), name
-        assert t["pj_per_call"] == pytest.approx(j["pj_per_call"],
-                                                 rel=1e-3), name
-        assert t["mac_mix"] == j["mac_mix"], name
-    assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
-                                                   rel=1e-3)
-
-
-def test_full_width_hybrid_prices_on_the_meta_device():
-    """Full-width recurrentgemma-9b (bf16, 38 layers, max_batch 8,
-    max_len 4096, 2048-row rings) priced with no weight, state or
-    activation allocated: one 2500-token prefill (past the window), an
-    insert and a decode step on meta tensors, then the calls of an
-    8-prompt run (8 prefills, 8 inserts, 31 decode steps, 256 tokens).
-    MACs are the analytic count: per recurrent layer ``wy``, ``wx``, the
-    fused RG-LRU gates, ``w_out`` and the MLP (the prefill's fused ``[wy |
-    wx]`` product and its own ``h @ wx``), per attention layer QKV, ``wo``,
-    the MLP and QK + PV (decode over the 2048-row ring, prefill over every
-    padded tile of the blockwise loop), and the tied head."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.core.transprecision import get_policy
-    from repro_torch.models import lm
-    from repro_torch.serve.engine_api import TransprecisionEngine
-    cfg = get_config("recurrentgemma-9b")
-    policy = dataclasses.replace(get_policy(POLICY), kv_format="posit8")
-    meta = torch.device("meta")
-    eng = TransprecisionEngine(cfg, lm.weights_free(policy, cfg.tie_embed),
-                               8, 4096, weight_policy=policy, device=meta)
-    params = lm.init_params(cfg, device=meta)
-    state = eng.init_decode_state()
-    s = 2500
-    prefix = eng.prefill(params, torch.empty((1, s), dtype=torch.int64,
-                                             device=meta))
-    eng.generate(params, eng.insert(prefix, state, 0))
-    bd = EnergyAccountant(eng).breakdown(
-        calls={"prefill": 8, "insert": 8, "generate": 31}, tokens=256)
-    assert "errors" not in bd
-    d, f, v, hd, nh = (cfg.d_model, cfg.d_ff, cfg.vocab_pad, cfg.head_dim,
-                       cfg.n_heads)
-    n_rec, n_attn = cfg.block_types.count("rec"), cfg.block_types.count(
-        "attn")
-    qkv_o = d * (nh + 2 * cfg.n_kv_heads) * hd + nh * hd * d
-    mlp, w = 2 * d * f, cfg.window
-    st = bd["stages"]
-    assert st["generate"]["mac_flops"] == 2 * 8 * (
-        n_rec * (5 * d * d + mlp) + n_attn * (qkv_o + mlp + 2 * nh * w * hd)
-        + d * v)
-    sp, skp = -(-s // 512) * 512, -(-s // 1024) * 1024     # padded tiles
-    assert st["prefill"]["mac_flops"] == 2 * (
-        s * n_rec * (6 * d * d + mlp)
-        + n_attn * (s * (qkv_o + mlp) + 2 * nh * sp * skp * hd) + d * v)
-    assert st["insert"]["mac_flops"] == 0
-    assert bd["joules_per_token"] == pytest.approx(JPT_RGEMMA, rel=1e-12)
-
 
 # ---- the vlm family ----
-
-def test_accountant_matches_reference_vlm():
-    """qwen2-vl smoke (float32, ring, posit8 KV format, max_batch 2):
-    three 7-token prompts, 4 tokens each, one exact-length prefill per
-    prompt.  The stages' calls and MACs equal the reference's exactly
-    (M-RoPE's tables are elementwise: no MACs), modeled bytes and J/token
-    within 1e-3."""
-    from test_torch_vlm import family_pair
-    jc, tc, jp, tp = family_pair("qwen2-vl-2b")
-    kw = dict(max_batch=2, max_len=MAX_LEN, kv_format="posit8")
-    je = JServingEngine(jc, jp, JServeConfig(**kw), policy=POLICY)
-    te = ServingEngine(tc, tp, ServeConfig(**kw), policy=POLICY,
-                       device="cpu")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, tc.vocab, 7) for _ in range(3)]
-    jr = [JRequest(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
-    tr = [Request(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
-    je.serve(jr)
-    te.serve(tr)
-    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
-    jb, tb = JAccountant(je).breakdown(), EnergyAccountant(te).breakdown()
-    assert "errors" not in tb and "errors" not in jb
-    assert set(tb["stages"]) == set(jb["stages"]) == {"prefill", "insert",
-                                                      "generate"}
-    for name, j in jb["stages"].items():
-        t = tb["stages"][name]
-        assert (t["calls"], t["mac_flops"]) == (j["calls"],
-                                                j["mac_flops"]), name
-        assert t["model_bytes"] == pytest.approx(j["model_bytes"],
-                                                 rel=1e-3), name
-        assert t["pj_per_call"] == pytest.approx(j["pj_per_call"],
-                                                 rel=1e-3), name
-        assert t["mac_mix"] == j["mac_mix"], name
-    assert tb["joules_per_token"] == pytest.approx(jb["joules_per_token"],
-                                                   rel=1e-3)
-
-
-def test_full_width_vlm_prices_on_the_meta_device():
-    """Full-width qwen2-vl-2b (bf16, 28 layers, max_batch 8, max_len 1024,
-    posit8 KV) priced with no weight, cache or activation allocated: one
-    894-token exact-length prefill, an insert and a decode step on meta
-    tensors, then the calls of an 8-prompt run (8 prefills, 8 inserts, 31
-    decode steps, 256 tokens).  MACs are the analytic count: per layer
-    QKV, ``wo`` and the gated MLP, QK + PV (decode over the 1024-row
-    ring, prefill over every padded tile of the blockwise loop), and the
-    tied head."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.core.transprecision import get_policy
-    from repro_torch.models import lm
-    from repro_torch.serve.engine_api import TransprecisionEngine
-    cfg = get_config("qwen2-vl-2b")
-    policy = dataclasses.replace(get_policy(POLICY), kv_format="posit8")
-    meta = torch.device("meta")
-    eng = TransprecisionEngine(cfg, lm.weights_free(policy, cfg.tie_embed),
-                               8, 1024, weight_policy=policy, device=meta)
-    params = lm.init_params(cfg, device=meta)
-    state = eng.init_decode_state()
-    s = 894
-    prefix = eng.prefill(params, torch.empty((1, s), dtype=torch.int64,
-                                             device=meta))
-    eng.generate(params, eng.insert(prefix, state, 0))
-    bd = EnergyAccountant(eng).breakdown(
-        calls={"prefill": 8, "insert": 8, "generate": 31}, tokens=256)
-    assert "errors" not in bd
-    d, f, v, hd, nh, n_l = (cfg.d_model, cfg.d_ff, cfg.vocab_pad,
-                            cfg.head_dim, cfg.n_heads, cfg.n_layers)
-    layer = d * (nh + 2 * cfg.n_kv_heads) * hd + nh * hd * d + 3 * d * f
-    st = bd["stages"]
-    assert st["generate"]["mac_flops"] == 2 * 8 * (
-        n_l * (layer + 2 * nh * 1024 * hd) + d * v)
-    # padded tiles: q blocks of min(512, s) rows, kv blocks of min(1024, s)
-    sp, skp = -(-s // 512) * 512, s
-    assert st["prefill"]["mac_flops"] == 2 * (
-        n_l * (s * layer + 2 * nh * sp * skp * hd) + d * v)
-    assert st["insert"]["mac_flops"] == 0
-    assert bd["joules_per_token"] == pytest.approx(JPT_QWEN2VL, rel=1e-12)

@@ -2,7 +2,8 @@
 token-identical at float32 on paper-edge smoke, ring layout, for every KV
 format (f32, posit16, posit8, posit4), under the paper_edge_p8 weight
 policy (the port hoists weight quantization; the reference re-quantizes
-at every call)."""
+at every call).  The posit8 and posit4 streams are in
+``test_torch_engine_posit.py``, on this file's helpers."""
 import dataclasses
 
 import numpy as np
@@ -15,6 +16,7 @@ from repro.serve.engine import ServeConfig as JServeConfig  # noqa: E402
 from repro.serve.engine import ServingEngine as JServingEngine  # noqa: E402
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
@@ -26,8 +28,9 @@ def model():
     return jc, tc, jp, tp, prompts
 
 
-@pytest.mark.parametrize("kv_format", ["f32", "posit16", "posit8", "posit4"])
-def test_greedy_streams_token_identical(model, kv_format):
+def check_streams(model, kv_format):
+    """Both engines serve ``model``'s prompts (8 new tokens each, 2 slots):
+    streams and stats equal."""
     jc, tc, jp, tp, prompts = model
     je = JServingEngine(jc, jp, JServeConfig(max_batch=2, max_len=64,
                                              kv_format=kv_format),
@@ -43,6 +46,12 @@ def test_greedy_streams_token_identical(model, kv_format):
     assert all(len(r.out_tokens) == 8 and r.done for r in tr)
     for key in ("prefills", "decode_steps", "tokens", "kv_cache_bytes"):
         assert ts[key] == js[key], key
+
+
+# posit8 and posit4: test_torch_engine_posit.py
+@pytest.mark.parametrize("kv_format", ["f32", "posit16"])
+def test_greedy_streams_token_identical(model, kv_format):
+    check_streams(model, kv_format)
 
 
 def test_engine_stages_and_tracing(model):

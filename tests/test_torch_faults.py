@@ -23,6 +23,7 @@ from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.serve import faults as tfaults  # noqa: E402
 from repro_torch.serve.engine_api import TransprecisionEngine  # noqa: E402
 from repro_torch.serve.paged import PageAllocator  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 
 def _fields(plan):

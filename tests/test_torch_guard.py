@@ -34,6 +34,7 @@ from repro_torch.serve import (Fault, FaultPlan, Request,  # noqa: E402
                                SpeculativeEngine, fallback_ladder)
 from repro_torch.serve.guard import GuardConfig, pre_round  # noqa: E402
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 POLICY = "paper_edge_p8"
 LAYOUTS = {"ring": dict(max_batch=2, max_len=64),

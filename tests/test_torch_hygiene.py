@@ -24,6 +24,7 @@ from repro_torch.models import lm, serve_model  # noqa: E402
 from repro_torch.models.lm import ModelCfg  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serve.engine_api import TransprecisionEngine  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -144,9 +145,8 @@ def test_later_slices_raise_not_implemented():
     """Every family of the reference is ported (the vlm and audio ones
     were the last slice): their configs build and an unknown family
     raises ``ValueError``; remat "dots" runs for the audio decoder block
-    (a later slice); the KV-sequence-sharded decode of the SSM stack,
-    which holds no KV sequence (its state's head split waits for tensor
-    parallelism), raises ``NotImplementedError``."""
+    (a later slice); the distributed decode of the SSM stack, which holds
+    no KV sequence, builds (its recurrent state splits over ranks)."""
     cfg = get_config("paper-edge", smoke=True)
     assert ModelCfg(family="vlm", mrope=True).family == "vlm"
     assert get_config("qwen2-vl-2b").mrope
@@ -161,10 +161,9 @@ def test_later_slices_raise_not_implemented():
              "labels": torch.zeros((1, 4), dtype=torch.long),
              "frames": torch.zeros((1, audio.enc_seq, audio.d_model))}
     assert torch.isfinite(lm.loss_fn(audio_params, batch, audio)[0])
-    from repro_torch.serve import make_distributed_decode_step
-    with pytest.raises(NotImplementedError, match="no KV sequence"):
-        make_distributed_decode_step(get_config("mamba2-2.7b", smoke=True),
-                                     "bf16")
+    from repro_torch.serve import KVShard, make_distributed_decode_step
+    assert make_distributed_decode_step(
+        get_config("mamba2-2.7b", smoke=True), "bf16").shard == KVShard()
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     # the numeric guard, fault injection and retry are ported (they were

@@ -28,6 +28,7 @@ from repro_torch.kernels.posit_decode import decode_tile  # noqa: E402
 from repro_torch.kernels.posit_matmul import (  # noqa: E402
     posit_matmul_plain, scale_row, split_k_splits)
 from test_torch_decoder import decode_model  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 RTOL, ATOL = 2e-5, 2e-4
 FORMATS = ["posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",

@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 D, FF, E = 32, 24, 8
 B, S = 2, 12

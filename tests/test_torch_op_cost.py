@@ -24,6 +24,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.obs import EnergyAccountant  # noqa: E402
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serve.engine_api import _abstract_args  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 
 def meta(*shape, dtype=torch.float32):

@@ -22,6 +22,7 @@ from repro_torch.serve import (Orchestrator, OrchestratorConfig,  # noqa: E402
                                Request, ServeConfig, ServingEngine,
                                StreamingRequest)
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MAX_LEN = 64
 LAYOUTS = {"ring": {}, "paged": dict(kv_layout="paged", page_size=8,

@@ -10,6 +10,7 @@ pytest.importorskip("torch")
 from repro.serve import paged as jpaged  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.serve import paged as tpaged  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 
 def _state(a):

@@ -29,6 +29,7 @@ except ImportError:      # the GPU machine: only the card test runs there
 from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.kernels import kv_cache as tkv  # noqa: E402
 from repro_torch.kernels import paged_kv as tpkv  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 FMTS = [("posit16_2", False), ("posit8_2", False), ("posit4_1", True)]
 

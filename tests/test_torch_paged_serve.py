@@ -23,6 +23,7 @@ from repro_torch.core.transprecision import get_policy as t_get_policy  # noqa: 
 from repro_torch.models import serve_model as tsm  # noqa: E402
 from test_torch_serve import (_J_DECODE, _J_PREFILL, _codes, _f32,  # noqa: E402
                               smoke_pair)
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 PS, MAX_LEN = 4, 32
 

@@ -25,6 +25,7 @@ from repro_torch.core import quant as tquant  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.posit_decode import decode_tile, posit_decode  # noqa: E402
 from repro_torch.kernels.posit_encode import encode_tile, posit_encode  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 CODE_FMTS = ["posit4_1", "posit8_0", "posit8_1", "posit8_2", "posit16_0",
              "posit16_1", "posit16_2"]

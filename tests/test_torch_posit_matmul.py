@@ -8,17 +8,14 @@ order) on weights encoded from N(0, 1).  The scale contract raises
 ``ValueError`` before any launch.  ``test_kernel_matches_plain_on_card``
 needs the GPU (marker ``cuda``) and holds the CUDA kernel to the plain
 version there; the machine with the GPU has no JAX, so the JAX imports are
-optional and the parity tests skip without them.
+optional and the parity tests skip without them.  The format x shape x
+dtype grid, the padding edges and the random-shape property test are in
+``test_torch_posit_matmul_{grid,shapes}.py``, on this file's helpers.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-
-try:
-    from hypothesis import given, settings, strategies as st
-except ImportError:      # offline CI: vendored deterministic fallback
-    from _propcheck import given, settings, strategies as st
 
 from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
@@ -26,6 +23,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.ops import (posit_matmul, qt_decode,  # noqa: E402
                                      qt_matmul, quantize_2d)
 from repro_torch.kernels.posit_matmul import posit_matmul_plain  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 try:
     import jax.numpy as jnp
@@ -71,21 +69,6 @@ def _jmm(jx, codes, name, scale=None, **kw):
                                         **kw))
 
 
-@pytest.mark.parametrize("name", FMTS)
-@pytest.mark.parametrize("mnk", [(16, 16, 16), (64, 48, 32), (100, 60, 130)],
-                         ids=str)
-@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
-def test_posit_matmul_vs_jax(jax_ref, name, mnk, xdtype):
-    m, n, k = mnk
-    rng = np.random.default_rng(2)
-    jx, tx = _x(rng, m, k, getattr(jnp, xdtype))
-    codes = _codes(rng, k, n, name)
-    got = posit_matmul(tx, _t(codes), tformats.get(name))
-    assert got.dtype == torch.float32 and got.shape == (m, n)
-    np.testing.assert_allclose(got.numpy(), _jmm(jx, codes, name),
-                               rtol=RTOL, atol=ATOL)
-
-
 @pytest.mark.parametrize("name", ["posit8_2", "posit16_2"])
 def test_compute_dtype_bf16_vs_jax(jax_ref, name):
     """compute_dtype=bfloat16 rounds both operands to bf16 before the
@@ -114,21 +97,6 @@ def test_qt_matmul_with_scale_vs_jax(jax_ref):
     full = tx.numpy() @ w       # the quantized product approximates f32
     rel = np.linalg.norm(got.numpy() - full) / np.linalg.norm(full)
     assert rel < 0.05, rel
-
-
-@pytest.mark.parametrize("mnk", [(33, 17, 47), (65, 129, 31), (1, 200, 7)],
-                         ids=str)
-def test_padding_edges_vs_jax(jax_ref, mnk):
-    """Ragged M/N/K with an (N,) scale."""
-    m, n, k = mnk
-    rng = np.random.default_rng(7)
-    jx, tx = _x(rng, m, k, jnp.float32)
-    codes = _codes(rng, k, n, "posit8_2")
-    scale = rng.uniform(0.5, 2.0, (n,)).astype(np.float32)
-    got = posit_matmul(tx, _t(codes), tformats.POSIT8_2, torch.from_numpy(
-        scale))
-    want = _jmm(jx, codes, "posit8_2", jnp.asarray(scale))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def test_scale_contract_vs_jax(jax_ref):
@@ -216,23 +184,6 @@ def test_posit_storage_and_format_errors():
     with pytest.raises(ValueError, match="x \\(M, K\\)"):
         posit_matmul(x, torch.zeros(5, 4, dtype=torch.uint8),
                      tformats.POSIT8_2)
-
-
-@settings(max_examples=5, deadline=None)
-@given(st.integers(1, 80), st.integers(1, 80), st.integers(1, 80),
-       st.sampled_from([0, 1, 2]))
-def test_shape_property_vs_jax(m, n, k, es):
-    """Any (m, n, k), any es of posit8: port == reference within the
-    accumulation tolerance."""
-    if jnp is None:
-        pytest.skip("the JAX reference package is not installed")
-    name = f"posit8_{es}"
-    rng = np.random.default_rng(m * 83 + n * 7 + k)
-    jx, tx = _x(rng, m, k, jnp.float32)
-    codes = _codes(rng, k, n, name)
-    got = posit_matmul(tx, _t(codes), tformats.get(name))
-    np.testing.assert_allclose(got.numpy(), _jmm(jx, codes, name),
-                               rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda

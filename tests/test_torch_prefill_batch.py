@@ -20,6 +20,7 @@ from repro.core.transprecision import get_policy as j_get_policy  # noqa: E402
 from repro.serve.engine_api import TransprecisionEngine as JEngine  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServingEngine  # noqa: E402
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MAX_LEN = 256
 LENS = (5, 17, 33, 64, 90, 119, 7, 100)

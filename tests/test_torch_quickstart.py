@@ -33,6 +33,7 @@ from repro.train.step import init_train_state as jinit  # noqa: E402
 from repro.train.step import make_train_step as jmake_step  # noqa: E402
 from repro_torch import quickstart  # noqa: E402
 from repro_torch.convert import train_state_from_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 

@@ -32,6 +32,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "recurrentgemma-9b"
 _J_GATES = jax.jit(jrglru._gates)

@@ -37,6 +37,7 @@ from repro_torch.kernels import kv_cache as tkv  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import (ServeConfig, ServingEngine,  # noqa: E402
                                       check_kv_kernels)
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 FMTS = [("posit16_2", False), ("posit8_2", False), ("posit4_1", True)]
 B, W, H = 2, 8, 2

@@ -7,7 +7,8 @@ codes and every scale bit-exact.  posit16 codes can flip by one code where
 the two frameworks' f32 K/V differ in the last bit (see ROADMAP "Faults
 found in the port"): they are held within one code step, on under 1 % of
 values.  At bf16 the port's bf16 is compared with the reference's bf16 by
-a logit tolerance (never bf16 against f32).
+a logit tolerance (never bf16 against f32).  The packed-weights and bf16
+cases are in ``test_torch_serve_packed.py``, on this file's helpers.
 """
 import dataclasses
 
@@ -32,6 +33,7 @@ from repro_torch.core.transprecision import get_policy as t_get_policy  # noqa: 
 from repro_torch.core.transprecision import pack_params as t_pack_params  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import serve_model as tsm  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 
 def jax_params_to_numpy(params):
@@ -72,6 +74,9 @@ def _codes(a):
 
 _J_PREFILL = jax.jit(jsm.prefill, static_argnums=(2, 3, 4))
 _J_DECODE = jax.jit(jsm.decode_step, static_argnums=(3, 4))
+# the reference's packing, traced once per policy (eager, it dispatches op
+# by op: tens of seconds a smoke tree under a loaded worker)
+_J_PACK = jax.jit(j_pack_params, static_argnums=(1,))
 
 
 def _snapshot(cache):
@@ -87,7 +92,7 @@ def _run_both(dtype_name, kv_format, steps=2, policy="paper_edge_p8",
     jpol = dataclasses.replace(j_get_policy(policy), kv_format=kv_format)
     tpol = dataclasses.replace(t_get_policy(policy), kv_format=kv_format)
     if pack:
-        jp = j_pack_params(jp, jpol)
+        jp = _J_PACK(jp, jpol)
         tp = params_from_numpy(jax_params_to_numpy(jp), "cpu", tc.dtype)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, tc.vocab, (2, 16))
@@ -138,26 +143,6 @@ def test_prefill_decode_f32_matches_reference(kv_format):
         _check_cache_f32(jcache, tcache, kv_format)
 
 
-def test_prefill_decode_packed_weights_f32():
-    """serve_posit8: pack_params QuantizedTensor leaves through the bridge,
-    decoded on load in both packages."""
-    for jl, tl, jcache, tcache in _run_both("float32", None, steps=1,
-                                            policy="serve_posit8",
-                                            pack=True):
-        np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=1e-4, atol=1e-5)
-        _check_cache_f32(jcache, tcache, "posit8")
-
-
-def test_prefill_decode_bf16_matches_reference_bf16():
-    """bf16 rounds at other places in the two frameworks: logits agree to
-    within 0.1 absolute on a logit scale of ~1 (a few bf16 ulps)."""
-    for jl, tl, _, _ in _run_both("bfloat16", "posit8"):
-        assert tl.dtype == torch.bfloat16
-        d = np.abs(_f32(tl) - _f32(jl))
-        assert d.max() < 0.1, d.max()
-        assert np.abs(_f32(jl)).max() > 0.5      # the scale the bound assumes
-
-
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_hoisted_weight_quant_equals_per_call(dtype_name):
     _, tc, _, tp = smoke_pair(dtype_name)
@@ -190,8 +175,8 @@ def test_weight_bridge():
         _f32(tp["blocks"][0]["wi"]),
         np.asarray(jp["blocks"][0]["wi"]).astype(np.float32))
     pol = j_get_policy("serve_posit16")
-    packed = params_from_numpy(jax_params_to_numpy(j_pack_params(jp, pol)),
-                               "cpu", tc.dtype)
+    packed = params_from_numpy(jax_params_to_numpy(_J_PACK(jp, pol)), "cpu",
+                               tc.dtype)
     wq = packed["blocks"][0]["wq"]
     assert isinstance(wq, QuantizedTensor) and wq.data.dtype == torch.int16
     assert wq.fmt.name == "posit16_2"
@@ -199,7 +184,7 @@ def test_weight_bridge():
 
 def test_pack_params_matches_reference():
     jc, tc, jp, tp = smoke_pair("float32")
-    jq = j_pack_params(jp, j_get_policy("serve_posit8"))
+    jq = _J_PACK(jp, j_get_policy("serve_posit8"))
     tq = t_pack_params(tp, t_get_policy("serve_posit8"))
     for name in ("wq", "wk", "wv", "wo", "wi", "wo_mlp"):
         j, t = jq["blocks"][0][name], tq["blocks"][0][name]

@@ -17,6 +17,7 @@ from repro.obs import stage_breakdown as j_breakdown  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.obs import (Tracer, format_breakdown,  # noqa: E402
                              stage_breakdown)
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 BASE = ["--device", "cpu", "--requests", "6", "--max-new", "6",
         "--batch", "2", "--max-len", "64"]

@@ -39,6 +39,7 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import common, lm, serve_model  # noqa: E402
 from repro_torch.models.common import P  # noqa: E402
 from repro_torch.train.step import TrainState, state_specs  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 AXIS_SIZE = {"pod": 2, "data": 16, "model": 16}
 DECODE = SHAPES["decode_32k"]

@@ -7,11 +7,13 @@ reference's params through the weight bridge), CPU.
   target, gamma 2 and 4), float32: streams token-identical to the port's
   baseline and to the reference's speculative engine, and every count
   (decode steps, draft steps, drafts proposed and accepted) equal to the
-  reference's, in both layouts.
-* The same at the bench's bf16: streams identical and target steps equal;
-  the draft counts may part where the two frameworks round a bf16 draft
-  logit differently at a near tie, and the test finds that step and holds
-  it to be one.
+  reference's, in both layouts (the paged ones in
+  ``test_torch_speculative_paged.py``, on this file's helpers).
+* The same at the bench's bf16 (``test_torch_speculative_bf16.py``, on
+  this file's helpers): streams identical and target steps equal; the
+  draft counts may part where the two frameworks round a bf16 draft
+  logit differently at a near tie, and the test finds that step and
+  holds it to be one.
 * Across KV formats and layouts (port only): streams equal to baseline,
   fewer target steps than decode tokens, no page leak.
 * EOS truncation, rejection of a non-greedy request, of gamma 0 and of an
@@ -34,6 +36,7 @@ from repro_torch.models import serve_model as tsm  # noqa: E402
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serve.speculative import SpeculativeEngine  # noqa: E402
 from test_torch_serve import smoke_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 COUNTS = ("decode_steps", "spec_rounds", "draft_steps", "drafts_proposed",
           "drafts_accepted", "tokens", "prefills")
@@ -99,9 +102,9 @@ def _serve_three(pairs, dtype_name, layout, gamma):
     return out
 
 
-@pytest.mark.parametrize("layout", ["ring", "paged"])
-@pytest.mark.parametrize("gamma", [2, 4])
-def test_bench_shape_f32_matches_reference(pairs, layout, gamma):
+def check_bench_f32(pairs, layout, gamma):
+    """Streams and every count of the port's speculative engine equal the
+    reference's and the baseline's streams at the bench's shape."""
     (s_out, s, _, _), (b_out, _, _, _), (r_out, r, _, _) = _serve_three(
         pairs, "float32", layout, gamma)
     assert s_out == b_out == r_out
@@ -112,34 +115,11 @@ def test_bench_shape_f32_matches_reference(pairs, layout, gamma):
     assert 0 < s["drafts_accepted"] <= s["drafts_proposed"]
 
 
+# the paged layout: test_torch_speculative_paged.py
+@pytest.mark.parametrize("layout", ["ring"])
 @pytest.mark.parametrize("gamma", [2, 4])
-def test_bench_shape_bf16_streams_and_target_steps(pairs, gamma):
-    """bf16: the target's streams and steps match; where the draft counts
-    part, the first draft step whose output differs is a near tie: its top
-    two draft logits lie within two bf16 ulps of each other on both sides
-    (torch and XLA round the bf16 posit8-weight draft differently, so each
-    picks another of two tied tokens).  At gamma 4 that is draft step 4,
-    slot 0 at position 14: the reference's top two tie at 2.046875 (token
-    146, the lower index, wins), the port's are 2.0625 (151) and 2.03125;
-    from there the port proposes 44 drafts and accepts 24 (0.5455), the
-    reference 49 and 23 (0.4694)."""
-    (s_out, s, _, s_log), (b_out, _, _, _), (r_out, r, _, r_log) = \
-        _serve_three(pairs, "bfloat16", "ring", gamma)
-    assert s_out == b_out == r_out
-    assert s["decode_steps"] == r["decode_steps"]
-    assert s["tokens"] == r["tokens"]
-    if all(s[k] == r[k] for k in COUNTS):
-        return
-    step = next(i for i, (a, b) in enumerate(zip(s_log, r_log))
-                if a[:3] != b[:3])
-    (tok_s, pos_s, out_s, top_s), (tok_r, pos_r, out_r, top_r) = \
-        s_log[step], r_log[step]
-    assert (tok_s, pos_s) == (tok_r, pos_r)     # same inputs, same rows
-    slot = next(i for i, (a, b) in enumerate(zip(out_s, out_r)) if a != b)
-    for top in (top_s[slot], top_r[slot]):
-        ulp = 2.0 ** (np.floor(np.log2(abs(top[1]))) - 7)    # bf16's
-        assert top[1] - top[0] <= 2 * ulp, (step, slot, top_s[slot],
-                                            top_r[slot])
+def test_bench_shape_f32_matches_reference(pairs, layout, gamma):
+    check_bench_f32(pairs, layout, gamma)
 
 
 @pytest.mark.parametrize("layout", ["ring", "paged"])

@@ -32,6 +32,7 @@ from repro.kernels import paged_kv as jpkv  # noqa: E402
 from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.kernels import kv_cache as tkv  # noqa: E402
 from repro_torch.kernels import paged_kv as tpkv  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 NEG_INF = -1e30
 R = 64                  # split rows of the model (a multiple of 64)

@@ -31,6 +31,7 @@ from repro_torch.models import serve_model as tsm  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "mamba2-2.7b"
 # the reference's model functions, jitted once per module (cfg static)

@@ -45,6 +45,7 @@ from repro_torch.serve import (Fault, FaultPlan, Orchestrator,  # noqa: E402
                                SpeculativeEngine, StreamingRequest)
 from repro_torch.serve.engine import check_kv_kernels  # noqa: E402
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "mamba2-2.7b"
 POLICY = "paper_edge_p8"

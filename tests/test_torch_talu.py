@@ -14,6 +14,7 @@ from repro_torch.core import formats as tformats  # noqa: E402
 from repro_torch.core import posit_ref, qfunc  # noqa: E402
 from repro_torch.core.talu import (TABLE3, TALU, CycleCounter,  # noqa: E402
                                    VectorUnit)
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 BYTES = np.arange(256)
 A = np.repeat(BYTES, 256)

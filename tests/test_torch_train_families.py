@@ -9,7 +9,10 @@ error feedback) and ``remat="dots"`` in both packages: the port's state
 is the reference's ``init_train_state`` carried across by
 ``convert.train_state_from_numpy``, and both take two steps of
 ``make_train_step`` on the same ``SyntheticLM`` batches (bit-identical
-inputs).  The reference's step is jitted once per family.
+inputs).  The reference's step is jitted once per family.  This file
+holds the audio family; ``test_torch_train_{hybrid,ssm,vlm}.py`` hold
+the others with these checks (``check_*``), one family a file, so that
+the driver's ``--dist loadfile`` spreads the reference's compiles.
 
 Tolerances (float32; AdamW's default schedule, lr 3e-6 then 6e-6):
 losses within rtol 1e-5; every updated param and the f32 master within
@@ -52,6 +55,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 FAMILIES = {"ssm": ("mamba2-2.7b", {}),
             "hybrid": ("recurrentgemma-9b", {"n_layers": 4}),
@@ -119,16 +123,14 @@ def _run(family):
     return out
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_losses_equal_reference(family):
+def check_losses(family):
     r = _run(family)
     np.testing.assert_allclose(r["loss"], r["jloss"], rtol=1e-5)
     assert all(np.isfinite(r["loss"]))
     assert r["step"] == (STEPS, STEPS)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_params_and_master_equal_reference(family):
+def check_params_and_master(family):
     r = _run(family)
     for name in ("params", "master"):
         got, want = r[name]
@@ -147,8 +149,7 @@ def _few_apart(d, tol, cap, name):
     assert d.max() <= cap, (name, float(d.max()), cap)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_moments_equal_reference(family):
+def check_moments(family):
     """``mu`` / ``nu`` within rtol 1e-4 of each leaf's largest moment, bar
     the values where a wire code one posit step apart moved the decoded
     gradient (at most 2^-6 of that moment)."""
@@ -160,11 +161,33 @@ def test_moments_equal_reference(family):
                        2.0 ** -6 * scale, name)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_wire_residual_equals_reference(family):
+def check_wire_residual(family):
     r = _run(family)
     got, want = r["residual"]
     assert any(np.abs(g).max() > 0 for g in got)
     for g, w, grad in zip(got, want, r["grads"]):
         gmax = float(np.abs(grad).max())
         _few_apart(np.abs(g - w), 2e-4 * gmax, 2.0 ** -7 * gmax, "residual")
+
+
+HERE = ["audio"]
+
+
+@pytest.mark.parametrize("family", HERE)
+def test_losses_equal_reference(family):
+    check_losses(family)
+
+
+@pytest.mark.parametrize("family", HERE)
+def test_params_and_master_equal_reference(family):
+    check_params_and_master(family)
+
+
+@pytest.mark.parametrize("family", HERE)
+def test_moments_equal_reference(family):
+    check_moments(family)
+
+
+@pytest.mark.parametrize("family", HERE)
+def test_wire_residual_equals_reference(family):
+    check_wire_residual(family)

@@ -13,10 +13,11 @@ the port's ``Trainer`` and the reference's at float32 under MIXED_TC
 checkpoint the reference wrote: three steps' losses within rtol 1e-4,
 the tolerance of ``test_torch_train_step.py``'s three-step comparison
 (float32 summation order; the reference's wire scale is inexact on this
-CPU at some exponents, which moves a few codes by one posit step).
+CPU at some exponents, which moves a few codes by one posit step):
+that comparison is in ``test_torch_trainer_reference.py``, on this
+file's config.
 """
 import os
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -26,13 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.data.pipeline import make_pipeline as jmake_pipeline  # noqa: E402
-from repro.optim import AdamWConfig as JAdamW  # noqa: E402
-from repro.train import Trainer as JTrainer  # noqa: E402
-from repro.train import TrainerConfig as JTrainerConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.transprecision import PAPER_EDGE, TCPolicy  # noqa: E402
 from repro_torch.data.pipeline import make_pipeline  # noqa: E402
@@ -43,6 +39,7 @@ from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.fault_tolerance import (CrashBarrier,  # noqa: E402
                                                ElasticPlan, HeartbeatMonitor,
                                                StragglerMitigator)
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 CFG = get_config("paper-edge", smoke=True)
@@ -194,31 +191,3 @@ def test_launcher_on_the_cpu(tmp_path):
                          text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     assert "final:" in run.stdout and "step 1:" in run.stdout
-
-
-def test_trainer_vs_reference_under_the_wire(tmp_path):
-    """Both Trainers at float32 under MIXED_TC restore one reference
-    checkpoint of step 0 and run 3 steps."""
-    import dataclasses
-    from repro.core.transprecision import MIXED_TC as JMIXED
-    from repro_torch.core.transprecision import MIXED_TC
-    jcfg = dataclasses.replace(jget_config("paper-edge", smoke=True),
-                               dtype_name="float32")
-    tcfg_m = dataclasses.replace(CFG, dtype_name="float32")
-    kw = dict(steps=3, global_batch=4, seq_len=32, log_every=1,
-              checkpoint_every=100)
-    opt = dict(lr=1e-3, total_steps=3, warmup_steps=1)
-    jtr = JTrainer(jcfg, JTrainerConfig(checkpoint_dir=str(tmp_path / "j"),
-                                        **kw), JAdamW(**opt), policy=JMIXED)
-    jtr.ckpt.save(jtr.init_state(), 0)
-    shutil.copytree(tmp_path / "j" / "step_0", tmp_path / "t" / "step_0")
-    tr = Trainer(tcfg_m, TrainerConfig(checkpoint_dir=str(tmp_path / "t"),
-                                       **kw), AdamWConfig(**opt),
-                 policy=MIXED_TC, device="cpu")
-    jout, out = jtr.run(), tr.run()
-    assert [h["step"] for h in out["history"]] == [1, 2, 3]
-    for h, jh in zip(out["history"], jout["history"]):
-        np.testing.assert_allclose(h["loss"], jh["loss"], rtol=1e-4)
-        np.testing.assert_allclose(h["lr"], jh["lr"], rtol=1e-6)
-    assert tr.ckpt.steps() == [0, 3]
-    jax.clear_caches()

@@ -8,7 +8,8 @@ package, on paper-edge smoke at float32 under ``paper_edge_p8`` weights.
   may flip by one step where the frameworks' f32 K/V differ in the last
   bit: ROADMAP fault 3); posit8 codes and every scale bit-exact, posit16
   codes within one step on under 1 % of values, f32 K/V within 1e-5
-  (the helpers of ``test_torch_serve`` / ``test_torch_paged_serve``).
+  (the helpers of ``test_torch_serve`` / ``test_torch_paged_serve``): in
+  ``test_torch_verify_{ring,paged}.py``, on this file's helpers.
 * ``verify_step`` against T sequential ``decode_step`` calls in the port
   itself: logits and every cache leaf bit-identical on the CPU (the
   verify's GEMMs at M = B*T give the same bits as decode's at M = B here).
@@ -49,6 +50,7 @@ from repro_torch.kernels import kv_cache as tkv  # noqa: E402
 from repro_torch.kernels import paged_kv as tpkv  # noqa: E402
 from repro_torch.models import serve_model as tsm  # noqa: E402
 from repro_torch.serve import engine_api as tapi  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 PS, MAX_LEN, T = 4, 32, 4
 
@@ -119,9 +121,9 @@ def _prefilled(pair, jpol, tpol):
     return jcache, tcache, rng.integers(0, tc.vocab, (2, T))
 
 
-@pytest.mark.parametrize("layout", ["ring", "paged"])
-@pytest.mark.parametrize("kv_format", ["posit8", "posit16", "f32"])
-def test_verify_step_matches_reference(pair, layout, kv_format):
+def check_verify(pair, layout, kv_format):
+    """``verify_step`` against the reference's on the same prefilled
+    cache: logits, ``pos`` and the cache leaves."""
     jc, tc, jp, tp = pair
     jpol, tpol = _policies(kv_format, layout)
     jcache, tcache, chunk = _prefilled(pair, jpol, tpol)

@@ -51,6 +51,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serve import (Request, ServeConfig, ServingEngine,  # noqa: E402
                                SpeculativeEngine)
 from test_torch_serve import jax_params_to_numpy  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "qwen2-vl-2b"
 POLICY = "paper_edge_p8"

@@ -43,6 +43,7 @@ from repro_torch.serve import (Fault, Request, ServeConfig,  # noqa: E402
 from repro_torch.serve.engine import check_kv_kernels  # noqa: E402
 from test_torch_serve import _codes  # noqa: E402
 from test_torch_vlm import family_pair  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 ARCH = "qwen2-vl-2b"
 POLICY = "paper_edge_p8"
