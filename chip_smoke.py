@@ -23,8 +23,13 @@ ranks spawned on the one card) and the hybrid and audio models through
 it, runs the TALU's exact posit arithmetic on the card and builds
 paper-edge's decode_32k cell there against the meta-device dry run's
 reckoning, takes the first train steps of the SSM, vlm, audio and
-hybrid models at full width under each remat mode, times every kernel
-and prints one JSON line per contract.  Needs one CUDA GPU; run from the
+hybrid models at full width under each remat mode, holds ``generate``
+captured as one CUDA graph a tick to the eager step in every family,
+times every kernel and prints one JSON line per contract.  Every engine
+on the card donates its decode state and replays its captured
+``generate`` (the engines' default there); the guard-armed and sharded
+ones, and 15b's card engine (its router recorder reads back to the host
+inside the step), run the eager step.  Needs one CUDA GPU; run from the
 repository root:
 
     python3 chip_smoke.py [--seed N]
@@ -141,7 +146,14 @@ remat mode from one seeded state ("full" first), with each step's ms,
 loss, launches and peak memory over the state, each mode's moments,
 residual and gradient held to "full"'s, and the wire on each family's
 largest leaf bit-exact against the plain codec; a
-``{"training_families": ...}`` JSON line.  Phase 20 runs
+``{"training_families": ...}`` JSON line.  Phase 22 runs after 21 (own
+generators): ``generate`` captured over the donated state against the
+eager step (``donate=False``): paper-edge at full width, ring and paged,
+float32 and bf16, granite-moe, mamba2, recurrentgemma and qwen2-vl at
+bf16 and 15a-18a's depths, whisper through the stages; streams, logits
+and launches per replay against the eager step's, per decode step wall,
+device busy and idle share of each, the capture's ms and the graph
+pool's bytes; a ``{"graphs": ...}`` JSON line.  Phase 20 runs
 after 19: 20a the exact posit arithmetic (``core.posit.mul`` / ``add`` /
 ``sub`` on every pair of P(8,0) and P(8,2) codes, 2^20 seeded P(16,1)
 pairs, ``thermometer_decode`` of every P(8,2) code, ``matmul_exact`` of
@@ -192,6 +204,9 @@ Every phase asserts; nothing is caught.  Tolerances:
   train step     card vs CPU at float32 (10b, 6 of 12 layers): loss rtol
                  1e-4, grad norm rtol 1e-3, every updated param and
                  master leaf atol 1e-5.
+  captured (22)  streams and every step's logits equal to the eager
+                 step's, bit for bit; the wrappers' launches per replay
+                 equal the eager step's.
   verify (11a)   card vs CPU from identical caches, and card vs five card
                  decode steps: logits rtol 1e-3, atol 1e-3; written codes
                  by the card-vs-CPU rule above; K3/K5 bit-exact.
@@ -461,6 +476,34 @@ KV_FORMATS = (("posit16_2", False), ("posit8_2", False), ("posit4_1", True))
 
 
 T_START = time.perf_counter()
+
+
+def free_card(before: str | None = None) -> None:
+    """Collect the engines a finished phase left in reference cycles (its
+    wrapped stages), with the weights, donated states and graph pools they
+    hold, and return the cached blocks to the card.  With ``before`` (the
+    next phase's name), print what stays resident: the bytes allocated and
+    reserved and the largest live tensors on the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if before is None:
+        return
+    live = {}
+    for o in gc.get_objects():
+        try:
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                st = o.untyped_storage()
+                live[st.data_ptr()] = (st.nbytes(), tuple(o.shape),
+                                       str(o.dtype).replace("torch.", ""))
+        except Exception:       # a tensor subclass or a freed storage
+            pass
+    top = sorted(live.values(), reverse=True)[:6]
+    phase(f"resident before {before}: allocated "
+          f"{torch.cuda.memory_allocated()} B, reserved "
+          f"{torch.cuda.memory_reserved()} B, {len(live)} live storages "
+          f"holding {sum(v[0] for v in live.values())} B; largest "
+          + ", ".join(f"{b} B {list(sh)} {dt}" for b, sh, dt in top))
 
 
 def phase(msg: str) -> None:
@@ -1461,6 +1504,9 @@ def phase15b(dev, seed, snapshot, code_flips) -> dict:
                     max_batch=2, max_len=64, kv_format="posit8", **kw),
                     policy="paper_edge_p8",
                     device=dev if device == "cuda" else "cpu")
+                # the router's recorder reads idx_k back to the host inside
+                # the step, which no CUDA graph can capture: the eager step
+                e.engine.donate = False
                 rec = {"logits": [], "tok": [], "states": []}
                 gen_fn = e.engine.generate
 
@@ -4090,6 +4136,12 @@ def phase19cd(dev, seed, card: str) -> dict:
     t19e = time.perf_counter()
     plain["19e"] = run19e(dev, seed, False)
     plain_19e_s = time.perf_counter() - t19e
+    # the runs' engines sit in reference cycles through their wrapped
+    # stages, holding weights, donated state and graph pools: free them
+    # before the ranks share the card
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     dev_name = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
                 else str(dev))
     t_ranks = time.perf_counter()
@@ -4673,21 +4725,36 @@ def few_apart(d, tol, cap) -> int:
     return far
 
 
-def leaf_digest(t):
-    """float64 (sum, sum |x|, sum x^2, sum x_i sin(i)) of a tensor, 2^26
-    elements at a time: a gradient of the right sign but the wrong size
-    moves the second and third, one with its values moved about the
-    fourth."""
+def leaf_digest(*ts, fn=None):
+    """float64 (sum, sum |x|, sum x^2, sum x_i sin(i)) of a tensor, or of
+    ``fn`` of several tensors' elementwise chunks, 2^26 elements at a time
+    (no temporary of a whole leaf): a gradient of the right sign but the
+    wrong size moves the second and third, one with its values moved about
+    the fourth."""
     import torch
-    x = t.reshape(-1)
-    out = torch.zeros(4, dtype=torch.float64, device=t.device)
-    for i in range(0, x.numel(), 1 << 26):
-        c = x[i:i + (1 << 26)].to(torch.float64)
+    xs = [t.reshape(-1) for t in ts]
+    out = torch.zeros(4, dtype=torch.float64, device=xs[0].device)
+    for i in range(0, xs[0].numel(), 1 << 26):
+        cs = [x[i:i + (1 << 26)] for x in xs]
+        c = (fn(*cs) if fn else cs[0]).to(torch.float64)
         w = torch.sin(torch.arange(i, i + c.numel(), dtype=torch.float64,
                                    device=c.device))
         out += torch.stack([c.sum(), c.abs().sum(), (c * c).sum(),
                             (c * w).sum()])
     return out.cpu()
+
+
+def max_abs_diff(a, f) -> float:
+    """max |a - f| in float32 of a card tensor and its copy on the host,
+    2^26 elements at a time (no temporary of a whole leaf on the card)."""
+    import torch
+    x, y = a.reshape(-1), f.reshape(-1)
+    m = 0.0
+    for i in range(0, x.numel(), 1 << 26):
+        c = x[i:i + (1 << 26)].float() - y[i:i + (1 << 26)].to(
+            a.device).float()
+        m = max(m, float(c.abs().max()))
+    return m
 
 
 def digest_rel(a, b) -> float:
@@ -4887,7 +4954,7 @@ def phase21b(dev, seed, card: str, runs=TRAIN21) -> dict:
             leaves = tree_leaves(st.params)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
-            r = {"state_bytes": base - before}
+            r = {"state_bytes": base - before, "resident_bytes": before}
             if "none" in modes and mode != "full":
                 # the forward and backward alone: the peak remat moves
                 torch.cuda.reset_peak_memory_stats()
@@ -4928,12 +4995,12 @@ def phase21b(dev, seed, card: str, runs=TRAIN21) -> dict:
             r["grad_norm"] = float(m["grad_norm"])
             mus = tree_leaves(st.opt["mu"])
             res_l = tree_leaves(st.ef_residual)
-            dig = {"mu": mus, "nu": tree_leaves(st.opt["nu"]),
-                   "residual": res_l,
-                   "grad": (mu / (1 - opt.b1) / clip + rr
-                            for mu, rr in zip(mus, res_l))}
             dig = {k: torch.stack([leaf_digest(t) for t in v])
-                   for k, v in dig.items()}
+                   for k, v in (("mu", mus), ("nu", tree_leaves(
+                       st.opt["nu"])), ("residual", res_l))}
+            dig["grad"] = torch.stack([leaf_digest(
+                mu, rr, fn=lambda m_, r_: m_ / (1 - opt.b1) / clip + r_)
+                for mu, rr in zip(mus, res_l)])
             big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
             if full is None:        # the first mode is "full"
                 assert mode == "full"
@@ -4943,8 +5010,7 @@ def phase21b(dev, seed, card: str, runs=TRAIN21) -> dict:
                 assert r["loss"] == fam["modes"]["full"]["loss"], (
                     arch, mode, r["loss"], fam["modes"]["full"]["loss"])
                 r["max_abs_diff_vs_full"] = max(
-                    float((a.float() - f.to(dev).float()).abs().max())
-                    for a, f in zip(finals, full))
+                    max_abs_diff(a, f) for a, f in zip(finals, full))
                 assert r["max_abs_diff_vs_full"] <= 1e-5, (arch, mode, r)
                 gn_full = fam["modes"]["full"]["grad_norm"]
                 r["grad_norm_rel_vs_full"] = abs(
@@ -4961,7 +5027,8 @@ def phase21b(dev, seed, card: str, runs=TRAIN21) -> dict:
             fam["leaves"] = len(leaves)
             fam["modes"][mode] = r
             phase(f"phase 21b [{card}] {arch} remat {mode}: loss "
-                  f"{r['loss']}, step {r['ms']:.1f} ms, peak over the "
+                  f"{r['loss']}, step {r['ms']:.1f} ms, resident before "
+                  f"the state {r['resident_bytes']} B, peak over the "
                   f"state's {r['state_bytes']} B: step "
                   f"{r['step_peak_over_base_bytes']} B, forward and "
                   f"backward {r.get('forward_backward_peak_over_base_bytes')}"
@@ -5002,6 +5069,233 @@ def phase21b(dev, seed, card: str, runs=TRAIN21) -> dict:
               f"the largest leaf ({fam['wire_largest_leaf']['elements']} "
               f"elements) bit-exact against the plain codec; phase "
               f"{fam['phase_s']:.1f} s")
+    return out
+
+
+
+# phase 22: the captured generate against the eager one, per family
+GRAPH_STEPS = 5             # engine steps per window
+GRAPH_NEW = 16              # new tokens a request: both windows stay live
+
+
+def graph_window(step, n: int = GRAPH_STEPS) -> dict:
+    """``n`` calls of ``step`` timed on the host clock (wall ms per call,
+    synchronised), then ``n`` more under the profiler (its own wall, which
+    carries the tracer's cost): the wrappers' launches per call by kernel
+    name, device busy ms per call, and the idle share of the unprofiled
+    wall (busy None where the trace holds no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_profiled = 1e3 * (time.perf_counter() - t0) / n
+    launches = {k: v / n for k, v in LAUNCHES.items() if v}
+    n_kernels = {}
+    per_kernel = device_events(prof, n_kernels)
+    busy = sum(per_kernel.values()) / n / 1e3 if per_kernel else None
+    return {"wall_ms": wall, "wall_profiled_ms": wall_profiled,
+            "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "launches": launches,
+            "kernels_traced": sum(n_kernels.values()) / n}
+
+
+def phase22(dev, seed, card: str) -> dict:
+    """22. ``generate`` as one captured CUDA graph a tick over the donated
+    decode state (the engines' default on the card) against the eager step
+    (``donate=False``), each family at full width: paper-edge at all 12
+    layers, ring and paged, float32 and bf16; granite-moe, mamba2,
+    recurrentgemma and qwen2-vl at bf16 and ``DEPTH_15_18``'s depth, ring;
+    whisper at bf16 and 16 + 16 layers through the stages (``prefill`` of 8
+    clips, ``insert``, ``generate``).  Policy ``bf16`` with a posit8 KV
+    ring or pool (K3 + K4, K5 + K6), 8 prompts of 16-64 tokens, 16 new
+    tokens each after a 3-token warm-up request.  Asserts, per family:
+    streams token-identical, every step's logits equal (max |diff| printed,
+    expected 0), the wrappers' launches per replay by kernel name equal
+    to the eager step's, one eager tick and then only replays.  Prints per
+    decode step wall, device busy and idle share, captured and eager, the
+    capture's ms and the graph pool's bytes.  Returns the ``{"graphs":
+    ...}`` line's object."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.models import lm, serve_model
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.engine_api import TransprecisionEngine
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 22])
+    policy = dataclasses.replace(get_policy("bf16"), kv_format="posit8")
+    out = {"card": card}
+    paper = get_config("paper-edge")
+    cells = [("paper-edge", paper, "float32", "ring"),
+             ("paper-edge", paper, "float32", "paged"),
+             ("paper-edge", paper, "bfloat16", "ring"),
+             ("paper-edge", paper, "bfloat16", "paged")]
+    for arch in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH):
+        cells.append((arch, depth_cut(arch), "bfloat16", "ring"))
+
+    def compare(runs, label):
+        """Streams equal and logits equal step by step across the two
+        runs; launches per replay equal the eager step's."""
+        cap, eag = runs["captured"], runs["eager"]
+        assert cap["tokens"] == eag["tokens"], label
+        assert len(cap["logits"]) == len(eag["logits"]), label
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(cap["logits"], eag["logits"]))
+        assert diff == 0.0, (label, diff)
+        assert cap["window"]["launches"] == eag["window"]["launches"], (
+            label, cap["window"]["launches"], eag["window"]["launches"])
+        g = cap["graph"]
+        assert g["eager_ticks"] == 1 and g["replays"] == cap["ticks"] - 1, (
+            label, g)
+        for per_replay in g["launches"].values():   # each parity's graph
+            assert {k: float(v) for k, v in per_replay.items()} == \
+                eag["window"]["launches"], (label, per_replay)
+        return diff
+
+    def line(label, cell):
+        c, e = cell["captured"], cell["eager"]
+
+        def dev_ms(w):
+            if w["busy_ms"] is None:
+                return f"wall {w['wall_ms']:.3f} ms, busy not measured"
+            return (f"wall {w['wall_ms']:.3f} ms (profiled "
+                    f"{w['wall_profiled_ms']:.3f}), busy {w['busy_ms']:.3f} "
+                    f"ms, idle {w['idle_share']:.3f}")
+        phase(f"phase 22 [{card}] {label}: streams token-identical "
+              f"({cell['tokens']} tokens), logits max |diff| "
+              f"{cell['logits_max_abs_diff']} over {cell['steps']} steps; "
+              f"launches per replay {cell['launches_per_replay']} = eager "
+              f"per step; per decode step captured {dev_ms(c)}; eager "
+              f"{dev_ms(e)}; capture {cell['capture_ms']:.1f} ms, graph "
+              f"pool {cell['pool_bytes']} B")
+
+    def summary(runs, diff):
+        g = runs["captured"]["graph"]
+        return {"captured": runs["captured"]["window"],
+                "eager": runs["eager"]["window"],
+                "tokens": sum(len(t) for t in runs["captured"]["tokens"]),
+                "steps": len(runs["captured"]["logits"]),
+                "logits_max_abs_diff": diff,
+                "launches_per_replay": g["launches"][0],
+                "capture_ms": g["capture_ms"], "pool_bytes": g["pool_bytes"],
+                "replays": g["replays"]}
+
+    params, built = None, None
+    for arch, cfg0, dtype, layout in cells:
+        cfg = dataclasses.replace(cfg0, dtype_name=dtype)
+        if built != (arch, dtype):
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(seed + 22), device=dev)
+            built = (arch, dtype)
+        lens = (rng.integers(1, 5, 8) * 16 if cfg.family != "ssm"
+                else np.full(8, 64))
+        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+        warm = rng.integers(0, cfg.vocab, 16)
+        kw = {"kv_layout": "paged", "page_size": PS} if layout == "paged" \
+            else {}
+        runs = {}
+        for mode in ("captured", "eager"):
+            eng = ServingEngine(cfg, params, ServeConfig(
+                max_batch=B, max_len=256, kv_format="posit8", **kw),
+                policy=policy, device=dev)
+            assert eng.engine.donate
+            if mode == "eager":
+                eng.engine.donate = False
+            rec = []
+            gen = eng.engine.generate
+
+            def logged(p, state, _g=gen, _r=rec):
+                state, logits = _g(p, state)
+                _r.append(logits.float().cpu())
+                return state, logits
+
+            eng.engine.generate = logged
+            eng.serve([Request(uid=-1, prompt=warm, max_new=3)])
+            reqs = [Request(uid=i, prompt=p, max_new=GRAPH_NEW)
+                    for i, p in enumerate(prompts)]
+            pending = reqs      # exact-length families admit one a call
+            while pending:
+                ok = eng.add_requests(pending)
+                assert any(ok), (arch, mode)
+                pending = [r for r, a in zip(pending, ok) if not a]
+            window = graph_window(eng.step)
+            eng.serve([])
+            assert all(r.done and r.error is None for r in reqs), (arch,
+                                                                   mode)
+            runs[mode] = {"tokens": [r.out_tokens for r in reqs],
+                          "logits": rec, "window": window,
+                          "ticks": len(rec),
+                          "graph": eng.engine.graph_stats()}
+            del eng
+        label = f"{arch} {cfg.n_layers}L {dtype} {layout}"
+        out[label] = summary(runs, compare(runs, label))
+        line(label, out[label])
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # whisper through the stages: the engine refuses an audio admission
+    cfg = dataclasses.replace(depth_cut(AUDIO_ARCH), dtype_name="bfloat16")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 222), device=dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    batch = {"tokens": torch.tensor([AUDIO_PROMPT] * B, device=dev),
+             "frames": frames}
+    logits0, cache0 = serve_model.prefill(params, batch, cfg, AUDIO_MAX_LEN,
+                                          policy)
+    prefix = {"logits": logits0, "cache": cache0,
+              "length": torch.full((B,), len(AUDIO_PROMPT),
+                                   dtype=torch.int32, device=dev)}
+    first = logits0[:, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+    runs = {}
+    for mode in ("captured", "eager"):
+        eng = TransprecisionEngine(cfg, policy, B, AUDIO_MAX_LEN,
+                                   device=dev, donate=mode == "captured")
+        st = {"state": eng.init_decode_state()}
+        for slot in range(B):
+            st["state"] = eng.insert(prefix, st["state"], slot, row=slot)
+        st["state"]["tok"] = first.clone()
+        rec, toks = [], []
+
+        def tick(_e=eng, _st=st, _rec=rec, _toks=toks):
+            _st["state"], lg = _e.generate(params, _st["state"])
+            _rec.append(lg.float().cpu())
+            _toks.append(_st["state"]["tok"][:, 0].tolist())
+
+        for _ in range(3):
+            tick()
+        window = graph_window(tick)
+        for _ in range(GRAPH_NEW - 3 - 2 * GRAPH_STEPS):
+            tick()
+        runs[mode] = {"tokens": toks, "logits": rec, "window": window,
+                      "ticks": len(rec), "graph": eng.graph_stats()}
+        del eng, st
+    label = f"{AUDIO_ARCH} {cfg.n_layers}+{cfg.enc_layers}L bfloat16 ring " \
+            "(stages)"
+    out[label] = summary(runs, compare(runs, label))
+    out[label]["tokens"] = GRAPH_NEW * B
+    line(label, out[label])
+    del params, prefix, cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(f"phase 22 done in {out['phase_s']:.1f} s")
     return out
 
 
@@ -5450,18 +5744,27 @@ def main() -> int:
         logits.float().cpu()
 
     wall_ms, per_step, device = profile_steps(ring_generate)
-    # the same step with the K/V cast to f32 before every K3 call, as the
-    # call sites did while K3 read only f32 rows
+    # the eager step (donate off: generate runs op by op on the same
+    # state), then the eager step with the K/V cast to f32 before every
+    # K3 call, as the call sites did while K3 read only f32 rows (a
+    # captured graph would replay the uncast step)
     k3_wrapper = kvk.kv_append_rows
-    kvk.kv_append_rows = lambda kc, ks, vc, vs, k, v, *a, **kw: k3_wrapper(
-        kc, ks, vc, vs, k.float(), v.float(), *a, **kw)
+    eng.engine.donate = False
     try:
+        wall_eager, per_step_eager, device_eager = profile_steps(
+            ring_generate)
+        kvk.kv_append_rows = lambda kc, ks, vc, vs, k, v, *a, **kw: \
+            k3_wrapper(kc, ks, vc, vs, k.float(), v.float(), *a, **kw)
         _, _, device_cast = profile_steps(ring_generate)
     finally:
         kvk.kv_append_rows = k3_wrapper
+        eng.engine.donate = True
+    assert per_step_eager == per_step, (per_step_eager, per_step)
     phase(f"phase 6b decode-step profile ({n_prof} generate calls at the "
-          f"served positions): wall {wall_ms:.3f} ms/step, {device}; with "
-          f"K/V cast to f32 before each K3 call: {device_cast}")
+          f"served positions), captured (one graph replay a step): wall "
+          f"{wall_ms:.3f} ms/step, {device}; eager (donate=False): wall "
+          f"{wall_eager:.3f} ms/step, {device_eager}; eager with K/V cast "
+          f"to f32 before each K3 call: {device_cast}")
 
     # 6c. the paged main path: same weights and prompts, half the pool -
     paged = serve_main(ServeConfig(max_batch=8, max_len=1024,
@@ -5897,6 +6200,7 @@ def main() -> int:
 
     # 15. the MoE family at full width, card vs CPU at smoke size, and
     # the two dispatch paths (own generators) ---------------------------
+    free_card("phase 15")
     moe = {"15a": phase15a(dev, args.seed, prompts, warm, smi),
            "15b": phase15b(dev, args.seed, snapshot, code_flips),
            "15c": phase15c(dev, args.seed, max(len(p) for p in prompts))}
@@ -5904,6 +6208,7 @@ def main() -> int:
 
     # 16. the SSM family: mamba2-2.7b served at full width, card vs CPU
     # at smoke size, and the refusals (own generators) ------------------
+    free_card("phase 16")
     ssm = {"16a": phase16a(dev, args.seed, smi),
            "16b": phase16b(dev, args.seed),
            "16c": phase16c(dev, args.seed)}
@@ -5912,6 +6217,7 @@ def main() -> int:
     # 17. the hybrid family: recurrentgemma-9b served at full width over
     # K3/K4 at hd 256, K3/K4 alone at its shapes, card vs CPU at smoke
     # size, and the refusals (own generators) ---------------------------
+    free_card("phase 17")
     hybrid = {"17a": phase17a(dev, args.seed, smi),
               "17b": phase17b(dev, args.seed),
               "17c": phase17c(dev, args.seed),
@@ -5922,6 +6228,7 @@ def main() -> int:
     # served at full width over K3/K4 (K5/K6 paged), the KV kernels alone
     # at their shapes, card vs CPU at smoke size, and the refusals (own
     # generators) -----------------------------------------------------------
+    free_card("phase 18")
     vlm_audio = {"18a": phase18a(dev, args.seed, prompts, warm, smi),
                  "18b": phase18b(dev, args.seed, smi),
                  "18c": phase18c(dev, args.seed),
@@ -5931,6 +6238,7 @@ def main() -> int:
 
     # 19. the KV-sequence-sharded distributed decode: one rank over NCCL,
     # then two gloo ranks on the one card (spawned processes) -------------
+    free_card("phase 19")
     distributed = phase19(dev, args.seed, prompts, warm, smi)
     # 19c / 19d. the hybrid and audio stacks through the sharded decode
     distributed.update(phase19cd(dev, args.seed, smi))
@@ -5939,6 +6247,7 @@ def main() -> int:
     # 20. the TALU's exact posit arithmetic on the card, and the dry run's
     # reckoning against paper-edge's decode_32k cell built on the card
     # (own generators) ----------------------------------------------------
+    free_card("phase 20")
     arith_dryrun = {"20a": phase20a(dev, args.seed),
                     "20b": phase20b(dev, args.seed, smi),
                     "20c": phase20c(distributed, smi)}
@@ -5947,11 +6256,15 @@ def main() -> int:
     # 21. the first train steps of the SSM, vlm, audio and hybrid families:
     # smoke card vs CPU, then full width under remat full / dots / none
     # (own generators) ----------------------------------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card("phase 21")
     training_families = {"21a": phase21a(dev, args.seed),
                          "21b": phase21b(dev, args.seed, smi)}
     print(json.dumps({"training_families": training_families}), flush=True)
+
+    # 22. generate as one captured CUDA graph over the donated state
+    # against the eager step, every family at full width (own generators)
+    free_card("phase 22")
+    print(json.dumps({"graphs": phase22(dev, args.seed, smi)}), flush=True)
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")

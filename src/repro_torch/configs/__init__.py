@@ -62,10 +62,15 @@ SHAPES: Dict[str, ShapeSpec] = {
 SUBQUADRATIC = ("ssm", "hybrid")
 
 
-def get_config(arch: str, smoke: bool = False):
+def get_module(arch: str):
+    """The config module of ``arch`` (its ``full()`` and ``smoke()``)."""
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
+    return importlib.import_module(f".{_MODULES[arch]}", __package__)
+
+
+def get_config(arch: str, smoke: bool = False):
+    mod = get_module(arch)
     return mod.smoke() if smoke else mod.full()
 
 

@@ -66,8 +66,7 @@ def _pow2_scale(x, axis):
     else:
         mean = (absx.sum(dim=axis, keepdim=True)
                 / (absx > 0).sum(dim=axis, keepdim=True))
-    mean = torch.maximum(mean, torch.tensor(1e-30, dtype=mean.dtype,
-                                            device=mean.device))
+    mean = mean.clamp_min(1e-30)
     return torch.exp2(torch.round(torch.log2(mean)))
 
 

@@ -65,6 +65,20 @@ class TCPolicy:
             return w
         return quant.fake_quant(w, f, axis=tuple(range(w.ndim - 1)))
 
+    def storage_quantize(self, w, role: str, layer=None):
+        """Real packed storage (the serving, memory-bound path): the
+        role's format as a ``QuantizedTensor`` with a scale per output
+        channel (the last axis), or ``w`` itself at full precision."""
+        f = self.fmt_for(role, layer)
+        if f is None:
+            return w
+        return quant.quantize(w, get(f), axis=tuple(range(w.ndim - 1)))
+
+    def bits_for(self, role: str) -> int:
+        """Bits of the role's format; 16 at full precision."""
+        f = getattr(self, role)
+        return get(f).bits if f else 16
+
 
 # ---------------------------------------------------------------------------
 # KV-cache storage resolution

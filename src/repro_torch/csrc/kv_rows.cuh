@@ -27,6 +27,7 @@
 #include <type_traits>
 
 #include "posit_codec.cuh"
+#include "smem_opt_in.cuh"
 
 namespace kv {
 
@@ -504,8 +505,8 @@ int launch_split(const Layout& lay, const void* q, const void* k_codes,
   const size_t smem = split_smem_bytes(grp, hd, SR);
   auto kern = split_kernel<N, ES, VB, QT, Layout>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemOptIn opt_in;
+    const cudaError_t err = opt_in_smem(opt_in, kern, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kern<<<dim3(B * nkv, S), kSplitThreads, smem, st>>>(

@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "posit_codec.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -458,8 +459,8 @@ int launch_tc(const void* x, const void* w, const float* scale, float* out,
     return (int)cudaErrorInvalidValue;
   const int smem = L::kTotal + 1024;
   auto kern = tc_kernel<CB, XT, XP, WP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in_smem(opt_in, kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Ncols + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   kern<<<grid, kTcThreads, smem, st>>>(tmx, tmw, scale, out, M, K, Ncols,

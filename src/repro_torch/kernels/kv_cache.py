@@ -46,7 +46,7 @@ def row_pow2_scale(x):
     by exponent-bit extraction (exact).  Shape ``x.shape[:-1] + (1,)``
     float32, >= 2^-100."""
     mean = x.to(torch.float32).abs().mean(dim=-1, keepdim=True)
-    mean = torch.maximum(mean, torch.tensor(1e-30, device=mean.device))
+    mean = mean.clamp_min(1e-30)
     e = (mean.view(torch.int32) >> 23) & 0xFF
     return (e << 23).view(torch.float32)
 
@@ -222,6 +222,23 @@ def kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
     launch_append(name, "kv_cache", (k_codes, k_scale, v_codes, v_scale),
                   k_new, v_new, pos, w, fmt)
     return k_codes, k_scale, v_codes, v_scale
+
+
+def kv_append(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
+              fmt: PositFormat, *, packed: bool = False):
+    """The T = 1 case of K3: k/v_new (B, 1, H, hd), ``pos`` scalar or (B,)
+    (mod W applied here).  One kernel to maintain, the same codec by
+    construction."""
+    return kv_append_rows(k_codes, k_scale, v_codes, v_scale, k_new, v_new,
+                          pos, fmt, packed=packed)
+
+
+def kv_append_ref(k_codes, k_scale, v_codes, v_scale, k_new, v_new, pos,
+                  fmt: PositFormat, packed: bool = False):
+    """Plain version of ``kv_append`` (the T = 1 case of
+    ``kv_append_rows_ref``)."""
+    return kv_append_rows_ref(k_codes, k_scale, v_codes, v_scale, k_new,
+                              v_new, pos, fmt, packed)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ key k where ``q - k < window``, in the forward and the backward alike.
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from ..kernels import kv_cache as kv_kernels
@@ -187,7 +189,12 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     ``chunk_decode_attention``.  q: (B, 1, nh, hd); k/v_cache:
     (B, W, nkv, hd); cache_len scalar or (B,).  Returns (B, 1, nh, hd)."""
     b = q.shape[0]
-    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(b)
+    if isinstance(cache_len, numbers.Integral):
+        # a fill on the device, not a host-to-device copy: a CUDA graph
+        # capture refuses the copy
+        cl = torch.full((b,), int(cache_len), device=q.device)
+    else:
+        cl = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(b)
     return chunk_decode_attention(q, k_cache, v_cache, cl[:, None] - 1)
 
 

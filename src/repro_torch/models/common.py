@@ -160,6 +160,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x32 * inv * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in f32 (mean and variance over the last axis), cast back
+    to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
+
+
 def causal_conv(u, conv_w):
     """Depthwise causal conv along S, summed tap by tap as the reference
     sums it: u (B, S, C), conv_w (K, C) -> (B, S, C)."""

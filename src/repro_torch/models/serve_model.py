@@ -480,13 +480,22 @@ def _rec_decode(p, c, x, cfg: ModelCfg, policy, out, shard=None):
     return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, policy)
 
 
-def _fresh_rec_state(cache, cfg: ModelCfg):
+def fresh_rec_state(cache, cfg: ModelCfg, like=torch.empty_like):
     """The cache's ``blocks`` and ``tail`` with every recurrent block's
-    leaves replaced by new (empty) tensors of their shapes; attention
-    blocks stay the same dicts (their K/V rows are written in place)."""
+    leaves (an SSM stack's whole block, a hybrid stack's ``rec`` blocks)
+    replaced by new tensors of their shapes, made by ``like``; attention
+    blocks stay the same dicts (their K/V rows are written in place).
+    None for a stack without recurrent layers.  ``decode_step`` writes a
+    step's new recurrent state into such a set (``rec_out``)."""
+    if cfg.family == "ssm":
+        return {"blocks": tuple({k: like(v) for k, v in blk.items()}
+                                for blk in cache["blocks"])}
+    if "rec" not in cfg.block_types:
+        return None
+
     def fresh(btype, blk):
-        return ({k: torch.empty_like(v) for k, v in blk.items()}
-                if btype == "rec" else blk)
+        return {k: like(v) for k, v in blk.items()} if btype == "rec" \
+            else blk
 
     new = {"blocks": tuple(fresh(t, b) for t, b in zip(cfg.period,
                                                        cache["blocks"]))}
@@ -509,31 +518,35 @@ def _ssm_decode(p, c, x, cfg: ModelCfg, policy, out, shard=None):
 
 
 def decode_step(params, cache, tokens, cfg: ModelCfg,
-                policy: TCPolicy = BF16, embeds=None, attn_impl=None):
+                policy: TCPolicy = BF16, embeds=None, attn_impl=None, *,
+                rec_out=None):
     """One serving step. tokens: (B, 1) int, or ``embeds`` (B, 1, d) in
     their place (a vlm stack's patch embeddings).  Returns (logits (B,
     vocab_pad), cache) with K/V rows written in place and ``pos`` + 1.
     Paged caches (``cache["page_table"]``) take per-slot positions; a
     scalar ``pos`` is broadcast to every slot.  An SSM stack's new states
     land in new buffers, rebound on the dict as ``cache["blocks"]``; so do
-    a hybrid stack's recurrent states (``blocks`` and ``tail``).
-    ``attn_impl`` plugs a decode attention into every attention layer (the
-    module docstring has its protocols); None keeps the built-in one.  A
-    plug's ``shard`` also splits the recurrent layers' state."""
+    a hybrid stack's recurrent states (``blocks`` and ``tail``).  With
+    ``rec_out`` (a set of ``fresh_rec_state``'s shape that does not alias
+    the cache's) they land in its buffers instead: the engine's donated
+    step alternates between two fixed sets.  ``attn_impl`` plugs a decode
+    attention into every attention layer (the module docstring has its
+    protocols); None keeps the built-in one.  A plug's ``shard`` also
+    splits the recurrent layers' state."""
     check_layout(policy)
     spec = kv_storage(policy)
     pos = cache["pos"]
     shard = getattr(attn_impl, "shard", None)
     x = (embeds.to(cfg.dtype) if embeds is not None else
          embed_rows(params["embed"], tokens, policy).to(cfg.dtype))
+    new = fresh_rec_state(cache, cfg) if rec_out is None else rec_out
     if cfg.family == "ssm":
-        old = cache["blocks"][0]
-        new = {k: torch.empty_like(v) for k, v in old.items()}
+        out = new["blocks"][0]
         for i in range(cfg.n_layers):
             x = _ssm_decode(layer_block(params, cfg, i)[1],
                             layer_block(cache, cfg, i)[1], x, cfg, policy,
-                            (new["conv"][i], new["state"][i]), shard)
-        cache["blocks"] = (new,)
+                            (out["conv"][i], out["state"][i]), shard)
+        cache.update(new)
         return _readout(params, cache, x, cfg, pos)
     table, paged, pos_l = cache.get("page_table"), None, pos
     if table is not None:
@@ -541,7 +554,6 @@ def decode_step(params, cache, tokens, cfg: ModelCfg,
         ps = policy.kv_page_size
         paged = (paged_kernels.flat_dst_rows(table, pos_l, ps), pos_l + 1,
                  table, ps)
-    new = _fresh_rec_state(cache, cfg) if "rec" in cfg.block_types else None
     for i in range(cfg.n_layers):
         btype, p = layer_block(params, cfg, i)
         c = layer_block(cache, cfg, i)[1]     # views of the stacked rows

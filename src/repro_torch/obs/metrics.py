@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Any, Dict, Iterator, MutableMapping, Optional, Union
+from typing import Any, Dict, Iterator, List, MutableMapping, Optional, Union
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "StatsView"]
 
@@ -69,6 +69,10 @@ class Gauge:
     def set(self, v: Number) -> None:
         with self._lock:
             self._v = v
+
+    def inc(self, n: Number = 1) -> None:
+        with self._lock:
+            self._v += n
 
     @property
     def value(self) -> Number:
@@ -142,6 +146,10 @@ class Histogram:
             seen += c
         return mx
 
+    @property
+    def mean(self) -> Optional[float]:
+        return self.sum / self.count if self.count else None
+
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             buckets = sorted(self._buckets.items())
@@ -180,6 +188,13 @@ class MetricsRegistry:
     def histogram(self, name: str, **kw) -> Histogram:
         return self._get(name, Histogram, **kw)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._metrics
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
     def snapshot(self) -> Dict[str, Any]:
         """Plain JSON-able dict: ``{"counters": {...}, "gauges": {...},
         "histograms": {name: {count, sum, min, max, p50, p95, p99,
@@ -197,6 +212,27 @@ class MetricsRegistry:
                 out["histograms"][m.name] = m.snapshot()
         return out
 
+    @classmethod
+    def from_snapshot(cls, snap: Dict[str, Any]) -> "MetricsRegistry":
+        """Rebuild a registry whose ``snapshot()`` equals ``snap`` (the
+        round trip is exact: histogram percentiles are derived from the
+        restored bucket counts and min/max)."""
+        reg = cls()
+        for name, v in snap.get("counters", {}).items():
+            reg.counter(name).set(v)
+        for name, v in snap.get("gauges", {}).items():
+            reg.gauge(name).set(v)
+        for name, h in snap.get("histograms", {}).items():
+            m = reg.histogram(name, lo=h.get("lo", 1e-7),
+                              hi=h.get("hi", 1e4),
+                              ratio=h.get("ratio", 2.0 ** 0.125))
+            m.count = h["count"]
+            m.sum = h["sum"]
+            m.min = h["min"]
+            m.max = h["max"]
+            m._buckets = {int(i): int(c) for i, c in h.get("buckets", [])}
+        return reg
+
 
 class StatsView(MutableMapping):
     """Dict-like ``stats`` facade over registry metrics.
@@ -213,13 +249,22 @@ class StatsView(MutableMapping):
         self._prefix = prefix
         self._bound: Dict[str, Any] = {}
 
+    def bind(self, key: str, metric) -> None:
+        """Expose registry ``metric`` under the ``stats`` key ``key``."""
+        self._bound[key] = metric
+
     def bind_counters(self, *keys: str) -> None:
         for k in keys:
-            self._bound[k] = self._registry.counter(self._prefix + k)
+            self.bind(k, self._registry.counter(self._prefix + k))
 
     def bind_gauges(self, *keys: str) -> None:
         for k in keys:
-            self._bound[k] = self._registry.gauge(self._prefix + k)
+            self.bind(k, self._registry.gauge(self._prefix + k))
+
+    def metric_name(self, key: str) -> str:
+        """Registry name backing the ``stats`` key ``key`` (for
+        consistency checks)."""
+        return self._bound[key].name
 
     def __getitem__(self, key: str) -> Number:
         return self._bound[key].value

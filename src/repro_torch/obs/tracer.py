@@ -37,12 +37,13 @@ Design points:
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import threading
 from collections import deque
 from time import perf_counter
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["Tracer", "Span"]
 
@@ -114,6 +115,23 @@ class Tracer:
         if not self.enabled:
             return _NULL_SPAN
         return Span(self, name, cat, args or None)
+
+    def trace(self, name: Optional[str] = None,
+              cat: str = "host") -> Callable:
+        """Decorator form of ``span``: ``@tracer.trace("stage")`` records
+        each call of the function as one span (named after the function's
+        qualified name where ``name`` is None)."""
+        def deco(fn: Callable) -> Callable:
+            label = name or fn.__qualname__
+
+            @functools.wraps(fn)
+            def wrapper(*a, **kw):
+                if not self.enabled:
+                    return fn(*a, **kw)
+                with Span(self, label, cat, None):
+                    return fn(*a, **kw)
+            return wrapper
+        return deco
 
     def record(self, name: str, t0: float, t1: float, cat: str = "host",
                **args) -> None:

@@ -40,6 +40,12 @@ quarantine with its precision-fallback re-decode (``serve/guard.py``).
 ``abort`` terminally releases a request from outside the decode loop
 (the orchestrator's deadlines, cancellation and crash containment).
 
+On the card the stage engine donates its decode state: each decode tick
+replays one captured CUDA graph over fixed buffers (``engine_api``'s
+``donate``; ``self.cache`` is always the state the last stage returned).
+A guard-armed engine keeps the eager step, as the reference's does: its
+fallback re-reads the pre-round state.
+
 ``attn_impl`` plugs a decode attention into every decode step
 (``serve/distributed.py``'s distributed one makes the engine's decode
 state rank-local: each rank of a process group runs the same engine
@@ -232,7 +238,10 @@ class ServingEngine:
             num_pages=self.num_pages if self.paged else None,
             attn_impl=attn_impl, device=self.device, tracer=self.tracer,
             metrics=self.metrics,
-            faults=self.faults, retry=self.retry, weight_policy=self.policy)
+            faults=self.faults, retry=self.retry, weight_policy=self.policy,
+            # the guard's fallback re-decode re-reads the pre-generate
+            # state, so a guarded engine must not donate it away
+            donate=False if guard_cfg is not None else None)
         self.guard: Optional[NumericGuard] = (
             NumericGuard(self, guard_cfg) if guard_cfg is not None else None)
         # paged: cache["page_table"] is one device tensor, updated in place

@@ -51,6 +51,32 @@ Observability: with an enabled tracer every stage call is wrapped in a
 ``torch.profiler.record_function`` so host spans line up with device
 traces.  With tracing disabled nothing is synchronized.
 
+Donation (the reference's ``donate``): ``TransprecisionEngine(...,
+donate=None)`` donates on a CUDA device and not on the CPU, as the
+reference donates on any backend but the CPU; a plug with a ``shard``
+resolves None to off and refuses True (``NotImplementedError``: its
+collectives cannot be captured).  A donating engine's ``generate``
+consumes the state it is given and returns one on the engine's fixed
+buffers, those of its last ``init_decode_state``: the K/V rings or pool,
+``pos``, ``tok``, the page table, and for a recurrent stack (SSM, hybrid)
+two sets of recurrent leaves that the steps alternate between (step n
+reads set n mod 2 and writes set (n + 1) mod 2).  A caller uses the
+returned state, never an old one.  Leaves a driver rebinds (``tok``,
+``pos`` after a rollback, the page table) are copied into the fixed
+buffers before the step; a state whose K/V or recurrent leaves are not
+the engine's own raises ``ValueError``, as a donated array raises in the
+reference.  On the card the first ``generate`` after
+``init_decode_state`` runs eagerly (the kernels build, cuBLAS warms up),
+the second captures the fixed-buffer step as a CUDA graph (one per
+parity, in one memory pool) and replays it, and every later one replays:
+one launch a tick for the whole stack.  A failed capture raises; nothing
+falls back to eager behind a donated call.  The graph reads the
+parameters it was captured with (another ``params`` object recaptures)
+and the returned logits are a copy.  ``LAUNCHES`` counts a replay as the
+kernels it replays.  ``stage_specs`` keeps the eager ``_generate_impl``,
+which the energy accountant re-runs on meta tensors.  On the CPU the
+fixed-buffer step runs eagerly.
+
 Chaos hardening (``serve/faults.py``): with a ``faults`` injector every
 stage call first runs its ``on_stage`` hook, which may sleep (an injected
 straggler) or raise; a ``retry`` policy re-runs stages whose exception is
@@ -61,6 +87,9 @@ started writing K/V rows.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
+import weakref
 from time import perf_counter, sleep
 from typing import Any, Dict, Optional
 
@@ -69,9 +98,11 @@ import torch
 
 from .. import resolve_device
 from ..core.transprecision import TCPolicy, get_policy
+from ..kernels import _build
 from ..models.common import KV_LEAVES, RECURRENT_SPLIT
 from ..models.serve_model import (_local_rows, check_layout, decode_step,
-                                  init_cache, prefill, verify_step)
+                                  fresh_rec_state, init_cache, prefill,
+                                  verify_step)
 from ..obs import MetricsRegistry, Tracer
 
 _MIN_BUCKET = 16
@@ -145,6 +176,97 @@ def _abstract_args(args):
     return args
 
 
+def _weak_method(fn, owner):
+    """``fn``, or where it is a method bound to ``owner``, a function that
+    calls it through a weak reference: a stage spec must not keep its
+    engine, and the donated state, CUDA graphs and weights the engine
+    holds, alive in a reference cycle (dropping a driver frees them at
+    once, without waiting for the cycle collector)."""
+    if getattr(fn, "__self__", None) is not owner:
+        return fn
+    ref = weakref.WeakMethod(fn)
+
+    @functools.wraps(fn.__func__)      # __wrapped__: the plain function
+    def call(*args, **kwargs):
+        method = ref()
+        if method is None:
+            raise ReferenceError(f"{call.__qualname__}: its engine is gone")
+        return method(*args, **kwargs)
+    return call
+
+
+_CAPTURE_STREAMS: Dict[int, Any] = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """The one side stream per device on which every donating engine runs
+    its first (eager) tick and captures its graphs: cuBLAS keeps a
+    workspace for each stream it has run on, for the life of the process,
+    so a stream per engine would leave one behind per engine."""
+    idx = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    stream = _CAPTURE_STREAMS.get(idx)
+    if stream is None:
+        stream = _CAPTURE_STREAMS.setdefault(idx, torch.cuda.Stream(idx))
+    return stream
+
+
+class _Donated:
+    """The fixed buffers of a donating engine's decode state, and its
+    captured steps.  ``top``: the state's top-level tensors (``pos``,
+    ``tok``, the page table, an audio stack's ``memory``); ``sets``: one
+    ``{"blocks", "tail"}`` set, or two for a recurrent stack (sharing the
+    attention blocks), of which ``parity`` is the current one; ``graphs``:
+    parity -> (CUDA graph, its logits, the launches it replays)."""
+
+    def __init__(self, state, cfg):
+        self.top = {k: v for k, v in state.items()
+                    if isinstance(v, torch.Tensor)}
+        first = {k: state[k] for k in ("blocks", "tail") if k in state}
+        other = fresh_rec_state(state, cfg, like=torch.zeros_like)
+        self.sets = [first] if other is None else [first, other]
+        self.parity = 0
+        self.warm = False
+        self.params = None
+        self.graphs: Dict[int, Any] = {}
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+        self.eager_ticks = 0        # fixed-buffer ticks run op by op
+        self.replays = 0
+
+    def next(self, p: int) -> int:
+        return (p + 1) % len(self.sets)
+
+    def adopt(self, state) -> None:
+        """Check that ``state`` holds this engine's K/V and current
+        recurrent leaves (``ValueError`` otherwise) and copy every
+        top-level leaf a driver rebound into its fixed buffer."""
+        cur = self.sets[self.parity]
+        for part, mine in cur.items():
+            given = state.get(part, ())
+            if len(given) != len(mine) or any(
+                    g.keys() != m.keys() or any(g[k] is not m[k] for k in m)
+                    for g, m in zip(given, mine)):
+                raise ValueError(
+                    f"generate: the state's {part} are not this engine's "
+                    "own buffers; a donated state is consumed by generate "
+                    "(use the state it returned) and only "
+                    "init_decode_state makes a new one")
+        for name, buf in self.top.items():
+            t = state.get(name)
+            if not isinstance(t, torch.Tensor) or t.shape != buf.shape:
+                raise ValueError(
+                    f"generate: the state's {name!r} is missing or not of "
+                    f"shape {tuple(buf.shape)}")
+            if t is not buf:
+                buf.copy_(t)
+
+    def current(self) -> Dict[str, Any]:
+        """The state's leaves at the current parity."""
+        return {**self.top, **self.sets[self.parity]}
+
+
 class TransprecisionEngine:
     """The three-stage engine for one (model cfg, transprecision policy).
 
@@ -153,14 +275,20 @@ class TransprecisionEngine:
     it and serve through ``policy`` with its weight roles cleared); the
     energy accountant prices weight storage and MACs by its roles.  It
     defaults to ``policy``.  ``attn_impl`` plugs a custom decode attention
-    (e.g. the KV-sharded distributed path) into ``generate``."""
+    (e.g. the KV-sharded distributed path) into ``generate``.  ``donate``
+    (None: on for a CUDA device, off on the CPU and under a sharded plug)
+    makes ``generate`` consume its state and, on the card, replay one
+    captured CUDA graph a tick (the module docstring); ``donate=False``
+    keeps the eager step, for debugging.  The resolved flag is
+    ``self.donate``; clearing it serves eagerly from then on."""
 
     def __init__(self, cfg, policy: TCPolicy, max_batch: int, max_len: int,
                  *, num_pages: Optional[int] = None, attn_impl=None,
                  device="cuda", tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  stage_prefix: str = "", faults=None, retry=None,
-                 weight_policy: Optional[TCPolicy] = None):
+                 weight_policy: Optional[TCPolicy] = None,
+                 donate: Optional[bool] = None):
         self.cfg = cfg
         self.policy = get_policy(policy)
         self.weight_policy = (self.policy if weight_policy is None
@@ -180,6 +308,15 @@ class TransprecisionEngine:
             self.policy, kv_layout="ring", name=self.policy.name + "+prefix")
             if self.paged else self.policy)
         self.device = resolve_device(device)
+        if donate and self.kv_shard is not None:
+            raise NotImplementedError(
+                "donate=True with a sharded decode attention: its "
+                "collectives cannot be captured in a CUDA graph; pass "
+                "donate=None (off under a shard) or False")
+        # the reference's rule: donate wherever the backend is not the CPU
+        self.donate = (self.device.type == "cuda" and self.kv_shard is None
+                       if donate is None else bool(donate))
+        self._donated: Optional[_Donated] = None
         self.tracer = tracer
         self.metrics = metrics
         self.stage_prefix = stage_prefix
@@ -202,9 +339,11 @@ class TransprecisionEngine:
         self.stage_specs: Dict[str, Any] = {}
 
     # ---- observability ----
-    def _staged(self, stage: str, fn, *args):
+    def _staged(self, stage: str, fn, *args, spec_fn=None):
         """Run one engine stage with paired dispatch / device-complete
-        stamps; a plain call with no enabled tracer."""
+        stamps; a plain call with no enabled tracer.  ``stage_specs``
+        records ``spec_fn`` (default ``fn``): the eager function the
+        energy accountant can re-run on meta tensors."""
         name = self.stage_prefix + stage
         if self.metrics is not None:
             ctr = self._call_counters.get(name)
@@ -213,7 +352,8 @@ class TransprecisionEngine:
                     f"stage.{name}.calls")
             ctr.inc()
         if name not in self.stage_specs:
-            self.stage_specs[name] = (fn, _abstract_args(args))
+            self.stage_specs[name] = (_weak_method(spec_fn or fn, self),
+                                      _abstract_args(args))
         tr = self.tracer
         if tr is None or not tr.enabled:
             return self._invoke(name, fn, args)
@@ -277,6 +417,8 @@ class TransprecisionEngine:
                                    device=self.device)
         state["tok"] = torch.zeros((self.max_batch, 1), dtype=torch.int32,
                                    device=self.device)
+        if self.donate:         # this state's buffers become the engine's
+            self._donated = _Donated(state, self.cfg)
         return state
 
     # ---- stage: prefill ----
@@ -307,10 +449,11 @@ class TransprecisionEngine:
                 "(bucketed/padded prefill needs a decoder-only attention "
                 "stack); pass lengths=None")
         plen = s if self.bucketed else self.max_len
+        cfg, policy = self.cfg, self._prefill_policy
 
-        def impl(p, t, l):
-            logits, cache = prefill(p, {"tokens": t}, self.cfg, plen,
-                                    self._prefill_policy, true_len=l)
+        def impl(p, t, l):      # keeps no reference to the engine
+            logits, cache = prefill(p, {"tokens": t}, cfg, plen, policy,
+                                    true_len=l)
             length = (l if l is not None else
                       torch.full((b,), s, dtype=torch.int32,
                                  device=t.device))
@@ -385,11 +528,119 @@ class TransprecisionEngine:
             torch.int32)[:, None]
         return state, logits
 
+    def _fixed_step(self, params, parity: int):
+        """The donated tick on the fixed buffers: reads recurrent set
+        ``parity`` and writes the next one, writes K/V rows in place and
+        ``pos`` and ``tok`` into their buffers.  Returns the logits."""
+        own = self._donated
+        nxt = own.next(parity)
+        cache = {**own.top, **own.sets[parity]}
+        logits, cache = decode_step(
+            params, cache, own.top["tok"], self.cfg, self.policy,
+            attn_impl=self.attn_impl,
+            rec_out=own.sets[nxt] if nxt != parity else None)
+        own.top["pos"].copy_(cache["pos"])
+        own.top["tok"].copy_(logits[..., : self.cfg.vocab].argmax(dim=-1)
+                             .to(torch.int32)[:, None])
+        return logits
+
+    def _capture(self, params, own: _Donated) -> None:
+        """Capture the fixed-buffer step of every parity as CUDA graphs in
+        one memory pool (capture records; nothing runs).  The kernel
+        launches a capture counts are taken back out of ``LAUNCHES`` and
+        added on each replay.  Raises if a capture fails."""
+        torch.cuda.synchronize(self.device)
+        reserved0 = torch.cuda.memory_reserved(self.device)
+        t0 = perf_counter()
+        pool = torch.cuda.graph_pool_handle()
+        own.graphs = {}
+        for p in sorted(range(len(own.sets)),
+                        key=lambda q: q != own.parity):
+            graph = torch.cuda.CUDAGraph()
+            before = dict(_build.LAUNCHES)
+            with torch.cuda.stream(_capture_stream(self.device)):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    logits = self._fixed_step(params, p)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:
+                        pass
+                    _build.LAUNCHES.update(before)
+                    own.graphs = {}
+                    raise
+                graph.capture_end()
+            launched = {k: n - before[k]
+                        for k, n in _build.LAUNCHES.items() if n != before[k]}
+            _build.LAUNCHES.update(before)
+            own.graphs[p] = (graph, logits, launched)
+        torch.cuda.synchronize(self.device)
+        own.params = params
+        own.capture_ms = 1e3 * (perf_counter() - t0)
+        own.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
+
+    def _generate_donated(self, params, state):
+        own = self._donated
+        if own is None:
+            raise ValueError("generate: a donating engine serves the state "
+                             "of its own init_decode_state")
+        own.adopt(state)
+        p = own.parity
+        if self.device.type != "cuda":
+            logits = self._fixed_step(params, p)
+            own.eager_ticks += 1
+        else:
+            with torch.cuda.device(self.device):
+                if not own.warm:
+                    # eager first tick on the capture stream: kernels
+                    # load, cuBLAS takes its workspace there
+                    cur = torch.cuda.current_stream(self.device)
+                    side = _capture_stream(self.device)
+                    with _CAPTURE_LOCK:
+                        side.wait_stream(cur)
+                        with torch.cuda.stream(side):
+                            logits = self._fixed_step(params, p)
+                        cur.wait_stream(side)
+                    own.warm = True
+                    own.eager_ticks += 1
+                else:
+                    if not own.graphs or own.params is not params:
+                        with _CAPTURE_LOCK:     # one capture at a time
+                            self._capture(params, own)
+                    graph, logits, launched = own.graphs[p]
+                    graph.replay()
+                    own.replays += 1
+                    for k, n in launched.items():
+                        _build.LAUNCHES[k] += n
+        own.parity = own.next(p)
+        state.update(own.current())
+        return state, logits.clone()
+
     def generate(self, params, state):
         """One decode tick for every slot: feeds ``state["tok"]``, writes
         each slot's K/V row at its own position, advances ``pos`` and
-        ``tok``.  Returns ``(state, logits (B, vocab_pad))``."""
+        ``tok``.  Returns ``(state, logits (B, vocab_pad))``.  A donating
+        engine consumes ``state`` (the module docstring)."""
+        if self.donate:
+            return self._staged("generate", self._generate_donated, params,
+                                state, spec_fn=self._generate_impl)
         return self._staged("generate", self._generate_impl, params, state)
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The donated step since the last ``init_decode_state``: its ticks
+        run eagerly and its replays, the capture's ms, the graph pool's
+        bytes (reserved by the capture) and the kernel launches each
+        replay counts, per parity (None where nothing was captured)."""
+        own = self._donated
+        if own is None:
+            return {"eager_ticks": 0, "replays": 0, "capture_ms": None,
+                    "pool_bytes": None, "launches": None}
+        return {"eager_ticks": own.eager_ticks, "replays": own.replays,
+                "capture_ms": own.capture_ms, "pool_bytes": own.pool_bytes,
+                "launches": ({p: dict(g[2]) for p, g in own.graphs.items()}
+                             if own.graphs else None)}
 
     # ---- stage: verify (speculative rounds) ----
     def _verify_impl(self, params, state, chunk):

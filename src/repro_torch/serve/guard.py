@@ -12,6 +12,9 @@ logits bit-for-bit, so a quarantine never perturbs its batch neighbours.
 
 Mechanics per quarantined round:
 
+* a guard-armed engine and its rungs run with ``donate=False`` (the
+  reference's rule): the fallback must re-read the pre-round state, which
+  a donated ``generate`` consumes;
 * the driver takes ``prev = dict(cache)`` before ``generate``: the round
   writes K/V rows in place and rebinds ``pos`` and ``tok`` on the dict,
   so the copy keeps the pre-round ``pos`` and ``tok`` tensors (one dict
@@ -160,7 +163,7 @@ class NumericGuard:
                 base.max_batch, base.max_len, num_pages=base.num_pages,
                 attn_impl=base.attn_impl, device=eng.device,
                 tracer=eng.tracer, metrics=eng.metrics,
-                stage_prefix=f"guard{lvl}.")
+                stage_prefix=f"guard{lvl}.", donate=False)
             r = (stages, lm.hoist_weight_quant(eng.raw_params, policy))
             self._rungs[lvl] = r
         return r

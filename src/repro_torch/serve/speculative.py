@@ -25,7 +25,10 @@ short, and that slot's next round spends its first draft step catching up
 
 Weights: the engine hoists weight quantization once per policy, so the
 draft keeps its own copy of the params quantized under the draft policy
-(``draft_params``), beside the target's.
+(``draft_params``), beside the target's.  On the card the draft engine
+donates its ring: each draft step replays one captured CUDA graph, and
+the ``pos`` a rollback rebinds is copied into the graph's buffer at the
+next step; the target's verify stays eager.
 
 On CPU tensors the verify reads the cache through the same plain decode
 and reduction as ``decode_step``, so greedy speculative streams are
