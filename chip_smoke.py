@@ -153,7 +153,16 @@ float32 and bf16, granite-moe, mamba2, recurrentgemma and qwen2-vl at
 bf16 and 15a-18a's depths, whisper through the stages; streams, logits
 and launches per replay against the eager step's, per decode step wall,
 device busy and idle share of each, the capture's ms and the graph
-pool's bytes; a ``{"graphs": ...}`` JSON line.  Phase 20 runs
+pool's bytes; a ``{"graphs": ...}`` JSON line.  Phase 22b runs after 22
+(own generators): the speculative round with the target's ``verify`` and
+both engines' rollbacks replaying graphs over the donated states against
+the eager round (``donate=False`` on target and draft): paper-edge at
+full width, float32 ring and paged at gamma 2, bf16 at gamma 4, and
+qwen2-vl at 15-18's depth, bf16 ring, gamma 2; streams, every round's
+verify logits and launches per replay against the eager round's, one
+eager call per stage and shape, the round's wall, busy and idle share of
+each, the captures' ms and pool bytes; a ``{"spec_graphs": ...}`` JSON
+line.  Phase 20 runs
 after 19: 20a the exact posit arithmetic (``core.posit.mul`` / ``add`` /
 ``sub`` on every pair of P(8,0) and P(8,2) codes, 2^20 seeded P(16,1)
 pairs, ``thermometer_decode`` of every P(8,2) code, ``matmul_exact`` of
@@ -573,6 +582,34 @@ def graph_ms(fn, n_args: int, iters: int = 20, reps: int = 5) -> float:
         times.append(s.elapsed_time(e) / iters)
     del graph
     return statistics.median(times)
+
+
+TRACE_MARGIN_S = 0.05
+
+
+@contextlib.contextmanager
+def device_trace(host_ops: bool = False):
+    """A ``torch.profiler`` window over the card (and the host's ops where
+    ``host_ops``) whose edges lie clear of the work traced in it. The
+    profiler keeps a device event only where its timestamp, converted to
+    the host's clock, falls between the window's start and stop; a skew
+    between the two clocks then drops the first or last kernels of a
+    window that opens or closes at the work's own edges (seen as 68 of 70
+    traced K3 and K4 launches over 5 engine steps of phase 18a on one
+    host, whose wrappers counted all 70). ``TRACE_MARGIN_S`` of idle card
+    on each side, after a synchronize, keeps every kernel of the work
+    inside the window; the callers time their work inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
 
 
 def device_events(prof, launches=None):
@@ -1289,7 +1326,6 @@ def phase15a(dev, seed, prompts, warm, card: str) -> dict:
     prefill ms per prompt, peak memory and the weight-bytes bound, each
     line with ``card`` (the card's name and power limit)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
@@ -1361,7 +1397,7 @@ def phase15a(dev, seed, prompts, warm, card: str) -> dict:
         assert all(r is not None for r in eng.slot_req), layout
         torch.cuda.synchronize()
         reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             for _ in range(n_prof):
                 eng.step()
@@ -1386,8 +1422,7 @@ def phase15a(dev, seed, prompts, warm, card: str) -> dict:
         top = sorted(per_kernel.items(), key=lambda kv_: -kv_[1])[:6]
         # where the device time goes by op: two more steps traced with the
         # host's ops too (a slower window: its wall is not reported)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_ops:
+        with device_trace(host_ops=True) as prof_ops:
             for _ in range(2):
                 eng.step()
             torch.cuda.synchronize()
@@ -1658,7 +1693,6 @@ def phase16a(dev, seed, card: str) -> dict:
     per prompt, tok/s, weight and state bytes, and peak memory, each line
     with ``card``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
@@ -1741,7 +1775,7 @@ def phase16a(dev, seed, card: str) -> dict:
     assert all(r is not None for r in eng.slot_req)
     torch.cuda.synchronize()
     reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
             eng.step()
@@ -1757,8 +1791,7 @@ def phase16a(dev, seed, card: str) -> dict:
     assert not ported, ported
     busy = sum(per_kernel.values()) if per_kernel else None
     top = sorted(per_kernel.items(), key=lambda kv_: -kv_[1])[:6]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_ops:
+    with device_trace(host_ops=True) as prof_ops:
         for _ in range(2):
             eng.step()
         torch.cuda.synchronize()
@@ -1968,7 +2001,6 @@ def phase17a(dev, seed, card: str) -> dict:
     prompt, tok/s and peak memory building and serving, each line with
     ``card``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
@@ -2073,7 +2105,7 @@ def phase17a(dev, seed, card: str) -> dict:
                       + 2 * state_bytes) / H100_BYTES_PER_S
     torch.cuda.synchronize()
     reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
             eng.step()
@@ -2096,8 +2128,7 @@ def phase17a(dev, seed, card: str) -> dict:
                           for k in traced}, traced
     busy = sum(per_kernel.values()) if per_kernel else None
     top = sorted(per_kernel.items(), key=lambda kv_: -kv_[1])[:6]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_ops:
+    with device_trace(host_ops=True) as prof_ops:
         for _ in range(2):
             eng.step()
         torch.cuda.synchronize()
@@ -2525,11 +2556,10 @@ def profiled_steps(step, n: int, n_l: int, kernels) -> dict:
     holds all three KV kernel names), device busy and idle share, and two
     more steps traced with the host's ops for device ms by op."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import LAUNCHES, reset_launches
     torch.cuda.synchronize()
     reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -2547,8 +2577,7 @@ def profiled_steps(step, n: int, n_l: int, kernels) -> dict:
         assert traced == {k: (n_l if k in kv_names else 0)
                           for k in traced}, traced
     busy = sum(per_kernel.values()) if per_kernel else None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_ops:
+    with device_trace(host_ops=True) as prof_ops:
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -3495,7 +3524,6 @@ def _windows19(eng, prompts, n_l: int) -> dict:
     """The three decode-step windows of ``run19`` on a distributed float32
     ring engine, after readmitting the 8 prompts (one bucketed prefill)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serve import Request
     assert all(eng.add_requests([Request(uid=100 + i, prompt=p, max_new=32)
@@ -3515,7 +3543,7 @@ def _windows19(eng, prompts, n_l: int) -> dict:
     per_step = {k: v / DIST_WINDOW for k, v in LAUNCHES.items() if v}
     assert per_step == {"paged_kv_append_rows": n_l,
                         "posit_decode": 2 * n_l}, per_step
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         for _ in range(DIST_WINDOW):
             step()
         torch.cuda.synchronize()
@@ -4387,8 +4415,7 @@ def phase20a(dev, seed) -> dict:
     # difference a step's, the rest the start (the zero code)
     counts = []
     for kk in (1, 2):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             posit.matmul_exact(ad[:, :kk], bd[:kk], p82)
             torch.cuda.synchronize()
         n_k = {}
@@ -5085,7 +5112,6 @@ def graph_window(step, n: int = GRAPH_STEPS) -> dict:
     name, device busy ms per call, and the idle share of the unprofiled
     wall (busy None where the trace holds no device events)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import LAUNCHES, reset_launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5094,7 +5120,7 @@ def graph_window(step, n: int = GRAPH_STEPS) -> dict:
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0) / n
     reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -5296,6 +5322,215 @@ def phase22(dev, seed, card: str) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     phase(f"phase 22 done in {out['phase_s']:.1f} s")
+    return out
+
+
+# phase 22b: the captured speculative round against the eager one
+SPEC_STAGES = ("verify", "rollback_ring", "rollback_paged")
+SPEC_WINDOW = 3             # rounds per pass: 16 new tokens last ~6-10
+
+
+def spec_window(eng, n: int = SPEC_WINDOW) -> dict:
+    """``graph_window`` over a speculative engine's rounds: ``n`` steps
+    timed on the host clock, then ``n`` more under the profiler, each
+    pass divided by the rounds it ran (a step with no live slot runs
+    none)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    def rounds():
+        return eng.stats["spec_rounds"]
+
+    torch.cuda.synchronize()
+    r0, t0 = rounds(), time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / max(rounds() - r0, 1)
+    timed = rounds() - r0
+    reset_launches()
+    with device_trace() as prof:
+        r0, t0 = rounds(), time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        k = max(rounds() - r0, 1)
+        wall_profiled = 1e3 * (time.perf_counter() - t0) / k
+    launches = {name: v / k for name, v in LAUNCHES.items() if v}
+    per_kernel = device_events(prof)
+    busy = sum(per_kernel.values()) / k / 1e3 if per_kernel else None
+    return {"wall_ms": wall, "wall_profiled_ms": wall_profiled,
+            "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "launches": launches, "rounds": [timed, rounds() - r0]}
+
+
+def phase22b(dev, seed, card: str) -> dict:
+    """22b. The speculative round with the target's ``verify`` and both
+    engines' rollbacks replaying CUDA graphs over the donated states (the
+    engines' default on the card; the draft's ``generate`` too) against
+    the eager round (``donate=False`` on target and draft), at full width:
+    paper-edge at all 12 layers, float32 ring and paged at gamma 2, bf16
+    ring and paged at gamma 4; qwen2-vl at 14 layers (``DEPTH_15_18``),
+    bf16, ring, gamma 2.  Policy ``bf16`` with a posit8 KV ring or pool,
+    8 prompts of 16-64 tokens, 16 new tokens each after two 3-token
+    warm-up requests (every graph is captured before the timed rounds),
+    max_len 256.  Asserts, per cell: streams token-identical,
+    every round's verify logits bit-equal, each graph's launches per
+    replay equal to an eager call's of the same stage and shape, one
+    eager call per (stage, shape) and then only replays.  Prints per cell
+    the round's wall, captured and eager (host clock, unprofiled), device
+    busy and idle share from a separate profiled pass, and the captures'
+    ms and graph pool bytes.  Returns the ``{"spec_graphs": ...}`` line's
+    object."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transprecision import get_policy
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeConfig
+    from repro_torch.serve.speculative import SpeculativeEngine
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 222])
+    policy = dataclasses.replace(get_policy("bf16"), kv_format="posit8")
+    out = {"card": card}
+    paper = get_config("paper-edge")
+    cells = [("paper-edge", paper, "float32", "ring", 2),
+             ("paper-edge", paper, "float32", "paged", 2),
+             ("paper-edge", paper, "bfloat16", "ring", 4),
+             ("paper-edge", paper, "bfloat16", "paged", 4),
+             (VLM_ARCH, depth_cut(VLM_ARCH), "bfloat16", "ring", 2)]
+
+    def record(eng, log, per_call):
+        """Log each verify's logits; count the launches of each eager
+        stage call by (stage, shape) into ``per_call``."""
+        def wrap(engine, name, key_of):
+            real = getattr(engine, name)
+
+            def call(*args, _real=real, _e=engine):
+                before = dict(LAUNCHES)
+                res = _real(*args)
+                key = (_e.stage_prefix + name, key_of(*args))
+                if not _e.donate:
+                    n = {k: v - before[k] for k, v in LAUNCHES.items()
+                         if v != before[k]}
+                    assert per_call.setdefault(key, n) == n, (key, n)
+                if name == "verify":
+                    log.append(res[1].float().cpu())
+                return res
+            setattr(engine, name, call)
+
+        wrap(eng.engine, "verify", lambda p, s, c: c.shape[1])
+        wrap(eng.engine, "rollback_ring", lambda *a: a[-1])
+        wrap(eng.engine, "rollback_paged", lambda s, n, rows: len(rows))
+        wrap(eng.draft_engine, "rollback_ring", lambda *a: a[-1])
+
+    params, built = None, None
+    for arch, cfg0, dtype, layout, gamma in cells:
+        cfg = dataclasses.replace(cfg0, dtype_name=dtype)
+        if built != (arch, dtype):
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(seed + 222), device=dev)
+            built = (arch, dtype)
+        prompts = [rng.integers(0, cfg.vocab, int(n))
+                   for n in rng.integers(1, 5, 8) * 16]
+        warm = rng.integers(0, cfg.vocab, 16)
+        kw = {"kv_layout": "paged", "page_size": PS} if layout == "paged" \
+            else {}
+        runs, eager_calls = {}, {}
+        for mode in ("captured", "eager"):
+            eng = SpeculativeEngine(cfg, params, ServeConfig(
+                max_batch=B, max_len=256, kv_format="posit8", **kw),
+                policy=policy, gamma=gamma, device=dev)
+            assert eng.engine.donate and eng.draft_engine.donate
+            if mode == "eager":
+                eng.engine.donate = eng.draft_engine.donate = False
+            log = []
+            record(eng, log, eager_calls)
+            # two warm-up rounds at least: each stage's eager call and its
+            # capture happen before the window
+            for uid in (-1, -2):
+                eng.serve([Request(uid=uid, prompt=warm, max_new=3)])
+            reqs = [Request(uid=i, prompt=p, max_new=GRAPH_NEW)
+                    for i, p in enumerate(prompts)]
+            pending = reqs      # exact-length families admit one a call
+            while pending:
+                ok = eng.add_requests(pending)
+                assert any(ok), (arch, mode)
+                pending = [r for r, a in zip(pending, ok) if not a]
+            window = spec_window(eng)
+            assert min(window["rounds"]) > 0, (arch, mode, window)
+            eng.serve([])
+            assert all(r.done and r.error is None for r in reqs), (arch,
+                                                                   mode)
+            runs[mode] = {"tokens": [r.out_tokens for r in reqs],
+                          "logits": log, "window": window,
+                          "graph": {"target": eng.engine.graph_stats(),
+                                    "draft": eng.draft_engine.graph_stats()}}
+            del eng
+        label = f"{arch} {cfg.n_layers}L {dtype} {layout} gamma {gamma}"
+        cap, eag = runs["captured"], runs["eager"]
+        assert cap["tokens"] == eag["tokens"], label
+        assert len(cap["logits"]) == len(eag["logits"]) > 0, label
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(cap["logits"], eag["logits"]))
+        assert diff == 0.0, (label, diff)
+        assert cap["window"]["launches"] == eag["window"]["launches"], (
+            label, cap["window"]["launches"], eag["window"]["launches"])
+        assert cap["window"]["rounds"] == eag["window"]["rounds"], label
+        graphs, capture_ms, pool_bytes = {}, 0.0, 0
+        for side, stats in cap["graph"].items():
+            prefix = "draft." if side == "draft" else ""
+            for stage in SPEC_STAGES:
+                for key, rec in stats.get(stage, {}).items():
+                    name = f"{prefix}{stage}[{key}]"
+                    assert rec["eager_calls"] == 1 and rec["replays"] > 0, (
+                        label, name, rec)
+                    want = eager_calls[(prefix + stage, key)]
+                    assert rec["launches"] == want, (label, name, rec, want)
+                    graphs[name] = rec
+                    capture_ms += rec["capture_ms"]
+                    pool_bytes += rec["pool_bytes"]
+        assert any(k.startswith("verify[") for k in graphs), (label, graphs)
+        assert any("rollback" in k and not k.startswith("draft.")
+                   for k in graphs), (label, graphs)
+        assert any(k.startswith("draft.rollback_ring[") for k in graphs), (
+            label, graphs)
+        out[label] = {"captured": cap["window"], "eager": eag["window"],
+                      "tokens": sum(len(t) for t in cap["tokens"]),
+                      "verify_calls": len(cap["logits"]),
+                      "logits_max_abs_diff": diff, "graphs": graphs,
+                      "capture_ms": capture_ms, "pool_bytes": pool_bytes,
+                      "draft_generate": {
+                          k: cap["graph"]["draft"][k]
+                          for k in ("eager_ticks", "replays", "capture_ms",
+                                    "pool_bytes")}}
+
+        def dev_ms(w):
+            if w["busy_ms"] is None:
+                return f"wall {w['wall_ms']:.3f} ms, busy not measured"
+            return (f"wall {w['wall_ms']:.3f} ms (profiled "
+                    f"{w['wall_profiled_ms']:.3f}), busy {w['busy_ms']:.3f} "
+                    f"ms, idle {w['idle_share']:.3f}")
+        phase(f"phase 22b [{card}] {label}: streams token-identical "
+              f"({out[label]['tokens']} tokens), verify logits max |diff| "
+              f"{diff} over {len(cap['logits'])} rounds; graphs "
+              + ", ".join(f"{k}: {v['replays']} replays, "
+                          f"{v['capture_ms']:.1f} ms, {v['pool_bytes']} B, "
+                          f"launches {v['launches']}"
+                          for k, v in graphs.items())
+              + f"; per round (windows of {cap['window']['rounds']} "
+              f"rounds) captured {dev_ms(cap['window'])}; eager "
+              f"{dev_ms(eag['window'])}; launches per round "
+              f"{cap['window']['launches']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(f"phase 22b done in {out['phase_s']:.1f} s")
     return out
 
 
@@ -5701,7 +5936,6 @@ def main() -> int:
           f"{main_launches['decode_attention']}")
 
     # 6b. where a decode step's time goes: one profiled window --------
-    from torch.profiler import ProfilerActivity, profile
     n_prof = 5
     prof_busy = []          # each profile's device busy ms/step (or None)
 
@@ -5711,7 +5945,7 @@ def main() -> int:
         from a profiler trace."""
         torch.cuda.synchronize()
         reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             for _ in range(n_prof):
                 step()
@@ -6265,6 +6499,10 @@ def main() -> int:
     # against the eager step, every family at full width (own generators)
     free_card("phase 22")
     print(json.dumps({"graphs": phase22(dev, args.seed, smi)}), flush=True)
+    # 22b. the speculative round's verify and rollbacks captured ------
+    free_card("phase 22b")
+    print(json.dumps({"spec_graphs": phase22b(dev, args.seed, smi)}),
+          flush=True)
 
     # 8. kernels line: times at the main path's shapes -----------------
     p8 = get_fmt("posit8_2")
@@ -6651,7 +6889,7 @@ def main() -> int:
         ev1.record()
         torch.cuda.synchronize()
         step_ms.append(ev0.elapsed_time(ev1))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for s in (3, 4):
             train_step(s)
@@ -6914,7 +7152,7 @@ def main() -> int:
     r_t = [r.clone() for r in r0]
     wire_ms = time_ms(lambda i: wire.error_feedback_update(
         grads12, r_t, wire_fmt), 1, iters=3, reps=5)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         wire.error_feedback_update(grads12, r_t, wire_fmt)
         torch.cuda.synchronize()
     del r_t

@@ -159,6 +159,14 @@ def _extents(items) -> List[Tuple[torch.dtype, int]]:
             for x in items if isinstance(x, (torch.Tensor, tuple))]
 
 
+def counting() -> bool:
+    """True while :func:`analyze` counts a function: a product then runs
+    as its plain ``torch.einsum``, so that a trace on CPU tensors counts
+    what one on meta tensors does (``models.common._einsum``'s row
+    padding is the CPU's rounding, not the function's work)."""
+    return bool(_ACTIVE)
+
+
 def custom_call(plain: Callable, *args, reads: Iterable = (),
                 writes: Optional[Iterable] = None, **kwargs):
     """Run ``plain(*args, **kwargs)``, a kernel wrapper's plain version, and

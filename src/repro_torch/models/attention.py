@@ -75,14 +75,13 @@ def _flash_fwd(q, k, v, causal, window, q_block, kv_block, skv):
             kblk = _rep(k[:, k0:k0 + kv_block], grp)
             vblk = _rep(v[:, k0:k0 + kv_block], grp)
             kpos = k0 + torch.arange(kv_block, device=dev)
-            s_blk = torch.einsum("bqhd,bshd->bhqs", qblk, kblk).to(
-                torch.float32)
+            s_blk = _einsum("bqhd,bshd->bhqs", qblk, kblk).to(torch.float32)
             s_blk = s_blk + _bias_block(qpos, kpos, causal, window, skv)
             m_new = torch.maximum(m, s_blk.amax(dim=-1))
             p = torch.exp(s_blk - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
+            acc = acc * corr[..., None] + _einsum(
                 "bhqs,bshd->bhqd", p.to(q.dtype), vblk).to(torch.float32)
             m = m_new
         l = l.clamp(min=1e-30)

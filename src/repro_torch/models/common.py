@@ -17,11 +17,72 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..launch import op_cost
+
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """einsum with JAX's type promotion (bf16 x f32 -> f32)."""
+    """einsum with JAX's type promotion (bf16 x f32 -> f32).  On the CPU
+    each operand's free dims (the rows or the columns of the GEMM it
+    becomes) are zero-padded to at least ``_MIN_ROWS`` and the padding cut
+    from the result, so that a row's bits do not depend on how many rows
+    share the call (:func:`_einsum_rows_fixed`); not while the op counter
+    counts (``launch.op_cost.counting``)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    a, b = a.to(dt), b.to(dt)
+    if a.device.type != "cpu" or op_cost.counting():
+        return torch.einsum(eq, a, b)
+    return _einsum_rows_fixed(eq, a, b)
+
+
+# MKL's SGEMM runs the last rows (columns) of a call through edge kernels
+# that sum K in another order than its full tiles: on one and two threads
+# a row of a 1-3 row call (1-11 at two threads, less multiples of 4) or a
+# column of a call under 12 columns gets other bits than the same row of a
+# larger call.  XLA's CPU dot of a 2-D product gives every row the same
+# bits whatever the count, those of torch's large calls where K <= 128.
+# 16 rows put every call on the full tiles (tests/test_torch_rowcount.py
+# sweeps it).
+_MIN_ROWS = 16
+
+
+def _ellipsis_dims(spec: str, ndim: int) -> int:
+    return ndim - (len(spec) - 3) if "..." in spec else 0
+
+
+def _einsum_rows_fixed(eq: str, a: torch.Tensor, b: torch.Tensor):
+    """``torch.einsum(eq, a, b)`` with each operand's free dims (those of
+    one operand that reach the output) zero-padded to ``_MIN_ROWS`` rows
+    along its last free dim, and the padding cut from the result.  A
+    padded row is zeros: it reads the other operand's values but lands
+    only in the cut part."""
+    lhs, out = eq.replace(" ", "").split("->")
+    sa, sb = lhs.split(",")
+    # spell a broadcast ``...`` out in capitals, right-aligned
+    na, nb = _ellipsis_dims(sa, a.ndim), _ellipsis_dims(sb, b.ndim)
+    ell = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"[:max(na, nb)]
+    sa = sa.replace("...", ell[len(ell) - na:])
+    sb = sb.replace("...", ell[len(ell) - nb:])
+    out = out.replace("...", ell)
+    cut = []
+    ops = [a, b]
+    for i, (s, o) in enumerate(((sa, sb), (sb, sa))):
+        x = ops[i]
+        free = [d for d, c in enumerate(s) if c in out and c not in o]
+        rows = math.prod(x.shape[d] for d in free)
+        if not free or rows == 0 or rows >= _MIN_ROWS:
+            continue
+        d = free[-1]
+        n = x.shape[d]
+        pad = -(-_MIN_ROWS * n // rows) - n
+        ops[i] = torch.cat([x, x.new_zeros(x.shape[:d] + (pad,)
+                                           + x.shape[d + 1:])], dim=d)
+        cut.append((out.index(s[d]), n))
+    y = torch.einsum(f"{sa},{sb}->{out}", *ops)
+    if not cut:
+        return y
+    for dim, n in cut:
+        y = y.narrow(dim, 0, n)
+    return y.contiguous()
 
 
 def _call(f, *args):

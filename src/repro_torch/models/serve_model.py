@@ -663,13 +663,15 @@ def check_verifiable(cfg) -> None:
 
 
 def verify_step(params, cache, tokens, cfg: ModelCfg,
-                policy: TCPolicy = BF16):
+                policy: TCPolicy = BF16, *, pos_out=None):
     """Multi-token verify pass of self-speculative decoding: score a (B, T)
     token chunk in one model call.  Token t of slot b is scored and its
     K/V row written, in place, at position ``pos[b] + t``.  Returns
     (logits (B, T, vocab_pad), cache) with ``pos`` + T; the caller commits
     the accepted tokens and rolls the cache back past the first rejection
-    (``serve/speculative.py``)."""
+    (``serve/speculative.py``).  With ``pos_out`` ((B,) int32, the donating
+    engine's fixed ``pos``) pos + T is written into it and bound as the
+    cache's ``pos``."""
     check_verifiable(cfg)
     check_layout(policy)
     spec = kv_storage(policy)
@@ -688,7 +690,7 @@ def verify_step(params, cache, tokens, cfg: ModelCfg,
                          spec, paged)
     x = rms_norm(x, params["final_norm"])
     logits = _einsum("bsd,dv->bsv", x, lm_head(params, cfg))
-    cache["pos"] = pos + t
+    cache["pos"] = pos + t if pos_out is None else pos_out.copy_(pos + t)
     return logits, cache
 
 

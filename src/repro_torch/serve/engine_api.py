@@ -55,27 +55,36 @@ Donation (the reference's ``donate``): ``TransprecisionEngine(...,
 donate=None)`` donates on a CUDA device and not on the CPU, as the
 reference donates on any backend but the CPU; a plug with a ``shard``
 resolves None to off and refuses True (``NotImplementedError``: its
-collectives cannot be captured).  A donating engine's ``generate``
-consumes the state it is given and returns one on the engine's fixed
-buffers, those of its last ``init_decode_state``: the K/V rings or pool,
-``pos``, ``tok``, the page table, and for a recurrent stack (SSM, hybrid)
-two sets of recurrent leaves that the steps alternate between (step n
-reads set n mod 2 and writes set (n + 1) mod 2).  A caller uses the
-returned state, never an old one.  Leaves a driver rebinds (``tok``,
-``pos`` after a rollback, the page table) are copied into the fixed
-buffers before the step; a state whose K/V or recurrent leaves are not
-the engine's own raises ``ValueError``, as a donated array raises in the
-reference.  On the card the first ``generate`` after
-``init_decode_state`` runs eagerly (the kernels build, cuBLAS warms up),
-the second captures the fixed-buffer step as a CUDA graph (one per
-parity, in one memory pool) and replays it, and every later one replays:
-one launch a tick for the whole stack.  A failed capture raises; nothing
-falls back to eager behind a donated call.  The graph reads the
-parameters it was captured with (another ``params`` object recaptures)
-and the returned logits are a copy.  ``LAUNCHES`` counts a replay as the
-kernels it replays.  ``stage_specs`` keeps the eager ``_generate_impl``,
-which the energy accountant re-runs on meta tensors.  On the CPU the
-fixed-buffer step runs eagerly.
+collectives cannot be captured).  A donating engine's ``generate``,
+``verify``, ``rollback_ring`` and ``rollback_paged`` consume the state
+they are given and return one on the engine's fixed buffers, those of its
+last ``init_decode_state``: the K/V rings or pool, ``pos``, ``tok``, the
+page table, and for a recurrent stack (SSM, hybrid) two sets of recurrent
+leaves that the steps alternate between (step n reads set n mod 2 and
+writes set (n + 1) mod 2).  A caller uses the returned state, never an
+old one.  Leaves a driver rebinds (``tok``, ``pos``, the page table) are
+copied into the fixed buffers before the stage, and so are a stage's
+host inputs: the verify chunk into a (B, T) buffer per T, the rollbacks'
+``new_pos``, ``window_end``, ``scrub_from`` and ``scrub_rows``; a state
+whose K/V or recurrent leaves are not the engine's own raises
+``ValueError``, as a donated array raises in the reference.  On the card
+the first ``generate`` after ``init_decode_state`` runs eagerly (the
+kernels build, cuBLAS warms up), the second captures the fixed-buffer
+step as a CUDA graph (one per parity) and replays it, and every later one
+replays: one launch a tick for the whole stack.  Each speculative stage
+does the same per shape (``verify`` per T, as the reference compiles per
+T, ``rollback_ring`` per t, ``rollback_paged`` per scrub length): one
+eager call, then a capture and replays.  Every graph of a state shares
+one memory pool.  A failed capture raises; nothing falls back to eager
+behind a donated call.  The graphs of ``generate`` and ``verify`` read
+the parameters they were captured with (another ``params`` object
+recaptures) and their returned logits are copies.  ``LAUNCHES`` counts a
+replay as the kernels it replays; ``graph_stats()`` reports each stage's
+eager calls, replays, capture ms and pool bytes.  ``stage_specs`` keeps
+the eager stage functions (``_generate_impl``, ``_verify_impl``,
+``rollback_ring_cache``, ``rollback_paged_cache``), which the energy
+accountant re-runs on meta tensors.  On the CPU the fixed-buffer stages
+run eagerly.
 
 Chaos hardening (``serve/faults.py``): with a ``faults`` injector every
 stage call first runs its ``on_stage`` hook, which may sleep (an injected
@@ -128,22 +137,30 @@ def rollback_ring_cache(cache, new_pos, window_end, scrub_from, t: int):
     position: ``verify_step`` refuses sliding windows and a round never
     writes past the cap."""
     dev = cache["pos"].device
-    end = torch.clamp(torch.as_tensor(window_end, device=dev).long(), min=t)
-    frm = torch.as_tensor(scrub_from, device=dev).long()
-    rows = end[:, None] - t + torch.arange(t, device=dev)[None, :]  # (B, t)
-    keep = rows < frm[:, None]
-    slot = torch.arange(rows.shape[0], device=dev)[:, None].expand_as(rows)
+    _scrub_ring(cache["blocks"], torch.as_tensor(window_end, device=dev),
+                torch.as_tensor(scrub_from, device=dev), t)
+    cache["pos"] = torch.as_tensor(new_pos, device=dev).to(torch.int32,
+                                                            copy=True)
+    return cache
+
+
+def _scrub_ring(blocks, window_end, scrub_from, t: int) -> None:
+    """The ring rollback's row reset, from (B,) device tensors: no host
+    data, so a CUDA graph can capture it."""
+    end = torch.clamp(window_end.long(), min=t)
+    frm = scrub_from.long()
+    rows = end[:, None] - t + torch.arange(t, device=end.device)[None, :]
+    keep = rows < frm[:, None]                                # (B, t)
+    slot = torch.arange(rows.shape[0], device=end.device)[:, None].expand_as(
+        rows)
     # the reference's scatter form: every window row is rewritten, kept
     # ones with their own value (no host sync, no data-dependent shape; a
     # row appears once per slot)
-    for blk in cache["blocks"]:              # K/V leaves (P, B, W, ...)
+    for blk in blocks:                       # K/V leaves (P, B, W, ...)
         for name, leaf in blk.items():
             m = keep.reshape(keep.shape + (1,) * (leaf.ndim - 3))
             leaf[:, slot, rows] = torch.where(
                 m, leaf[:, slot, rows], 1.0 if name.endswith("_scale") else 0)
-    cache["pos"] = torch.as_tensor(new_pos, device=dev).to(torch.int32,
-                                                            copy=True)
-    return cache
 
 
 def rollback_paged_cache(cache, new_pos, scrub_rows):
@@ -152,13 +169,20 @@ def rollback_paged_cache(cache, new_pos, scrub_rows):
     trash row 0, where writes are benign) to their init values.  Page-table
     truncation and allocator frees are the engine's host-side half."""
     dev = cache["pos"].device
-    rows = torch.as_tensor(scrub_rows, device=dev).long()
-    for blk in cache["blocks"]:              # K/V pool leaves (P, R, ...)
-        for name, leaf in blk.items():
-            leaf[:, rows] = 1.0 if name.endswith("_scale") else 0
+    _scrub_pool(cache["blocks"], torch.as_tensor(scrub_rows, device=dev))
     cache["pos"] = torch.as_tensor(new_pos, device=dev).to(torch.int32,
                                                             copy=True)
     return cache
+
+
+def _scrub_pool(blocks, scrub_rows) -> None:
+    """The paged rollback's row reset, from an (N,) device tensor."""
+    rows = scrub_rows.long()
+    for blk in blocks:                       # K/V pool leaves (P, R, ...)
+        for name, leaf in blk.items():
+            # a fill, not ``leaf[:, rows] = v``: on the card that copies v
+            # from the host, which a capture refuses
+            leaf.index_fill_(1, rows, 1.0 if name.endswith("_scale") else 0)
 
 
 def _abstract_args(args):
@@ -212,13 +236,42 @@ def _capture_stream(device) -> "torch.cuda.Stream":
     return stream
 
 
+class _StageGraph:
+    """One speculative stage at one shape (verify per T, ``rollback_ring``
+    per t, ``rollback_paged`` per scrub length) over a donated state: its
+    calls run eagerly and its replays, and once captured its CUDA graph,
+    static output, the launches a replay counts, the capture's ms and the
+    pool bytes it reserved."""
+
+    def __init__(self):
+        self.eager = 0
+        self.replays = 0
+        self.graph = None
+        self.out = None
+        self.launched: Optional[Dict[str, int]] = None
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def stats(self) -> Dict[str, Any]:
+        return {"eager_calls": self.eager, "replays": self.replays,
+                "capture_ms": self.capture_ms, "pool_bytes": self.pool_bytes,
+                "launches": (None if self.launched is None
+                             else dict(self.launched))}
+
+
 class _Donated:
     """The fixed buffers of a donating engine's decode state, and its
     captured steps.  ``top``: the state's top-level tensors (``pos``,
     ``tok``, the page table, an audio stack's ``memory``); ``sets``: one
     ``{"blocks", "tail"}`` set, or two for a recurrent stack (sharing the
     attention blocks), of which ``parity`` is the current one; ``graphs``:
-    parity -> (CUDA graph, its logits, the launches it replays)."""
+    parity -> (CUDA graph, its logits, the launches it replays);
+    ``stages``: stage -> shape -> :class:`_StageGraph` for the speculative
+    stages, whose inputs are copied into ``bufs`` (the verify chunk per T,
+    the rollbacks' positions and rows).  Every graph of the state shares
+    ``pool``: a graph's temporaries are dead between its replays and each
+    static output is copied out right after its replay, so one graph may
+    reuse another's temporaries."""
 
     def __init__(self, state, cfg):
         self.top = {k: v for k, v in state.items()
@@ -234,11 +287,14 @@ class _Donated:
         self.pool_bytes: Optional[int] = None
         self.eager_ticks = 0        # fixed-buffer ticks run op by op
         self.replays = 0
+        self.pool = None
+        self.bufs: Dict[Any, torch.Tensor] = {}
+        self.stages: Dict[str, Dict[int, _StageGraph]] = {}
 
     def next(self, p: int) -> int:
         return (p + 1) % len(self.sets)
 
-    def adopt(self, state) -> None:
+    def adopt(self, state, stage: str = "generate") -> None:
         """Check that ``state`` holds this engine's K/V and current
         recurrent leaves (``ValueError`` otherwise) and copy every
         top-level leaf a driver rebound into its fixed buffer."""
@@ -249,15 +305,15 @@ class _Donated:
                     g.keys() != m.keys() or any(g[k] is not m[k] for k in m)
                     for g, m in zip(given, mine)):
                 raise ValueError(
-                    f"generate: the state's {part} are not this engine's "
-                    "own buffers; a donated state is consumed by generate "
+                    f"{stage}: the state's {part} are not this engine's "
+                    f"own buffers; a donated state is consumed by {stage} "
                     "(use the state it returned) and only "
                     "init_decode_state makes a new one")
         for name, buf in self.top.items():
             t = state.get(name)
             if not isinstance(t, torch.Tensor) or t.shape != buf.shape:
                 raise ValueError(
-                    f"generate: the state's {name!r} is missing or not of "
+                    f"{stage}: the state's {name!r} is missing or not of "
                     f"shape {tuple(buf.shape)}")
             if t is not buf:
                 buf.copy_(t)
@@ -265,6 +321,34 @@ class _Donated:
     def current(self) -> Dict[str, Any]:
         """The state's leaves at the current parity."""
         return {**self.top, **self.sets[self.parity]}
+
+    def fill(self, key, value, dtype) -> torch.Tensor:
+        """The fixed buffer ``key`` (made at the first call, of
+        ``value``'s shape) with ``value``, host or device data, copied in;
+        a capture reads the buffer, so a replay sees the new values."""
+        value = torch.as_tensor(value)
+        buf = self.bufs.get(key)
+        if buf is None:
+            buf = self.bufs[key] = torch.empty(
+                value.shape, dtype=dtype, device=self.top["pos"].device)
+        elif buf.shape != value.shape:
+            raise ValueError(f"{key[0]}: shape {tuple(value.shape)}, the "
+                             f"buffer's is {tuple(buf.shape)}")
+        buf.copy_(value)
+        return buf
+
+    def stage(self, name: str, key: int) -> _StageGraph:
+        return self.stages.setdefault(name, {}).setdefault(key,
+                                                           _StageGraph())
+
+    def reads(self, params) -> None:
+        """Drop the graphs that read other parameters than ``params``
+        (``generate``'s and ``verify``'s): the next call recaptures."""
+        if self.params is not params:
+            self.graphs = {}
+            for rec in self.stages.get("verify", {}).values():
+                rec.graph = rec.out = None
+            self.params = params
 
 
 class TransprecisionEngine:
@@ -544,48 +628,108 @@ class TransprecisionEngine:
                              .to(torch.int32)[:, None])
         return logits
 
+    def _capture_graph(self, own: _Donated, fn):
+        """Capture ``fn()`` as a CUDA graph in ``own``'s pool (capture
+        records; nothing runs).  Returns (graph, fn's output, the kernel
+        launches the capture counted, which are taken back out of
+        ``LAUNCHES`` and added on each replay).  Raises if the capture
+        fails."""
+        if own.pool is None:
+            own.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = dict(_build.LAUNCHES)
+        with torch.cuda.stream(_capture_stream(self.device)):
+            graph.capture_begin(pool=own.pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass
+                _build.LAUNCHES.update(before)
+                raise
+            graph.capture_end()
+        launched = {k: n - before[k]
+                    for k, n in _build.LAUNCHES.items() if n != before[k]}
+        _build.LAUNCHES.update(before)
+        return graph, out, launched
+
     def _capture(self, params, own: _Donated) -> None:
         """Capture the fixed-buffer step of every parity as CUDA graphs in
-        one memory pool (capture records; nothing runs).  The kernel
-        launches a capture counts are taken back out of ``LAUNCHES`` and
-        added on each replay.  Raises if a capture fails."""
+        the state's pool.  Raises if a capture fails."""
         torch.cuda.synchronize(self.device)
         reserved0 = torch.cuda.memory_reserved(self.device)
         t0 = perf_counter()
-        pool = torch.cuda.graph_pool_handle()
+        own.reads(params)
         own.graphs = {}
         for p in sorted(range(len(own.sets)),
                         key=lambda q: q != own.parity):
-            graph = torch.cuda.CUDAGraph()
-            before = dict(_build.LAUNCHES)
-            with torch.cuda.stream(_capture_stream(self.device)):
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    logits = self._fixed_step(params, p)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except Exception:
-                        pass
-                    _build.LAUNCHES.update(before)
-                    own.graphs = {}
-                    raise
-                graph.capture_end()
-            launched = {k: n - before[k]
-                        for k, n in _build.LAUNCHES.items() if n != before[k]}
-            _build.LAUNCHES.update(before)
-            own.graphs[p] = (graph, logits, launched)
+            try:
+                own.graphs[p] = self._capture_graph(
+                    own, lambda: self._fixed_step(params, p))
+            except BaseException:
+                own.graphs = {}
+                raise
         torch.cuda.synchronize(self.device)
-        own.params = params
         own.capture_ms = 1e3 * (perf_counter() - t0)
         own.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
 
+    def _run_stage(self, own: _Donated, stage: str, key: int, fn,
+                   params=None):
+        """``fn()`` (a speculative stage on the fixed buffers) the donated
+        way: eagerly on the CPU; on the card eagerly on the capture stream
+        at the first call of (``stage``, ``key``), captured at the second
+        and replayed from then on (recaptured where ``params``, which the
+        graph reads, is another object).  Returns ``fn``'s output, copied
+        out of a replayed graph."""
+        rec = own.stage(stage, key)
+        if self.device.type != "cuda":
+            rec.eager += 1
+            return fn()
+        with torch.cuda.device(self.device):
+            if rec.eager == 0:
+                out = self._on_capture_stream(fn)
+                rec.eager += 1
+                return out
+            if params is not None:
+                own.reads(params)
+            if rec.graph is None:
+                with _CAPTURE_LOCK:     # one capture at a time
+                    torch.cuda.synchronize(self.device)
+                    reserved0 = torch.cuda.memory_reserved(self.device)
+                    t0 = perf_counter()
+                    rec.graph, rec.out, rec.launched = self._capture_graph(
+                        own, fn)
+                    torch.cuda.synchronize(self.device)
+                    rec.capture_ms = 1e3 * (perf_counter() - t0)
+                    rec.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                                      - reserved0)
+            rec.graph.replay()
+            rec.replays += 1
+            for k, n in rec.launched.items():
+                _build.LAUNCHES[k] += n
+            return None if rec.out is None else rec.out.clone()
+
+    def _on_capture_stream(self, fn):
+        """``fn()`` run eagerly on the capture stream, ordered after the
+        current stream's work and before its later work: a stage's first
+        call there loads its kernels and gives cuBLAS its workspace on the
+        stream the capture uses."""
+        cur = torch.cuda.current_stream(self.device)
+        side = _capture_stream(self.device)
+        with _CAPTURE_LOCK:
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = fn()
+            cur.wait_stream(side)
+        if out is not None:             # read on this stream from here
+            out.record_stream(cur)
+        return out
+
     def _generate_donated(self, params, state):
-        own = self._donated
-        if own is None:
-            raise ValueError("generate: a donating engine serves the state "
-                             "of its own init_decode_state")
+        own = self._own("generate")
         own.adopt(state)
         p = own.parity
         if self.device.type != "cuda":
@@ -594,15 +738,8 @@ class TransprecisionEngine:
         else:
             with torch.cuda.device(self.device):
                 if not own.warm:
-                    # eager first tick on the capture stream: kernels
-                    # load, cuBLAS takes its workspace there
-                    cur = torch.cuda.current_stream(self.device)
-                    side = _capture_stream(self.device)
-                    with _CAPTURE_LOCK:
-                        side.wait_stream(cur)
-                        with torch.cuda.stream(side):
-                            logits = self._fixed_step(params, p)
-                        cur.wait_stream(side)
+                    logits = self._on_capture_stream(
+                        lambda: self._fixed_step(params, p))
                     own.warm = True
                     own.eager_ticks += 1
                 else:
@@ -632,15 +769,28 @@ class TransprecisionEngine:
         """The donated step since the last ``init_decode_state``: its ticks
         run eagerly and its replays, the capture's ms, the graph pool's
         bytes (reserved by the capture) and the kernel launches each
-        replay counts, per parity (None where nothing was captured)."""
+        replay counts, per parity (None where nothing was captured).  Each
+        speculative stage that ran on the state adds a key of its own
+        (``verify``, ``rollback_ring``, ``rollback_paged``): per shape
+        (T, t or the scrub length) its ``eager_calls``, ``replays``,
+        ``capture_ms``, ``pool_bytes`` and ``launches``."""
         own = self._donated
         if own is None:
             return {"eager_ticks": 0, "replays": 0, "capture_ms": None,
                     "pool_bytes": None, "launches": None}
-        return {"eager_ticks": own.eager_ticks, "replays": own.replays,
-                "capture_ms": own.capture_ms, "pool_bytes": own.pool_bytes,
-                "launches": ({p: dict(g[2]) for p, g in own.graphs.items()}
-                             if own.graphs else None)}
+        out = {"eager_ticks": own.eager_ticks, "replays": own.replays,
+               "capture_ms": own.capture_ms, "pool_bytes": own.pool_bytes,
+               "launches": ({p: dict(g[2]) for p, g in own.graphs.items()}
+                            if own.graphs else None)}
+        for stage, recs in own.stages.items():
+            out[stage] = {k: r.stats() for k, r in sorted(recs.items())}
+        return out
+
+    def _own(self, stage: str) -> _Donated:
+        if self._donated is None:
+            raise ValueError(f"{stage}: a donating engine serves the state "
+                             "of its own init_decode_state")
+        return self._donated
 
     # ---- stage: verify (speculative rounds) ----
     def _verify_impl(self, params, state, chunk):
@@ -648,27 +798,92 @@ class TransprecisionEngine:
                                     self.policy)
         return state, logits
 
+    def _verify_donated(self, params, state, chunk):
+        own = self._own("verify")
+        own.adopt(state, "verify")
+        t = chunk.shape[1]
+        buf = own.fill(("chunk", t), chunk, torch.int64)
+
+        def step():         # pos + T lands in the fixed pos
+            return verify_step(params, own.current(), buf, self.cfg,
+                               self.policy, pos_out=own.top["pos"])[0]
+
+        logits = self._run_stage(own, "verify", t, step, params)
+        state.update(own.current())
+        return state, logits
+
     def verify(self, params, state, chunk):
         """Score a (B, T) draft chunk in one target-precision pass
         (``models.serve_model.verify_step``): token t of slot b is scored
         and its K/V row written at position ``pos[b] + t``, in place.
         Returns ``(state, logits (B, T, vocab_pad))``; ``state["tok"]`` is
-        left for the caller to set after acceptance."""
+        left for the caller to set after acceptance.  A donating engine
+        consumes ``state``, copies the chunk into a fixed (B, T) buffer
+        and, on the card, replays a graph per T after one eager call."""
         if self.kv_shard is not None:
             raise NotImplementedError(
                 "verify over a rank-local (KV-sequence-sharded) decode "
                 "state: the chunk pass reads the whole cache")
+        if self.donate:
+            return self._staged("verify", self._verify_donated, params,
+                                state, torch.as_tensor(chunk),
+                                spec_fn=self._verify_impl)
         chunk = torch.as_tensor(chunk, device=self.device).to(torch.int64)
         return self._staged("verify", self._verify_impl, params, state,
                             chunk)
 
     # ---- stage: rollback ----
+    def _rollback_ring_donated(self, state, new_pos, window_end, scrub_from,
+                               t: int):
+        own = self._own("rollback")
+        own.adopt(state, "rollback")
+        end = own.fill(("window_end", t), window_end, torch.int64)
+        frm = own.fill(("scrub_from", t), scrub_from, torch.int64)
+        new = own.fill(("new_pos",), new_pos, torch.int32)
+        blocks, pos = own.sets[own.parity]["blocks"], own.top["pos"]
+
+        def step():
+            _scrub_ring(blocks, end, frm, t)
+            pos.copy_(new)
+
+        self._run_stage(own, "rollback_ring", t, step)
+        state.update(own.current())
+        return state
+
     def rollback_ring(self, state, new_pos, window_end, scrub_from, t: int):
-        """:func:`rollback_ring_cache`, in place."""
+        """:func:`rollback_ring_cache`, in place.  A donating engine copies
+        the positions into fixed buffers and, on the card, replays a graph
+        per t after one eager call."""
+        if self.donate:
+            return self._staged("rollback", self._rollback_ring_donated,
+                                state, new_pos, window_end, scrub_from, t,
+                                spec_fn=rollback_ring_cache)
         return self._staged("rollback", rollback_ring_cache, state, new_pos,
                             window_end, scrub_from, t)
 
+    def _rollback_paged_donated(self, state, new_pos, scrub_rows):
+        own = self._own("rollback")
+        own.adopt(state, "rollback")
+        n = len(scrub_rows)
+        rows = own.fill(("scrub_rows", n), scrub_rows, torch.int64)
+        new = own.fill(("new_pos",), new_pos, torch.int32)
+        blocks, pos = own.sets[own.parity]["blocks"], own.top["pos"]
+
+        def step():
+            _scrub_pool(blocks, rows)
+            pos.copy_(new)
+
+        self._run_stage(own, "rollback_paged", n, step)
+        state.update(own.current())
+        return state
+
     def rollback_paged(self, state, new_pos, scrub_rows):
-        """:func:`rollback_paged_cache`, in place."""
+        """:func:`rollback_paged_cache`, in place.  A donating engine
+        copies the positions and rows into fixed buffers and, on the
+        card, replays a graph per scrub length after one eager call."""
+        if self.donate:
+            return self._staged("rollback", self._rollback_paged_donated,
+                                state, new_pos, scrub_rows,
+                                spec_fn=rollback_paged_cache)
         return self._staged("rollback", rollback_paged_cache, state,
                             new_pos, scrub_rows)

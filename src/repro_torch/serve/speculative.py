@@ -25,14 +25,18 @@ short, and that slot's next round spends its first draft step catching up
 
 Weights: the engine hoists weight quantization once per policy, so the
 draft keeps its own copy of the params quantized under the draft policy
-(``draft_params``), beside the target's.  On the card the draft engine
-donates its ring: each draft step replays one captured CUDA graph, and
-the ``pos`` a rollback rebinds is copied into the graph's buffer at the
-next step; the target's verify stays eager.
+(``draft_params``), beside the target's.  On the card both engines donate
+their state: each draft step replays one captured CUDA graph, the
+target's verify replays one graph per chunk length T, and each rollback
+(the target's and the draft's) one graph per shape, each after one eager
+call (``engine_api``'s docstring); the round's host arrays (the chunk,
+the new positions, the rows to scrub) are copied into the graphs' fixed
+buffers before each replay.
 
 On CPU tensors the verify reads the cache through the same plain decode
-and reduction as ``decode_step``, so greedy speculative streams are
-token-identical to baseline greedy at float32.  On the card the decode
+and reduction as ``decode_step``, and a CPU product's rows do not depend
+on how many rows share it (``models.common._einsum``), so greedy
+speculative streams are token-identical to baseline greedy at float32.  On the card the decode
 step reads through K4 / K6 and the verify through K1 + chunk attention:
 another summation order, and at bf16 K4 / K6 round the attention output to
 bf16 before the output projection where the verify keeps it in f32, so

@@ -8,8 +8,8 @@
 * Paper-edge smoke at float32 (``paper_edge_p8``, posit8 KV), ring and
   paged: a donating ``ServingEngine``'s greedy streams equal a
   non-donating one's and the reference's ``ServingEngine``'s.  A
-  speculative gamma-2 engine with a donating draft (rollback rebinding
-  the draft's ``pos``) streams what the non-donating one does.
+  speculative gamma-2 engine with a donating draft (rollback writing
+  the draft's fixed ``pos``) streams what the non-donating one does.
 * The fixed buffers: the returned state holds the engine's own ``pos``
   and ``tok``; a rebound ``tok`` and ``pos`` are copied in (the logits
   equal an eager step's on the same values); a recurrent stack's leaves
@@ -140,9 +140,9 @@ def test_speculative_donated_draft(pair):
         rolled = eng.metrics.histogram("spec.rollback_rows").count
     assert runs[0] == runs[1]
     assert rolled > 0
-    # the last round's rollback rebound the draft's pos (each next draft
-    # tick copied such a pos into the fixed buffer, which stays the one)
-    assert eng.draft_cache["pos"] is not pos
+    # a donating draft's rollback writes the new pos into the fixed
+    # buffer, which the state it returns holds
+    assert eng.draft_cache["pos"] is pos
     assert eng.draft_engine._donated.top["pos"] is pos
 
 

@@ -75,13 +75,27 @@ def test_streams_and_callbacks_match_engine_serve(smoke_model):
 def test_admission_timeout_backpressure(smoke_model):
     prompts = smoke_model[4]
     ocfg = OrchestratorConfig(max_queue=1)
-    with Orchestrator(_engine(smoke_model), ocfg) as orch:
+    eng = _engine(smoke_model)
+    # `a`'s decode ticks wait until `b`'s submit has returned: on a fast
+    # host 32 smoke-model tokens take less than `b`'s 0.05 s timeout, and
+    # `a` would finish and release its permit before `b` gave up
+    b_tried = threading.Event()
+    generate = eng.engine.generate
+
+    def gated_generate(*args, **kw):
+        assert b_tried.wait(60.0)
+        return generate(*args, **kw)
+
+    eng.engine.generate = gated_generate
+    with Orchestrator(eng, ocfg) as orch:
         a = StreamingRequest(prompts[0], max_new=32)
         assert orch.submit(a, timeout=10.0)
         # the single in-flight permit is held until `a` finishes, so a
         # second submit must time out instead of growing the queue
         b = StreamingRequest(prompts[1], max_new=4)
-        assert not orch.submit(b, timeout=0.05)
+        admitted = orch.submit(b, timeout=0.05)
+        b_tried.set()
+        assert not admitted
         assert orch.stats["admission_timeouts"] == 1
         assert a.wait(120.0)
         assert orch.submit(b, timeout=60.0)      # permit released
